@@ -4,9 +4,11 @@
 
 Phases (any failure exits non-zero; there is no CPU fallback):
   1. device     the card's name and power limit
-  2. build      nvcc builds navier_stokes_tpu_torch/csrc/windowed.cu for sm_90a
-  3. kernels    each CUDA kernel against its plain torch version at the
-                shapes of the 102,400-cell channel, with warm CUDA-event times
+  2. build      nvcc builds navier_stokes_tpu_torch/csrc/windowed.cu and
+                csrc/mxu_probe.cu for sm_90a, both at once
+  3. kernels    each windowed kernel (K1-K4) against its plain torch version
+                at the shapes of the 102,400-cell channel, with warm
+                CUDA-event times
   4. slice      NavierStokesSolver on that channel in float32: 3 BDF1 steps of
                 the windowed, Cahouet-Chabard-preconditioned Newton solve;
                 every Newton loop and every tangent solve must converge
@@ -14,15 +16,31 @@ Phases (any failure exits non-zero; there is no CPU fallback):
   6. launches   each kernel's launch count during phase 4 (all must be > 0)
   7. parity     unit_square(6): float32 on the GPU (kernels) against float64
                 on the CPU (plain versions), Newton residuals per step
+  8. probe      K5, the tensor-core probe, against its plain version at
+                every M of the probe, then its entry point's table
+                (python -m navier_stokes_tpu_torch.scripts.mxu_probe)
+  9. cli        python -m navier_stokes_tpu_torch run on the 6,400-cell
+                channel written as a gmsh .msh: windowed, Cahouet-Chabard,
+                Stokes initial guess (must converge), 2 steps; K1-K4 must all
+                launch
+ 10. stokes     StokesSolver flat and windowed against the exact Poiseuille
+                flow; the stokes command on a .msh
+ 11. flat       the 25,600-cell channel, flat against windowed: residual and
+                tangent action at one smooth state, compared node by node;
+                one forced Newton step each (block_triangular, Cahouet-Chabard)
 
+Files the phases write (.msh, configs, run logs) go to build/chip_smoke/.
 The next-to-last line is the kernels' JSON record, and the last line is
 {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -31,18 +49,35 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device visible to torch")
 
 import navier_stokes_tpu_torch as nt  # noqa: E402
+from navier_stokes_tpu_torch.__main__ import main as cli  # noqa: E402
+from navier_stokes_tpu_torch.fem.assembly import assemble_navier_stokes  # noqa: E402
 from navier_stokes_tpu_torch.fem.windowed_assembly import assemble_windowed  # noqa: E402
+from navier_stokes_tpu_torch.la import operators as ops  # noqa: E402
 from navier_stokes_tpu_torch.ops import windowed as W  # noqa: E402
+from navier_stokes_tpu_torch.scripts import mxu_probe as mxu  # noqa: E402
 
 DEV = torch.device("cuda:0")
 KERNEL_SOURCE = "navier_stokes_tpu_torch/csrc/windowed.cu"
+PROBE_SOURCE = "navier_stokes_tpu_torch/csrc/mxu_probe.cu"
+OUT = Path(__file__).resolve().parent / "build" / "chip_smoke"
 # The TPU kernels replaced: the pl.pallas_call of each Pallas function
 REPLACES = {
     "K1": "navier_stokes_tpu/ops/windowed.py:1228 (_pallas_run, mode matvec)",
     "K2": "navier_stokes_tpu/ops/windowed.py:946 (_pallas_block)",
     "K3": "navier_stokes_tpu/ops/windowed.py:1228 (_pallas_run, mode gather)",
     "K4": "navier_stokes_tpu/ops/windowed.py:1228 (_pallas_run, mode scatter)",
+    "K5": "scripts/mxu_probe.py:32 (make_bench.kernel)",
 }
+# the probe's comparison and its entry point's timing run
+PROBE_CHECK_ITERS, PROBE_ITERS = 64, 20000
+# Poiseuille flow in the unit square (tests/test_stokes.py): exact in P2/P1
+NU, RHO, POUT = 0.04, 1.0, 10.0
+STOKES_U_TOL, STOKES_P_TOL = 5e-5, 5e-3
+# flat vs windowed, node by node: residual and tangent action at one smooth
+# state, each block within 1e-5 of its max (float32 sums in another order
+# over another DoF numbering; 3e-7 to 6e-7 in float32 on the CPU); the
+# entry residual norms of a forced Newton step from zero within 1e-5
+FLAT_TOL = 1e-5
 # float32 sums in another order: 1e-5 of ||y||_inf (K3 is a pure copy: exact)
 REL_TOL = 1e-5
 # small-mesh parity: every Newton residual of the float32 GPU run within
@@ -78,11 +113,15 @@ def config(dtype="float32", rel_tol=1e-2, cells_per_block=448):
     return cfg
 
 
-def trajectory(log):
-    """[(step, [newton residuals], [gmres counts], failures)] from a RunLog."""
+def trajectory(records):
+    """[(step, [newton residuals], [gmres counts], failures)] from the
+    records of a RunLog; what comes before the first time step (the Stokes
+    initial guess) is left out."""
     steps = []
-    for r in log.records:
+    for r in records:
         ev = r.get("event")
+        if ev != "time_step" and not steps:
+            continue
         if ev == "time_step":
             steps.append((r["step"], [], [], []))
         elif ev == "newton":
@@ -102,6 +141,105 @@ def check_converged(steps, tol):
             raise RuntimeError(f"step {step}: Newton loop did not converge ({res})")
         if fails:
             raise RuntimeError(f"step {step}: tangent solve did not converge: {fails}")
+
+
+def write_msh_v2(mesh, path):
+    """A 2D Mesh as gmsh 2.2 ASCII: boundary lines with their tags as
+    physical tags, triangles with physical tag 0."""
+    lines = ["$MeshFormat", "2.2 0 8", "$EndMeshFormat", "$Nodes", str(len(mesh.coords))]
+    lines += [f"{i + 1} {x!r} {y!r} 0" for i, (x, y) in enumerate(mesh.coords.tolist())]
+    lines += ["$EndNodes", "$Elements",
+              str(len(mesh.boundary_facets) + len(mesh.cells))]
+    k = 0
+    for (a, b), tag in zip(mesh.boundary_facets.tolist(), mesh.boundary_tags.tolist()):
+        k += 1
+        lines.append(f"{k} 1 2 {tag} {tag} {a + 1} {b + 1}")
+    for a, b, c in mesh.cells.tolist():
+        k += 1
+        lines.append(f"{k} 2 2 0 0 {a + 1} {b + 1} {c + 1}")
+    lines.append("$EndElements")
+    path.write_text("\n".join(lines) + "\n")
+    return path
+
+
+def run_cli(argv, name):
+    """python -m navier_stokes_tpu_torch <argv> in this process (so the
+    launch counters can be read), its printed log sent to OUT/<name>.out;
+    returns the structured records of its --log-json file."""
+    records = OUT / f"{name}.json"
+    with open(OUT / f"{name}.out", "w") as f, contextlib.redirect_stdout(f):
+        rc = cli([*argv, "--log-json", str(records)])
+    if rc != 0:
+        raise RuntimeError(f"{' '.join(argv)}: exit code {rc}")
+    return json.loads(records.read_text())
+
+
+def poiseuille_inlet(x, t=0.0):
+    v = np.zeros_like(x)
+    v[:, 0] = x[:, 1] * (1.0 - x[:, 1])
+    return v
+
+
+def stokes_solve(records):
+    """(GMRES iterations, failure record or None) of the one Stokes solve
+    in a run's records."""
+    its = [r["iters"] for r in records if r.get("event") == "gmres" and r.get("system") == "stokes"]
+    fails = [r for r in records
+             if r.get("event") == "krylov_failure" and r.get("system") == "stokes"]
+    if len(its) != 1:
+        raise RuntimeError(f"expected one Stokes solve, found GMRES counts {its}")
+    return its[0], (fails[0] if fails else None)
+
+
+def smooth_state(s, seed):
+    """A smooth state vector in solver s's DoF numbering (0 on the padding
+    holes of a blocked one): the same function of the coordinates for every
+    numbering, with seeded amplitudes."""
+    d = s.dofs
+    a = np.random.default_rng(seed).uniform(0.5, 1.5, 3)
+    vx, vy = d.v_coords[:, 0], d.v_coords[:, 1]
+    u = np.concatenate([a[0] * np.sin(vx) * np.cos(vy), a[1] * np.cos(vx) * np.sin(vy)])
+    p = s.cfg.p_out + a[2] * d.p_coords[:, 0] * d.p_coords[:, 1] / 28
+    if d.v_mask is not None:
+        u = np.where(np.tile(d.v_mask, d.dim), u, 0.0)
+    if d.p_mask is not None:
+        p = np.where(d.p_mask, p, 0.0)
+    return torch.as_tensor(np.concatenate([u, p]), dtype=torch.float32, device=DEV)
+
+
+def by_node(s, y):
+    """(coordinates, velocity rows, pressure rows) of a state-sized vector
+    of solver s, holes dropped and nodes ordered by (x, y), so that two DoF
+    numberings of one mesh line up entry by entry."""
+    d = s.dofs
+    y = y.double().cpu().numpy()
+    v, p = y[: d.n_u].reshape(d.dim, d.n_vs).T, y[d.n_u:]
+    vc, pc = d.v_coords, d.p_coords
+    if d.v_mask is not None:
+        v, vc = v[d.v_mask], vc[d.v_mask]
+    if d.p_mask is not None:
+        p, pc = p[d.p_mask], pc[d.p_mask]
+    iv, ip = (np.lexsort(np.round(c, 9).T[::-1]) for c in (vc, pc))
+    return np.concatenate([vc[iv].ravel(), pc[ip].ravel()]), v[iv], p[ip]
+
+
+def assembled(s, u, w):
+    """The residual at state u (previous state 0) and the tangent action
+    J w, before Dirichlet rows, through solver s's own path: the flat
+    element operators, or the windowed kernels K3/K4 and K1."""
+    cfg = s.cfg
+    zero = torch.zeros_like(u)
+    form = dict(dt=cfg.dt, nu=cfg.nu, rho=cfg.rho, convection_form=cfg.convection_form,
+                include_continuity_residual=cfg.include_continuity_residual)
+    if s._matvec == "windowed":
+        A_t, r, _ = assemble_windowed(s._wassembly, s._win_layout, u, zero, **form)
+        return r, W.windowed_matvec(s._win_layout, A_t, w)
+    ctx = s.ctx
+    cell_mat, _, r = assemble_navier_stokes(ctx, u, zero, p_out=cfg.p_out,
+                                            jacobian_mass_rho=cfg.jacobian_mass_rho, **form)
+    op = ops.ElementOperator(cell_mat, ctx.cell_dofs, torch.zeros(0, dtype=torch.int64, device=DEV),
+                             r.new_zeros(0), ctx.scatter_full, ctx.n_total)
+    return r, ops.matvec(op, w)
 
 
 def cuda_ms(fn, reps=20):
@@ -145,12 +283,14 @@ def main():
     print(f"  nvidia-smi: {smi}", flush=True)
 
     phase("2 build")
-    info = W.build_kernels()
-    print(f"  {' '.join(info['cmd'] or ['(library already built)'])}")
-    print(f"  built {info['path']} in {info['seconds']:.1f} s")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
+        builds = list(pool.map(lambda build: build(), (W.build_kernels, mxu.build_kernel)))
+    for info in builds:
+        print(f"  {' '.join(info['cmd'] or ['(library already built)'])}")
+        print(f"  built {info['path']} in {info['seconds']:.1f} s")
+        for line in info["log"].splitlines():
+            if "registers" in line or ("spill" in line and " 0 bytes spill stores" not in line):
+                print(f"  ptxas: {line.strip()}")
 
     phase("3 kernels vs plain at the channel's shapes")
     mesh = nt.refine_uniform(nt.rectangle(80, 40, 0, 7, 0, 4), 2)
@@ -206,7 +346,7 @@ def main():
     torch.cuda.synchronize()
     t_solve = time.perf_counter() - t0
     launches = W.launch_counts()
-    steps = trajectory(log)
+    steps = trajectory(log.records)
     check_converged(steps, solver.cfg.newton.tol)
     sol = solver.solution
     if sol.shape != (n,) or not bool(torch.isfinite(sol).all()):
@@ -250,7 +390,7 @@ def main():
             nt.unit_square(6), config(dtype, rel, cells_per_block=16), log=plog, device=device
         )
         s.solve()
-        runs[dtype] = trajectory(plog)
+        runs[dtype] = trajectory(plog.records)
     for (step, r64, _, f64), (_, r32, _, f32) in zip(runs["float64"], runs["float32"]):
         worst = max(abs(a - b) for a, b in zip(r64, r32)) / r64[0]
         print(f"  step {step}: f64 {['%.6e' % v for v in r64]}\n"
@@ -259,6 +399,146 @@ def main():
             raise RuntimeError(f"step {step}: float32 GPU run departs from float64 CPU run")
     if len(runs["float64"]) != 3 or len(runs["float32"]) != 3:
         raise RuntimeError("parity runs did not take 3 steps")
+
+    phase("8 probe: K5 against its plain version, then the probe's entry point")
+    gen = torch.Generator().manual_seed(5)
+    probe_recs = {}
+    for M in mxu.M_VALUES:
+        a = torch.randn((8 * M, mxu.K), generator=gen).to(torch.bfloat16).to(DEV)
+        b = torch.randn((mxu.K, mxu.N), generator=gen).to(torch.bfloat16).to(DEV)
+        probe_recs[M] = compare(
+            f"K5 probe M={M}, {PROBE_CHECK_ITERS} products",
+            lambda: mxu.mxu_probe(a, b, M, PROBE_CHECK_ITERS),
+            lambda: mxu.mxu_probe_reference(a, b, M, PROBE_CHECK_ITERS),
+        )
+    mxu.mxu_probe.launches = 0
+    print(f"  python -m navier_stokes_tpu_torch.scripts.mxu_probe --iters {PROBE_ITERS}",
+          flush=True)
+    if mxu.main(["--iters", str(PROBE_ITERS)]) != 0:
+        raise RuntimeError("mxu_probe entry point failed")
+    probe_launches = mxu.mxu_probe.launches
+    print(f"  K5 launches by the entry point: {probe_launches}")
+    if probe_launches == 0:
+        raise RuntimeError("the probe's entry point never launched K5")
+
+    phase("9 cli: run on the 6,400-cell channel's .msh (windowed, Cahouet-Chabard, "
+          "Stokes guess)")
+    # at t = 0 the inlet is zero, so the Stokes guess is u = 0, p = p_out.
+    # Near p = p_out = 10, float32 evaluation of its residual b - A x carries
+    # ~3.8e-6 of rounding: 0.8 of its 1e-6 relative tolerance on this
+    # channel, 1.15 of it on the 25,600-cell one, where no float32 run can
+    # meet the tolerance (PERF.md)
+    mesh0 = nt.rectangle(80, 40, 0, 7, 0, 4)
+    OUT.mkdir(parents=True, exist_ok=True)
+    msh = write_msh_v2(mesh0, OUT / "channel.msh")
+    cfg_path = OUT / "channel_config.json"
+    cli_cfg = config()
+    # the Stokes guess leaves step 1's entry residual below newton.tol; one
+    # Newton update a step makes each step solve its tangent system (K2)
+    cli_cfg.newton.min_iters = 1
+    cfg_path.write_text(json.dumps(cli_cfg.to_dict()))
+    W.reset_launch_counts()
+    t0 = time.perf_counter()
+    records = run_cli(
+        ["run", "--mesh", str(msh), "--config", str(cfg_path), "--matvec", "windowed",
+         "--preconditioner", "cahouet_chabard", "--initial-guess", "stokes", "--T", "0.1",
+         "--dtype", "float32"], "cli_run",
+    )
+    torch.cuda.synchronize()
+    t_cli = time.perf_counter() - t0
+    cli_launches = W.launch_counts()
+    its, fail = stokes_solve(records)
+    print(f"  {mesh0.n_cells} cells read from {msh.name}; {t_cli:.2f} s; "
+          f"Stokes initial guess: {its} GMRES iterations, "
+          + (f"stopped at ||r|| {fail['residual']:.6e} short of its tolerance"
+             if fail else "converged"), flush=True)
+    if fail:
+        raise RuntimeError(f"the Stokes initial guess did not converge: {fail}")
+    steps = trajectory(records)
+    check_converged(steps, config().newton.tol)
+    if len(steps) != 2:
+        raise RuntimeError(f"cli run took {len(steps)} steps, not 2")
+    print(f"  launches: {cli_launches}")
+    if min(cli_launches.values()) == 0:
+        raise RuntimeError(f"a kernel was never launched by the cli run: {cli_launches}")
+
+    phase("10 stokes: Poiseuille flow in the unit square, flat and windowed")
+    for matvec in ("flat", "windowed"):
+        cfg = nt.SolverConfig(inlet_tags=(0,), neumann_tags=(1,), wall_tags=(2, 3),
+                              nu=NU, rho=RHO, p_out=POUT)
+        cfg.dtype = "float32"
+        cfg.krylov.matvec = matvec
+        cfg.krylov.preconditioner = "block_triangular"
+        cfg.krylov.cells_per_block = 16
+        cfg.krylov.max_iters = 1000
+        st = nt.StokesSolver(nt.unit_square(8), cfg, log=nt.RunLog(verbose=False),
+                             inlet=poiseuille_inlet, device=DEV)
+        t0 = time.perf_counter()
+        st.solve()
+        torch.cuda.synchronize()
+        real = st.dofs.v_mask is not None
+        vc = st.dofs.v_coords[st.dofs.v_mask] if real else st.dofs.v_coords
+        pc = st.dofs.p_coords[st.dofs.p_mask] if real else st.dofs.p_coords
+        u_err = np.abs(st.velocity(real_only=True)[:, 0] - vc[:, 1] * (1 - vc[:, 1])).max()
+        u_err = max(u_err, np.abs(st.velocity(real_only=True)[:, 1]).max())
+        p_err = np.abs(st.pressure(real_only=True) - (POUT + 2 * NU * RHO * (1 - pc[:, 0]))).max()
+        print(f"  {matvec}: {int(st.result.iters)} GMRES iterations, converged "
+              f"{bool(st.result.converged)} (||r|| {st.result.residual:.3e}), "
+              f"{time.perf_counter() - t0:.2f} s; "
+              f"max|u - u_exact| {u_err:.3e} (< {STOKES_U_TOL:g}), "
+              f"max|p - p_exact| {p_err:.3e} (< {STOKES_P_TOL:g})", flush=True)
+        if (st._ns is not None) != (matvec == "windowed"):
+            raise RuntimeError(f"StokesSolver did not take the {matvec} path")
+        if u_err >= STOKES_U_TOL or p_err >= STOKES_P_TOL:
+            raise RuntimeError(f"{matvec} Stokes solve misses the Poiseuille flow")
+    sq = write_msh_v2(nt.unit_square(16), OUT / "square.msh")
+    records = run_cli(["stokes", "--mesh", str(sq), "--matvec", "windowed"], "cli_stokes")
+    its, fail = stokes_solve(records)
+    print(f"  stokes command on {sq.name} (windowed): {its} GMRES iterations, "
+          f"converged {fail is None}", flush=True)
+    if fail:
+        raise RuntimeError(f"stokes command did not converge: {fail}")
+
+    phase("11 flat vs windowed on the 25,600-cell channel")
+    mesh1 = nt.refine_uniform(nt.rectangle(80, 40, 0, 7, 0, 4), 1)
+    entry, nodes = {}, {}
+    for matvec, precond in (("flat", "block_triangular"), ("windowed", "cahouet_chabard")):
+        cfg = config()
+        cfg.krylov.matvec, cfg.krylov.preconditioner = matvec, precond
+        s = nt.NavierStokesSolver(mesh1, cfg, log=nt.RunLog(verbose=False), device=DEV)
+        s.setup()
+        if s._matvec != matvec:
+            raise RuntimeError(f"solver took the {s._matvec} path, not {matvec}")
+        r, jw = assembled(s, smooth_state(s, 0), smooth_state(s, 1))
+        nodes[matvec] = (by_node(s, r), by_node(s, jw))
+        zero = torch.zeros(s.dofs.n_total, dtype=torch.float32, device=DEV)
+        bc = torch.as_tensor(s.dirichlet.values(cfg.dt), dtype=torch.float32, device=DEV)
+        times = []
+        for _ in range(2):  # the first call warms the allocator
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = s._newton_iteration(zero, zero, bc, cfg.dt, True)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if not out[3]:
+                raise RuntimeError(f"{matvec}: forced Newton step's tangent solve failed")
+        entry[matvec] = out[1]
+        print(f"  {matvec} ({precond}): n_total {s.dofs.n_total}, forced Newton step from "
+              f"zero: entry ||r|| {out[1]:.7e}, GMRES iterations {out[2]}, "
+              f"{times[0] * 1e3:.1f} ms cold, {times[1] * 1e3:.1f} ms warm", flush=True)
+    for i, what in enumerate(("residual at a smooth state", "tangent action J w")):
+        (cf, vf, pf), (cw, vw, pw) = nodes["flat"][i], nodes["windowed"][i]
+        if cf.shape != cw.shape or np.abs(cf - cw).max() > 1e-9:
+            raise RuntimeError("flat and windowed DoF nodes do not line up")
+        gaps = [np.abs(a - b).max() / np.abs(b).max() for a, b in ((vf, vw), (pf, pw))]
+        print(f"  {what}, node by node: velocity rows {gaps[0]:.2e}, pressure rows "
+              f"{gaps[1]:.2e} of their max (tol {FLAT_TOL:g})", flush=True)
+        if max(gaps) > FLAT_TOL:
+            raise RuntimeError(f"flat and windowed {what} disagree")
+    gap = abs(entry["flat"] - entry["windowed"]) / entry["windowed"]
+    print(f"  entry residuals of the forced step: relative gap {gap:.2e} (tol {FLAT_TOL:g})")
+    if gap > FLAT_TOL:
+        raise RuntimeError("flat and windowed entry residuals disagree")
 
     kernels = []
     names = {"K1": "K1 windowed_matvec", "K2": "K2 windowed_matvec_block",
@@ -273,6 +553,14 @@ def main():
             launches=counts[k], max_abs_err=max(errs), ms=rec["ms"],
             plain_ms=rec["plain_ms"], timed=timed[k],
         ))
+    m_max = max(mxu.M_VALUES)
+    kernels.append(dict(
+        name="K5 mxu_probe", route="cuda", source=PROBE_SOURCE, replaces=REPLACES["K5"],
+        launches=probe_launches,
+        max_abs_err=max(r["max_abs_err"] for r in probe_recs.values()),
+        ms=probe_recs[m_max]["ms"], plain_ms=probe_recs[m_max]["plain_ms"],
+        timed=f"M={m_max}, {PROBE_CHECK_ITERS} products",
+    ))
     print()
     print(smi)  # the card's name and power limit, as nvidia-smi gives them
     print(json.dumps({"kernels": kernels}))

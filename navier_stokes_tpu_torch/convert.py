@@ -5,8 +5,8 @@ are dataclasses whose array fields share their names with this port's.  A
 caller flattens one to a dict of numpy arrays and static values
 (``arrays_of``, which reads any dataclass through ``np.asarray`` and so needs
 no JAX import here), and ``*_from_arrays`` rebuilds the port's object on a
-torch device.  Fields the port does not have (the flat path's gather maps,
-SPMD metadata, deflation modes) are dropped.  Solution vectors are plain
+torch device.  Fields the port does not have (SPMD metadata, deflation
+modes) are dropped.  Solution vectors are plain
 arrays: ``torch.as_tensor(np.asarray(x))``.
 """
 

@@ -1,0 +1,135 @@
+"""Matrix-free linear operators built from element matrices (the flat path).
+
+Port of ``navier_stokes_tpu/la/operators.py`` (single device).  The global
+operator stays in unassembled element form
+
+    y = sum_cells  P_c^T  A_c  P_c x      (gather -> batched matvec -> reduce)
+
+and constrained (Dirichlet) rows are replaced by ``diag * x``, the
+reference's ``apply_boundary_values(..., false)`` row elimination.  The
+reduction goes through the context's transpose gather map when one is given
+(a fixed summation order on every device) and through ``index_add_`` only
+where no map exists.
+
+Block views are static slices of the element matrices: the local dof
+layout is component-planar, so the velocity block is
+``cell_mat[:, :dim*nb_v, :dim*nb_v]`` acting on the velocity segment.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+__all__ = [
+    "ElementOperator",
+    "matvec",
+    "diagonal",
+    "raw_diagonal",
+    "velocity_block",
+    "pressure_mass_block",
+]
+
+
+@dataclass(frozen=True)
+class ElementOperator:
+    """Unassembled element-matrix operator on R^n with Dirichlet row fixes."""
+
+    cell_mat: torch.Tensor  # [nc, nl, nl]
+    cell_dofs: torch.Tensor  # [nc, nl] int32 global ids
+    bc_rows: torch.Tensor  # [nbc] int (may be empty)
+    bc_diag: torch.Tensor  # [nbc] replacement diagonal for constrained rows
+    # transpose gather map [n, K] (ops/scatter.py); None reduces with index_add_
+    scatter_idx: torch.Tensor | None
+    n: int
+    # symmetric Dirichlet elimination: also zero constrained COLUMNS, keeping
+    # the operator SPD for inner CG solves (preconditioner blocks); the outer
+    # tangent operator uses False (eliminate_columns=false parity, cpp:376)
+    bc_symmetric: bool = False
+
+
+def _reduce(values_flat, cell_dofs, scatter_idx, n):
+    if scatter_idx is not None:
+        from ..ops.scatter import gather_scatter
+
+        return gather_scatter(values_flat, scatter_idx)
+    out = values_flat.new_zeros(n)
+    return out.index_add_(0, cell_dofs.reshape(-1), values_flat)
+
+
+def matvec(op: ElementOperator, x: torch.Tensor) -> torch.Tensor:
+    """y = A x with constrained rows y_i = diag_i * x_i."""
+    x_in = x
+    has_bc = op.bc_rows.shape[0] > 0
+    if op.bc_symmetric and has_bc:
+        x_in = x.clone()
+        x_in[op.bc_rows] = 0.0
+    xl = x_in[op.cell_dofs]  # [nc, nl]
+    yl = torch.einsum("cij,cj->ci", op.cell_mat, xl)
+    y = _reduce(yl.reshape(-1), op.cell_dofs, op.scatter_idx, op.n)
+    if has_bc:
+        y[op.bc_rows] = op.bc_diag * x[op.bc_rows]
+    return y
+
+
+def diagonal(op: ElementOperator) -> torch.Tensor:
+    """Assembled main diagonal (for Jacobi preconditioning)."""
+    d = raw_diagonal(op.cell_mat, op.cell_dofs, op.n, op.scatter_idx)
+    if op.bc_rows.shape[0]:
+        d[op.bc_rows] = op.bc_diag
+    return d
+
+
+def raw_diagonal(
+    cell_mat: torch.Tensor,
+    cell_dofs: torch.Tensor,
+    n: int,
+    scatter_idx: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Assembled diagonal BEFORE boundary conditions — the diagonal value
+    deal.II's apply_boundary_values keeps on constrained rows."""
+    dl = torch.diagonal(cell_mat, dim1=1, dim2=2)  # [nc, nl]
+    return _reduce(dl.reshape(-1), cell_dofs, scatter_idx, n)
+
+
+def velocity_block(
+    op: ElementOperator, dim: int, nb_v: int, n_u: int, bc_mask=None, scatter_idx=None
+) -> ElementOperator:
+    """A00 (velocity-velocity) sub-operator on the velocity segment [0, n_u),
+    the reference's ``jacobian_matrix.block(0, 0)`` (hpp:526, 581).
+
+    bc_mask: host boolean array selecting op.bc_rows < n_u (computed from
+    op.bc_rows when None)."""
+    nvl = dim * nb_v
+    if bc_mask is None:
+        bc_mask = op.bc_rows.cpu().numpy() < n_u
+    sel = torch.as_tensor(np.asarray(bc_mask, bool), device=op.bc_rows.device)
+    return ElementOperator(
+        cell_mat=op.cell_mat[:, :nvl, :nvl],
+        cell_dofs=op.cell_dofs[:, :nvl],
+        bc_rows=op.bc_rows[sel],
+        bc_diag=op.bc_diag[sel],
+        scatter_idx=scatter_idx,
+        n=n_u,
+        bc_symmetric=True,
+    )
+
+
+def pressure_mass_block(
+    cell_pmass: torch.Tensor,
+    cell_pdofs: torch.Tensor,
+    n_p: int,
+    scatter_idx: torch.Tensor | None = None,
+) -> ElementOperator:
+    """Mp operator on the pressure segment (the reference's
+    pressure_mass.block(1,1), cpp:163, hpp:527)."""
+    return ElementOperator(
+        cell_mat=cell_pmass,
+        cell_dofs=cell_pdofs,
+        bc_rows=torch.zeros(0, dtype=torch.int64, device=cell_pmass.device),
+        bc_diag=cell_pmass.new_zeros(0),
+        scatter_idx=scatter_idx,
+        n=n_p,
+    )

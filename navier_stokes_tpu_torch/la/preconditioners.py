@@ -1,8 +1,19 @@
-"""Inner preconditioners of the windowed Schur sweeps.
+"""Preconditioners for the [A B^T; B 0] saddle-point system.
 
-Port of ``identity``, ``jacobi``, ``coarse_correction`` and
-``two_level_vcycle`` of ``navier_stokes_tpu/la/preconditioners.py`` (single
-device).  The flat-path block preconditioners are not part of this package.
+Port of ``navier_stokes_tpu/la/preconditioners.py`` (single device):
+
+  * identity, jacobi, coarse_correction, two_level_vcycle: the inner pieces
+    of the windowed Schur sweeps;
+  * block_diagonal (the reference's PreconditionBlockDiagonal, hpp:520-572):
+    inner FGMRES on A00 and on the pressure mass Mp;
+  * block_triangular (PreconditionBlockTriangular, hpp:575-639): inner CG
+    on A00, then tmp = src_p - B dst_u, inner CG on Mp;
+
+both on the flat element operators of la/operators.py, with Jacobi in place
+of the reference's ILU(0) (see the original's docstring).  The inner solves
+stop at an absolute tolerance and read their stop test from the device once
+per iteration; a zero right-hand side (tolerance 0) has the zero solution
+and runs no iteration, as the original's while loop does.
 """
 
 from __future__ import annotations
@@ -11,7 +22,20 @@ from typing import Callable
 
 import torch
 
-__all__ = ["identity", "jacobi", "coarse_correction", "two_level_vcycle"]
+from .cg import cg
+from .gmres import fgmres
+from .operators import ElementOperator, _reduce, diagonal, matvec
+
+__all__ = [
+    "identity",
+    "jacobi",
+    "coarse_correction",
+    "two_level_vcycle",
+    "block_diagonal",
+    "block_triangular",
+    "inner_cg",
+    "rect_matvec",
+]
 
 
 def identity() -> Callable:
@@ -96,5 +120,91 @@ def two_level_vcycle(
         x1 = w_inv * r
         x2 = x1 + coarse(r - matvec(x1))
         return x2 + w_inv * (r - matvec(x2))
+
+    return apply
+
+
+def _norm(v: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm(v))
+
+
+def inner_cg(matvec: Callable, b: torch.Tensor, atol: float, maxiter: int,
+             precond: Callable) -> torch.Tensor:
+    """An inner CG solve to ``atol`` (> 0 reads the stop flag each
+    iteration); atol 0 means b = 0, whose solution is zero."""
+    if atol == 0:
+        return torch.zeros_like(b)
+    return cg(matvec, b, atol=atol, maxiter=maxiter, precond=precond).x
+
+
+def rect_matvec(
+    cell_block: torch.Tensor,
+    in_dofs: torch.Tensor,
+    out_dofs: torch.Tensor,
+    n_out: int,
+    x: torch.Tensor,
+    scatter_idx: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Rectangular element-form matvec (e.g. the divergence block B)."""
+    yl = torch.einsum("cij,cj->ci", cell_block, x[in_dofs])
+    return _reduce(yl.reshape(-1), out_dofs, scatter_idx, n_out)
+
+
+def block_diagonal(
+    A00: ElementOperator,
+    Mp: ElementOperator,
+    *,
+    inner_tol: float = 1e-2,
+    inner_maxiter: int = 1000,
+    inner_restart: int = 50,
+) -> Callable:
+    """diag(A00, Mp)^{-1} via inner FGMRES solves (hpp:537-558)."""
+    n_u = A00.n
+    pA = jacobi(diagonal(A00))
+    pM = jacobi(diagonal(Mp))
+
+    def apply(v):
+        vu, vp = v[:n_u], v[n_u:]
+        du = fgmres(
+            lambda y: matvec(A00, y), vu, atol=inner_tol * _norm(vu),
+            restart=inner_restart, maxiter=inner_maxiter, precond=pA,
+        ).x
+        dp = fgmres(
+            lambda y: matvec(Mp, y), vp, atol=inner_tol * _norm(vp),
+            restart=inner_restart, maxiter=inner_maxiter, precond=pM,
+        ).x
+        return torch.cat([du, dp])
+
+    return apply
+
+
+def block_triangular(
+    A00: ElementOperator,
+    Mp: ElementOperator,
+    B_block: torch.Tensor,  # [nc, nb_p, nvl] pressure-row/velocity-col cells
+    B_in_dofs: torch.Tensor,  # [nc, nvl] velocity-space ids
+    B_out_dofs: torch.Tensor,  # [nc, nb_p] pressure-space ids
+    *,
+    inner_tol: float = 1e-2,
+    inner_maxiter: int = 2000,
+    B_scatter_idx: torch.Tensor | None = None,
+) -> Callable:
+    """Lower-triangular Schur sweep (hpp:594-619):
+    dst_u = A00^{-1} src_u;  dst_p = Mp^{-1} (src_p - B dst_u)."""
+    n_u, n_p = A00.n, Mp.n
+    pA = jacobi(diagonal(A00))
+    pM = jacobi(diagonal(Mp))
+
+    def apply(v):
+        vu, vp = v[:n_u], v[n_u:]
+        du = inner_cg(lambda y: matvec(A00, y), vu, inner_tol * _norm(vu), inner_maxiter, pA)
+        tmp = vp - rect_matvec(B_block, B_in_dofs, B_out_dofs, n_p, du,
+                               scatter_idx=B_scatter_idx)
+        # tolerance floored relative to the actual rhs of this solve: the
+        # reference's bare 1e-2*||src_p|| is unreachable when src_p = 0 (the
+        # first Krylov vector's pressure block vanishes)
+        atol_p = max(inner_tol * _norm(vp), 1e-10 * _norm(tmp))
+        dp = inner_cg(lambda y: matvec(Mp, y), tmp, atol_p, inner_maxiter, pM)
+        return torch.cat([du, dp])
 
     return apply

@@ -1,44 +1,62 @@
 """Unsteady incompressible Navier-Stokes solver: BDF1/BDF2 + Newton + FGMRES.
 
-Port of the windowed single-device path of
-``navier_stokes_tpu/models/navier_stokes.py``: ``setup`` (blocked
-renumbering, windowed layout, windowed assembly), the Cahouet-Chabard
-preconditioner built on the windowed block kernels, the Newton iteration,
-``solve_newton`` and ``solve``.  The JAX version compiles one Newton
-iteration into one device program; here it is eager torch with one host
-read of the residual norm per Newton iteration and one per FGMRES step.
+Port of the single-device paths of ``navier_stokes_tpu/models/navier_stokes.py``:
+
+  * setup()   DoFs, the operator layout and the assembly precompute.  With
+              ``krylov.matvec="windowed"`` a blocked renumbering and the
+              windowed layout; where no feasible layout exists (or with
+              "flat") the flat element operator of la/operators.py.
+  * one Newton iteration: assembly (windowed: K3 gather + K4 scatter; flat:
+              fem/assembly.py through the gather maps), Dirichlet rows, the
+              residual norm, and the preconditioned FGMRES tangent solve.
+  * preconditioners: identity, block_diagonal, block_triangular (flat and
+              windowed), cahouet_chabard (windowed; on the flat path it
+              degrades to block_triangular, as in the original).
+  * stokes_initial_guess(), solve_newton(), solve(resume=...), output hooks.
+
+The JAX version compiles one Newton iteration into one device program; here
+it is eager torch with one host read of the residual norm per Newton
+iteration, one per FGMRES step, and one per iteration of an inner solve
+that stops at a tolerance.
 
 Dirichlet semantics match ``apply_boundary_values(..., false)``: constrained
 rows are replaced by ``diag * x`` with the pre-constraint assembled diagonal
 and the residual rows by ``diag * target``.
 
-What this port does not serve raises: the flat operator, the block_diagonal
-and block_triangular preconditioners, a Stokes initial guess, steady and
-scanned solves, more than one device, time-dependent forcing, checkpoints,
-and meshes given as file paths.
+What this port does not serve raises: steady and scanned solves, more than
+one device, time-dependent forcing, checkpoints.
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
 
 from ..config import SolverConfig
-from ..fem.assembly import build_context
+from ..fem.assembly import assemble_navier_stokes, build_context
 from ..fem.bcs import DirichletBC, build_dirichlet
 from ..fem.dofs import make_dofs, renumber_blocked
 from ..fem.functions import InletVelocity, ZeroForcing
 from ..fem.windowed_assembly import assemble_windowed, build_windowed_assembly
+from ..la import operators as ops
 from ..la.cg import cg
 from ..la.gmres import fgmres
-from ..la.preconditioners import coarse_correction, identity, jacobi, two_level_vcycle
+from ..la.preconditioners import (
+    block_diagonal, block_triangular, coarse_correction, identity, inner_cg, jacobi,
+    two_level_vcycle)
 from ..mesh.mesh import Mesh
+from ..mesh.msh_io import read_msh
 from ..ops.windowed import (
-    build_windowed_layout, slice_block, windowed_matvec, windowed_matvec_block)
+    build_windowed_layout, slice_block, windowed_matvec, windowed_matvec_block,
+    windowed_scatter)
 from ..utils.logging import RunLog
 from ..utils.timers import PhaseTimers
 
 __all__ = ["NavierStokesSolver"]
+
+PRECONDITIONERS = ("identity", "block_diagonal", "block_triangular", "cahouet_chabard")
 
 
 def _takes_time(forcing) -> bool:
@@ -69,10 +87,22 @@ def _takes_time(forcing) -> bool:
     return len(positional) >= 2
 
 
+def _norm(v: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm(v))
+
+
+def _resolve_dtype(name: str) -> torch.dtype:
+    return {
+        "auto": torch.get_default_dtype(),
+        "float32": torch.float32,
+        "float64": torch.float64,
+    }[name]
+
+
 class NavierStokesSolver:
     def __init__(
         self,
-        mesh: Mesh,
+        mesh: Mesh | str,
         config: SolverConfig | None = None,
         log: RunLog | None = None,
         forcing=None,
@@ -81,15 +111,14 @@ class NavierStokesSolver:
         forcing_time_dependent: bool | None = None,
         device="cuda",
     ):
-        """device: where the state, the operator and the kernels live
-        ("cuda" runs the hand-written kernels; "cpu" their plain versions)."""
+        """mesh: a Mesh or the path of a gmsh .msh file.  device: where the
+        state, the operator and the kernels live ("cuda" runs the
+        hand-written kernels; "cpu" their plain versions)."""
         if n_devices is not None and n_devices > 1:
             raise NotImplementedError("multi-device solves are not ported")
-        if not isinstance(mesh, Mesh):
-            raise NotImplementedError("reading .msh files is not ported; pass a Mesh")
         self.cfg = config or SolverConfig()
         self.log = log or RunLog()
-        self.mesh = mesh
+        self.mesh = read_msh(mesh) if isinstance(mesh, str) else mesh
         self.device = torch.device(device)
         self.forcing = forcing or ZeroForcing()
         self._forcing_time_dep_override = forcing_time_dependent
@@ -97,7 +126,9 @@ class NavierStokesSolver:
             u_m=self.cfg.inlet.u_m, H=self.cfg.inlet.H, freeze_time=self.cfg.inlet.freeze_time
         )
         self.time = 0.0
+        self._step = 0
         self._is_setup = False
+        self.output_hooks = []  # callables (step, t, solution)
         self.timers = PhaseTimers(device=self.device)
 
     # ------------------------------------------------------------------
@@ -105,57 +136,34 @@ class NavierStokesSolver:
         """Build DoFs, layout, assembly precompute and BC structure."""
         cfg, log = self.cfg, self.log
         k = cfg.krylov
-        if k.matvec != "windowed":
-            raise NotImplementedError(
-                f"krylov.matvec={k.matvec!r}: only the windowed operator is ported"
-            )
-        if k.preconditioner not in ("identity", "cahouet_chabard"):
-            raise NotImplementedError(
-                f"preconditioner {k.preconditioner!r} is not ported "
-                "(identity and cahouet_chabard are)"
-            )
-        if cfg.initial_guess != "zero":
-            raise NotImplementedError("initial_guess='stokes' is not ported")
-        if cfg.time_scheme not in ("bdf1", "bdf2"):
-            raise ValueError(f"unknown time_scheme {cfg.time_scheme!r}")
+        if k.preconditioner not in PRECONDITIONERS:
+            raise ValueError(f"unknown preconditioner {k.preconditioner!r}")
+        if cfg.initial_guess not in ("zero", "stokes"):
+            raise ValueError(f"unknown initial_guess {cfg.initial_guess!r}")
         log.print("Initializing the mesh")
         log.print(f"  Number of elements = {self.mesh.n_cells}")
         log.rule()
 
         log.print("Initializing the finite element space")
+        if cfg.time_scheme not in ("bdf1", "bdf2"):
+            raise ValueError(f"unknown time_scheme {cfg.time_scheme!r}")
         # the tangent's time-term step: BDF2's mass coefficient is 3/(2 dt)
         self._dt_tangent = cfg.dt / 1.5 if cfg.time_scheme == "bdf2" else cfg.dt
-        base_dofs = make_dofs(self.mesh, cfg.degree_velocity, cfg.degree_pressure)
-        cpb = k.cells_per_block
-        while -(-self.mesh.n_cells // cpb) > 16384:
-            cpb *= 2
-        if cpb != k.cells_per_block:
+        self.dofs = make_dofs(self.mesh, cfg.degree_velocity, cfg.degree_pressure)
+        self._win_layout = None
+        self._wassembly = None
+        # the resolved operator mode lives on the solver, not in the config
+        self._matvec = k.matvec
+        if self._matvec == "windowed":
+            self._setup_windowed_layout()
+        self._precond = k.preconditioner
+        if self._matvec == "flat" and self._precond == "cahouet_chabard":
+            # the CC Schur sweep is built on the windowed block kernels
             log.print(
-                f"  cells_per_block {k.cells_per_block} -> {cpb} "
-                "(block-count backstop: <=16384 blocks)"
+                "  (cahouet_chabard requires the windowed operator: "
+                "using block_triangular on the flat path)"
             )
-        lay = None
-        for _ in range(4):
-            try:
-                dofs_r, block_info = renumber_blocked(base_dofs, cells_per_block=cpb)
-                lay = build_windowed_layout(
-                    dofs_r.cell_vdofs, dofs_r.cell_pdofs, dofs_r.n_vs, dofs_r.n_ps,
-                    self.mesh.dim, block_info=block_info, Bc=k.chunk_cells,
-                    device=self.device,
-                )
-                break
-            except ValueError:
-                cpb *= 2  # halo too wide
-        if lay is None:
-            raise RuntimeError(
-                "windowed layout infeasible for this mesh (halo too wide at "
-                f"cells_per_block up to {cpb // 2}); the flat path is not ported"
-            )
-        self._win_layout, self.dofs = lay, dofs_r
-        log.print(
-            f"  Windowed operator: {lay.nb} blocks "
-            f"(cells/block {cpb}), pad {lay.pad_factor:.2f}"
-        )
+            self._precond = "block_triangular"
 
         elem = self.dofs.element
         log.print(f"  Velocity degree:           = {cfg.degree_velocity}")
@@ -171,11 +179,7 @@ class NavierStokesSolver:
         log.rule()
 
         log.print("  Initializing the linear system")
-        self._dtype = {
-            "auto": torch.get_default_dtype(),
-            "float32": torch.float32,
-            "float64": torch.float64,
-        }[cfg.dtype]
+        self._dtype = _resolve_dtype(cfg.dtype)
         self._forcing_time_dep = (
             self._forcing_time_dep_override
             if self._forcing_time_dep_override is not None
@@ -191,6 +195,59 @@ class NavierStokesSolver:
             dtype=self._dtype,
             device=self.device,
         )
+        if self._win_layout is not None:
+            self._setup_windowed_assembly()
+
+        # Dirichlet: inlet first, walls override on shared DoFs
+        specs = [
+            DirichletBC(tags=tuple(cfg.inlet_tags), value=self.inlet),
+            DirichletBC(tags=tuple(cfg.wall_tags)),
+        ]
+        self.dirichlet = build_dirichlet(self.dofs, specs)
+        self._bc_rows = torch.as_tensor(
+            np.asarray(self.dirichlet.rows, np.int64), device=self.device
+        )
+        self.solution = torch.zeros(self.dofs.n_total, dtype=self._dtype, device=self.device)
+        self.solution_old = self.solution
+        self._is_setup = True
+        return self
+
+    def _setup_windowed_layout(self):
+        """Blocked renumbering + windowed layout; falls back to the flat
+        path (and says so) when the halo stays too wide."""
+        k, log = self.cfg.krylov, self.log
+        base_dofs = self.dofs
+        cpb = k.cells_per_block
+        while -(-self.mesh.n_cells // cpb) > 16384:
+            cpb *= 2
+        if cpb != k.cells_per_block:
+            log.print(
+                f"  cells_per_block {k.cells_per_block} -> {cpb} "
+                "(block-count backstop: <=16384 blocks)"
+            )
+        for _ in range(4):
+            try:
+                dofs_r, block_info = renumber_blocked(base_dofs, cells_per_block=cpb)
+                lay = build_windowed_layout(
+                    dofs_r.cell_vdofs, dofs_r.cell_pdofs, dofs_r.n_vs, dofs_r.n_ps,
+                    self.mesh.dim, block_info=block_info, Bc=k.chunk_cells,
+                    device=self.device,
+                )
+                self._win_layout, self.dofs = lay, dofs_r
+                break
+            except ValueError:
+                cpb *= 2  # halo too wide
+        if self._win_layout is None:
+            log.print("  (windowed layout infeasible for this mesh: flat path)")
+            self._matvec = "flat"
+        else:
+            log.print(
+                f"  Windowed operator: {self._win_layout.nb} blocks "
+                f"(cells/block {cpb}), pad {self._win_layout.pad_factor:.2f}"
+            )
+
+    def _setup_windowed_assembly(self):
+        cfg, k, log = self.cfg, self.cfg.krylov, self.log
         if k.tangent_store_dtype not in ("float32", "bfloat16"):
             raise ValueError(
                 "krylov.tangent_store_dtype must be 'float32' or "
@@ -207,7 +264,7 @@ class NavierStokesSolver:
         store = torch.bfloat16 if (k.tangent_store_dtype == "bfloat16" and f32) else None
         self._wassembly = build_windowed_assembly(
             self.ctx,
-            lay,
+            self._win_layout,
             self.dofs,
             dt=self._dt_tangent,
             nu=cfg.nu,
@@ -226,38 +283,52 @@ class NavierStokesSolver:
             kp_deflate_min_amp=k.kp_deflate_min_amp,
         )
 
-        # Dirichlet: inlet first, walls override on shared DoFs
-        specs = [
-            DirichletBC(tags=tuple(cfg.inlet_tags), value=self.inlet),
-            DirichletBC(tags=tuple(cfg.wall_tags)),
-        ]
-        self.dirichlet = build_dirichlet(self.dofs, specs)
-        self._bc_rows = torch.as_tensor(
-            np.asarray(self.dirichlet.rows, np.int64), device=self.device
-        )
-        self.solution = torch.zeros(self.dofs.n_total, dtype=self._dtype, device=self.device)
-        self.solution_old = self.solution
-        self._is_setup = True
-        return self
-
     # ------------------------------------------------------------------
-    def _make_windowed_preconditioner(self, lay, A_t, wa, bc_diag, diag0, bc_rows):
-        """The Cahouet-Chabard Schur preconditioner on the windowed block
-        kernels: S^-1 ~ nu*rho*Mp^-1 + mass_coef*Kp^-1, with fixed-length
-        coarse-corrected Jacobi-CG sweeps on A00 and on the pressure
-        Laplacian Kp (the original's ``cahouet_chabard`` branch)."""
+    def _make_preconditioner(self, op: ops.ElementOperator, cell_pmass):
+        """The configured preconditioner on the flat element operators."""
+        cfg, ctx = self.cfg, self.ctx
+        kind = self._precond
+        if kind == "identity":
+            return identity()
+        dim, nb_v, nb_p = ctx.dim, ctx.nb_v, ctx.nb_p
+        nvl = dim * nb_v
+        A00 = ops.velocity_block(
+            op, dim, nb_v, self.dofs.n_u,
+            bc_mask=np.asarray(self.dirichlet.rows) < self.dofs.n_u,
+            scatter_idx=ctx.scatter_vel,
+        )
+        cell_pdofs = ctx.cell_dofs[:, -nb_p:] - self.dofs.n_u
+        Mp = ops.pressure_mass_block(cell_pmass, cell_pdofs, self.dofs.n_p,
+                                     scatter_idx=ctx.scatter_p)
+        if kind == "block_diagonal":
+            return block_diagonal(
+                A00, Mp, inner_tol=cfg.krylov.inner_tol,
+                inner_maxiter=min(cfg.krylov.inner_max_iters, 1000),
+            )
+        if kind == "block_triangular":
+            return block_triangular(
+                A00, Mp, op.cell_mat[:, nvl:, :nvl], op.cell_dofs[:, :nvl], cell_pdofs,
+                inner_tol=cfg.krylov.inner_tol, inner_maxiter=cfg.krylov.inner_max_iters,
+                B_scatter_idx=ctx.scatter_p,
+            )
+        raise ValueError(f"unknown preconditioner {kind!r}")
+
+    def _make_windowed_preconditioner(self, lay, A_t, wa, bc_diag, diag0, bc_rows, kind=None):
+        """Schur preconditioners on the windowed operator.
+
+        block_diagonal / block_triangular mirror the reference classes
+        (hpp:520-639) with the lumped pressure-mass inverse as the Schur
+        surrogate; their inner solves run on the whole-system kernel (K1).
+        cahouet_chabard: S^-1 ~ nu*rho*Mp^-1 + mass_coef*Kp^-1, with
+        fixed-length coarse-corrected Jacobi-CG sweeps on A00 and on the
+        pressure Laplacian Kp through the block kernel (K2)."""
         cfg = self.cfg
         k = cfg.krylov
-        if k.preconditioner == "identity":
+        kind = kind or self._precond
+        if kind == "identity":
             return identity()
         n_u = lay.dim * lay.n_vs
-        # preconditioner blocks are stored narrower (precond_block_dtype) and
-        # widened on read; the outer operator keeps its own storage
-        bdt = (
-            torch.bfloat16
-            if (k.precond_block_dtype == "bfloat16" and A_t.dtype == torch.float32)
-            else A_t.dtype
-        )
+        n = n_u + lay.n_ps
         inv_mp = wa.inv_mp
         has_bc = bc_rows.shape[0] > 0
 
@@ -275,6 +346,59 @@ class NavierStokesSolver:
             )
             pA = lambda r: jac_u(r) + coarse_v(r)
 
+        if kind == "cahouet_chabard":
+            return self._cahouet_chabard(lay, A_t, wa, bc_diag, bc_rows, diag_u, pA, coarse_v)
+
+        def apply_full(xu, zero_bc):
+            x = xu.new_zeros(n)
+            x[:n_u] = xu
+            if zero_bc and has_bc:
+                x[bc_rows] = 0.0
+            return windowed_matvec(lay, A_t, x)
+
+        def A00_mv(v):  # SPD-consistent (symmetric BC elimination)
+            y = apply_full(v, zero_bc=True)[:n_u]
+            if has_bc:
+                y[bc_rows] = bc_diag * v[bc_rows]
+            return y
+
+        inner_maxiter = min(k.inner_max_iters, 60)
+        if k.a00_solver == "gmres":
+            def a00_solve(vu):
+                return fgmres(
+                    A00_mv, vu, atol=k.inner_tol * _norm(vu),
+                    restart=min(inner_maxiter, 30), maxiter=inner_maxiter, precond=pA,
+                ).x
+        else:  # "cg": reference parity (hpp:598)
+
+            def a00_solve(vu):
+                return inner_cg(A00_mv, vu, k.inner_tol * _norm(vu), inner_maxiter, pA)
+
+        def apply(v):
+            vu, vp = v[:n_u], v[n_u:]
+            du = a00_solve(vu)
+            if kind == "block_diagonal":
+                dp = inv_mp * vp
+            else:  # block_triangular Schur sweep (hpp:594-619)
+                B_du = apply_full(du, zero_bc=False)[n_u:]
+                dp = inv_mp * (vp - B_du)
+            return torch.cat([du, dp])
+
+        return apply
+
+    def _cahouet_chabard(self, lay, A_t, wa, bc_diag, bc_rows, diag_u, pA, coarse_v):
+        cfg = self.cfg
+        k = cfg.krylov
+        n_u = lay.dim * lay.n_vs
+        has_bc = bc_rows.shape[0] > 0
+        # preconditioner blocks are stored narrower (precond_block_dtype) and
+        # widened on read; the outer operator keeps its own storage
+        bdt = (
+            torch.bfloat16
+            if (k.precond_block_dtype == "bfloat16" and A_t.dtype == torch.float32)
+            else A_t.dtype
+        )
+        inv_mp = wa.inv_mp
         A00_blk = slice_block(lay, A_t, "v", "v").to(bdt)
         B_blk = slice_block(lay, A_t, "v", "p").to(bdt)
         Kp_blk = wa.Kp_t.to(bdt)
@@ -334,49 +458,150 @@ class NavierStokesSolver:
         return apply
 
     def _newton_iteration(self, u, u_old, bc_vals, dt_res, force_solve=False):
-        """One Newton iteration: windowed assembly, Dirichlet rows, residual
-        norm, and (when above tol or forced) the preconditioned FGMRES
-        tangent solve.  Returns (u_new, res_norm, gmres_iters, converged,
-        gmres_residual)."""
+        """One Newton iteration: assembly, Dirichlet rows, residual norm, and
+        (when above tol or forced) the preconditioned FGMRES tangent solve.
+        Returns (u_new, res_norm, gmres_iters, converged, gmres_residual)."""
         cfg = self.cfg
         k = cfg.krylov
         lay, wa, bc_rows = self._win_layout, self._wassembly, self._bc_rows
-        A_t, residual, diag0 = assemble_windowed(
-            wa, lay, u, u_old, dt=dt_res, nu=cfg.nu, rho=cfg.rho,
-            convection_form=cfg.convection_form,
-            include_continuity_residual=cfg.include_continuity_residual,
-        )
+        has_bc = bc_rows.shape[0] > 0
+        if lay is not None:
+            A_t, residual, diag0 = assemble_windowed(
+                wa, lay, u, u_old, dt=dt_res, nu=cfg.nu, rho=cfg.rho,
+                convection_form=cfg.convection_form,
+                include_continuity_residual=cfg.include_continuity_residual,
+            )
+        else:
+            ctx = self.ctx
+            cell_mat, cell_pmass, residual = assemble_navier_stokes(
+                ctx, u, u_old, dt=dt_res, nu=cfg.nu, rho=cfg.rho, p_out=cfg.p_out,
+                convection_form=cfg.convection_form,
+                include_continuity_residual=cfg.include_continuity_residual,
+                jacobian_mass_rho=cfg.jacobian_mass_rho,
+            )
+            diag0 = ops.raw_diagonal(cell_mat, ctx.cell_dofs, ctx.n_total, ctx.scatter_full)
         bc_diag = diag0[bc_rows]
         if cfg.dirichlet_mode == "increment":
             bc_target = bc_vals - u[bc_rows]
         else:  # "reference": delta = g verbatim
             bc_target = bc_vals
         residual[bc_rows] = bc_diag * bc_target
-        res_norm = float(torch.linalg.vector_norm(residual))  # host read
+        res_norm = _norm(residual)  # host read
         if not (force_solve or res_norm > cfg.newton.tol):
             return u, res_norm, 0, True, 0.0
 
-        # operator_dtype "auto": a bf16-stored outer operator on the f32 path
-        # when the tangent tolerance is loose (widened on read)
-        od = k.operator_dtype
-        if od == "auto":
-            od = "bfloat16" if (A_t.dtype == torch.float32 and k.rel_tol >= 5e-3) else "float32"
-        A_op = A_t.to(torch.bfloat16) if (od == "bfloat16" and A_t.dtype == torch.float32) else A_t
-        has_bc = bc_rows.shape[0] > 0
+        if lay is not None:
+            # operator_dtype "auto": a bf16-stored outer operator on the f32
+            # path when the tangent tolerance is loose (widened on read)
+            od = k.operator_dtype
+            if od == "auto":
+                od = "bfloat16" if (A_t.dtype == torch.float32 and k.rel_tol >= 5e-3) else "float32"
+            A_op = (A_t.to(torch.bfloat16)
+                    if (od == "bfloat16" and A_t.dtype == torch.float32) else A_t)
 
-        def apply_op(v):
-            y = windowed_matvec(lay, A_op, v)
-            if has_bc:
-                y[bc_rows] = bc_diag * v[bc_rows]
-            return y
+            def apply_op(v):
+                y = windowed_matvec(lay, A_op, v)
+                if has_bc:
+                    y[bc_rows] = bc_diag * v[bc_rows]
+                return y
 
-        precond = self._make_windowed_preconditioner(lay, A_t, wa, bc_diag, diag0, bc_rows)
+            precond = self._make_windowed_preconditioner(lay, A_t, wa, bc_diag, diag0, bc_rows)
+        else:
+            op = ops.ElementOperator(
+                cell_mat=cell_mat, cell_dofs=self.ctx.cell_dofs, bc_rows=bc_rows,
+                bc_diag=bc_diag, scatter_idx=self.ctx.scatter_full, n=self.ctx.n_total,
+            )
+
+            def apply_op(v):
+                return ops.matvec(op, v)
+
+            precond = self._make_preconditioner(op, cell_pmass)
         f = np.float64 if u.dtype == torch.float64 else np.float32
         sol = fgmres(
             apply_op, residual, atol=f(k.rel_tol) * f(res_norm),
             restart=k.restart, maxiter=k.max_iters, precond=precond,
         )
         return u + cfg.newton.damping * sol.x, res_norm, sol.iters, sol.converged, sol.residual
+
+    # ------------------------------------------------------------------
+    def stokes_initial_guess(self, t: float | None = None) -> torch.Tensor:
+        """Solve steady Stokes on this solver's DoF layout (the reference's
+        designed initial-guess path, cpp:636-644; GMRES tol
+        ``stokes_rel_tol`` with a block preconditioner, cpp:533-559).
+        Returns the solution vector; ``self.stokes_result`` keeps the
+        FGMRES result."""
+        cfg, log = self.cfg, self.log
+        t = self.time if t is None else t
+        log.banner()
+        log.print("Assembling the Stokes system")
+        if self._win_layout is None:
+            # flat path: StokesSolver shares the natural dof numbering
+            from .stokes import StokesSolver
+
+            st = StokesSolver(
+                self.mesh, copy.deepcopy(cfg), log=RunLog(verbose=False),
+                forcing=self.forcing, inlet=self.inlet, device=self.device,
+            )
+            x = st.solve(t)
+            self._log_stokes(st.result)
+            return x.to(self._dtype)
+
+        lay = self._win_layout
+        wa = build_windowed_assembly(
+            self.ctx, lay, self.dofs,
+            dt=1.0, nu=cfg.nu, rho=cfg.rho, p_out=cfg.p_out, terms="stokes",
+            pin_pdofs=self.dofs.boundary_scalar_pdofs(cfg.neumann_tags),
+            kp_deflate=cfg.krylov.kp_deflate,
+            kp_deflate_min_amp=cfg.krylov.kp_deflate_min_amp,
+        )
+        bc_rows = self._bc_rows
+        has_bc = bc_rows.shape[0] > 0
+        bc_vals = torch.as_tensor(
+            np.asarray(self.dirichlet.values(t)), device=self.device
+        ).to(self._dtype)
+        A_t = wa.A_const  # the Stokes operator is u-independent
+        nl = lay.nl
+        ar = torch.arange(nl, device=A_t.device)
+        Dv = A_t.new_zeros((lay.nli, lay.ncd))
+        Dv[:nl] = A_t[ar, ar, :]
+        diag0 = windowed_scatter(lay, Dv)  # K4
+        bc_diag = diag0[bc_rows]
+        rhs = wa.r_const.clone()
+        rhs[bc_rows] = bc_diag * bc_vals
+
+        def apply_op(v):
+            y = windowed_matvec(lay, A_t, v)  # K1
+            if has_bc:
+                y[bc_rows] = bc_diag * v[bc_rows]
+            return y
+
+        # real inner solves (the reference's PreconditionBlockTriangular,
+        # cpp:546-552): CC's fixed micro-sweeps on the pure-viscous A00 are
+        # far too weak for the 1e-6 Stokes tolerance
+        precond = self._make_windowed_preconditioner(
+            lay, A_t, wa, bc_diag, diag0, bc_rows,
+            kind="block_triangular"
+            if cfg.krylov.preconditioner in ("identity", "cahouet_chabard") else None,
+        )
+        x0 = torch.zeros_like(rhs)
+        x0[bc_rows] = bc_vals
+        sol = fgmres(
+            apply_op, rhs, x0=x0,
+            atol=cfg.krylov.stokes_rel_tol * _norm(rhs),  # cpp:538
+            restart=cfg.krylov.restart, maxiter=cfg.krylov.max_iters, precond=precond,
+        )
+        self._log_stokes(sol)
+        return sol.x
+
+    def _log_stokes(self, sol):
+        """Keep the Stokes solve's FGMRES result in ``stokes_result`` and log
+        its count; a solve that stops short of its tolerance (which the
+        original does not log) adds a ``krylov_failure`` record."""
+        self.stokes_result = sol
+        self.log.print("Solving the Stokes system")
+        self.log.gmres_iters(int(sol.iters), system="stokes")
+        if not sol.converged:
+            self.log.krylov_failure(int(sol.iters), float(sol.residual), system="stokes")
 
     # ------------------------------------------------------------------
     def solve_newton(self):
@@ -422,27 +647,44 @@ class NavierStokesSolver:
         return n_iter, res_norm
 
     # ------------------------------------------------------------------
-    def solve(self):
-        """Time loop (cpp:629-679) from the zero initial condition."""
+    def solve(self, resume: bool = False):
+        """Time loop (cpp:629-679).  resume=True continues from the current
+        state (time, step, history) instead of applying the initial
+        condition; checkpoint files are not ported."""
         if not self._is_setup:
             self.setup()
         cfg, log = self.cfg, self.log
         log.banner()
-        self.time = 0.0
-        log.print("Applying the initial condition")
-        self.solution = torch.zeros(self.dofs.n_total, dtype=self._dtype, device=self.device)
-        log.rule()
+        if not resume:
+            self.time = 0.0
+            self._step = 0
+            if cfg.initial_guess == "stokes":
+                # the reference's designed path (cpp:636-644): start from Stokes
+                self.solution = self.stokes_initial_guess(0.0).to(self._dtype)
+            else:
+                log.print("Applying the initial condition")
+                self.solution = torch.zeros(
+                    self.dofs.n_total, dtype=self._dtype, device=self.device
+                )
+            self._output(0, 0.0)
+            log.rule()
 
-        step = 0
+        step = self._step
         while self.time < cfg.T - 0.5 * cfg.dt:
             self.time += cfg.dt
             step += 1
+            self._step = step
             self.solution_old2 = self.solution_old if step > 1 else None
             self.solution_old = self.solution.clone()
             log.time_step(step, self.time)
             self.solve_newton()
+            self._output(step, self.time)
             log.print()
         return self.solution
+
+    def _output(self, step: int, t: float):
+        for hook in self.output_hooks:
+            hook(step, t, self.solution)
 
     # ------------------------------------------------------------------
     # convenience views
@@ -454,6 +696,12 @@ class NavierStokesSolver:
         if real_only and self.dofs.v_mask is not None:
             v = v[self.dofs.v_mask]
         return v
+
+    def velocity_coords(self, real_only: bool = False) -> np.ndarray:
+        c = self.dofs.v_coords
+        if real_only and self.dofs.v_mask is not None:
+            c = c[self.dofs.v_mask]
+        return c
 
     def pressure(self, solution=None, real_only: bool = False) -> np.ndarray:
         s = (self.solution if solution is None else solution).detach().cpu().numpy()

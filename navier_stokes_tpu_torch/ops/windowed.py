@@ -55,6 +55,7 @@ __all__ = [
     "slice_block",
     "block_shape",
     "build_kernels",
+    "build_library",
     "reset_launch_counts",
     "launch_counts",
 ]
@@ -537,18 +538,19 @@ def _nvcc() -> str:
     return path
 
 
-def build_kernels() -> dict:
-    """Compile ``csrc/windowed.cu`` into ``build/kernels/`` unless a library
-    built from the same source and flags is there, and load it.  Returns the
+def build_library(source: Path, stem: str) -> dict:
+    """Compile one CUDA source of ``csrc/`` into ``build/kernels/`` unless a
+    library built from the same source and flags is there.  Returns the
     library path, the nvcc command and output, and the build time in seconds
-    (``cmd`` None and 0 s when the library was already built)."""
-    tag = hashlib.sha1(_SOURCE.read_bytes() + " ".join(_NVCC_FLAGS).encode())
-    lib = _BUILD_DIR / f"libns_windowed_{tag.hexdigest()[:16]}.so"
+    (``cmd`` None and 0 s when the library was already built).  Builds of
+    different sources may run at the same time (each is one nvcc process)."""
+    tag = hashlib.sha1(source.read_bytes() + " ".join(_NVCC_FLAGS).encode())
+    lib = _BUILD_DIR / f"lib{stem}_{tag.hexdigest()[:16]}.so"
     info = {"path": str(lib), "cmd": None, "log": "", "seconds": 0.0}
     if not lib.exists():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
+        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(source)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         info.update(cmd=cmd, log=proc.stdout + proc.stderr,
@@ -556,7 +558,13 @@ def build_kernels() -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{info['log']}")
         os.replace(tmp, lib)
-    _load(str(lib))
+    return info
+
+
+def build_kernels() -> dict:
+    """Build ``csrc/windowed.cu`` (``build_library``) and load it."""
+    info = build_library(_SOURCE, "ns_windowed")
+    _load(info["path"])
     return info
 
 

@@ -1,0 +1,261 @@
+"""The port's mesh reader, command line, functionals and solver surface
+against the JAX package's, in float64.
+
+* ``read_msh`` (native and python backends) and ``read_msh_bytes`` on gmsh
+  v2.2 and v4.1 texts written here from generated meshes.
+* ``info``; ``run --log-json`` and ``stokes --log-json`` on a ``.msh`` in
+  ``tmp_path``: the port's records equal the JAX CLI's (residuals to 1e-10
+  relative, counts exactly).
+* ``BoundaryForce``, ``BoundaryReaction``, ``divergence_l2`` and
+  ``strouhal_number`` at a seeded state.
+* What the command line refuses: ``--output-dir`` (h5py), ``--devices 2``,
+  ``--distributed``, and ``--device cuda`` without a card.
+* The solver surface: a mesh given as a path, output hooks, ``solve(resume=
+  True)`` and ``velocity_coords``.
+"""
+
+import json
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from navier_stokes_tpu.__main__ import main as j_main
+from navier_stokes_tpu.config import SolverConfig as JConfig
+from navier_stokes_tpu.mesh import msh_io as j_msh
+from navier_stokes_tpu.mesh.generate import box as j_box
+from navier_stokes_tpu.mesh.generate import unit_square as j_unit_square
+from navier_stokes_tpu.models import functionals as jf
+from navier_stokes_tpu.models.navier_stokes import NavierStokesSolver as JSolver
+from navier_stokes_tpu.utils.logging import RunLog as JLog
+from navier_stokes_tpu_torch.__main__ import main as t_main
+from navier_stokes_tpu_torch.config import SolverConfig
+from navier_stokes_tpu_torch.mesh import msh_io as t_msh
+from navier_stokes_tpu_torch.mesh.generate import unit_square
+from navier_stokes_tpu_torch.models import functionals as tf
+from navier_stokes_tpu_torch.models.navier_stokes import NavierStokesSolver
+from navier_stokes_tpu_torch.utils.logging import RunLog
+
+MESH_FIELDS = ("coords", "cells", "boundary_facets", "boundary_tags", "cell_tags")
+
+
+def _msh_v2(mesh) -> str:
+    """gmsh 2.2 ASCII with sparse node ids, a point element, the boundary
+    facets (physical tag = boundary tag) and the cells (physical tag 7)."""
+    dim = mesh.dim
+    ids = 1 + 2 * np.arange(len(mesh.coords))
+    xyz = np.zeros((len(mesh.coords), 3))
+    xyz[:, :dim] = mesh.coords
+    out = ["$MeshFormat", "2.2 0 8", "$EndMeshFormat", "$Nodes", str(len(ids))]
+    out += [f"{i} {x!r} {y!r} {z!r}" for i, (x, y, z) in zip(ids, xyz.tolist())]
+    out += ["$EndNodes", "$Elements"]
+    facet_type, cell_type = (1, 2) if dim == 2 else (2, 4)
+    elems = [(15, 99, [ids[0]])]
+    elems += [(facet_type, int(t), ids[f]) for f, t in zip(mesh.boundary_facets, mesh.boundary_tags)]
+    elems += [(cell_type, 7, ids[c]) for c in mesh.cells]
+    out.append(str(len(elems)))
+    out += [f"{k + 1} {et} 2 {tag} {tag + 100} " + " ".join(map(str, nodes))
+            for k, (et, tag, nodes) in enumerate(elems)]
+    out.append("$EndElements")
+    return "\n".join(out) + "\n"
+
+
+def _msh_v4(mesh) -> str:
+    """gmsh 4.1 ASCII: one curve entity per boundary tag, one surface."""
+    tags = sorted(set(int(t) for t in mesh.boundary_tags))
+    n = len(mesh.coords)
+    out = ["$MeshFormat", "4.1 0 8", "$EndMeshFormat", "$Entities", f"0 {len(tags)} 1 0"]
+    bbox = "0 0 0 1 1 0"
+    out += [f"{t + 1} {bbox} 1 {t} 0" for t in tags]
+    out += [f"1 {bbox} 1 7 {len(tags)} " + " ".join(str(t + 1) for t in tags)]
+    out += ["$EndEntities", "$Nodes", f"1 {n} 1 {n}", f"2 1 0 {n}"]
+    out += [str(i + 1) for i in range(n)]
+    out += [f"{x!r} {y!r} 0" for x, y in mesh.coords.tolist()]
+    out += ["$EndNodes", "$Elements"]
+    blocks = [(1, t + 1, 1, mesh.boundary_facets[mesh.boundary_tags == t]) for t in tags]
+    blocks.append((2, 1, 2, mesh.cells))
+    n_el = sum(len(b[3]) for b in blocks)
+    out.append(f"{len(blocks)} {n_el} 1 {n_el}")
+    k = 1
+    for edim, etag, etype, conn in blocks:
+        out.append(f"{edim} {etag} {etype} {len(conn)}")
+        for row in conn:
+            out.append(f"{k} " + " ".join(str(v + 1) for v in row))
+            k += 1
+    out.append("$EndElements")
+    return "\n".join(out) + "\n"
+
+
+def _write(tmp_path, name, text):
+    path = tmp_path / name
+    path.write_text(text)
+    return str(path)
+
+
+def _same_mesh(got, want):
+    for f in MESH_FIELDS:
+        g, w = getattr(got, f), getattr(want, f)
+        assert g.shape == w.shape and np.array_equal(g, w), f
+
+
+@pytest.mark.parametrize(
+    "fmt, make",
+    [("v2", lambda: j_unit_square(3)), ("v2", lambda: j_box(2, 2, 2)),
+     ("v4", lambda: j_unit_square(3))],
+)
+def test_read_msh_matches_jax(fmt, make, tmp_path):
+    text = (_msh_v2 if fmt == "v2" else _msh_v4)(make())
+    path = _write(tmp_path, "m.msh", text)
+    want = j_msh.read_msh(path, backend="python")
+    _same_mesh(t_msh.read_msh_bytes(text.encode()), j_msh.read_msh_bytes(text.encode()))
+    for backend in ("python", "auto"):
+        _same_mesh(t_msh.read_msh(path, backend=backend), want)
+
+
+def _run_config(tmp_path, **extra):
+    raw = {
+        "dtype": "float64", "T": 0.1, "dt": 0.05,
+        "inlet_tags": [0], "neumann_tags": [1], "wall_tags": [2, 3],
+        "inlet": {"freeze_time": False, "H": 1.0, "u_m": 1.0},
+        "krylov": {"cells_per_block": 16, "max_iters": 500},
+    }
+    raw.update(extra)
+    return _write(tmp_path, "config.json", json.dumps(raw))
+
+
+def _same_records(got, want):
+    assert [sorted(r) for r in got] == [sorted(r) for r in want]
+    for g, w in zip(got, want):
+        for key, wv in w.items():
+            if key == "residual":
+                assert abs(g[key] - wv) <= 1e-10 * abs(wv), (g, w)
+            else:
+                assert g[key] == wv, (g, w)
+
+
+def _cli_records(main, argv, out):
+    assert main([*argv, "--log-json", out]) == 0
+    with open(out) as f:
+        return json.load(f)
+
+
+@pytest.mark.parametrize(
+    "cmd, flags",
+    [
+        ("run", ["--preconditioner", "block_triangular", "--initial-guess", "stokes"]),
+        ("stokes", ["--dtype", "float64"]),
+    ],
+)
+def test_cli_matches_jax(cmd, flags, tmp_path, capsys):
+    mesh = _write(tmp_path, "sq.msh", _msh_v2(j_unit_square(4)))
+    argv = [cmd, "--mesh", mesh, *flags]
+    if cmd == "run":
+        argv += ["--config", _run_config(tmp_path)]
+    want = _cli_records(j_main, argv, str(tmp_path / "jax.json"))
+    got = _cli_records(t_main, [*argv, "--device", "cpu"], str(tmp_path / "port.json"))
+    assert any(r.get("event") == "gmres" and r.get("system") == "stokes" for r in got)
+    if cmd == "run":
+        assert sum(r.get("event") == "time_step" for r in got) == 2
+    _same_records(got, want)
+    assert "GMRES iterations" in capsys.readouterr().out
+
+
+def test_cli_info_matches_jax(tmp_path, capsys):
+    mesh = _write(tmp_path, "sq.msh", _msh_v2(j_unit_square(4)))
+    assert j_main(["info", "--mesh", mesh]) == 0
+    want = capsys.readouterr().out
+    assert t_main(["info", "--mesh", mesh]) == 0
+    assert capsys.readouterr().out == want and '"n_total"' in want
+
+
+@pytest.mark.parametrize(
+    "flags, exc, match",
+    [
+        (["--output-dir", "out"], NotImplementedError, "h5py"),
+        (["--devices", "2"], NotImplementedError, "multi-GPU"),
+        (["--distributed"], NotImplementedError, "multi-GPU"),
+        (["--device", "cuda"], RuntimeError, "no CUDA device"),
+    ],
+)
+def test_cli_refuses_what_is_not_ported(flags, exc, match, tmp_path):
+    if flags[0] == "--device" and torch.cuda.is_available():
+        pytest.skip("a card is visible")
+    mesh = _write(tmp_path, "sq.msh", _msh_v2(j_unit_square(2)))
+    device = [] if flags[0] == "--device" else ["--device", "cpu"]
+    for cmd in ("run", "stokes"):
+        with pytest.raises(exc, match=match):
+            t_main([cmd, "--mesh", mesh, *flags, *device])
+
+
+def _flat_config(cls, T):
+    cfg = cls()
+    cfg.dtype = "float64"
+    cfg.T, cfg.dt = T, 0.05
+    cfg.inlet_tags, cfg.neumann_tags, cfg.wall_tags = (0,), (1,), (2, 3)
+    cfg.inlet.freeze_time, cfg.inlet.H, cfg.inlet.u_m = False, 1.0, 1.0
+    return cfg
+
+
+def _as_numpy(sol):
+    return sol.detach().cpu().numpy() if isinstance(sol, torch.Tensor) else np.asarray(sol)
+
+
+def test_functionals_match_jax():
+    js = JSolver(j_unit_square(4), _flat_config(JConfig, 0.05), log=JLog(verbose=False))
+    ts = NavierStokesSolver(unit_square(4), _flat_config(SolverConfig, 0.05),
+                            log=RunLog(verbose=False), device="cpu")
+    js.setup()
+    ts.setup()
+    rng = np.random.default_rng(4)
+    u, uo = rng.standard_normal(ts.dofs.n_total), rng.standard_normal(ts.dofs.n_total)
+    ju, juo, tu, tuo = jnp.asarray(u), jnp.asarray(uo), torch.as_tensor(u), torch.as_tensor(uo)
+
+    def close(got, want):
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12 * np.abs(want).max())
+
+    for tags in ((2,), (2, 3)):
+        jr, tr = jf.BoundaryReaction(js, tags), tf.BoundaryReaction(ts, tags)
+        close(tr.force(tu), jr.force(ju))
+        close(tr.force(tu, tuo, 0.1), jr.force(ju, juo, 0.1))
+        close(tr.coefficients(tu, 1.5, 0.1), jr.coefficients(ju, 1.5, 0.1))
+        jb = jf.BoundaryForce(js.dofs, tags, nu=0.3, rho=1.2)
+        tb = tf.BoundaryForce(ts.dofs, tags, nu=0.3, rho=1.2)
+        close(tb.force(tu), jb.force(ju))
+        close(tb.force(u), jb.force(u))
+        close(tb.coefficients(tu, 1.5, 0.1), jb.coefficients(ju, 1.5, 0.1))
+    close(tf.divergence_l2(ts.ctx, tu), jf.divergence_l2(js.ctx, ju))
+    lift = np.sin(2 * np.pi * 3.1 * 0.01 * np.arange(200)) + 0.1 * rng.standard_normal(200)
+    assert tf.strouhal_number(lift, 0.01, 0.1, 1.0) == jf.strouhal_number(lift, 0.01, 0.1, 1.0)
+
+
+def test_mesh_path_hooks_resume_and_coords_match_jax(tmp_path):
+    """The port takes a .msh path, calls its output hooks at step 0 and
+    after each step, and resumes from its current state, as JAX does."""
+    path = _write(tmp_path, "sq.msh", _msh_v2(j_unit_square(4)))
+    runs = {}
+    for key, Solver, Config, Log, kw, mesh in (
+        ("jax", JSolver, JConfig, JLog, {}, j_msh.read_msh(path, backend="python")),
+        ("port", NavierStokesSolver, SolverConfig, RunLog, dict(device="cpu"), path),
+    ):
+        log = Log(verbose=False)
+        s = Solver(mesh, _flat_config(Config, 0.05), log=log, **kw)
+        seen = []
+        s.output_hooks.append(
+            lambda step, t, sol, seen=seen: seen.append((step, t, _as_numpy(sol).copy()))
+        )
+        s.solve()
+        s.cfg.T = 0.15
+        s.solve(resume=True)
+        runs[key] = (s, log, seen)
+    (js, jlog, jseen), (ts, tlog, tseen) = runs["jax"], runs["port"]
+    assert [(st, t) for st, t, _ in tseen] == [(st, t) for st, t, _ in jseen]
+    assert [st for st, _, _ in tseen] == [0, 1, 2, 3]
+    for (_, _, g), (_, _, w) in zip(tseen, jseen):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-9)
+    steps = [r["step"] for r in tlog.records if r.get("event") == "time_step"]
+    assert steps == [1, 2, 3]
+    _same_records(tlog.records, jlog.records)
+    np.testing.assert_array_equal(ts.velocity_coords(), js.velocity_coords())
+    np.testing.assert_array_equal(ts.velocity_coords(real_only=True),
+                                  js.velocity_coords(real_only=True))

@@ -7,6 +7,7 @@ This file imports no JAX, so it runs on a machine with a GPU and no JAX:
 Without a visible GPU every test skips.  Tolerances: K3 (gather) is a copy
 and must be bit-equal; the others agree to 1e-5 of ||y||_inf (float32 sums
 in another order, and shared-memory atomics in a run-dependent order).
+K5, the tensor-core probe, is held to 1e-5 of its output's largest entry.
 """
 
 import functools
@@ -19,6 +20,7 @@ from navier_stokes_tpu_torch.fem.dofs import make_dofs, renumber_blocked
 from navier_stokes_tpu_torch.mesh.generate import unit_square
 from navier_stokes_tpu_torch.mesh.mesh import refine_uniform
 from navier_stokes_tpu_torch.ops import windowed as tw
+from navier_stokes_tpu_torch.scripts import mxu_probe as mxu
 
 LAYOUTS = {
     "blocked-h1": dict(n=6, cpb=16, Bc=128),
@@ -91,6 +93,23 @@ def test_kernel_matches_plain(name, op, cuda_device):
     assert launched.launches == 1
     err = (got.double() - want.double()).abs().max().item()
     assert err <= 1e-5 * want.double().abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", mxu.M_VALUES)
+def test_mxu_probe_kernel_matches_plain(M, cuda_device):
+    """K5, the tensor-core probe: bf16 products accumulated in float32 in
+    another order, within 1e-5 of the plain output's largest entry."""
+    g = torch.Generator().manual_seed(M)
+    a = torch.randn((8 * M, mxu.K), generator=g).to(torch.bfloat16).to(cuda_device)
+    b = torch.randn((mxu.K, mxu.N), generator=g).to(torch.bfloat16).to(cuda_device)
+    before = mxu.mxu_probe.launches
+    got = mxu.mxu_probe(a, b, M, 64)
+    want = mxu.mxu_probe_reference(a, b, M, 64)
+    torch.cuda.synchronize()
+    assert mxu.mxu_probe.launches == before + 1
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
 
 
 @pytest.mark.cuda

@@ -114,16 +114,20 @@ def test_forced_newton_step_matches_jax_f64():
     np.testing.assert_allclose(tout[0].numpy(), np.asarray(jout[0]), rtol=0, atol=1e-9)
 
 
+def _forcing_xt(x, t):
+    return np.zeros_like(x)
+
+
 @pytest.mark.parametrize(
-    "change, match",
+    "change, solver_kw, match",
     [
-        (dict(matvec="flat"), "windowed"),
-        (dict(preconditioner="block_triangular"), "not ported"),
-        (dict(kp_deflate=2), "kp_deflate"),
+        ({}, dict(n_devices=2), "multi-device"),
+        ({}, dict(forcing=_forcing_xt), "time-dependent forcing"),
+        (dict(kp_deflate=2), {}, "kp_deflate"),
     ],
 )
-def test_unported_options_raise(change, match):
+def test_unported_options_raise(change, solver_kw, match):
     cfg = _config(SolverConfig, "bdf1", **change)
-    s = NavierStokesSolver(unit_square(3), cfg, log=RunLog(verbose=False), device="cpu")
     with pytest.raises(NotImplementedError, match=match):
-        s.setup()
+        NavierStokesSolver(unit_square(3), cfg, log=RunLog(verbose=False), device="cpu",
+                           **solver_kw).setup()
