@@ -7,12 +7,17 @@ Phases (any failure exits non-zero; there is no CPU fallback):
   2. build      nvcc builds navier_stokes_tpu_torch/csrc/windowed.cu and
                 csrc/mxu_probe.cu for sm_90a, both at once
   3. kernels    each windowed kernel (K1-K4) against its plain torch version
-                at the shapes of the 102,400-cell channel, with warm
-                CUDA-event times
+                at the shapes of the 102,400-cell channel; CUDA-event times
+                with the inputs out of L2 (and warm), host time a call, the
+                bound in bytes and the share of it reached, one PyTorch call
+                of the same function where there is one (K3, K4), the packed
+                position tables against _abs_loc, and K1 / K2 replayed from
+                a CUDA graph
   4. slice      NavierStokesSolver on that channel in float32: 3 BDF1 steps of
                 the windowed, Cahouet-Chabard-preconditioned Newton solve;
                 every Newton loop and every tangent solve must converge
-  5. newton     one forced Newton step at a seeded state
+  5. newton     forced Newton steps at a seeded state; each kernel's
+                launches in one of them
   6. launches   each kernel's launch count during phase 4 (all must be > 0)
   7. parity     unit_square(6): float32 on the GPU (kernels) against float64
                 on the CPU (plain versions), Newton residuals per step
@@ -31,7 +36,17 @@ Phases (any failure exits non-zero; there is no CPU fallback):
 
 Files the phases write (.msh, configs, run logs) go to build/chip_smoke/.
 The next-to-last line is the kernels' JSON record, and the last line is
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}.  In the record, per kernel: ``launches`` on
+the main path (phase 4; K5: its entry point), ``launches_per_newton_step``
+(phase 5), ``max_abs_err`` against the plain version, ``ms`` the wrapper's
+CUDA-event time with its inputs out of L2 (``warm_ms`` in a loop on the
+same inputs, ``host_us`` the host's time to queue a call), ``plain_ms`` the
+plain version's, ``bound_ms`` the least time the card could take (the bytes
+that must move over 3.35 TB/s, or the operations over 989 TFLOP/s:
+``bound_by``), ``library_ms`` one PyTorch call computing the same function
+(null where there is none; never used by the package; for K5 the probe's
+products as warm torch.matmul calls queued one by one, ``library_graph_ms``
+the same calls replayed from a CUDA graph).
 """
 
 import contextlib
@@ -54,7 +69,10 @@ from navier_stokes_tpu_torch.fem.assembly import assemble_navier_stokes  # noqa:
 from navier_stokes_tpu_torch.fem.windowed_assembly import assemble_windowed  # noqa: E402
 from navier_stokes_tpu_torch.la import operators as ops  # noqa: E402
 from navier_stokes_tpu_torch.ops import windowed as W  # noqa: E402
+from navier_stokes_tpu_torch.scripts import kernel_bench as kb  # noqa: E402
 from navier_stokes_tpu_torch.scripts import mxu_probe as mxu  # noqa: E402
+from navier_stokes_tpu_torch.scripts.kernel_bench import (  # noqa: E402
+    channel_config as config, cuda_ms, cuda_ms_cold, host_us)
 
 DEV = torch.device("cuda:0")
 KERNEL_SOURCE = "navier_stokes_tpu_torch/csrc/windowed.cu"
@@ -85,32 +103,12 @@ REL_TOL = 1e-5
 # to 1e-6 / 1e-9, so the rows are set by the discretization, and float32
 # rounding through the solve stays near 1e-6 of the entry row)
 PARITY_TOL = 1e-4
+# the card's published peaks (H100 SXM): device memory and dense bf16
+PEAK_BYTES_PER_S, PEAK_BF16_FLOPS = 3.35e12, 989e12
 
 
 def phase(name):
     print(f"\n== {name}", flush=True)
-
-
-def config(dtype="float32", rel_tol=1e-2, cells_per_block=448):
-    cfg = nt.SolverConfig()
-    cfg.dtype = dtype
-    cfg.T = 0.15  # 3 BDF1 steps at dt = 0.05
-    cfg.inlet_tags, cfg.neumann_tags, cfg.wall_tags = (0,), (1,), (2, 3)
-    cfg.inlet.freeze_time, cfg.inlet.H = False, 4.0  # non-zero inflow
-    cfg.krylov.matvec = "windowed"
-    cfg.krylov.preconditioner = "cahouet_chabard"
-    cfg.krylov.max_iters = 2000
-    cfg.krylov.rel_tol = rel_tol
-    cfg.krylov.cells_per_block = cells_per_block
-    # the corrected formulation (as scripts/trajectory_parity.py runs the
-    # dynamic inlet): with the reference's quirks the tangent is not the
-    # residual's derivative, and this channel's Newton loop diverges from
-    # step 2 on, in float64 with the plain versions as well
-    cfg.convection_form = "standard"
-    cfg.include_continuity_residual = True
-    cfg.jacobian_mass_rho = True
-    cfg.newton.max_iters = 20
-    return cfg
 
 
 def trajectory(records):
@@ -242,34 +240,161 @@ def assembled(s, u, w):
     return r, ops.matvec(op, w)
 
 
-def cuda_ms(fn, reps=20):
-    torch.cuda.synchronize()
-    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
-
-
-def compare(name, kernel, plain, exact=False):
-    """Kernel vs plain on the same inputs; warm times in turns (plain,
-    kernel, kernel, plain).  Returns the record of the comparison."""
+def compare(name, kernel, plain, exact=False, bound_bytes=None, library=None):
+    """Kernel vs plain on the same inputs, then times in turns (plain,
+    kernel, kernel, plain) with the inputs out of L2, the kernel's warm time
+    and host time a call, and ``library`` (one PyTorch call of the same
+    function) if given.  With ``bound_bytes`` the share of the bound reached
+    is checked: over 1.0 the count of bytes or the timing is wrong."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     err = float((got.double() - want.double()).abs().max())
     scale = float(want.double().abs().max())
     ok = torch.equal(got, want) if exact else err <= REL_TOL * scale
-    p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)
+    p1, k1, k2, p2 = (cuda_ms_cold(plain), cuda_ms_cold(kernel), cuda_ms_cold(kernel),
+                      cuda_ms_cold(plain))
     rec = dict(max_abs_err=err, rel_err=err / max(scale, 1e-300),
-               ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2)
-    print(f"  {name:<34} max|err| {err:.3e} (rel {rec['rel_err']:.2e}, "
-          f"{'bit-equal required' if exact else f'tol {REL_TOL:g}'}) "
-          f"kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms", flush=True)
+               ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, warm_ms=cuda_ms(kernel),
+               host_us=host_us(kernel), library_ms=None)
+    line = (f"  {name:<30} max|err| {err:.3e} (rel {rec['rel_err']:.2e}, "
+            f"{'bit-equal required' if exact else f'tol {REL_TOL:g}'}) "
+            f"kernel {rec['ms']:.4f} ms (warm {rec['warm_ms']:.4f}, host "
+            f"{rec['host_us']:.1f} us a call)  plain {rec['plain_ms']:.4f} ms")
+    if library is not None:
+        rec["library_ms"] = cuda_ms_cold(library)
+        line += f"  library {rec['library_ms']:.4f} ms"
+    if bound_bytes is not None:
+        rec.update(bound_ms=bound_bytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes",
+                   bound_bytes=bound_bytes)
+        rec["share"] = rec["bound_ms"] / rec["ms"]
+        line += (f"  bound {rec['bound_ms']:.4f} ms ({bound_bytes / 1e6:.1f} MB), "
+                 f"share {rec['share']:.3f}")
+    print(line, flush=True)
     if not ok:
         raise RuntimeError(f"{name}: kernel disagrees with its plain version")
+    if bound_bytes is not None and rec["share"] > 1.0:
+        raise RuntimeError(f"{name}: faster than its bound; the bytes or the timing are wrong")
     return rec
+
+
+def bound_bytes_of(lay, ops):
+    """Bytes each wrapper call must move at this layout, every input read
+    once and every output written once: of A the used rows' values in the
+    occupied slots; of the packed position tables the occupied slots'
+    entries of the spaces the call touches, with their subwindow offsets and
+    the slot counts; the vectors.  K3 writes its whole [nli, ncd] output."""
+    pos_v, _, cnt = W.pack_positions(lay)
+    n_occ, idx = int(cnt.sum()), pos_v.element_size()
+    tables = {"v": lay.k_v * n_occ * idx + lay.offs_v.numel() * 4,
+              "p": lay.k_p * n_occ * idx + lay.offs_p.numel() * 4}
+    size = {"v": lay.n_u, "p": lay.n_ps}
+    rows = {"v": lay.dim * lay.k_v, "p": lay.k_p}
+
+    def matvec(ins, outs, elt):
+        spaces = set(ins) | set(outs)
+        return (sum(rows[a] for a in ins) * sum(rows[a] for a in outs) * n_occ * elt
+                + sum(tables[a] for a in spaces) + cnt.numel() * 4
+                + 4 * sum(size[a] for a in ins) + 4 * sum(size[a] for a in outs))
+
+    n = lay.n_u + lay.n_ps
+    both = tables["v"] + tables["p"] + cnt.numel() * 4
+    out = {
+        "K3": 4 * n + both + 4 * lay.nli * lay.ncd,
+        "K4": 4 * lay.nl * n_occ + both + 4 * n,
+        "K1 f32": matvec("vp", "vp", 4),
+        "K1": matvec("vp", "vp", 2),
+    }
+    for key, (A_sub, _) in ops["blocks"].items():
+        i, o = key.split("->")
+        out[f"K2 {key}"] = matvec(i, o, A_sub.element_size())
+    return out
+
+
+def flat_dof_index(lay):
+    """[nli * ncd] int64: the entry of the extended vector [x, 0] that
+    X[l, s] copies (n_total for padded slots, rows past nl and window
+    positions off the vector's ends).  For the library yardsticks of K3
+    (index_select) and K4 (index_add_) only."""
+    n = lay.n_u + lay.n_ps
+    pos_v, pos_p, _ = W.pack_positions(lay)
+    b = torch.arange(lay.nb, device=lay.device)[:, None, None]
+    rows = []
+    for pos, OW, h, size, starts in (
+            (pos_v, lay.OWv, lay.hv, lay.n_vs, [c * lay.n_vs for c in range(lay.dim)]),
+            (pos_p, lay.OWp, lay.hp, lay.n_ps, [lay.n_u])):
+        p = W.unpack_positions(pos)  # [nb, k, Bmax]
+        r = (b - h) * OW + p
+        ok = (p >= 0) & (r >= 0) & (r < size)
+        for start in starts:
+            rows.append(torch.where(ok, r + start, n).permute(1, 0, 2).reshape(-1, lay.ncd))
+    rows.append(torch.full((lay.nli - lay.nl, lay.ncd), n, device=lay.device))
+    return torch.cat(rows).reshape(-1)
+
+
+def check_packed_tables(lay):
+    """The packed position tables on the card against _abs_loc."""
+    pos_v, pos_p, cnt = lay._packed.pos_v, lay._packed.pos_p, lay._packed.cnt
+    for pos, hi, lo, offs, RV, RW, k, OW, h in (
+            (pos_v, lay.loc_v_hi, lay.loc_v_lo, lay.offs_v, lay.RVv, lay.RWv, lay.k_v,
+             lay.OWv, lay.hv),
+            (pos_p, lay.loc_p_hi, lay.loc_p_lo, lay.offs_p, lay.RVp, lay.RWp, lay.k_p,
+             lay.OWp, lay.hp)):
+        want = W._abs_loc(lay, hi, lo, offs, RV, RW, k)
+        want = torch.where(want >= min(RW * 128, (2 * h + 1) * OW), -1, want)
+        if not torch.equal(W.unpack_positions(pos).transpose(1, 2), want):
+            raise RuntimeError("packed position table differs from _abs_loc")
+    print(f"  packed position tables equal _abs_loc ({pos_v.dtype}, "
+          f"{(pos_v.numel() + pos_p.numel()) * pos_v.element_size() / 1e6:.1f} MB; "
+          f"occupied slots {int(cnt.sum())} of {lay.ncd})", flush=True)
+
+
+def matmul_loop_ms(a, b, M, iters):
+    """(queued, replayed) warm CUDA-event times in ms of ``iters`` bf16
+    torch.matmul calls a_panel(i % 8) @ b, the products of one probe launch:
+    queued one by one from the host, and replayed from a CUDA graph of the
+    same loop (no host time between the products)."""
+    panels = [a[p * M:(p + 1) * M] for p in range(8)]
+    out = torch.empty((M, b.shape[1]), dtype=torch.bfloat16, device=a.device)
+
+    def loop():
+        for i in range(iters):
+            torch.matmul(panels[i % 8], b, out=out)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the library's handle and workspace, before the capture
+        loop()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        loop()
+    graph.replay()
+    return cuda_ms(loop), cuda_ms(graph.replay)
+
+
+def check_graph_replay(name, call, x):
+    """Capture one wrapper call in a CUDA graph, write new values into its
+    input vector, replay, and hold the output against an eager call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the capture stream's scratch, before the capture
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        y = call()
+    x.copy_(torch.roll(x, 1))
+    graph.replay()
+    torch.cuda.synchronize()
+    want = call()
+    torch.cuda.synchronize()
+    err = float((y.double() - want.double()).abs().max())
+    scale = float(want.double().abs().max())
+    replay_ms = cuda_ms(graph.replay)
+    print(f"  {name}: graph replay vs eager max|err| {err:.3e} (rel {err / scale:.2e}, "
+          f"tol {REL_TOL:g}); replay {replay_ms:.4f} ms warm", flush=True)
+    if not err <= REL_TOL * scale:
+        raise RuntimeError(f"{name}: graph replay disagrees with an eager call")
 
 
 def main():
@@ -300,44 +425,37 @@ def main():
     solver.setup()
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
-    lay, wa = solver._win_layout, solver._wassembly
+    lay = solver._win_layout
     print(f"  cells {mesh.n_cells}  n_total {solver.dofs.n_total}  nb {lay.nb}  "
           f"Bmax {lay.Bmax}  nchunks {lay.nchunks}  ncd {lay.ncd}  OWv/OWp {lay.OWv}/"
           f"{lay.OWp}  hv/hp {lay.hv}/{lay.hp}  nl/nli {lay.nl}/{lay.nli}  "
           f"setup {t_setup:.2f} s", flush=True)
-    rng = np.random.default_rng(1)
     n = solver.dofs.n_total
-    vec = lambda: torch.as_tensor(rng.standard_normal(n), dtype=torch.float32, device=DEV)
-    x, u = vec(), 0.05 * vec()
-    A_t, _, _ = assemble_windowed(wa, lay, u, torch.zeros_like(u), dt=0.05, nu=1e-3, rho=1.0)
-    R = torch.as_tensor(rng.standard_normal((lay.nli, lay.ncd)), dtype=torch.float32,
-                        device=DEV)
-    A_bf = A_t.to(torch.bfloat16)
-    n_u = lay.n_u
-    blocks = {
-        "v->v": (W.slice_block(lay, A_t, "v", "v").to(torch.bfloat16), x[:n_u]),
-        "v->p": (W.slice_block(lay, A_t, "v", "p").to(torch.bfloat16), x[:n_u]),
-        "p->p": (wa.Kp_t.to(torch.bfloat16), x[n_u:]),
-    }
+    calls, ops_ = kb.channel_operands(solver)
+    x, R = ops_["x"], ops_["R"]
+    check_packed_tables(lay)
+    # one PyTorch call of the same function, for K3 and K4 (yardsticks only)
+    dof_index = flat_dof_index(lay)
+    x_ext = torch.cat([x, x.new_zeros(1)])
+    lib_gather = lambda: torch.index_select(x_ext, 0, dof_index).view(lay.nli, lay.ncd)
+    lib_scatter = lambda: x.new_zeros(n + 1).index_add_(0, dof_index, R.reshape(-1))[:n]
+    if not torch.equal(lib_gather(), W._gather_reference(lay, x)):
+        raise RuntimeError("the index_select yardstick is not K3's function")
+    want = W._scatter_reference(lay, R)
+    if float((lib_scatter() - want).abs().max()) > REL_TOL * float(want.abs().max()):
+        raise RuntimeError("the index_add_ yardstick is not K4's function")
+    bounds = bound_bytes_of(lay, ops_)
+    titles = {"K3": "K3 gather", "K4": "K4 scatter", "K1 f32": "K1 matvec, f32 A",
+              "K1": "K1 matvec, bf16 A (main path)"}
+    library = {"K3": lib_gather, "K4": lib_scatter}
     recs = {
-        "K3": compare("K3 gather", lambda: W.windowed_gather(lay, x),
-                      lambda: W._gather_reference(lay, x), exact=True),
-        "K4": compare("K4 scatter", lambda: W.windowed_scatter(lay, R),
-                      lambda: W._scatter_reference(lay, R)),
-        "K1 f32": compare("K1 matvec, f32 A", lambda: W.windowed_matvec(lay, A_t, x),
-                          lambda: W.windowed_matvec_reference(lay, A_t, x)),
-        "K1": compare("K1 matvec, bf16 A (main path)", lambda: W.windowed_matvec(lay, A_bf, x),
-                      lambda: W.windowed_matvec_reference(lay, A_bf, x)),
+        key: compare(titles.get(key, f"{key}, bf16 A"), kernel, plain, exact=key == "K3",
+                     bound_bytes=bounds[key], library=library.get(key))
+        for key, (kernel, plain) in calls.items()
     }
-    for key, (A_sub, xs) in blocks.items():
-        i, o = key.split("->")
-        recs[f"K2 {key}"] = compare(
-            f"K2 block {key}, bf16 A",
-            lambda A_sub=A_sub, xs=xs, i=i, o=o: W.windowed_matvec_block(
-                lay, A_sub, xs, in_spaces=i, out_spaces=o),
-            lambda A_sub=A_sub, xs=xs, i=i, o=o: W._block_reference(lay, A_sub, xs, i, o),
-        )
-    del A_t, A_bf, R, blocks
+    check_graph_replay("K2 v->v", calls["K2 v->v"][0], x)
+    check_graph_replay("K1 bf16", calls["K1"][0], x)
+    del calls, ops_, x, R, x_ext, dof_index, lib_gather, lib_scatter, library, want
 
     phase("4 slice: 3 BDF1 steps, float32, windowed + Cahouet-Chabard")
     W.reset_launch_counts()
@@ -364,17 +482,20 @@ def main():
                               device=DEV)
     times = []
     for _ in range(3):
+        W.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = solver._newton_iteration(state, torch.zeros_like(state), bc_vals,
                                        solver.cfg.dt, True)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        step_launches = {k.split()[0]: v for k, v in W.launch_counts().items()}
         print(f"  forced Newton step: {times[-1] * 1e3:.1f} ms, ||r|| {out[1]:.6e}, "
               f"GMRES iterations {out[2]}, converged {out[3]}", flush=True)
         if not out[3]:
             raise RuntimeError("forced Newton step: tangent solve did not converge")
-    print(f"  median {np.median(times) * 1e3:.1f} ms", flush=True)
+    print(f"  median {np.median(times) * 1e3:.1f} ms; launches in one step: {step_launches}",
+          flush=True)
 
     phase("6 kernel launches during phase 4")
     for k, v in launches.items():
@@ -411,6 +532,26 @@ def main():
             lambda: mxu.mxu_probe(a, b, M, PROBE_CHECK_ITERS),
             lambda: mxu.mxu_probe_reference(a, b, M, PROBE_CHECK_ITERS),
         )
+    # K5's bound and yardstick at the largest M: the products' operations over
+    # the tensor cores' peak (or the operands' bytes, if that took longer), and
+    # the same PROBE_CHECK_ITERS products as bf16 torch.matmul calls over the
+    # rotating panels (a and b are the last M's operands)
+    m_max = max(mxu.M_VALUES)
+    k5 = probe_recs[m_max]
+    flops = 2.0 * m_max * mxu.K * mxu.N * PROBE_CHECK_ITERS
+    moved = a.numel() * 2 + b.numel() * 2 + m_max * mxu.N * 4
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, moved / PEAK_BYTES_PER_S * 1e3
+    k5.update(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
+    k5["share"] = k5["bound_ms"] / k5["ms"]
+    k5["library_ms"], k5["library_graph_ms"] = matmul_loop_ms(a, b, m_max, PROBE_CHECK_ITERS)
+    print(f"  K5 M={m_max}: bound {k5['bound_ms']:.5f} ms by {k5['bound_by']} "
+          f"({flops / 1e9:.2f} GFLOP), share {k5['share']:.4f}; {PROBE_CHECK_ITERS} bf16 "
+          f"torch.matmul calls, warm: queued {k5['library_ms']:.4f} ms, replayed from a "
+          f"CUDA graph {k5['library_graph_ms']:.4f} ms; the kernel warm {k5['warm_ms']:.4f} ms "
+          f"(a product: matmul {k5['library_graph_ms'] / PROBE_CHECK_ITERS * 1e3:.2f} us, "
+          f"kernel {k5['warm_ms'] / PROBE_CHECK_ITERS * 1e3:.2f} us)", flush=True)
+    if k5["share"] > 1.0:
+        raise RuntimeError("K5: faster than its bound; the count or the timing is wrong")
     mxu.mxu_probe.launches = 0
     print(f"  python -m navier_stokes_tpu_torch.scripts.mxu_probe --iters {PROBE_ITERS}",
           flush=True)
@@ -540,26 +681,30 @@ def main():
     if gap > FLAT_TOL:
         raise RuntimeError("flat and windowed entry residuals disagree")
 
-    kernels = []
     names = {"K1": "K1 windowed_matvec", "K2": "K2 windowed_matvec_block",
              "K3": "K3 windowed_gather", "K4": "K4 windowed_scatter"}
     counts = {k.split()[0]: v for k, v in launches.items()}
     timed = {"K1": "K1", "K2": "K2 v->v", "K3": "K3", "K4": "K4"}
+    measured = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "warm_ms", "host_us")
+    kernels = []
     for k in ("K1", "K2", "K3", "K4"):
-        errs = [r["max_abs_err"] for key, r in recs.items() if key.split()[0] == k]
-        rec = recs[timed[k]]
-        kernels.append(dict(
+        mine = {key: r for key, r in recs.items() if key.split()[0] == k}
+        entry = dict(
             name=names[k], route="cuda", source=KERNEL_SOURCE, replaces=REPLACES[k],
-            launches=counts[k], max_abs_err=max(errs), ms=rec["ms"],
-            plain_ms=rec["plain_ms"], timed=timed[k],
-        ))
-    m_max = max(mxu.M_VALUES)
+            launches=counts[k], launches_per_newton_step=step_launches[k],
+            max_abs_err=max(r["max_abs_err"] for r in mine.values()), timed=timed[k],
+            **{key: recs[timed[k]][key] for key in measured},
+        )
+        if len(mine) > 1:  # the other operands of the same kernel
+            entry["also"] = {key: {m: r[m] for m in measured} for key, r in mine.items()
+                             if key != timed[k]}
+        kernels.append(entry)
     kernels.append(dict(
         name="K5 mxu_probe", route="cuda", source=PROBE_SOURCE, replaces=REPLACES["K5"],
-        launches=probe_launches,
+        launches=probe_launches, launches_per_newton_step=0,
         max_abs_err=max(r["max_abs_err"] for r in probe_recs.values()),
-        ms=probe_recs[m_max]["ms"], plain_ms=probe_recs[m_max]["plain_ms"],
         timed=f"M={m_max}, {PROBE_CHECK_ITERS} products",
+        library_graph_ms=k5["library_graph_ms"], **{key: k5[key] for key in measured},
     ))
     print()
     print(smi)  # the card's name and power limit, as nvidia-smi gives them

@@ -2,41 +2,76 @@
 //
 // These replace the Pallas TPU kernels of navier_stokes_tpu/ops/windowed.py:
 //
-//   K1  ns_matvec, spaces vp->vp   <- _pallas_run(mode="matvec")   (windowed_matvec)
-//   K2  ns_matvec, v->v, v->p, p->p <- _pallas_block               (windowed_matvec_block)
-//   K3  ns_gather                  <- _pallas_run(mode="gather")   (windowed_gather)
-//   K4  ns_scatter                 <- _pallas_run(mode="scatter")  (windowed_scatter)
+//   K1  ns_matvec, spaces vp->vp    <- _pallas_run(mode="matvec")   (windowed_matvec)
+//   K2  ns_matvec, v->v, v->p, p->p <- _pallas_block                (windowed_matvec_block)
+//   K3  ns_gather                   <- _pallas_run(mode="gather")   (windowed_gather)
+//   K4  ns_scatter                  <- _pallas_run(mode="scatter")  (windowed_scatter)
 //
 // What they compute (unchanged from the TPU kernels): the layout puts every
 // cell in exactly one home block b of nb blocks, in slot s = b*Bmax + j,
-// cells on the last (fastest) axis.  Block b's WINDOW is the (2h+1)*OW range
-// of a space's planar vector around the block's owned range [b*OW, (b+1)*OW).
-// Local dof l of slot s sits at window position
-//     pos = (offs[b, c] + hi[b, l, j]) * 128 + lo[b, l, j],   c = j / Bc,
-// a sentinel when hi >= RVc or lo >= 128 (padded slots).  Window position pos
+// cells on the last (fastest) axis; a block's slots are cut into nchunks
+// chunks of Bc.  Block b's WINDOW is the (2h+1)*OW range of a space's planar
+// vector around the block's owned range [b*OW, (b+1)*OW): window position pos
 // of block b is global index (b - h)*OW + pos of the space, zero outside the
-// vector (the TPU path's _pad_edges zero blocks).
+// vector.  All of chunk c's positions lie in the SUBWINDOW of RV*128 entries
+// that starts at offs[b, c]*128.
 //
-// What they do not copy: the TPU kernels select window values with one-hot
-// MXU matmuls over bf16 value splits ("passes"), tile rows for VMEM, and
-// prefetch per-row offset tables into SMEM.  On this card an indexed load
-// from L2 and an f32 FMA give the same sums, so each thread simply gathers
-// its slot's values, contracts them with the slot's column of A in f32, and
-// adds the result into its block's window held in shared memory.
+// Positions come from ONE packed table per space, pos[nb, k, Bmax]: the
+// absolute window position of local dof l of slot (b, j), 16 bits wide where
+// the windows allow it, with a sentinel for padded slots.  The wrapper derives
+// it once per layout from the TPU-shaped (hi, lo, offs) tables, which no
+// kernel reads.  cnt[b] is one past block b's last occupied slot; the layout
+// sorts padded slots last, so slots j >= cnt[b] need no work and no bytes.
 //
-// Bound: bytes.  A full matvec streams A once (nl*nli*ncd values: 169 MB in
-// f32, 84 MB in bf16 at the 102,400-cell channel) and does 2 flops per value
-// read, far below the ~20 flops/byte where this card stops being memory
-// bound.  A is laid out cells-last, so one thread per slot reads A coalesced
-// (a warp reads 32 consecutive cells of one (j, i) entry); bf16 storage
-// halves the stream and is widened with __bfloat162float; the gathered x
-// values and the window accumulators never leave registers and shared
-// memory.  The window merge across neighbouring blocks ((2h+1) shifted adds)
-// stays in torch (_combine_windows), in a fixed order.
+// Bound: bytes, for all four.  The matvec does 2 flops per value of A, far
+// below the card's ~20 float32 flops per byte.  At the 102,400-cell channel
+// (nb 229, Bmax 768, Bc 256, ncd 175,872, bf16 A, 3.35 TB/s), counting the
+// occupied slots' columns of the used rows of A, the packed tables and the
+// vectors, each once:
+//   K1       15x15 values a cell: 46 MB in occupied slots (79 MB over all
+//            slots)                                         ~15 us (~25 us)
+//   K2 v->v  12x12: 29 MB (51 MB)                           ~10 us (~16 us)
+//   K2 v->p  12x3: 7 MB (13 MB);  p->p 3x3: 1.8 MB (3.2 MB)  ~3 us, ~1 us
+//   K3, K4   a [16, ncd] float32 array, the tables, a vector: ~4-5 us
 //
-// Sums over one window are shared-memory atomicAdds, so their order changes
-// from run to run: the results vary by a few ulps of the window entries, not
-// more.  Everything computes in float32.
+// What the matvec's design does about it:
+//   * One CUDA block per (layout block, chunk), one thread per slot, chunks
+//     of all blocks in one grid, the full chunks first: the grid does not
+//     depend on nb and the light chunks fill the tail.  Chunks without an
+//     occupied slot end at once and write nothing.
+//   * A never passes through registers on its way in.  Every thread streams
+//     its share of the chunk's part of A, one input column (n_out rows of Bc
+//     values) a stage, through a ring of shared-memory stages with 16-byte
+//     cp.async copies in commit groups; only the occupied slots' bytes and
+//     only the used rows are copied.  (1-D cp.async.bulk row copies that
+//     complete on an mbarrier were measured first and ran at the same speed:
+//     the copy engine is not what holds the kernel back.)
+//   * The chunk's subwindow of x is copied to shared memory once, with
+//     cp.async too, so no thread waits on a load while the first columns of A
+//     are on their way; the 15 gathers a slot hit shared memory; the same
+//     buffer then becomes the chunk's output subwindow, summed with
+//     shared-memory atomicAdds.
+//   * A block's phases (tables and x in, the stream of A, the sums, the
+//     subwindow out) run one after another, so what keeps the memory system
+//     busy is the number of blocks resident on an SM and the columns each
+//     has in flight.  Shared memory decides both, so the ring has two stages
+//     of its own and, while A streams, runs on into the buffer that holds x
+//     before and the output subwindow after (idle in between): 7 columns
+//     deep at the channel's shapes with bf16 A, at 4 resident blocks.
+//   * Each chunk writes its subwindow to scratch; a second kernel, launched
+//     by the same C call, sums for every owned row the chunk subwindows of
+//     the 2h+1 windows that cover it, chunks in order within a window and
+//     windows in the order of _combine_windows, and writes the final vector.
+//     K4 keeps its one block per layout block and hands whole windows to the
+//     same merge kernel.
+//
+// Sums into a subwindow are shared-memory atomicAdds (compare-and-swap loops
+// on this card), so their order changes from run to run: the results vary by
+// a few ulps of the window entries, not more.  A fixed-order variant would
+// need the slots that share a row sorted and segmented per chunk (another
+// table to read); it was not built, since the merge across chunks and windows
+// is already fixed-order and the Krylov solvers do not need bit-equal repeats.
+// Everything computes in float32.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -44,38 +79,40 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMetaLen = 18;
+constexpr int kThreads = 256;          // K3, K4 and the merge
+constexpr int kMaxChunkThreads = 1024; // K1/K2: one thread per slot of a chunk
+constexpr int kMetaLen = 17;
+constexpr int kBaseStages = 2;         // ring stages of A with shared memory of their own
 constexpr int kMaxSmemBytes = 232448;  // 227 KB: a block's limit on Hopper
+
+// error codes of the entry points besides cudaError_t values (all negative)
+constexpr int kErrLayout = -1;  // not the element or the geometry built here
+constexpr int kErrSmem = -2;    // a block would need more shared memory than it may use
+constexpr int kErrAlign = -3;   // A is not 16-byte aligned
 
 struct Geo {
   int nb, Bmax, Bc, nchunks;
-  int dim, k_v, k_p, kvp, kpp;
+  int dim, k_v, k_p;
   int OWv, OWp, hv, hp, RVv, RVp;
   int n_vs, n_ps, ncd;
+  int idx32;  // position tables: 0 = uint16 (sentinel 0xFFFF), 1 = int32 (sentinel -1)
 };
 
 struct Tables {
-  const int* __restrict__ offs_v;  // [nb, nchunks]
-  const int* __restrict__ hi_v;    // [nb, kvp, Bmax]
-  const int* __restrict__ lo_v;
+  const void* __restrict__ pos_v;  // [nb, k_v, Bmax] absolute window positions
+  const void* __restrict__ pos_p;  // [nb, k_p, Bmax]
+  const int* __restrict__ offs_v;  // [nb, nchunks] subwindow starts, rows of 128
   const int* __restrict__ offs_p;
-  const int* __restrict__ hi_p;    // [nb, kpp, Bmax]
-  const int* __restrict__ lo_p;
+  const int* __restrict__ cnt;     // [nb] one past the last occupied slot
 };
 
 // window position of local dof l of slot (b, j), -1 for a sentinel
-__device__ __forceinline__ int win_pos(const int* __restrict__ offs,
-                                       const int* __restrict__ hi,
-                                       const int* __restrict__ lo, int kpad,
-                                       int RVc, int W, const Geo& g, int b,
-                                       int j, int l) {
-  const long t = ((long)b * kpad + l) * g.Bmax + j;
-  const int h = hi[t];
-  const int o = lo[t];
-  if (h >= RVc || o >= 128) return -1;
-  const int pos = (offs[b * g.nchunks + j / g.Bc] + h) * 128 + o;
-  return pos < W ? pos : -1;
+__device__ __forceinline__ int win_pos(const void* __restrict__ table, int k,
+                                       const Geo& g, int b, int j, int l) {
+  const long t = ((long)b * k + l) * g.Bmax + j;
+  if (g.idx32) return ((const int*)table)[t];
+  const uint16_t v = ((const uint16_t*)table)[t];
+  return v == 0xFFFFu ? -1 : (int)v;
 }
 
 // x value of the space at window position pos of block b (zero off the end)
@@ -99,10 +136,9 @@ gather_kernel(Geo g, Tables t, const float* __restrict__ x,
   const long s = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= g.ncd) return;
   const int b = (int)(s / g.Bmax), j = (int)(s % g.Bmax);
-  const int Wv = (2 * g.hv + 1) * g.OWv, Wp = (2 * g.hp + 1) * g.OWp;
 #pragma unroll
   for (int l = 0; l < KV; ++l) {
-    const int pos = win_pos(t.offs_v, t.hi_v, t.lo_v, g.kvp, g.RVv, Wv, g, b, j, l);
+    const int pos = win_pos(t.pos_v, KV, g, b, j, l);
 #pragma unroll
     for (int c = 0; c < DIM; ++c)
       X[(long)(c * KV + l) * g.ncd + s] =
@@ -111,112 +147,233 @@ gather_kernel(Geo g, Tables t, const float* __restrict__ x,
   const float* xp = x + (long)DIM * g.n_vs;
 #pragma unroll
   for (int l = 0; l < KP; ++l) {
-    const int pos = win_pos(t.offs_p, t.hi_p, t.lo_p, g.kpp, g.RVp, Wp, g, b, j, l);
+    const int pos = win_pos(t.pos_p, KP, g, b, j, l);
     X[(long)(DIM * KV + l) * g.ncd + s] = win_read(xp, pos, b, g.hp, g.OWp, g.n_ps);
   }
   for (int l = DIM * KV + KP; l < nli; ++l) X[(long)l * g.ncd + s] = 0.f;
 }
 
-// shared-memory window accumulators -> [ncomp, nb, W] outputs
-__device__ __forceinline__ void zero_smem(float* acc, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) acc[i] = 0.f;
+// ---- the ring of A: asynchronous 16-byte copies in commit groups ----------
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-template <int DIM, bool OUT_V, bool OUT_P>
-__device__ __forceinline__ void emit_windows(const float* acc, const Geo& g, int b,
-                                             float* __restrict__ out_v,
-                                             float* __restrict__ out_p) {
-  const int Wv = (2 * g.hv + 1) * g.OWv, Wp = (2 * g.hp + 1) * g.OWp;
-  int base = 0;
-  if (OUT_V) {
-    for (int c = 0; c < DIM; ++c)
-      for (int i = threadIdx.x; i < Wv; i += blockDim.x)
-        out_v[((long)c * g.nb + b) * Wv + i] = acc[c * Wv + i];
-    base = DIM * Wv;
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's commit groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// dst[0, len) = src[g0, g0 + len), zero where the index falls outside
+// [0, n), as asynchronous copies of the calling thread's share (no register
+// waits on a load).  by4: src + g0 is 16-byte aligned and n, g0 are
+// multiples of 4, so whole 16-byte pieces lie inside or outside.
+__device__ __forceinline__ void stage_async(float* dst, const float* __restrict__ src,
+                                            long g0, int len, int n, bool by4) {
+  const uint32_t d = smem_addr(dst);
+  if (by4) {
+    for (int i = 4 * threadIdx.x; i < len; i += 4 * blockDim.x) {
+      const long gi = g0 + i;
+      if (gi >= 0 && gi < n) cp_async16(d + 4 * i, src + gi);
+      else *(float4*)(dst + i) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    for (int i = threadIdx.x; i < len; i += blockDim.x) {
+      const long gi = g0 + i;
+      if (gi >= 0 && gi < n) cp_async4(d + 4 * i, src + gi);
+      else dst[i] = 0.f;
+    }
   }
-  if (OUT_P)
-    for (int i = threadIdx.x; i < Wp; i += blockDim.x)
-      out_p[(long)b * Wp + i] = acc[base + i];
 }
 
 // ---- K1 / K2: y = sum_cells P_c^T A_c P_c x over the chosen spaces ---------
 // A: [n_in, n_out_pad, ncd] (K1: [nl, nli, ncd]); x: the in-spaces' planar
-// segment; out_v: [DIM, nb, Wv]; out_p: [nb, Wp].  One CUDA block per layout
-// block b.
+// segment; sub_v: [DIM, nb, nchunks, RVv*128]; sub_p: [nb, nchunks, RVp*128]:
+// each chunk's output subwindow, for the merge kernel.  One CUDA block per
+// (chunk c, layout block b), blockIdx.x = c*nb + b; thread tid owns slot
+// (b, c*Bc + tid).  Shared memory: [2 stages of N_OUT x Bc values of A | buf:
+// the in-subwindows of x, at the end the out-subwindows].  Between those two
+// uses buf is idle, so while A streams the ring runs on into it: STAGES
+// stages in all, STAGES * stage <= 2 stages + buf.
+//
+// Every slot runs the loop over columns, so its body is kept short: the ring
+// depth is a template argument (stage offsets and wait counts are constants)
+// and every thread keeps the address of its own pieces of a column and steps
+// it.
 template <int DIM, int KV, int KP, bool IN_V, bool IN_P, bool OUT_V, bool OUT_P,
-          typename TA>
-__global__ void __launch_bounds__(kThreads)
+          typename TA, int STAGES>
+__global__ void __launch_bounds__(kMaxChunkThreads)
 matvec_kernel(Geo g, Tables t, const TA* __restrict__ A, int n_out_pad,
-              const float* __restrict__ x, float* __restrict__ out_v,
-              float* __restrict__ out_p) {
-  constexpr int N_IN = (IN_V ? DIM * KV : 0) + (IN_P ? KP : 0);
-  constexpr int N_OUT = (OUT_V ? DIM * KV : 0) + (OUT_P ? KP : 0);
+              const float* __restrict__ x, float* __restrict__ sub_v,
+              float* __restrict__ sub_p) {
+  constexpr int NV = DIM * KV;
+  constexpr int N_IN = (IN_V ? NV : 0) + (IN_P ? KP : 0);
+  constexpr int N_OUT = (OUT_V ? NV : 0) + (OUT_P ? KP : 0);
   constexpr bool NEED_V = IN_V || OUT_V;
   constexpr bool NEED_P = IN_P || OUT_P;
-  extern __shared__ float acc[];
-  const int b = blockIdx.x;
-  const int Wv = (2 * g.hv + 1) * g.OWv, Wp = (2 * g.hp + 1) * g.OWp;
-  const int acc_p = OUT_V ? DIM * Wv : 0;  // offset of the p window
-  zero_smem(acc, acc_p + (OUT_P ? Wp : 0));
-  __syncthreads();
+  extern __shared__ __align__(128) unsigned char smem[];
 
-  const float* xp = x + (IN_V ? (long)DIM * g.n_vs : 0);
-  for (int j = threadIdx.x; j < g.Bmax; j += blockDim.x) {
-    const long s = (long)b * g.Bmax + j;
-    int pv[KV] = {}, pp[KP] = {};
-    if constexpr (NEED_V) {
+  const int c = blockIdx.x / g.nb, b = blockIdx.x % g.nb;
+  const int tid = threadIdx.x;
+  const int nv = min(max(t.cnt[b] - c * g.Bc, 0), g.Bc);  // occupied slots here
+  if (nv == 0) return;  // the merge kernel skips this chunk too
+  const bool active = tid < nv;
+
+  const uint32_t row_bytes = g.Bc * sizeof(TA);  // a stage's row
+  const uint32_t stage_bytes = N_OUT * row_bytes;
+  const TA* ring = (const TA*)smem;
+  float* buf = (float*)(smem + kBaseStages * stage_bytes);
+  const int Lv = g.RVv * 128, Lp = g.RVp * 128;
+  const int in_p = IN_V ? DIM * Lv : 0;    // the p subwindow's place in buf
+  const int out_p = OUT_V ? DIM * Lv : 0;
+
+  // the stream of A: column q of this chunk (N_OUT rows of the occupied
+  // slots' values) goes to ring stage q % STAGES as one commit group of
+  // 16-byte copies; warp w copies rows w, w + nwarps, ..., a lane a piece
+  const int warp = tid / 32, lane = tid % 32, nwarps = blockDim.x / 32;
+  const int row_pieces = (nv * (int)sizeof(TA) + 15) / 16;
+  const long row_stride = (long)g.ncd * sizeof(TA);
+  const long col_stride = n_out_pad * row_stride, row_step = nwarps * row_stride;
+  const uint32_t dst_step = nwarps * row_bytes;
+  const uint32_t dst_first = smem_addr(smem) + warp * row_bytes + 16 * lane;
+  const char* src_first = (const char*)(A + (long)b * g.Bmax + (long)c * g.Bc) +
+                          warp * row_stride + 16 * lane;  // of the next column
+  auto fetch = [&](int stage, bool any) {
+    if (any) {
+      const char* src = src_first;
+      uint32_t dst = dst_first + stage * stage_bytes;
+      for (int i = warp; i < N_OUT; i += nwarps, src += row_step, dst += dst_step)
+        for (int k = lane, o = 0; k < row_pieces; k += 32, o += 512)
+          cp_async16(dst + o, src + o);
+      src_first += col_stride;
+    }
+    cp_commit();  // one group a column, empty past the last
+  };
+
+  // this slot's positions in the chunk's subwindows, the chunk's subwindows
+  // of x -> buf (commit group 0) and the first columns of A (the ring is
+  // STAGES - 1 columns ahead, two of them before buf is free): all on their
+  // way at once
+  const int base_v = NEED_V ? t.offs_v[b * g.nchunks + c] * 128 : 0;
+  const int base_p = NEED_P ? t.offs_p[b * g.nchunks + c] * 128 : 0;
+  int pv[KV], pp[KP];  // -1 for none
+  const int j = c * g.Bc + tid;
+#pragma unroll
+  for (int l = 0; l < KV; ++l)
+    pv[l] = (NEED_V && active) ? win_pos(t.pos_v, KV, g, b, j, l) : -1;
+#pragma unroll
+  for (int l = 0; l < KP; ++l)
+    pp[l] = (NEED_P && active) ? win_pos(t.pos_p, KP, g, b, j, l) : -1;
+  if constexpr (IN_V) {
+    const bool by4 = g.n_vs % 4 == 0 && (uintptr_t)x % 16 == 0;
+    for (int cc = 0; cc < DIM; ++cc)
+      stage_async(buf + cc * Lv, x + (long)cc * g.n_vs,
+                  (long)(b - g.hv) * g.OWv + base_v, Lv, g.n_vs, by4);
+  }
+  if constexpr (IN_P) {
+    const float* xp = x + (IN_V ? (long)DIM * g.n_vs : 0);
+    const bool by4 = g.n_ps % 4 == 0 && (uintptr_t)xp % 16 == 0;
+    stage_async(buf + in_p, xp, (long)(b - g.hp) * g.OWp + base_p, Lp, g.n_ps, by4);
+  }
+  cp_commit();
+  constexpr int EARLY = STAGES - 1 < kBaseStages ? STAGES - 1 : kBaseStages;
+#pragma unroll
+  for (int q = 0; q < EARLY; ++q) fetch(q, q < N_IN);
+  cp_wait<EARLY>();  // x has landed; the columns of A may still fly
+#pragma unroll
+  for (int l = 0; l < KV; ++l)
+    pv[l] = (pv[l] >= base_v && pv[l] < base_v + Lv) ? pv[l] - base_v : -1;
+#pragma unroll
+  for (int l = 0; l < KP; ++l)
+    pp[l] = (pp[l] >= base_p && pp[l] < base_p + Lp) ? pp[l] - base_p : -1;
+  __syncthreads();
+  float xin[N_IN];
+  if constexpr (IN_V) {
+#pragma unroll
+    for (int cc = 0; cc < DIM; ++cc)
 #pragma unroll
       for (int l = 0; l < KV; ++l)
-        pv[l] = win_pos(t.offs_v, t.hi_v, t.lo_v, g.kvp, g.RVv, Wv, g, b, j, l);
+        xin[cc * KV + l] = pv[l] >= 0 ? buf[cc * Lv + pv[l]] : 0.f;
+  }
+  if constexpr (IN_P) {
+#pragma unroll
+    for (int l = 0; l < KP; ++l)
+      xin[(IN_V ? NV : 0) + l] = pp[l] >= 0 ? buf[in_p + pp[l]] : 0.f;
+  }
+  __syncthreads();
+  // x is in registers: the ring takes buf over, STAGES - 1 columns ahead
+#pragma unroll
+  for (int q = EARLY; q < STAGES - 1; ++q) fetch(q, q < N_IN);
+
+  // y_i = sum_q A[q, i, s] x_q, in f32, one column of A a ring stage
+  float y[N_OUT];
+#pragma unroll
+  for (int i = 0; i < N_OUT; ++i) y[i] = 0.f;
+  const TA* mine = ring + tid;  // this slot's value in row 0 of stage 0
+  const int stage_elems = N_OUT * g.Bc;
+#pragma unroll
+  for (int q = 0; q < N_IN; ++q) {
+    cp_wait<STAGES - 2>();  // this thread's pieces of column q have landed
+    __syncthreads();        // ... and everyone's; and column q - 1 is consumed
+    fetch((q + STAGES - 1) % STAGES, q + STAGES - 1 < N_IN);
+    if (active) {
+      const TA* col = mine + (q % STAGES) * stage_elems;
+#pragma unroll
+      for (int i = 0; i < N_OUT; ++i, col += g.Bc) y[i] = fmaf(widen(*col), xin[q], y[i]);
     }
-    if constexpr (NEED_P) {
-#pragma unroll
-      for (int l = 0; l < KP; ++l)
-        pp[l] = win_pos(t.offs_p, t.hi_p, t.lo_p, g.kpp, g.RVp, Wp, g, b, j, l);
-    }
-    float xin[N_IN];
-    if constexpr (IN_V) {
-#pragma unroll
-      for (int c = 0; c < DIM; ++c)
-#pragma unroll
-        for (int l = 0; l < KV; ++l)
-          xin[c * KV + l] = win_read(x + (long)c * g.n_vs, pv[l], b, g.hv, g.OWv, g.n_vs);
-    }
-    if constexpr (IN_P) {
-#pragma unroll
-      for (int l = 0; l < KP; ++l)
-        xin[(IN_V ? DIM * KV : 0) + l] = win_read(xp, pp[l], b, g.hp, g.OWp, g.n_ps);
-    }
-    // output row i of the slot: y_i = sum_q A[q, i, s] x_q, in f32
-    auto row = [&](int i) {
-      float y = 0.f;
-#pragma unroll
-      for (int q = 0; q < N_IN; ++q)
-        y = fmaf(widen(A[((long)q * n_out_pad + i) * g.ncd + s]), xin[q], y);
-      return y;
-    };
+  }
+  __syncthreads();  // every column is consumed: buf becomes the out-subwindows
+  const int out_len = (OUT_V ? DIM * Lv : 0) + (OUT_P ? Lp : 0);
+  for (int i = tid; i < out_len / 4; i += blockDim.x)
+    ((float4*)buf)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+  if (active) {
     if constexpr (OUT_V) {
 #pragma unroll
-      for (int c = 0; c < DIM; ++c)
+      for (int cc = 0; cc < DIM; ++cc)
 #pragma unroll
-        for (int l = 0; l < KV; ++l) {
-          const float y = row(c * KV + l);
-          if (pv[l] >= 0) atomicAdd(&acc[c * Wv + pv[l]], y);
-        }
+        for (int l = 0; l < KV; ++l)
+          if (pv[l] >= 0) atomicAdd(&buf[cc * Lv + pv[l]], y[cc * KV + l]);
     }
     if constexpr (OUT_P) {
 #pragma unroll
-      for (int l = 0; l < KP; ++l) {
-        const float y = row((OUT_V ? DIM * KV : 0) + l);
-        if (pp[l] >= 0) atomicAdd(&acc[acc_p + pp[l]], y);
-      }
+      for (int l = 0; l < KP; ++l)
+        if (pp[l] >= 0) atomicAdd(&buf[out_p + pp[l]], y[(OUT_V ? NV : 0) + l]);
     }
   }
   __syncthreads();
-  emit_windows<DIM, OUT_V, OUT_P>(acc, g, b, out_v, out_p);
+  // the chunk's subwindows -> scratch (Lv, Lp are multiples of 128 floats)
+  if constexpr (OUT_V) {
+    for (int cc = 0; cc < DIM; ++cc) {
+      float4* dst = (float4*)(sub_v + (((long)cc * g.nb + b) * g.nchunks + c) * Lv);
+      const float4* src = (const float4*)(buf + cc * Lv);
+      for (int i = tid; i < Lv / 4; i += blockDim.x) dst[i] = src[i];
+    }
+  }
+  if constexpr (OUT_P) {
+    float4* dst = (float4*)(sub_p + ((long)b * g.nchunks + c) * Lp);
+    const float4* src = (const float4*)(buf + out_p);
+    for (int i = tid; i < Lp / 4; i += blockDim.x) dst[i] = src[i];
+  }
 }
 
 // ---- K4: y = sum_cells P_c^T R_c for per-slot rows R [>= nl, ncd] ----------
+// One CUDA block per layout block; whole windows out_v [DIM, nb, Wv] and
+// out_p [nb, Wp] for the merge kernel.
 template <int DIM, int KV, int KP>
 __global__ void __launch_bounds__(kThreads)
 scatter_kernel(Geo g, Tables t, const float* __restrict__ R,
@@ -225,13 +382,14 @@ scatter_kernel(Geo g, Tables t, const float* __restrict__ R,
   const int b = blockIdx.x;
   const int Wv = (2 * g.hv + 1) * g.OWv, Wp = (2 * g.hp + 1) * g.OWp;
   const int acc_p = DIM * Wv;
-  zero_smem(acc, acc_p + Wp);
+  for (int i = threadIdx.x; i < acc_p + Wp; i += blockDim.x) acc[i] = 0.f;
   __syncthreads();
-  for (int j = threadIdx.x; j < g.Bmax; j += blockDim.x) {
+  const int nv = min(t.cnt[b], g.Bmax);
+  for (int j = threadIdx.x; j < nv; j += blockDim.x) {
     const long s = (long)b * g.Bmax + j;
 #pragma unroll
     for (int l = 0; l < KV; ++l) {
-      const int pos = win_pos(t.offs_v, t.hi_v, t.lo_v, g.kvp, g.RVv, Wv, g, b, j, l);
+      const int pos = win_pos(t.pos_v, KV, g, b, j, l);
       if (pos < 0) continue;
 #pragma unroll
       for (int c = 0; c < DIM; ++c)
@@ -239,113 +397,319 @@ scatter_kernel(Geo g, Tables t, const float* __restrict__ R,
     }
 #pragma unroll
     for (int l = 0; l < KP; ++l) {
-      const int pos = win_pos(t.offs_p, t.hi_p, t.lo_p, g.kpp, g.RVp, Wp, g, b, j, l);
+      const int pos = win_pos(t.pos_p, KP, g, b, j, l);
       if (pos >= 0) atomicAdd(&acc[acc_p + pos], R[(long)(DIM * KV + l) * g.ncd + s]);
     }
   }
   __syncthreads();
-  emit_windows<DIM, true, true>(acc, g, b, out_v, out_p);
+  for (int c = 0; c < DIM; ++c)
+    for (int i = threadIdx.x; i < Wv; i += blockDim.x)
+      out_v[((long)c * g.nb + b) * Wv + i] = acc[c * Wv + i];
+  for (int i = threadIdx.x; i < Wp; i += blockDim.x)
+    out_p[(long)b * Wp + i] = acc[acc_p + i];
+}
+
+// ---- the merge: window accumulators -> the planar vector -------------------
+// One space's accumulators: sub[ncomp, nb, nsub, len].  Entry d of piece c of
+// block b is window position offs[b, c]*128 + d (offs null: one piece that
+// starts at 0); window position j*OW + o of block b is global row
+// (b - h + j)*OW + o.  cnt/Bc: piece c of block b was written only if
+// cnt[b] > c*Bc (cnt null: always).
+struct MergeSpace {
+  const float* __restrict__ sub;
+  const int* __restrict__ offs;
+  const int* __restrict__ cnt;
+  int ncomp, nb, nsub, len, OW, h, n, Bc;
+};
+
+// row r of component comp: for j = 0..2h in turn (the order of
+// _combine_windows), the entry of block b + h - j's window that covers the
+// row, itself the sum of that window's pieces in order
+__device__ __forceinline__ float merge_row(const MergeSpace& m, int comp, int r) {
+  const int b = r / m.OW, o = r - b * m.OW;
+  float acc = 0.f;
+  for (int j = 0; j <= 2 * m.h; ++j) {
+    const int bp = b + m.h - j;
+    if (bp < 0 || bp >= m.nb) continue;
+    const int pos = j * m.OW + o;
+    const float* w = m.sub + ((long)comp * m.nb + bp) * m.nsub * m.len;
+    float s = 0.f;
+    if (m.offs == nullptr) {
+      s = w[pos];
+    } else {
+      const int filled = m.cnt[bp];
+      for (int c = 0; c < m.nsub; ++c) {
+        if (filled <= c * m.Bc) break;
+        const int d = pos - m.offs[bp * m.nsub + c] * 128;
+        if (d >= 0 && d < m.len) s += w[(long)c * m.len + d];
+      }
+    }
+    acc += s;
+  }
+  return acc;
+}
+
+// The same sum for the 4 consecutive rows from r, where h <= 1, CMAX >= nsub
+// and r, OW, len and n are multiples of 4, so the rows share every test.
+// The loops above chain some twenty dependent loads a row; here every table
+// entry is loaded without a branch from a clamped, always legal address,
+// then every accumulator that counts under a predicate, so each round of
+// loads is in flight together.  A term that does not count adds 0.f in its
+// place; the order of the sum is unchanged.
+template <int CMAX>
+__device__ __forceinline__ float4 merge_rows4(const MergeSpace& m, int comp, int r) {
+  constexpr int JMAX = 3;
+  const int b = r / m.OW, o = r - b * m.OW;
+  long idx[JMAX][CMAX];
+  bool ok[JMAX][CMAX];
+#pragma unroll
+  for (int j = 0; j < JMAX; ++j) {
+    const int bp = b + m.h - j;
+    const bool win_ok = j <= 2 * m.h && bp >= 0 && bp < m.nb;
+    const int bpc = min(max(bp, 0), m.nb - 1);
+    const int filled = m.cnt != nullptr ? m.cnt[bpc] : 0x7FFFFFFF;
+#pragma unroll
+    for (int c = 0; c < CMAX; ++c) {
+      const int cc = min(c, m.nsub - 1);
+      const int start = m.offs != nullptr ? m.offs[bpc * m.nsub + cc] * 128 : 0;
+      const int d = j * m.OW + o - start;
+      ok[j][c] = win_ok && c < m.nsub && filled > c * m.Bc && d >= 0 && d < m.len;
+      idx[j][c] = (((long)comp * m.nb + bpc) * m.nsub + cc) * m.len + (ok[j][c] ? d : 0);
+    }
+  }
+  float4 val[JMAX][CMAX];
+#pragma unroll
+  for (int j = 0; j < JMAX; ++j)
+#pragma unroll
+    for (int c = 0; c < CMAX; ++c) {
+      val[j][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (ok[j][c]) val[j][c] = *(const float4*)(m.sub + idx[j][c]);
+    }
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int j = 0; j < JMAX; ++j) {
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int c = 0; c < CMAX; ++c)
+      s.x += val[j][c].x, s.y += val[j][c].y, s.z += val[j][c].z, s.w += val[j][c].w;
+    acc.x += s.x, acc.y += s.y, acc.z += s.z, acc.w += s.w;
+  }
+  return acc;
+}
+
+// y = [v components (ncomp * n each), then p]; either space may be absent
+// (ncomp 0).  CMAX 0: any halo, any number of pieces and any n, a row a
+// thread; else 4 rows a thread.  Each space has its own call, so that it
+// reads its record from the kernel's parameters (a record picked at run time
+// would be copied to local memory).
+template <int CMAX>
+__global__ void __launch_bounds__(kThreads)
+merge_kernel(MergeSpace v, MergeSpace p, float* __restrict__ y) {
+  constexpr int ROWS = CMAX == 0 ? 1 : 4;
+  const long t = ((long)blockIdx.x * blockDim.x + threadIdx.x) * ROWS;
+  const long nv = (long)v.ncomp * v.n;
+  if constexpr (CMAX == 0) {
+    if (t < nv)
+      y[t] = merge_row(v, (int)(t / v.n), (int)(t % v.n));
+    else if (t - nv < (long)p.ncomp * p.n)
+      y[t] = merge_row(p, 0, (int)(t - nv));
+  } else {
+    if (t < nv)
+      *(float4*)(y + t) = merge_rows4<CMAX>(v, (int)(t / v.n), (int)(t % v.n));
+    else if (t - nv < (long)p.ncomp * p.n)
+      *(float4*)(y + t) = merge_rows4<CMAX>(p, 0, (int)(t - nv));
+  }
+}
+
+template <int CMAX>
+cudaError_t launch_merge_as(const MergeSpace& v, const MergeSpace& p, float* y,
+                            long threads, cudaStream_t stream) {
+  const int grid = (int)((threads + kThreads - 1) / kThreads);
+  merge_kernel<CMAX><<<grid, kThreads, 0, stream>>>(v, p, y);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_merge(const MergeSpace& v, const MergeSpace& p, float* y,
+                         cudaStream_t stream) {
+  const long total = (long)v.ncomp * v.n + (long)p.ncomp * p.n;
+  const int h = max(v.ncomp ? v.h : 0, p.ncomp ? p.h : 0);
+  const int nsub = max(v.ncomp ? v.nsub : 1, p.ncomp ? p.nsub : 1);
+  const bool by4 = (v.ncomp == 0 || v.n % 4 == 0) && (p.ncomp == 0 || p.n % 4 == 0) &&
+                   (uintptr_t)y % 16 == 0;
+  if (by4 && h <= 1 && nsub == 1) return launch_merge_as<1>(v, p, y, total / 4, stream);
+  if (by4 && h <= 1 && nsub <= 4) return launch_merge_as<4>(v, p, y, total / 4, stream);
+  return launch_merge_as<0>(v, p, y, total, stream);
 }
 
 bool load_geo(const int* meta, Geo* g) {
   if (meta[0] != kMetaLen) return false;
   const int* m = meta + 1;
-  *g = Geo{m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7], m[8],
-           m[9], m[10], m[11], m[12], m[13], m[14], m[15], m[16], m[17]};
+  *g = Geo{m[0], m[1], m[2],  m[3],  m[4],  m[5],  m[6],  m[7], m[8],
+           m[9], m[10], m[11], m[12], m[13], m[14], m[15], m[16]};
   // the instantiated element: 2D Taylor-Hood P2/P1
   return g->dim == 2 && g->k_v == 6 && g->k_p == 3;
 }
 
-Tables make_tables(const void* ov, const void* hv, const void* lv, const void* op,
-                   const void* hp, const void* lp) {
-  return Tables{(const int*)ov, (const int*)hv, (const int*)lv,
-                (const int*)op, (const int*)hp, (const int*)lp};
+Tables make_tables(const void* pos_v, const void* pos_p, const void* offs_v,
+                   const void* offs_p, const void* cnt) {
+  return Tables{pos_v, pos_p, (const int*)offs_v, (const int*)offs_p, (const int*)cnt};
 }
 
+// allow `bytes` of dynamic shared memory for a kernel and prefer shared memory
+// over L1 for it; asked of the CUDA runtime only when a launch needs more
+// than any before it on this device (`allowed`: the caller's record for this
+// kernel, one entry a device)
+constexpr int kMaxDevices = 64;
 template <typename K>
-cudaError_t set_smem(K kernel, int bytes) {
-  if (bytes > kMaxSmemBytes) return cudaErrorInvalidValue;
-  if (bytes > 48 * 1024)
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                bytes);
-  return cudaSuccess;
+int set_smem(K kernel, int bytes, int* allowed) {
+  if (bytes > kMaxSmemBytes) return kErrSmem;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < kMaxDevices && bytes <= allowed[dev]) return 0;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess && bytes > 48 * 1024)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess && dev < kMaxDevices) allowed[dev] = bytes;
+  return (int)e;
 }
+
+// floats of scratch: the chunk subwindows of a matvec, the windows of K4
+long subwindow_floats(const Geo& g, bool v, bool p) {
+  return (long)g.nb * g.nchunks * 128 * ((v ? g.dim * g.RVv : 0) + (p ? g.RVp : 0));
+}
+long window_floats(const Geo& g) {
+  return (long)g.nb * (g.dim * (2 * g.hv + 1) * g.OWv + (2 * g.hp + 1) * g.OWp);
+}
+
+// the ring depths the matvec kernel is compiled for
+constexpr int kStageChoices[] = {2, 4, 7};
 
 template <bool IN_V, bool IN_P, bool OUT_V, bool OUT_P, typename TA>
-cudaError_t launch_matvec(const Geo& g, const Tables& t, const void* A,
-                          int n_out_pad, const void* x, void* out_v, void* out_p,
-                          cudaStream_t stream) {
-  auto kernel = matvec_kernel<2, 6, 3, IN_V, IN_P, OUT_V, OUT_P, TA>;
-  const int Wv = (2 * g.hv + 1) * g.OWv, Wp = (2 * g.hp + 1) * g.OWp;
-  const int bytes = 4 * ((OUT_V ? g.dim * Wv : 0) + (OUT_P ? Wp : 0));
-  cudaError_t e = set_smem(kernel, bytes);
-  if (e != cudaSuccess) return e;
-  kernel<<<g.nb, kThreads, bytes, stream>>>(g, t, (const TA*)A, n_out_pad,
-                                            (const float*)x, (float*)out_v,
-                                            (float*)out_p);
-  return cudaGetLastError();
+int launch_matvec(const Geo& g, const Tables& t, const void* A, int n_out_pad,
+                  const void* x, float* scratch, float* y, cudaStream_t stream) {
+  constexpr int N_OUT = (OUT_V ? 12 : 0) + (OUT_P ? 3 : 0);
+  using Kernel = void (*)(Geo, Tables, const TA*, int, const float*, float*, float*);
+  const Kernel kernels[] = {
+      matvec_kernel<2, 6, 3, IN_V, IN_P, OUT_V, OUT_P, TA, kStageChoices[0]>,
+      matvec_kernel<2, 6, 3, IN_V, IN_P, OUT_V, OUT_P, TA, kStageChoices[1]>,
+      matvec_kernel<2, 6, 3, IN_V, IN_P, OUT_V, OUT_P, TA, kStageChoices[2]>};
+  // A is copied in 16-byte pieces: every chunk's row of A must start on one
+  if (g.Bc > kMaxChunkThreads || (g.Bc * sizeof(TA)) % 16 != 0) return kErrLayout;
+  if ((uintptr_t)A % 16 != 0) return kErrAlign;
+  const int Lv = g.RVv * 128, Lp = g.RVp * 128;
+  const int in_len = (IN_V ? g.dim * Lv : 0) + (IN_P ? Lp : 0);
+  const int out_len = (OUT_V ? g.dim * Lv : 0) + (OUT_P ? Lp : 0);
+  const long buf_bytes = 4L * (in_len > out_len ? in_len : out_len);
+  const long stage_bytes = (long)N_OUT * g.Bc * sizeof(TA);
+  const long bytes = kBaseStages * stage_bytes + buf_bytes;
+  const int threads = (g.Bc + 31) / 32 * 32;
+  // the deepest ring that fits the two stages and the idle buffer
+  int choice = 0;
+  for (int k = 1; k < 3; ++k)
+    if (kStageChoices[k] * stage_bytes <= bytes) choice = k;
+  static int allowed[3][kMaxDevices] = {};  // per instantiation and depth
+  int e = set_smem(kernels[choice], (int)bytes, allowed[choice]);
+  if (e != 0) return e;
+  float* sub_v = scratch;
+  float* sub_p = scratch + subwindow_floats(g, OUT_V, false);
+  kernels[choice]<<<g.nb * g.nchunks, threads, bytes, stream>>>(
+      g, t, (const TA*)A, n_out_pad, (const float*)x, sub_v, sub_p);
+  cudaError_t ce = cudaGetLastError();
+  if (ce != cudaSuccess) return (int)ce;
+  const MergeSpace mv{sub_v, t.offs_v, t.cnt, OUT_V ? g.dim : 0, g.nb, g.nchunks,
+                      Lv, g.OWv, g.hv, g.n_vs, g.Bc};
+  const MergeSpace mp{sub_p, t.offs_p, t.cnt, OUT_P ? 1 : 0, g.nb, g.nchunks,
+                      Lp, g.OWp, g.hp, g.n_ps, g.Bc};
+  return (int)launch_merge(mv, mp, y, stream);
 }
 
 template <typename TA>
-cudaError_t dispatch_spaces(int in_sp, int out_sp, const Geo& g, const Tables& t,
-                            const void* A, int n_out_pad, const void* x,
-                            void* out_v, void* out_p, cudaStream_t st) {
+int dispatch_spaces(int in_sp, int out_sp, const Geo& g, const Tables& t,
+                    const void* A, int n_out_pad, const void* x, float* scratch,
+                    float* y, cudaStream_t st) {
   // spaces: 1 = velocity, 2 = pressure, 3 = both
   if (in_sp == 3 && out_sp == 3)
-    return launch_matvec<true, true, true, true, TA>(g, t, A, n_out_pad, x, out_v, out_p, st);
+    return launch_matvec<true, true, true, true, TA>(g, t, A, n_out_pad, x, scratch, y, st);
   if (in_sp == 1 && out_sp == 1)
-    return launch_matvec<true, false, true, false, TA>(g, t, A, n_out_pad, x, out_v, out_p, st);
+    return launch_matvec<true, false, true, false, TA>(g, t, A, n_out_pad, x, scratch, y, st);
   if (in_sp == 1 && out_sp == 2)
-    return launch_matvec<true, false, false, true, TA>(g, t, A, n_out_pad, x, out_v, out_p, st);
+    return launch_matvec<true, false, false, true, TA>(g, t, A, n_out_pad, x, scratch, y, st);
   if (in_sp == 2 && out_sp == 2)
-    return launch_matvec<false, true, false, true, TA>(g, t, A, n_out_pad, x, out_v, out_p, st);
-  return cudaErrorInvalidValue;
+    return launch_matvec<false, true, false, true, TA>(g, t, A, n_out_pad, x, scratch, y, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+int launch_scatter(const Geo& g, const Tables& t, const void* R, float* scratch,
+                   float* y, cudaStream_t stream) {
+  auto kernel = scatter_kernel<2, 6, 3>;
+  const int Wv = (2 * g.hv + 1) * g.OWv, Wp = (2 * g.hp + 1) * g.OWp;
+  static int allowed[kMaxDevices] = {};
+  int e = set_smem(kernel, 4 * (g.dim * Wv + Wp), allowed);
+  if (e != 0) return e;
+  float* out_v = scratch;
+  float* out_p = scratch + (long)g.dim * g.nb * Wv;
+  kernel<<<g.nb, kThreads, 4 * (g.dim * Wv + Wp), stream>>>(g, t, (const float*)R,
+                                                            out_v, out_p);
+  cudaError_t ce = cudaGetLastError();
+  if (ce != cudaSuccess) return (int)ce;
+  const MergeSpace mv{out_v, nullptr, nullptr, g.dim, g.nb, 1, Wv, g.OWv, g.hv, g.n_vs, 0};
+  const MergeSpace mp{out_p, nullptr, nullptr, 1, g.nb, 1, Wp, g.OWp, g.hp, g.n_ps, 0};
+  return (int)launch_merge(mv, mp, y, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-int ns_gather(const int* meta, const void* ov, const void* hv, const void* lv,
-              const void* op, const void* hp, const void* lp, const void* x,
-              void* X, int nli, void* stream) {
+// Every entry point returns 0, a cudaError_t value, or one of the negative
+// codes above.  The five table pointers are the packed position tables, the
+// subwindow offsets and the occupied-slot counts of the layout.
+
+// floats of scratch that ns_matvec and ns_scatter may use for this layout
+long ns_scratch_floats(const int* meta) {
   Geo g;
-  if (!load_geo(meta, &g)) return (int)cudaErrorInvalidValue;
+  if (!load_geo(meta, &g)) return kErrLayout;
+  const long a = subwindow_floats(g, true, true), b = window_floats(g);
+  return a > b ? a : b;
+}
+
+int ns_gather(const int* meta, const void* pos_v, const void* pos_p,
+              const void* offs_v, const void* offs_p, const void* cnt,
+              const void* x, void* X, int nli, void* stream) {
+  Geo g;
+  if (!load_geo(meta, &g)) return kErrLayout;
+  const Tables t = make_tables(pos_v, pos_p, offs_v, offs_p, cnt);
   const int grid = (g.ncd + kThreads - 1) / kThreads;
   gather_kernel<2, 6, 3><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      g, make_tables(ov, hv, lv, op, hp, lp), (const float*)x, (float*)X, nli);
+      g, t, (const float*)x, (float*)X, nli);
   return (int)cudaGetLastError();
 }
 
-int ns_scatter(const int* meta, const void* ov, const void* hv, const void* lv,
-               const void* op, const void* hp, const void* lp, const void* R,
-               void* out_v, void* out_p, void* stream) {
+// y [n_u + n_ps] = sum_cells P_c^T R_c: K4, then the merge
+int ns_scatter(const int* meta, const void* pos_v, const void* pos_p,
+               const void* offs_v, const void* offs_p, const void* cnt,
+               const void* R, void* scratch, void* y, void* stream) {
   Geo g;
-  if (!load_geo(meta, &g)) return (int)cudaErrorInvalidValue;
-  auto kernel = scatter_kernel<2, 6, 3>;
-  const int bytes =
-      4 * (g.dim * (2 * g.hv + 1) * g.OWv + (2 * g.hp + 1) * g.OWp);
-  cudaError_t e = set_smem(kernel, bytes);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<g.nb, kThreads, bytes, (cudaStream_t)stream>>>(
-      g, make_tables(ov, hv, lv, op, hp, lp), (const float*)R, (float*)out_v,
-      (float*)out_p);
-  return (int)cudaGetLastError();
+  if (!load_geo(meta, &g)) return kErrLayout;
+  return launch_scatter(g, make_tables(pos_v, pos_p, offs_v, offs_p, cnt), R,
+                        (float*)scratch, (float*)y, (cudaStream_t)stream);
 }
 
-int ns_matvec(const int* meta, const void* ov, const void* hv, const void* lv,
-              const void* op, const void* hp, const void* lp, const void* A,
-              int a_bf16, int in_spaces, int out_spaces, int n_out_pad,
-              const void* x, void* out_v, void* out_p, void* stream) {
+// y [the out-spaces' planar segment] = A x: K1 / K2, then the merge
+int ns_matvec(const int* meta, const void* pos_v, const void* pos_p,
+              const void* offs_v, const void* offs_p, const void* cnt,
+              const void* A, int a_bf16, int in_spaces, int out_spaces,
+              int n_out_pad, const void* x, void* scratch, void* y, void* stream) {
   Geo g;
-  if (!load_geo(meta, &g)) return (int)cudaErrorInvalidValue;
-  const Tables t = make_tables(ov, hv, lv, op, hp, lp);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (a_bf16)
-    return (int)dispatch_spaces<__nv_bfloat16>(in_spaces, out_spaces, g, t, A,
-                                               n_out_pad, x, out_v, out_p, st);
-  return (int)dispatch_spaces<float>(in_spaces, out_spaces, g, t, A, n_out_pad,
-                                     x, out_v, out_p, st);
+  if (!load_geo(meta, &g)) return kErrLayout;
+  const Tables t = make_tables(pos_v, pos_p, offs_v, offs_p, cnt);
+  return a_bf16 ? dispatch_spaces<__nv_bfloat16>(in_spaces, out_spaces, g, t, A, n_out_pad,
+                                                 x, (float*)scratch, (float*)y,
+                                                 (cudaStream_t)stream)
+                : dispatch_spaces<float>(in_spaces, out_spaces, g, t, A, n_out_pad, x,
+                                         (float*)scratch, (float*)y, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -23,6 +23,14 @@ A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
 (and raises if the kernel cannot take it).  Each wrapper counts its kernel
 launches in ``<wrapper>.launches`` (``reset_launch_counts`` zeroes them).
 The kernels compute in float32 and read A in float32 or bfloat16.
+
+The kernels read window positions from one packed table per space
+(``pack_positions``: absolute positions, 16 bits wide where the windows
+allow), derived once per layout from the JAX-shaped ``loc_*_hi``/``loc_*_lo``/
+``offs_*`` tables and cached on it.  K1, K2 and K4 end in a merge kernel
+launched by the same C call (plain version: ``_merge_reference``; for whole
+windows it is ``_combine_windows``), so a wrapper call is one C call and does
+no torch arithmetic after it.
 """
 
 from __future__ import annotations
@@ -58,6 +66,8 @@ __all__ = [
     "build_library",
     "reset_launch_counts",
     "launch_counts",
+    "pack_positions",
+    "unpack_positions",
 ]
 
 _ALIGN_ROWS = 8  # subwindow offsets in whole 8-row groups (layout compatibility)
@@ -124,16 +134,9 @@ class WindowedLayout:
         return dataclasses.replace(self, **tensors)
 
     @cached_property
-    def _meta(self):
-        """Geometry record of the CUDA entry points (struct Geo, windowed.cu)."""
-        vals = [
-            self.nb, self.Bmax, self.Bc, self.nchunks,
-            self.dim, self.k_v, self.k_p,
-            self.loc_v_hi.shape[1], self.loc_p_hi.shape[1],
-            self.OWv, self.OWp, self.hv, self.hp, self.RVv, self.RVp,
-            self.n_vs, self.n_ps, self.ncd,
-        ]
-        return (ctypes.c_int * (len(vals) + 1))(len(vals), *vals)
+    def _packed(self) -> "_Packed":
+        """The kernels' tables and argument pack, derived at first use."""
+        return _Packed(self)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -435,6 +438,44 @@ def _locs(lay: WindowedLayout):
     return lv, lp
 
 
+_POS16_SENTINEL = 0xFFFF  # a padded slot in a 16-bit packed table (int32: -1)
+
+
+def pack_positions(lay: WindowedLayout):
+    """The kernels' position tables: (pos_v [nb, k_v, Bmax], pos_p [nb, k_p,
+    Bmax], cnt [nb] int32).
+
+    pos holds the absolute window position of every local dof of every slot
+    (``_abs_loc``'s arithmetic: (offs + hi)*128 + lo), or a sentinel for a
+    padded slot.  Both tables are int16 holding the bits of a uint16
+    (sentinel 0xFFFF) when both windows are shorter than 65,535 entries,
+    else int32 (sentinel -1); ``unpack_positions`` undoes either.  cnt[b] is
+    one past the last slot of block b with a position: the layout sorts
+    padded slots last, so no slot from cnt[b] on has work."""
+    Ws = ((2 * lay.hv + 1) * lay.OWv, (2 * lay.hp + 1) * lay.OWp)
+    wide = max(Ws) >= _POS16_SENTINEL
+    tables = []
+    for (loc, RW), W in zip(zip(_locs(lay), (lay.RWv, lay.RWp)), Ws):
+        pos = loc.transpose(1, 2)  # [nb, k, Bmax]
+        pos = torch.where((pos >= RW * 128) | (pos >= W), torch.full_like(pos, -1), pos)
+        tables.append(pos)
+    filled = (tables[0] >= 0).any(dim=1) | (tables[1] >= 0).any(dim=1)  # [nb, Bmax]
+    slots = torch.arange(1, lay.Bmax + 1, device=filled.device)
+    cnt = (filled * slots).amax(dim=1).to(torch.int32)
+    if wide:
+        return (*(t.to(torch.int32).contiguous() for t in tables), cnt)
+    # the bits of a uint16 in an int16: 0xFFFF for -1, p - 65536 from 32768 on
+    return (*(t.to(torch.int16).contiguous() for t in tables), cnt)
+
+
+def unpack_positions(pos: torch.Tensor) -> torch.Tensor:
+    """int64 window positions of a packed table, -1 for padded slots."""
+    if pos.dtype == torch.int16:
+        p = pos.long() & 0xFFFF
+        return torch.where(p == _POS16_SENTINEL, torch.full_like(p, -1), p)
+    return pos.long()
+
+
 def _gather_reference(lay: WindowedLayout, x: torch.Tensor) -> torch.Tensor:
     xw = _all_windows(lay, x)
     lv, lp = _locs(lay)
@@ -477,6 +518,68 @@ def _scatter_reference(lay: WindowedLayout, R: torch.Tensor) -> torch.Tensor:
         lp, Rn[:, :, lay.dim * lay.k_v :], lay.OWp, lay.hp, lay.n_ps, lay.RWp
     )
     return torch.cat(ys + [yp])
+
+
+def _merge_reference(sub, offs, cnt, Bc, nb, OW, h, n):
+    """Plain version of the merge kernel: accumulators sub [..., nb, nsub,
+    len] -> the space's vector [..., n].
+
+    Entry d of piece c of block b is window position offs[b, c]*128 + d
+    (offs None: whole windows, one piece from 0); piece c of block b counts
+    only if cnt[b] > c*Bc (cnt None: always).  Row r = b*OW + o is, for j =
+    0..2h in turn, the entry at window position j*OW + o of block b + h - j,
+    itself the sum of that window's pieces in order.  For whole windows this
+    is ``_combine_windows``."""
+    nsub, length = sub.shape[-2:]
+    r = torch.arange(n, device=sub.device)
+    b, o = r // OW, r % OW
+    acc = sub.new_zeros((*sub.shape[:-3], n))
+    for j in range(2 * h + 1):
+        bp = b + h - j
+        ok = (bp >= 0) & (bp < nb)
+        bpc = bp.clamp(0, nb - 1)
+        pos = j * OW + o
+        s = torch.zeros_like(acc)
+        for c in range(nsub):
+            d = pos if offs is None else pos - offs[bpc, c].long() * 128
+            take = ok & (d >= 0) & (d < length)
+            if cnt is not None:
+                take = take & (cnt[bpc] > c * Bc)
+            val = sub[..., bpc, c, d.clamp(0, length - 1)]
+            s = s + torch.where(take, val, torch.zeros_like(val))
+        acc = acc + s
+    return acc
+
+
+def _scatter_chunked_reference(lay: WindowedLayout, R: torch.Tensor) -> torch.Tensor:
+    """``_scatter_reference`` in the kernels' order: every chunk sums its
+    slots' rows into its own subwindow (packed positions less the chunk's
+    offset), then ``_merge_reference`` sums the subwindows that cover each
+    row.  This is the plain version of what K1 and K2 do after their
+    contraction."""
+    pos_v, pos_p, cnt = pack_positions(lay)
+    Rn = R[: lay.nl].reshape(lay.nl, lay.nb, lay.nchunks, lay.Bc)
+    nv = lay.dim * lay.k_v
+
+    def space(pos, offs, rows, RVc, OW, h, n):
+        # rows [ncomp, k, nb, nchunks, Bc] -> sub [ncomp, nb, nchunks, RVc*128]
+        length = RVc * 128
+        p = unpack_positions(pos).reshape(lay.nb, -1, lay.nchunks, lay.Bc).permute(1, 0, 2, 3)
+        d = p - offs.long()[None, :, :, None] * 128
+        d = torch.where((p >= 0) & (d >= 0) & (d < length), d, torch.full_like(d, length))
+        piece = torch.arange(lay.nb * lay.nchunks, device=d.device).reshape(1, lay.nb, lay.nchunks, 1)
+        flat = (piece * (length + 1) + d).reshape(-1)  # one dump entry a piece
+        subs = []
+        for vals in rows:
+            sub = vals.new_zeros(lay.nb * lay.nchunks * (length + 1))
+            sub.index_add_(0, flat, vals.reshape(-1))
+            subs.append(sub.reshape(lay.nb, lay.nchunks, length + 1)[:, :, :length])
+        return _merge_reference(torch.stack(subs), offs, cnt, lay.Bc, lay.nb, OW, h, n)
+
+    yv = space(pos_v, lay.offs_v, Rn[:nv].reshape(lay.dim, lay.k_v, *Rn.shape[1:]),
+               lay.RVv, lay.OWv, lay.hv, lay.n_vs)
+    yp = space(pos_p, lay.offs_p, Rn[nv:][None], lay.RVp, lay.OWp, lay.hp, lay.n_ps)
+    return torch.cat([yv.reshape(-1), yp.reshape(-1)])
 
 
 def windowed_matvec_reference(
@@ -527,7 +630,13 @@ _NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 _SPACE_CODE = {"v": 1, "p": 2, "vp": 3}
-_SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
+# what the entry points return besides 0 and cudaError_t values (windowed.cu)
+_KERNEL_ERRORS = {
+    -1: "the layout is not one the kernels are built for (2D P2/P1, chunks of "
+        "at most 1024 slots whose rows of A are 16-byte multiples)",
+    -2: "a block would need more shared memory than it may use",
+    -3: "the operator's storage is not 16-byte aligned",
+}
 
 
 def _nvcc() -> str:
@@ -579,13 +688,53 @@ def _load(path: str):
     lib = ctypes.CDLL(path)
     p, i = ctypes.c_void_p, ctypes.c_int
     meta = ctypes.POINTER(ctypes.c_int)
-    tables = [p] * 6
+    tables = [p] * 5
+    lib.ns_scratch_floats.argtypes = [meta]
+    lib.ns_scratch_floats.restype = ctypes.c_long
     lib.ns_gather.argtypes = [meta, *tables, p, p, i, p]
     lib.ns_scatter.argtypes = [meta, *tables, p, p, p, p]
     lib.ns_matvec.argtypes = [meta, *tables, p, i, i, i, i, p, p, p, p]
     for fn in (lib.ns_gather, lib.ns_scatter, lib.ns_matvec):
         fn.restype = i
     return lib
+
+
+class _Packed:
+    """What the CUDA entry points take of one layout, made once: the geometry
+    record (struct Geo, windowed.cu), the packed tables of ``pack_positions``
+    and the leading arguments of every call.  Scratch for the window
+    accumulators is kept per stream (calls on one stream run in turn, so
+    they can share it; CUDA graphs captured on one capture stream share
+    theirs, so replay them on one stream at a time)."""
+
+    def __init__(self, lay: WindowedLayout):
+        self.pos_v, self.pos_p, self.cnt = pack_positions(lay)
+        vals = [
+            lay.nb, lay.Bmax, lay.Bc, lay.nchunks,
+            lay.dim, lay.k_v, lay.k_p,
+            lay.OWv, lay.OWp, lay.hv, lay.hp, lay.RVv, lay.RVp,
+            lay.n_vs, lay.n_ps, lay.ncd,
+            int(self.pos_v.dtype == torch.int32),
+        ]
+        self.meta = (ctypes.c_int * (len(vals) + 1))(len(vals), *vals)
+        self.args = (
+            self.meta, self.pos_v.data_ptr(), self.pos_p.data_ptr(),
+            lay.offs_v.data_ptr(), lay.offs_p.data_ptr(), self.cnt.data_ptr(),
+        )
+        self._device = lay.device
+        self._scratch = {}
+
+    def scratch(self, stream: int) -> int:
+        """Address of this stream's scratch (allocated at first use, of the
+        size the library asks for)."""
+        buf = self._scratch.get(stream)
+        if buf is None:
+            n = _lib().ns_scratch_floats(self.meta)
+            if n < 0:
+                _raise_on(n, "ns_scratch_floats")
+            buf = torch.empty(n, dtype=torch.float32, device=self._device)
+            self._scratch[stream] = buf
+        return buf.data_ptr()
 
 
 def _check_cuda(lay: WindowedLayout, *tensors):
@@ -610,48 +759,10 @@ def _check_vec(x: torch.Tensor, n: int):
         )
 
 
-def _tables(lay: WindowedLayout):
-    return [
-        ctypes.c_void_p(t.data_ptr())
-        for t in (lay.offs_v, lay.loc_v_hi, lay.loc_v_lo,
-                  lay.offs_p, lay.loc_p_hi, lay.loc_p_lo)
-    ]
-
-
-def _stream(dev) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-
-
 def _raise_on(err: int, name: str):
     if err != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed: cudaError {err}")
-
-
-def _window_outputs(lay: WindowedLayout, out_v: bool, out_p: bool, dev):
-    Wv = (2 * lay.hv + 1) * lay.OWv
-    Wp = (2 * lay.hp + 1) * lay.OWp
-    smem = 4 * ((lay.dim * Wv if out_v else 0) + (Wp if out_p else 0))
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"window accumulators need {smem} B of shared memory, over the "
-            f"{_SMEM_LIMIT} B a block may use"
-        )
-    yv = torch.empty((lay.dim, lay.nb, Wv), dtype=torch.float32, device=dev) if out_v else None
-    yp = torch.empty((lay.nb, Wp), dtype=torch.float32, device=dev) if out_p else None
-    return yv, yp
-
-
-def _ptr(t):
-    return ctypes.c_void_p(0 if t is None else t.data_ptr())
-
-
-def _merge(lay: WindowedLayout, yv, yp) -> torch.Tensor:
-    ys = []
-    if yv is not None:
-        ys.append(_combine_windows(yv, lay.nb, lay.OWv, lay.hv, lay.n_vs).reshape(-1))
-    if yp is not None:
-        ys.append(_combine_windows(yp, lay.nb, lay.OWp, lay.hp, lay.n_ps))
-    return torch.cat(ys) if len(ys) > 1 else ys[0]
+        what = _KERNEL_ERRORS.get(err, f"cudaError {err}")
+        raise RuntimeError(f"CUDA kernel {name} failed: {what}")
 
 
 def _launch_matvec(lay, A, x, in_spaces, out_spaces, n_out_pad):
@@ -663,14 +774,17 @@ def _launch_matvec(lay, A, x, in_spaces, out_spaces, n_out_pad):
         raise ValueError(f"operator shape {tuple(A.shape)} != {(n_in, n_out_pad, lay.ncd)}")
     n_x = (lay.n_u if "v" in in_spaces else 0) + (lay.n_ps if "p" in in_spaces else 0)
     _check_vec(x, n_x)
-    yv, yp = _window_outputs(lay, "v" in out_spaces, "p" in out_spaces, x.device)
+    n_y = (lay.n_u if "v" in out_spaces else 0) + (lay.n_ps if "p" in out_spaces else 0)
+    y = torch.empty(n_y, dtype=torch.float32, device=x.device)
+    pk = lay._packed
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _lib().ns_matvec(
-        lay._meta, *_tables(lay), _ptr(A), int(A.dtype == torch.bfloat16),
+        *pk.args, A.data_ptr(), int(A.dtype == torch.bfloat16),
         _SPACE_CODE[in_spaces], _SPACE_CODE[out_spaces], n_out_pad,
-        _ptr(x), _ptr(yv), _ptr(yp), _stream(x.device),
+        x.data_ptr(), pk.scratch(stream), y.data_ptr(), stream,
     )
     _raise_on(err, f"ns_matvec({in_spaces}->{out_spaces})")
-    return _merge(lay, yv, yp)
+    return y
 
 
 def _plain_or_raise(t: torch.Tensor) -> bool:
@@ -708,7 +822,8 @@ def windowed_gather(lay: WindowedLayout, x: torch.Tensor) -> torch.Tensor:
     _check_vec(x, lay.n_u + lay.n_ps)
     X = torch.empty((lay.nli, lay.ncd), dtype=torch.float32, device=x.device)
     err = _lib().ns_gather(
-        lay._meta, *_tables(lay), _ptr(x), _ptr(X), lay.nli, _stream(x.device)
+        *lay._packed.args, x.data_ptr(), X.data_ptr(), lay.nli,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     _raise_on(err, "ns_gather")
     windowed_gather.launches += 1
@@ -717,19 +832,22 @@ def windowed_gather(lay: WindowedLayout, x: torch.Tensor) -> torch.Tensor:
 
 def windowed_scatter(lay: WindowedLayout, R: torch.Tensor) -> torch.Tensor:
     """y = sum_cells P_c^T R_c for per-cell row values R [>=nl, nb*Bmax]:
-    per-block window accumulation, then the overlaps merge."""
+    per-block window accumulation, then the overlaps merge (on the card both
+    in one C call)."""
     if _plain_or_raise(R):
         return _scatter_reference(lay, R)
     _check_cuda(lay, R)
     if R.dtype != torch.float32 or R.dim() != 2 or R.shape[0] < lay.nl or R.shape[1] != lay.ncd:
         raise TypeError(f"scatter rows must be float32 [>= {lay.nl}, {lay.ncd}]")
-    yv, yp = _window_outputs(lay, True, True, R.device)
+    y = torch.empty(lay.n_u + lay.n_ps, dtype=torch.float32, device=R.device)
+    pk = lay._packed
+    stream = torch.cuda.current_stream(R.device).cuda_stream
     err = _lib().ns_scatter(
-        lay._meta, *_tables(lay), _ptr(R), _ptr(yv), _ptr(yp), _stream(R.device)
+        *pk.args, R.data_ptr(), pk.scratch(stream), y.data_ptr(), stream
     )
     _raise_on(err, "ns_scatter")
     windowed_scatter.launches += 1
-    return _merge(lay, yv, yp)
+    return y
 
 
 def windowed_matvec_block(

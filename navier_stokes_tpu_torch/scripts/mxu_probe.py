@@ -25,7 +25,7 @@ import sys
 
 import torch
 
-from ..ops.windowed import _PKG, _ptr, _raise_on, _stream, build_library
+from ..ops.windowed import _PKG, _raise_on, build_library
 
 __all__ = ["mxu_probe", "mxu_probe_reference", "build_kernel", "probe_table", "main",
            "M_VALUES"]
@@ -91,7 +91,8 @@ def mxu_probe(a: torch.Tensor, b: torch.Tensor, M: int, iters: int) -> torch.Ten
         if t.device != a.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("operands must be contiguous, 16-byte aligned, on one device")
     out = torch.empty((M, n), dtype=torch.float32, device=a.device)
-    err = _lib().ns_mxu_probe(_ptr(a), _ptr(b), _ptr(out), M, n, iters, _stream(a.device))
+    err = _lib().ns_mxu_probe(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, n, iters,
+                              torch.cuda.current_stream(a.device).cuda_stream)
     _raise_on(err, "ns_mxu_probe")
     mxu_probe.launches += 1
     return out

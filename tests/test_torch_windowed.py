@@ -8,6 +8,8 @@
 * In float32, against the JAX Pallas kernels run in interpret mode with
   passes=3 (an exact f32 split), to 1e-5 of ||y||_inf: float32 sums taken in
   another order (one-hot MXU dots there, direct gathers here).
+* The kernels' packed position tables against ``_abs_loc``, and the plain
+  version of their merge kernel against ``_combine_windows``.
 * The CUDA kernels against the plain versions: tests/test_torch_kernels.py.
 """
 
@@ -182,3 +184,146 @@ def test_wrappers_count_no_launch_on_cpu(case):
     tw.windowed_gather(tlay, x)
     tw.windowed_matvec(tlay, torch.as_tensor(case["A"]), x)
     assert all(v == 0 for v in tw.launch_counts().values())
+
+
+def _wide_halo_layout():
+    """A layout with a 3-block halo, several chunks and padded slots (no
+    mesh behind it: cell i touches dofs around i)."""
+    rng = np.random.default_rng(5)
+    n_vs, n_ps, nc = 2048, 2048, 3000
+    centre = np.sort(rng.integers(0, n_vs, nc))
+    vd = np.clip(centre[:, None] + rng.integers(-200, 201, (nc, 6)), 0, n_vs - 1)
+    pd = np.clip(centre[:, None] + rng.integers(-150, 151, (nc, 3)), 0, n_ps - 1)
+    return tw.build_windowed_layout(vd, pd, n_vs, n_ps, 2, target_ow=128, Bc=128)
+
+
+def _packed_cases():
+    return {**{k: (lambda k=k: _case(k)["tlay"]) for k in sorted(CASES)},
+            "wide-halo": _wide_halo_layout}
+
+
+@pytest.mark.parametrize("name", sorted(CASES) + ["wide-halo"])
+def test_packed_positions_equal_abs_loc(name):
+    """The one table the kernels read holds ``_abs_loc``'s positions, with
+    one sentinel for the padded slots, and gathers what ``_gather_reference``
+    gathers."""
+    lay = _packed_cases()[name]()
+    if name == "wide-halo":
+        assert lay.hv > 1 and lay.nchunks > 1 and lay.pad_factor > 1
+    pos_v, pos_p, cnt = tw.pack_positions(lay)
+    assert pos_v.dtype == pos_p.dtype == torch.int16 and cnt.dtype == torch.int32
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(lay.n_u + lay.n_ps))
+    cols = []
+    spaces = [(pos_v, lay.loc_v_hi, lay.loc_v_lo, lay.offs_v, lay.RVv, lay.RWv, lay.k_v,
+               lay.OWv, lay.hv, lay.n_vs, lay.dim),
+              (pos_p, lay.loc_p_hi, lay.loc_p_lo, lay.offs_p, lay.RVp, lay.RWp, lay.k_p,
+               lay.OWp, lay.hp, lay.n_ps, 1)]
+    seg = 0
+    for pos, hi, lo, offs, RV, RW, k, OW, h, n, ncomp in spaces:
+        assert pos.shape == (lay.nb, k, lay.Bmax)
+        got = tw.unpack_positions(pos).transpose(1, 2)  # [nb, Bmax, k]
+        want = tw._abs_loc(lay, hi, lo, offs, RV, RW, k)
+        want = torch.where(want >= min(RW * 128, (2 * h + 1) * OW), -1, want)
+        assert torch.equal(got, want)
+        # a gather straight through the table: window position -> global row
+        row = (torch.arange(lay.nb)[:, None, None] - h) * OW + got
+        ok = (got >= 0) & (row >= 0) & (row < n)
+        for c in range(ncomp):
+            xs = x[seg : seg + n]
+            cols.append(torch.where(ok, xs[row.clamp(0, n - 1)], 0.0))
+            seg += n
+    X = torch.cat(cols, dim=2).reshape(lay.ncd, lay.nl).T
+    assert torch.equal(X, tw._gather_reference(lay, x)[: lay.nl])
+    # no slot from cnt[b] on holds a cell
+    filled = (tw.unpack_positions(pos_v) >= 0).any(dim=1)
+    slots = torch.arange(lay.Bmax)[None, :]
+    assert not bool((filled & (slots >= cnt[:, None])).any())
+    assert bool((cnt <= lay.Bmax).all()) and int(cnt.max()) > lay.Bmax - lay.Bc
+
+
+def test_packed_positions_widen_to_int32():
+    """Windows of 65,535 entries or more do not fit 16 bits."""
+    lay = _case("blocked-h1")["tlay"]
+    import dataclasses
+    big = dataclasses.replace(lay, OWv=32768)  # only the width decides the type
+    pos_v, pos_p, _ = tw.pack_positions(big)
+    assert pos_v.dtype == pos_p.dtype == torch.int32
+    narrow = tw.unpack_positions(tw.pack_positions(lay)[0])
+    assert torch.equal(tw.unpack_positions(pos_v), narrow)
+
+
+@pytest.mark.parametrize("h", [0, 1, 3])
+@pytest.mark.parametrize("n_short", [0, 37])
+def test_merge_reference_equals_combine_windows(h, n_short):
+    """Whole windows: the merge kernel's plain version is the fixed-order
+    shifted adds of ``_combine_windows``, bit for bit."""
+    nb, OW = 7, 128
+    n = nb * OW - n_short
+    rng = np.random.default_rng(h)
+    win = torch.as_tensor(rng.standard_normal((2, nb, (2 * h + 1) * OW)), dtype=torch.float32)
+    want = tw._combine_windows(win, nb, OW, h, n)
+    got = tw._merge_reference(win[:, :, None, :], None, None, 0, nb, OW, h, n)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", sorted(CASES) + ["wide-halo"])
+def test_merge_of_chunk_subwindows(name):
+    """Chunk subwindows placed into their windows and merged by
+    ``_combine_windows`` equal ``_merge_reference`` of the subwindows."""
+    lay = _packed_cases()[name]()
+    rng = np.random.default_rng(9)
+    cnt = tw.pack_positions(lay)[2]
+    for offs, RV, RW, OW, h, n in ((lay.offs_v, lay.RVv, lay.RWv, lay.OWv, lay.hv, lay.n_vs),
+                                   (lay.offs_p, lay.RVp, lay.RWp, lay.OWp, lay.hp, lay.n_ps)):
+        sub = torch.as_tensor(rng.standard_normal((2, lay.nb, lay.nchunks, RV * 128)))
+        win = sub.new_zeros((2, lay.nb, RW * 128))
+        for b in range(lay.nb):
+            for c in range(lay.nchunks):
+                if int(cnt[b]) > c * lay.Bc:
+                    o = int(offs[b, c]) * 128
+                    win[:, b, o : o + RV * 128] += sub[:, b, c]
+        want = tw._combine_windows(win, lay.nb, OW, h, n)
+        got = tw._merge_reference(sub, offs, cnt, lay.Bc, lay.nb, OW, h, n)
+        _close(got, want, 1e-14)
+
+
+@pytest.mark.parametrize("name", sorted(CASES) + ["wide-halo"])
+def test_chunked_scatter_matches_plain(name):
+    lay = _packed_cases()[name]()
+    R = torch.as_tensor(np.random.default_rng(4).standard_normal((lay.nli, lay.ncd)))
+    _close(tw._scatter_chunked_reference(lay, R), tw._scatter_reference(lay, R), 1e-12)
+
+
+def test_matvec_through_chunked_merge_matches_jax_reference_f64(case):
+    """The kernels' order of sums (chunk subwindows, then the fixed-order
+    merge) against JAX's plain matvec, float64, 1e-12 of ||y||_inf."""
+    jlay, tlay = case["jlay"], case["tlay"]
+    A, x = torch.as_tensor(case["A"]), torch.as_tensor(case["x"])
+    X = tw._gather_reference(tlay, x)
+    yl = torch.einsum("jis,js->is", A[:, : tlay.nl, :], X[: tlay.nl])
+    got = tw._scatter_chunked_reference(tlay, yl)
+    want = jw.windowed_matvec_reference(jlay, jnp.asarray(case["A"]), jnp.asarray(case["x"]))
+    _close(got, want, 1e-12)
+
+
+@pytest.mark.parametrize("name", sorted(CASES) + ["wide-halo"])
+def test_kernel_geometry_record(name):
+    """What the CUDA entry points are told about a layout (struct Geo of
+    csrc/windowed.cu): 17 integers, the last the tables' index width; and
+    the occupied chunks of a block are a prefix (the kernels skip the rest
+    by the slot counts alone)."""
+    lay = _packed_cases()[name]()
+    pk = lay._packed
+    assert pk is lay._packed  # made once
+    meta = list(pk.meta)
+    assert meta[0] == 17 and len(meta) == 18
+    assert meta[1:5] == [lay.nb, lay.Bmax, lay.Bc, lay.nchunks]
+    assert meta[5:8] == [lay.dim, lay.k_v, lay.k_p]
+    assert meta[8:14] == [lay.OWv, lay.OWp, lay.hv, lay.hp, lay.RVv, lay.RVp]
+    assert meta[14:17] == [lay.n_vs, lay.n_ps, lay.ncd]
+    assert meta[17] == 0  # 16-bit tables
+    filled = (tw.unpack_positions(pk.pos_v) >= 0).any(dim=1)  # [nb, Bmax]
+    chunks = filled.reshape(lay.nb, lay.nchunks, lay.Bc).any(dim=2)
+    assert bool((chunks.int().diff(dim=1) <= 0).all())
+    assert torch.equal(chunks, pk.cnt[:, None] > torch.arange(lay.nchunks) * lay.Bc)
+    assert len(pk.args) == 6 and pk.args[1] == pk.pos_v.data_ptr()
