@@ -5,14 +5,16 @@
 Phases (any failure exits non-zero; there is no CPU fallback):
   1. device     the card's name and power limit
   2. build      nvcc builds navier_stokes_tpu_torch/csrc/windowed.cu and
-                csrc/mxu_probe.cu for sm_90a, both at once
+                csrc/mxu_probe.cu for sm_90a, both at once; each kernel's
+                registers and spills as ptxas reports them
   3. kernels    each windowed kernel (K1-K4) against its plain torch version
                 at the shapes of the 102,400-cell channel; CUDA-event times
                 with the inputs out of L2 (and warm), host time a call, the
                 bound in bytes and the share of it reached, one PyTorch call
-                of the same function where there is one (K3, K4), the packed
-                position tables against _abs_loc, and K1 / K2 replayed from
-                a CUDA graph
+                of the same function (K1 and each K2 product: a CSR product
+                with the assembled matrix; K3 index_select; K4 index_add_), the
+                packed position tables against _abs_loc, and K1 / K2 / K4
+                replayed from a CUDA graph
   4. slice      NavierStokesSolver on that channel in float32: 3 BDF1 steps of
                 the windowed, Cahouet-Chabard-preconditioned Newton solve;
                 every Newton loop and every tangent solve must converge
@@ -22,7 +24,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
   7. parity     unit_square(6): float32 on the GPU (kernels) against float64
                 on the CPU (plain versions), Newton residuals per step
   8. probe      K5, the tensor-core probe, against its plain version at
-                every M of the probe, then its entry point's table
+                every M of the probe, replayed from a CUDA graph, beside one
+                torch.mm of its products, then its entry point's table
                 (python -m navier_stokes_tpu_torch.scripts.mxu_probe)
   9. cli        python -m navier_stokes_tpu_torch run on the 6,400-cell
                 channel written as a gmsh .msh: windowed, Cahouet-Chabard,
@@ -44,13 +47,16 @@ same inputs, ``host_us`` the host's time to queue a call), ``plain_ms`` the
 plain version's, ``bound_ms`` the least time the card could take (the bytes
 that must move over 3.35 TB/s, or the operations over 989 TFLOP/s:
 ``bound_by``), ``library_ms`` one PyTorch call computing the same function
-(null where there is none; never used by the package; for K5 the probe's
-products as warm torch.matmul calls queued one by one, ``library_graph_ms``
-the same calls replayed from a CUDA graph).
+(null where there is none; never used by the package; ``library`` says
+which call: for K5 one torch.mm of the products laid side by side along K
+with a float32 output, and ``library_graph_ms`` the products as bf16
+torch.matmul calls replayed from a CUDA graph; K5's ``grid`` is the launch's
+tiles and groups of iterations).
 """
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -261,6 +267,11 @@ def compare(name, kernel, plain, exact=False, bound_bytes=None, library=None):
             f"kernel {rec['ms']:.4f} ms (warm {rec['warm_ms']:.4f}, host "
             f"{rec['host_us']:.1f} us a call)  plain {rec['plain_ms']:.4f} ms")
     if library is not None:
+        lib = library()
+        lib_err = float((lib.double() - want.double()).abs().max())
+        if not (torch.equal(lib, want) if exact else lib_err <= REL_TOL * scale):
+            raise RuntimeError(f"{name}: the library call does not compute the same function "
+                               f"(max|err| {lib_err:.3e})")
         rec["library_ms"] = cuda_ms_cold(library)
         line += f"  library {rec['library_ms']:.4f} ms"
     if bound_bytes is not None:
@@ -313,8 +324,8 @@ def bound_bytes_of(lay, ops):
 def flat_dof_index(lay):
     """[nli * ncd] int64: the entry of the extended vector [x, 0] that
     X[l, s] copies (n_total for padded slots, rows past nl and window
-    positions off the vector's ends).  For the library yardsticks of K3
-    (index_select) and K4 (index_add_) only."""
+    positions off the vector's ends).  For the library yardsticks only: K3
+    (index_select), K4 (index_add_) and the CSR matrices of K1 and K2."""
     n = lay.n_u + lay.n_ps
     pos_v, pos_p, _ = W.pack_positions(lay)
     b = torch.arange(lay.nb, device=lay.device)[:, None, None]
@@ -348,11 +359,10 @@ def check_packed_tables(lay):
           f"occupied slots {int(cnt.sum())} of {lay.ncd})", flush=True)
 
 
-def matmul_loop_ms(a, b, M, iters):
-    """(queued, replayed) warm CUDA-event times in ms of ``iters`` bf16
-    torch.matmul calls a_panel(i % 8) @ b, the products of one probe launch:
-    queued one by one from the host, and replayed from a CUDA graph of the
-    same loop (no host time between the products)."""
+def matmul_graph_ms(a, b, M, iters):
+    """Warm CUDA-event time in ms of ``iters`` bf16 torch.matmul calls
+    a_panel(i % 8) @ b, the products of one probe launch (each overwrites one
+    bf16 output: nothing accumulates), replayed from a CUDA graph."""
     panels = [a[p * M:(p + 1) * M] for p in range(8)]
     out = torch.empty((M, b.shape[1]), dtype=torch.bfloat16, device=a.device)
 
@@ -369,12 +379,69 @@ def matmul_loop_ms(a, b, M, iters):
     with torch.cuda.graph(graph, stream=side):
         loop()
     graph.replay()
-    return cuda_ms(loop), cuda_ms(graph.replay)
+    return cuda_ms(graph.replay)
+
+
+def probe_one_call(a, b, M, iters):
+    """(call, what it is): K5's function as one PyTorch call, torch.mm of the
+    panels a_(i % 8), i < iters, side by side along K [M, iters*128] with b
+    stacked iters times [iters*128, N], bf16 operands, float32 output."""
+    a_cat = torch.cat([a[(i % 8) * M:(i % 8 + 1) * M] for i in range(iters)], dim=1)
+    b_stack = b.repeat(iters, 1)
+    return (lambda: torch.mm(a_cat, b_stack, out_dtype=torch.float32),
+            f"one torch.mm [{M}, {iters * mxu.K}] @ [{iters * mxu.K}, {b.shape[1]}], "
+            "bf16 operands, out_dtype float32")
+
+
+def csr_yardstick(lay, A, x, ins, outs):
+    """(call, what it is): y = A x as one CSR product with the assembled
+    matrix of a windowed operator A [n_in, n_out_pad, ncd] (K1: A_t; K2: a
+    slice_block), built here from the cells' dof indices over the in- and
+    out-spaces' segments, with float32 values (torch's CSR product refuses
+    bf16 values with a float32 vector on the H100)."""
+    n = lay.n_u + lay.n_ps
+    D = flat_dof_index(lay).view(lay.nli, lay.ncd)
+    nv = lay.dim * lay.k_v
+    sl = {"v": slice(0, nv), "p": slice(nv, lay.nl), "vp": slice(0, lay.nl)}
+    rows, cols = D[sl[outs]], D[sl[ins]]
+    vals = A[:, : rows.shape[0], :]  # vals[j, i, s]: out row dof_i(s), in col dof_j(s)
+    R, C = rows[None].expand(vals.shape), cols[:, None].expand(vals.shape)
+    ok = (R < n) & (C < n)
+    start = {"v": 0, "p": lay.n_u, "vp": 0}
+    size = {"v": lay.n_u, "p": lay.n_ps, "vp": n}
+    idx = torch.stack([R[ok] - start[outs], C[ok] - start[ins]])
+    coo = torch.sparse_coo_tensor(idx, vals[ok].float(), (size[outs], size[ins]))
+    csr = coo.coalesce().to_sparse_csr()
+    return (lambda: csr @ x), f"CSR @ x, float32 values ({csr._nnz()} stored entries)"
+
+
+def ptxas_summary(log):
+    """One line per kernel of a build's ptxas output: its registers, and its
+    spills where there are any."""
+    names = {}
+    mangled = re.findall(r"Compiling entry function '([^']+)'", log)
+    if mangled:
+        try:
+            out = subprocess.run(["c++filt"], input="\n".join(mangled), capture_output=True,
+                                 text=True, timeout=30).stdout.splitlines()
+            names = dict(zip(mangled, out))
+        except (OSError, subprocess.SubprocessError):
+            pass
+    lines, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = names.get(m.group(1), m.group(1))
+        elif name and "registers" in line:
+            lines.append(f"{name[:110]}: {line.split(':', 1)[-1].strip()}")
+        elif name and "spill" in line and " 0 bytes spill stores" not in line:
+            lines.append(f"{name[:110]}: {line.strip()}")
+    return list(dict.fromkeys(lines))  # ptxas reports some kernels twice
 
 
 def check_graph_replay(name, call, x):
     """Capture one wrapper call in a CUDA graph, write new values into its
-    input vector, replay, and hold the output against an eager call."""
+    input x, replay, and hold the output against an eager call."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # the capture stream's scratch, before the capture
@@ -413,9 +480,8 @@ def main():
     for info in builds:
         print(f"  {' '.join(info['cmd'] or ['(library already built)'])}")
         print(f"  built {info['path']} in {info['seconds']:.1f} s")
-        for line in info["log"].splitlines():
-            if "registers" in line or ("spill" in line and " 0 bytes spill stores" not in line):
-                print(f"  ptxas: {line.strip()}")
+        for line in ptxas_summary(info["log"]):
+            print(f"  ptxas: {line}")
 
     phase("3 kernels vs plain at the channel's shapes")
     mesh = nt.refine_uniform(nt.rectangle(80, 40, 0, 7, 0, 4), 2)
@@ -434,28 +500,36 @@ def main():
     calls, ops_ = kb.channel_operands(solver)
     x, R = ops_["x"], ops_["R"]
     check_packed_tables(lay)
-    # one PyTorch call of the same function, for K3 and K4 (yardsticks only)
+    # one PyTorch call of the same function (yardsticks only): K3, K4 through
+    # the flat dof index, K1 and each K2 product as a CSR product, its matrix
+    # built here, outside the timing
     dof_index = flat_dof_index(lay)
     x_ext = torch.cat([x, x.new_zeros(1)])
-    lib_gather = lambda: torch.index_select(x_ext, 0, dof_index).view(lay.nli, lay.ncd)
-    lib_scatter = lambda: x.new_zeros(n + 1).index_add_(0, dof_index, R.reshape(-1))[:n]
-    if not torch.equal(lib_gather(), W._gather_reference(lay, x)):
-        raise RuntimeError("the index_select yardstick is not K3's function")
-    want = W._scatter_reference(lay, R)
-    if float((lib_scatter() - want).abs().max()) > REL_TOL * float(want.abs().max()):
-        raise RuntimeError("the index_add_ yardstick is not K4's function")
+    library = {
+        "K3": (lambda: torch.index_select(x_ext, 0, dof_index).view(lay.nli, lay.ncd),
+               "torch.index_select of x through the flat dof index"),
+        "K4": (lambda: x.new_zeros(n + 1).index_add_(0, dof_index, R.reshape(-1))[:n],
+               "torch.index_add_ of R through the flat dof index"),
+    }
+    csr_operands = {"K1 f32": (ops_["A_t"], x, "vp", "vp"), "K1": (ops_["A_bf"], x, "vp", "vp")}
+    for pair, (A_sub, xs) in ops_["blocks"].items():
+        csr_operands[f"K2 {pair}"] = (A_sub, xs, *pair.split("->"))
+    for key, (A, xs, ins, outs) in csr_operands.items():
+        library[key] = csr_yardstick(lay, A, xs, ins, outs)
+        print(f"  {key} yardstick: {library[key][1]}", flush=True)
     bounds = bound_bytes_of(lay, ops_)
     titles = {"K3": "K3 gather", "K4": "K4 scatter", "K1 f32": "K1 matvec, f32 A",
               "K1": "K1 matvec, bf16 A (main path)"}
-    library = {"K3": lib_gather, "K4": lib_scatter}
-    recs = {
-        key: compare(titles.get(key, f"{key}, bf16 A"), kernel, plain, exact=key == "K3",
-                     bound_bytes=bounds[key], library=library.get(key))
-        for key, (kernel, plain) in calls.items()
-    }
+    recs = {}
+    for key, (kernel, plain) in calls.items():
+        lib_call, lib_what = library.get(key, (None, None))
+        recs[key] = compare(titles.get(key, f"{key}, bf16 A"), kernel, plain,
+                            exact=key == "K3", bound_bytes=bounds[key], library=lib_call)
+        recs[key]["library"] = lib_what
     check_graph_replay("K2 v->v", calls["K2 v->v"][0], x)
     check_graph_replay("K1 bf16", calls["K1"][0], x)
-    del calls, ops_, x, R, x_ext, dof_index, lib_gather, lib_scatter, library, want
+    check_graph_replay("K4", calls["K4"][0], R)
+    del calls, ops_, x, R, x_ext, dof_index, library, csr_operands
 
     phase("4 slice: 3 BDF1 steps, float32, windowed + Cahouet-Chabard")
     W.reset_launch_counts()
@@ -532,24 +606,35 @@ def main():
             lambda: mxu.mxu_probe(a, b, M, PROBE_CHECK_ITERS),
             lambda: mxu.mxu_probe_reference(a, b, M, PROBE_CHECK_ITERS),
         )
-    # K5's bound and yardstick at the largest M: the products' operations over
-    # the tensor cores' peak (or the operands' bytes, if that took longer), and
-    # the same PROBE_CHECK_ITERS products as bf16 torch.matmul calls over the
-    # rotating panels (a and b are the last M's operands)
+        probe_recs[M]["grid"] = mxu.mxu_probe.grid  # what the timed launches used
+    # K5's bound and yardsticks at the largest M: the products' operations
+    # over the tensor cores' peak (or the operands' bytes, if that took
+    # longer); one torch.mm of the same products; the same products as bf16
+    # torch.matmul calls replayed from a CUDA graph (a and b are the last M's
+    # operands)
     m_max = max(mxu.M_VALUES)
     k5 = probe_recs[m_max]
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    check_graph_replay(f"K5 M={m_max}", lambda: mxu.mxu_probe(a, b, m_max, PROBE_CHECK_ITERS), a)
     flops = 2.0 * m_max * mxu.K * mxu.N * PROBE_CHECK_ITERS
     moved = a.numel() * 2 + b.numel() * 2 + m_max * mxu.N * 4
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, moved / PEAK_BYTES_PER_S * 1e3
     k5.update(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
     k5["share"] = k5["bound_ms"] / k5["ms"]
-    k5["library_ms"], k5["library_graph_ms"] = matmul_loop_ms(a, b, m_max, PROBE_CHECK_ITERS)
-    print(f"  K5 M={m_max}: bound {k5['bound_ms']:.5f} ms by {k5['bound_by']} "
-          f"({flops / 1e9:.2f} GFLOP), share {k5['share']:.4f}; {PROBE_CHECK_ITERS} bf16 "
-          f"torch.matmul calls, warm: queued {k5['library_ms']:.4f} ms, replayed from a "
-          f"CUDA graph {k5['library_graph_ms']:.4f} ms; the kernel warm {k5['warm_ms']:.4f} ms "
-          f"(a product: matmul {k5['library_graph_ms'] / PROBE_CHECK_ITERS * 1e3:.2f} us, "
-          f"kernel {k5['warm_ms'] / PROBE_CHECK_ITERS * 1e3:.2f} us)", flush=True)
+    k5["library_graph_ms"] = matmul_graph_ms(a, b, m_max, PROBE_CHECK_ITERS)
+    one_call, k5["library"] = probe_one_call(a, b, m_max, PROBE_CHECK_ITERS)
+    want = mxu.mxu_probe_reference(a, b, m_max, PROBE_CHECK_ITERS)
+    err = float((one_call() - want).abs().max())
+    if err > 1e-5 * float(want.abs().max()):
+        raise RuntimeError(f"K5's one-call yardstick is not K5's function ({err:.3e})")
+    k5["library_ms"] = cuda_ms_cold(one_call)
+    g = k5["grid"]
+    print(f"  K5 M={m_max}: grid {g['m_tiles']} x {g['n_tiles']} tiles x {g['groups']} groups "
+          f"= {g['ctas']} CTAs on {sms} SMs; bound {k5['bound_ms']:.5f} ms by "
+          f"{k5['bound_by']} ({flops / 1e9:.2f} GFLOP), kernel {k5['ms']:.4f} ms cold "
+          f"(warm {k5['warm_ms']:.4f}), share {k5['share']:.4f}; library: {k5['library']}: "
+          f"{k5['library_ms']:.4f} ms cold; {PROBE_CHECK_ITERS} bf16 torch.matmul calls "
+          f"replayed from a CUDA graph {k5['library_graph_ms']:.4f} ms", flush=True)
     if k5["share"] > 1.0:
         raise RuntimeError("K5: faster than its bound; the count or the timing is wrong")
     mxu.mxu_probe.launches = 0
@@ -685,7 +770,8 @@ def main():
              "K3": "K3 windowed_gather", "K4": "K4 windowed_scatter"}
     counts = {k.split()[0]: v for k, v in launches.items()}
     timed = {"K1": "K1", "K2": "K2 v->v", "K3": "K3", "K4": "K4"}
-    measured = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "warm_ms", "host_us")
+    measured = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library", "warm_ms",
+                "host_us")
     kernels = []
     for k in ("K1", "K2", "K3", "K4"):
         mine = {key: r for key, r in recs.items() if key.split()[0] == k}
@@ -704,7 +790,8 @@ def main():
         launches=probe_launches, launches_per_newton_step=0,
         max_abs_err=max(r["max_abs_err"] for r in probe_recs.values()),
         timed=f"M={m_max}, {PROBE_CHECK_ITERS} products",
-        library_graph_ms=k5["library_graph_ms"], **{key: k5[key] for key in measured},
+        library_graph_ms=k5["library_graph_ms"], grid=k5["grid"],
+        **{key: k5[key] for key in measured},
     ))
     print()
     print(smi)  # the card's name and power limit, as nvidia-smi gives them

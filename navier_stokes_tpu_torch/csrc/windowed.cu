@@ -62,8 +62,18 @@
 //     by the same C call, sums for every owned row the chunk subwindows of
 //     the 2h+1 windows that cover it, chunks in order within a window and
 //     windows in the order of _combine_windows, and writes the final vector.
-//     K4 keeps its one block per layout block and hands whole windows to the
-//     same merge kernel.
+//
+// K4 (the scatter) has the matvec's grid and its tail: one CUDA block per
+// (layout block, chunk), a thread per slot, padded slots and empty chunks
+// skipped; a thread loads all of its slot's rows of R (slot-contiguous, so
+// the loads of a warp are coalesced) before its first atomic into the
+// chunk's subwindows in shared memory, and the same merge kernel sums the
+// subwindows.  Its accumulators are the chunk's subwindows, not the block's
+// window: ~40 KB at the channel, 5 resident blocks an SM, so all occupied
+// chunks run in one wave.  A subwindow is as wide as the widest chunk needs,
+// so K4 writes only the span its chunk's cells touch (~40 % of it at the
+// channel) and tells the merge that span; the scratch, not R, is most of
+// its bytes.
 //
 // Sums into a subwindow are shared-memory atomicAdds (compare-and-swap loops
 // on this card), so their order changes from run to run: the results vary by
@@ -79,7 +89,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;          // K3, K4 and the merge
+constexpr int kThreads = 256;          // K3 and the merge
 constexpr int kMaxChunkThreads = 1024; // K1/K2: one thread per slot of a chunk
 constexpr int kMetaLen = 17;
 constexpr int kBaseStages = 2;         // ring stages of A with shared memory of their own
@@ -372,59 +382,124 @@ matvec_kernel(Geo g, Tables t, const TA* __restrict__ A, int n_out_pad,
 }
 
 // ---- K4: y = sum_cells P_c^T R_c for per-slot rows R [>= nl, ncd] ----------
-// One CUDA block per layout block; whole windows out_v [DIM, nb, Wv] and
-// out_p [nb, Wp] for the merge kernel.
+// The matvec's grid (blockIdx.x = c*nb + b, thread tid owns slot (b, c*Bc +
+// tid)) and its outputs: sub_v [DIM, nb, nchunks, RVv*128], sub_p [nb,
+// nchunks, RVp*128], the chunk's subwindows, for the merge kernel.  Of each
+// subwindow only the span the chunk's cells touch is written, in whole
+// float4s (at the channel ~40 % of it), from the start of the chunk's piece
+// of scratch; span_v / span_p [nb, nchunks, 2] get the window positions
+// [start, end) it holds, and the merge reads those in place of offs.
 template <int DIM, int KV, int KP>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxChunkThreads)
 scatter_kernel(Geo g, Tables t, const float* __restrict__ R,
-               float* __restrict__ out_v, float* __restrict__ out_p) {
-  extern __shared__ float acc[];
-  const int b = blockIdx.x;
-  const int Wv = (2 * g.hv + 1) * g.OWv, Wp = (2 * g.hp + 1) * g.OWp;
-  const int acc_p = DIM * Wv;
-  for (int i = threadIdx.x; i < acc_p + Wp; i += blockDim.x) acc[i] = 0.f;
-  __syncthreads();
-  const int nv = min(t.cnt[b], g.Bmax);
-  for (int j = threadIdx.x; j < nv; j += blockDim.x) {
-    const long s = (long)b * g.Bmax + j;
+               float* __restrict__ sub_v, float* __restrict__ sub_p,
+               int* __restrict__ span_v, int* __restrict__ span_p) {
+  constexpr int NV = DIM * KV;
+  extern __shared__ __align__(16) float acc[];
+  __shared__ int span[4];  // the chunk's least and largest positions: v, then p
+  const int c = blockIdx.x / g.nb, b = blockIdx.x % g.nb;
+  const int tid = threadIdx.x;
+  const int nv = min(max(t.cnt[b] - c * g.Bc, 0), g.Bc);  // occupied slots here
+  if (nv == 0) return;  // the merge kernel skips this chunk too
+  const bool active = tid < nv;
+  const int Lv = g.RVv * 128, Lp = g.RVp * 128;
+  const int acc_p = DIM * Lv;
+  if (tid == 0) span[0] = span[2] = 0x7FFFFFFF, span[1] = span[3] = -1;
+
+  // this slot's rows of R and its positions in the chunk's subwindows, all
+  // loads issued before the accumulators are zeroed and summed into
+  float r[NV + KP];
+  int pv[KV], pp[KP];  // -1 for none
+  const int j = c * g.Bc + tid;
+  const long s = (long)b * g.Bmax + j;
+  const int base_v = t.offs_v[b * g.nchunks + c] * 128;
+  const int base_p = t.offs_p[b * g.nchunks + c] * 128;
 #pragma unroll
-    for (int l = 0; l < KV; ++l) {
-      const int pos = win_pos(t.pos_v, KV, g, b, j, l);
-      if (pos < 0) continue;
+  for (int l = 0; l < NV + KP; ++l) r[l] = active ? R[(long)l * g.ncd + s] : 0.f;
 #pragma unroll
-      for (int c = 0; c < DIM; ++c)
-        atomicAdd(&acc[c * Wv + pos], R[(long)(c * KV + l) * g.ncd + s]);
-    }
+  for (int l = 0; l < KV; ++l) pv[l] = active ? win_pos(t.pos_v, KV, g, b, j, l) : -1;
 #pragma unroll
-    for (int l = 0; l < KP; ++l) {
-      const int pos = win_pos(t.pos_p, KP, g, b, j, l);
-      if (pos >= 0) atomicAdd(&acc[acc_p + pos], R[(long)(DIM * KV + l) * g.ncd + s]);
-    }
+  for (int l = 0; l < KP; ++l) pp[l] = active ? win_pos(t.pos_p, KP, g, b, j, l) : -1;
+  for (int i = tid; i < (acc_p + Lp) / 4; i += blockDim.x)
+    ((float4*)acc)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  int ext[4] = {0x7FFFFFFF, -1, 0x7FFFFFFF, -1};  // this slot's, as span
+#pragma unroll
+  for (int l = 0; l < KV; ++l) {
+    pv[l] = (pv[l] >= base_v && pv[l] < base_v + Lv) ? pv[l] - base_v : -1;
+    if (pv[l] >= 0) ext[0] = min(ext[0], pv[l]), ext[1] = max(ext[1], pv[l]);
+  }
+#pragma unroll
+  for (int l = 0; l < KP; ++l) {
+    pp[l] = (pp[l] >= base_p && pp[l] < base_p + Lp) ? pp[l] - base_p : -1;
+    if (pp[l] >= 0) ext[2] = min(ext[2], pp[l]), ext[3] = max(ext[3], pp[l]);
   }
   __syncthreads();
-  for (int c = 0; c < DIM; ++c)
-    for (int i = threadIdx.x; i < Wv; i += blockDim.x)
-      out_v[((long)c * g.nb + b) * Wv + i] = acc[c * Wv + i];
-  for (int i = threadIdx.x; i < Wp; i += blockDim.x)
-    out_p[(long)b * Wp + i] = acc[acc_p + i];
+  if (active) {
+#pragma unroll
+    for (int cc = 0; cc < DIM; ++cc)
+#pragma unroll
+      for (int l = 0; l < KV; ++l)
+        if (pv[l] >= 0) atomicAdd(&acc[cc * Lv + pv[l]], r[cc * KV + l]);
+#pragma unroll
+    for (int l = 0; l < KP; ++l)
+      if (pp[l] >= 0) atomicAdd(&acc[acc_p + pp[l]], r[NV + l]);
+  }
+  // the block's span: a warp's, then the warps' (Bc is a multiple of 32)
+#pragma unroll
+  for (int k = 0; k < 4; k += 2) {
+    ext[k] = __reduce_min_sync(0xFFFFFFFFu, ext[k]);
+    ext[k + 1] = __reduce_max_sync(0xFFFFFFFFu, ext[k + 1]);
+    if (tid % 32 == 0) atomicMin(&span[k], ext[k]), atomicMax(&span[k + 1], ext[k + 1]);
+  }
+  __syncthreads();
+  // the spans of the chunk's subwindows -> the start of its pieces of
+  // scratch, in whole float4s (Lv, Lp are multiples of 128 floats); an
+  // empty span is [0, 0)
+  const int v0 = span[1] < 0 ? 0 : span[0] / 4, v1 = span[1] < 0 ? 0 : span[1] / 4 + 1;
+  const int p0 = span[3] < 0 ? 0 : span[2] / 4, p1 = span[3] < 0 ? 0 : span[3] / 4 + 1;
+  for (int cc = 0; cc < DIM; ++cc) {
+    float4* dst = (float4*)(sub_v + (((long)cc * g.nb + b) * g.nchunks + c) * Lv) - v0;
+    const float4* src = (const float4*)(acc + cc * Lv);
+    for (int i = v0 + tid; i < v1; i += blockDim.x) dst[i] = src[i];
+  }
+  float4* dst = (float4*)(sub_p + ((long)b * g.nchunks + c) * Lp) - p0;
+  const float4* src = (const float4*)(acc + acc_p);
+  for (int i = p0 + tid; i < p1; i += blockDim.x) dst[i] = src[i];
+  if (tid == 0) {
+    const int k = 2 * (b * g.nchunks + c);
+    span_v[k] = base_v + 4 * v0, span_v[k + 1] = base_v + 4 * v1;
+    span_p[k] = base_p + 4 * p0, span_p[k + 1] = base_p + 4 * p1;
+  }
 }
 
-// ---- the merge: window accumulators -> the planar vector -------------------
+// ---- the merge: chunk subwindows -> the planar vector -----------------------
 // One space's accumulators: sub[ncomp, nb, nsub, len].  Entry d of piece c of
-// block b is window position offs[b, c]*128 + d (offs null: one piece that
-// starts at 0); window position j*OW + o of block b is global row
-// (b - h + j)*OW + o.  cnt/Bc: piece c of block b was written only if
-// cnt[b] > c*Bc (cnt null: always).
+// block b is window position offs[b, c]*128 + d; window position j*OW + o of
+// block b is global row (b - h + j)*OW + o.  cnt/Bc: piece c of block b was
+// written only if cnt[b] > c*Bc.  SPAN (K4): piece c of block b holds window
+// positions [span[b, c, 0], span[b, c, 1]) from its entry 0, all others are
+// zero, and offs is not read.
 struct MergeSpace {
   const float* __restrict__ sub;
   const int* __restrict__ offs;
   const int* __restrict__ cnt;
+  const int* __restrict__ span;
   int ncomp, nb, nsub, len, OW, h, n, Bc;
 };
+
+// the window positions [start, end) that piece c of block b holds from its
+// entry 0
+template <bool SPAN>
+__device__ __forceinline__ int2 held(const MergeSpace& m, int b, int c) {
+  if constexpr (SPAN) return *(const int2*)(m.span + 2 * (b * m.nsub + c));
+  const int start = m.offs[b * m.nsub + c] * 128;
+  return make_int2(start, start + m.len);
+}
 
 // row r of component comp: for j = 0..2h in turn (the order of
 // _combine_windows), the entry of block b + h - j's window that covers the
 // row, itself the sum of that window's pieces in order
+template <bool SPAN>
 __device__ __forceinline__ float merge_row(const MergeSpace& m, int comp, int r) {
   const int b = r / m.OW, o = r - b * m.OW;
   float acc = 0.f;
@@ -434,15 +509,11 @@ __device__ __forceinline__ float merge_row(const MergeSpace& m, int comp, int r)
     const int pos = j * m.OW + o;
     const float* w = m.sub + ((long)comp * m.nb + bp) * m.nsub * m.len;
     float s = 0.f;
-    if (m.offs == nullptr) {
-      s = w[pos];
-    } else {
-      const int filled = m.cnt[bp];
-      for (int c = 0; c < m.nsub; ++c) {
-        if (filled <= c * m.Bc) break;
-        const int d = pos - m.offs[bp * m.nsub + c] * 128;
-        if (d >= 0 && d < m.len) s += w[(long)c * m.len + d];
-      }
+    const int filled = m.cnt[bp];
+    for (int c = 0; c < m.nsub; ++c) {
+      if (filled <= c * m.Bc) break;
+      const int2 in = held<SPAN>(m, bp, c);
+      if (pos >= in.x && pos < in.y) s += w[(long)c * m.len + pos - in.x];
     }
     acc += s;
   }
@@ -456,7 +527,7 @@ __device__ __forceinline__ float merge_row(const MergeSpace& m, int comp, int r)
 // then every accumulator that counts under a predicate, so each round of
 // loads is in flight together.  A term that does not count adds 0.f in its
 // place; the order of the sum is unchanged.
-template <int CMAX>
+template <int CMAX, bool SPAN>
 __device__ __forceinline__ float4 merge_rows4(const MergeSpace& m, int comp, int r) {
   constexpr int JMAX = 3;
   const int b = r / m.OW, o = r - b * m.OW;
@@ -467,13 +538,13 @@ __device__ __forceinline__ float4 merge_rows4(const MergeSpace& m, int comp, int
     const int bp = b + m.h - j;
     const bool win_ok = j <= 2 * m.h && bp >= 0 && bp < m.nb;
     const int bpc = min(max(bp, 0), m.nb - 1);
-    const int filled = m.cnt != nullptr ? m.cnt[bpc] : 0x7FFFFFFF;
+    const int filled = m.cnt[bpc];
 #pragma unroll
     for (int c = 0; c < CMAX; ++c) {
       const int cc = min(c, m.nsub - 1);
-      const int start = m.offs != nullptr ? m.offs[bpc * m.nsub + cc] * 128 : 0;
-      const int d = j * m.OW + o - start;
-      ok[j][c] = win_ok && c < m.nsub && filled > c * m.Bc && d >= 0 && d < m.len;
+      const int2 in = held<SPAN>(m, bpc, cc);
+      const int pos = j * m.OW + o, d = pos - in.x;
+      ok[j][c] = win_ok && c < m.nsub && filled > c * m.Bc && pos >= in.x && pos < in.y;
       idx[j][c] = (((long)comp * m.nb + bpc) * m.nsub + cc) * m.len + (ok[j][c] ? d : 0);
     }
   }
@@ -502,7 +573,7 @@ __device__ __forceinline__ float4 merge_rows4(const MergeSpace& m, int comp, int
 // thread; else 4 rows a thread.  Each space has its own call, so that it
 // reads its record from the kernel's parameters (a record picked at run time
 // would be copied to local memory).
-template <int CMAX>
+template <int CMAX, bool SPAN>
 __global__ void __launch_bounds__(kThreads)
 merge_kernel(MergeSpace v, MergeSpace p, float* __restrict__ y) {
   constexpr int ROWS = CMAX == 0 ? 1 : 4;
@@ -510,25 +581,27 @@ merge_kernel(MergeSpace v, MergeSpace p, float* __restrict__ y) {
   const long nv = (long)v.ncomp * v.n;
   if constexpr (CMAX == 0) {
     if (t < nv)
-      y[t] = merge_row(v, (int)(t / v.n), (int)(t % v.n));
+      y[t] = merge_row<SPAN>(v, (int)(t / v.n), (int)(t % v.n));
     else if (t - nv < (long)p.ncomp * p.n)
-      y[t] = merge_row(p, 0, (int)(t - nv));
+      y[t] = merge_row<SPAN>(p, 0, (int)(t - nv));
   } else {
     if (t < nv)
-      *(float4*)(y + t) = merge_rows4<CMAX>(v, (int)(t / v.n), (int)(t % v.n));
+      *(float4*)(y + t) = merge_rows4<CMAX, SPAN>(v, (int)(t / v.n), (int)(t % v.n));
     else if (t - nv < (long)p.ncomp * p.n)
-      *(float4*)(y + t) = merge_rows4<CMAX>(p, 0, (int)(t - nv));
+      *(float4*)(y + t) = merge_rows4<CMAX, SPAN>(p, 0, (int)(t - nv));
   }
 }
 
-template <int CMAX>
+template <int CMAX, bool SPAN>
 cudaError_t launch_merge_as(const MergeSpace& v, const MergeSpace& p, float* y,
                             long threads, cudaStream_t stream) {
   const int grid = (int)((threads + kThreads - 1) / kThreads);
-  merge_kernel<CMAX><<<grid, kThreads, 0, stream>>>(v, p, y);
+  merge_kernel<CMAX, SPAN><<<grid, kThreads, 0, stream>>>(v, p, y);
   return cudaGetLastError();
 }
 
+// SPAN: both spaces carry their span tables (K4), or neither does (K1, K2)
+template <bool SPAN>
 cudaError_t launch_merge(const MergeSpace& v, const MergeSpace& p, float* y,
                          cudaStream_t stream) {
   const long total = (long)v.ncomp * v.n + (long)p.ncomp * p.n;
@@ -536,9 +609,9 @@ cudaError_t launch_merge(const MergeSpace& v, const MergeSpace& p, float* y,
   const int nsub = max(v.ncomp ? v.nsub : 1, p.ncomp ? p.nsub : 1);
   const bool by4 = (v.ncomp == 0 || v.n % 4 == 0) && (p.ncomp == 0 || p.n % 4 == 0) &&
                    (uintptr_t)y % 16 == 0;
-  if (by4 && h <= 1 && nsub == 1) return launch_merge_as<1>(v, p, y, total / 4, stream);
-  if (by4 && h <= 1 && nsub <= 4) return launch_merge_as<4>(v, p, y, total / 4, stream);
-  return launch_merge_as<0>(v, p, y, total, stream);
+  if (by4 && h <= 1 && nsub == 1) return launch_merge_as<1, SPAN>(v, p, y, total / 4, stream);
+  if (by4 && h <= 1 && nsub <= 4) return launch_merge_as<4, SPAN>(v, p, y, total / 4, stream);
+  return launch_merge_as<0, SPAN>(v, p, y, total, stream);
 }
 
 bool load_geo(const int* meta, Geo* g) {
@@ -575,13 +648,12 @@ int set_smem(K kernel, int bytes, int* allowed) {
   return (int)e;
 }
 
-// floats of scratch: the chunk subwindows of a matvec, the windows of K4
+// floats of scratch: the chunk subwindows of a matvec or of K4
 long subwindow_floats(const Geo& g, bool v, bool p) {
   return (long)g.nb * g.nchunks * 128 * ((v ? g.dim * g.RVv : 0) + (p ? g.RVp : 0));
 }
-long window_floats(const Geo& g) {
-  return (long)g.nb * (g.dim * (2 * g.hv + 1) * g.OWv + (2 * g.hp + 1) * g.OWp);
-}
+// and K4's span tables after them
+long span_ints(const Geo& g) { return 4L * g.nb * g.nchunks; }
 
 // the ring depths the matvec kernel is compiled for
 constexpr int kStageChoices[] = {2, 4, 7};
@@ -618,11 +690,11 @@ int launch_matvec(const Geo& g, const Tables& t, const void* A, int n_out_pad,
       g, t, (const TA*)A, n_out_pad, (const float*)x, sub_v, sub_p);
   cudaError_t ce = cudaGetLastError();
   if (ce != cudaSuccess) return (int)ce;
-  const MergeSpace mv{sub_v, t.offs_v, t.cnt, OUT_V ? g.dim : 0, g.nb, g.nchunks,
+  const MergeSpace mv{sub_v, t.offs_v, t.cnt, nullptr, OUT_V ? g.dim : 0, g.nb, g.nchunks,
                       Lv, g.OWv, g.hv, g.n_vs, g.Bc};
-  const MergeSpace mp{sub_p, t.offs_p, t.cnt, OUT_P ? 1 : 0, g.nb, g.nchunks,
+  const MergeSpace mp{sub_p, t.offs_p, t.cnt, nullptr, OUT_P ? 1 : 0, g.nb, g.nchunks,
                       Lp, g.OWp, g.hp, g.n_ps, g.Bc};
-  return (int)launch_merge(mv, mp, y, stream);
+  return (int)launch_merge<false>(mv, mp, y, stream);
 }
 
 template <typename TA>
@@ -644,19 +716,26 @@ int dispatch_spaces(int in_sp, int out_sp, const Geo& g, const Tables& t,
 int launch_scatter(const Geo& g, const Tables& t, const void* R, float* scratch,
                    float* y, cudaStream_t stream) {
   auto kernel = scatter_kernel<2, 6, 3>;
-  const int Wv = (2 * g.hv + 1) * g.OWv, Wp = (2 * g.hp + 1) * g.OWp;
+  if (g.Bc > kMaxChunkThreads || g.Bc % 32 != 0) return kErrLayout;
+  const int Lv = g.RVv * 128, Lp = g.RVp * 128;
+  const int bytes = 4 * (g.dim * Lv + Lp);
   static int allowed[kMaxDevices] = {};
-  int e = set_smem(kernel, 4 * (g.dim * Wv + Wp), allowed);
+  int e = set_smem(kernel, bytes, allowed);
   if (e != 0) return e;
-  float* out_v = scratch;
-  float* out_p = scratch + (long)g.dim * g.nb * Wv;
-  kernel<<<g.nb, kThreads, 4 * (g.dim * Wv + Wp), stream>>>(g, t, (const float*)R,
-                                                            out_v, out_p);
+  float* sub_v = scratch;
+  float* sub_p = scratch + subwindow_floats(g, true, false);
+  int* span_v = (int*)(scratch + subwindow_floats(g, true, true));
+  int* span_p = span_v + 2L * g.nb * g.nchunks;
+  kernel<<<g.nb * g.nchunks, (g.Bc + 31) / 32 * 32, bytes, stream>>>(g, t, (const float*)R,
+                                                                     sub_v, sub_p, span_v,
+                                                                     span_p);
   cudaError_t ce = cudaGetLastError();
   if (ce != cudaSuccess) return (int)ce;
-  const MergeSpace mv{out_v, nullptr, nullptr, g.dim, g.nb, 1, Wv, g.OWv, g.hv, g.n_vs, 0};
-  const MergeSpace mp{out_p, nullptr, nullptr, 1, g.nb, 1, Wp, g.OWp, g.hp, g.n_ps, 0};
-  return (int)launch_merge(mv, mp, y, stream);
+  const MergeSpace mv{sub_v, nullptr, t.cnt, span_v, g.dim, g.nb, g.nchunks, Lv, g.OWv, g.hv,
+                      g.n_vs, g.Bc};
+  const MergeSpace mp{sub_p, nullptr, t.cnt, span_p, 1, g.nb, g.nchunks, Lp, g.OWp, g.hp,
+                      g.n_ps, g.Bc};
+  return (int)launch_merge<true>(mv, mp, y, stream);
 }
 
 }  // namespace
@@ -671,8 +750,7 @@ extern "C" {
 long ns_scratch_floats(const int* meta) {
   Geo g;
   if (!load_geo(meta, &g)) return kErrLayout;
-  const long a = subwindow_floats(g, true, true), b = window_floats(g);
-  return a > b ? a : b;
+  return subwindow_floats(g, true, true) + span_ints(g);
 }
 
 int ns_gather(const int* meta, const void* pos_v, const void* pos_p,

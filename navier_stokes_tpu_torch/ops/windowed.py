@@ -27,10 +27,11 @@ The kernels compute in float32 and read A in float32 or bfloat16.
 The kernels read window positions from one packed table per space
 (``pack_positions``: absolute positions, 16 bits wide where the windows
 allow), derived once per layout from the JAX-shaped ``loc_*_hi``/``loc_*_lo``/
-``offs_*`` tables and cached on it.  K1, K2 and K4 end in a merge kernel
-launched by the same C call (plain version: ``_merge_reference``; for whole
-windows it is ``_combine_windows``), so a wrapper call is one C call and does
-no torch arithmetic after it.
+``offs_*`` tables and cached on it.  K1, K2 and K4 run one CUDA block per
+(layout block, chunk), sum into the chunk's subwindows and end in a merge
+kernel launched by the same C call (plain version of that order:
+``_scatter_chunked_reference`` through ``_merge_reference``), so a wrapper
+call is one C call and does no torch arithmetic after it.
 """
 
 from __future__ import annotations
@@ -555,8 +556,8 @@ def _scatter_chunked_reference(lay: WindowedLayout, R: torch.Tensor) -> torch.Te
     """``_scatter_reference`` in the kernels' order: every chunk sums its
     slots' rows into its own subwindow (packed positions less the chunk's
     offset), then ``_merge_reference`` sums the subwindows that cover each
-    row.  This is the plain version of what K1 and K2 do after their
-    contraction."""
+    row.  This is the plain version of K4, and of what K1 and K2 do after
+    their contraction."""
     pos_v, pos_p, cnt = pack_positions(lay)
     Rn = R[: lay.nl].reshape(lay.nl, lay.nb, lay.nchunks, lay.Bc)
     nv = lay.dim * lay.k_v
@@ -832,8 +833,9 @@ def windowed_gather(lay: WindowedLayout, x: torch.Tensor) -> torch.Tensor:
 
 def windowed_scatter(lay: WindowedLayout, R: torch.Tensor) -> torch.Tensor:
     """y = sum_cells P_c^T R_c for per-cell row values R [>=nl, nb*Bmax]:
-    per-block window accumulation, then the overlaps merge (on the card both
-    in one C call)."""
+    per-block window accumulation, then the overlaps merge.  On the card:
+    per-chunk subwindow accumulation, then the merge, in one C call (in the
+    order of ``_scatter_chunked_reference``)."""
     if _plain_or_raise(R):
         return _scatter_reference(lay, R)
     _check_cuda(lay, R)

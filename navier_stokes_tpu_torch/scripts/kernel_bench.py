@@ -7,7 +7,8 @@ unpacked copy of another commit: the script uses only the package's public
 functions, so one file times two trees in one run on one card).  On the
 102,400-cell channel of chip_smoke.py (float32, windowed, Cahouet-Chabard)
 it prints one JSON object with, for each wrapper call (K1 with bf16 and
-float32 A, the three K2 products with bf16 A, K3, K4):
+float32 A, the three K2 products with bf16 A, K3, K4, and K5, the
+tensor-core probe, at M 256 over 64 products):
 
   warm_ms   CUDA-event time of a call in a loop of calls on the same inputs
             (what fits the 50 MB L2 stays there)
@@ -168,6 +169,17 @@ def channel_operands(solver, seed=1):
     return calls, operands
 
 
+def probe_call(M=256, iters=64, seed=5):
+    """K5 on seeded bf16 operands at the probe's widths (chip_smoke phase
+    8's timed case)."""
+    from . import mxu_probe as mxu
+
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randn((8 * M, mxu.K), generator=g).to(torch.bfloat16).cuda()
+    b = torch.randn((mxu.K, mxu.N), generator=g).to(torch.bfloat16).cuda()
+    return lambda: mxu.mxu_probe(a, b, M, iters)
+
+
 def forced_newton_step(solver, reps=3, seed=0):
     """Host-clock seconds of ``reps`` forced Newton steps at a seeded state,
     and the last step's (residual, FGMRES iterations, converged)."""
@@ -209,6 +221,7 @@ def main(argv=None):
                                    device=torch.device("cuda:0"))
     solver.setup()
     calls, operands = channel_operands(solver)
+    calls["K5"] = (probe_call(), None)
     lay = solver._win_layout
     print(f"  layout: nb {lay.nb} Bmax {lay.Bmax} Bc {lay.Bc} nchunks {lay.nchunks} "
           f"RVv/RVp {lay.RVv}/{lay.RVp} hv/hp {lay.hv}/{lay.hp}", flush=True)

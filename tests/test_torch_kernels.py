@@ -7,7 +7,8 @@ This file imports no JAX, so it runs on a machine with a GPU and no JAX:
 Without a visible GPU every test skips.  Tolerances: K3 (gather) is a copy
 and must be bit-equal; the others agree to 1e-5 of ||y||_inf (float32 sums
 in another order, and shared-memory atomics in a run-dependent order).
-K5, the tensor-core probe, is held to 1e-5 of its output's largest entry.
+K5, the tensor-core probe, is held to 1e-5 of its output's largest entry
+(bf16 products summed in float32 in groups, in another order).
 """
 
 import functools
@@ -30,6 +31,8 @@ LAYOUTS = {
     # several chunks a block; more layout blocks than the card has SMs
     "legacy-3chunks": dict(n=12, target_ow=256, Bc=128),
     "blocked-nb144": dict(n=24, cpb=8, Bc=128),
+    # more than 4 chunks a block: the merge's general path (as a halo > 1 is)
+    "legacy-6chunks": dict(n=20, target_ow=1024, Bc=128),
 }
 OPS = ["gather", "scatter", "matvec", "matvec-bf16A", "v->v", "v->p", "p->p",
        "v->v-f32A", "v->p-f32A", "p->p-f32A"]
@@ -103,17 +106,18 @@ def test_kernel_matches_plain(name, op, cuda_device):
 
 @pytest.mark.cuda
 def test_layouts_cover_the_kernel_paths():
-    """The layouts above reach one chunk and several, a halo of 2 blocks, and
-    fewer and more layout blocks than an H100 has SMs (132)."""
+    """The layouts above reach one chunk, several and more than 4, a halo of
+    2 blocks, and fewer and more layout blocks than an H100 has SMs (132)."""
     lays = [_layout(name) for name in LAYOUTS]
     assert {lay.nchunks == 1 for lay in lays} == {True, False}
+    assert any(lay.nchunks > 4 for lay in lays)
     assert any(lay.hv == 2 for lay in lays)
     assert min(lay.nb for lay in lays) < 132 < max(lay.nb for lay in lays)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["refined-Bc256", "legacy-3chunks"])
-@pytest.mark.parametrize("op", ["matvec-bf16A", "v->v"])
+@pytest.mark.parametrize("op", ["matvec-bf16A", "v->v", "scatter"])
 def test_graph_replay_matches_eager(name, op, cuda_device):
     """A wrapper call is one C call with no host read, so a CUDA graph can
     capture it; the replay, on new inputs written into the captured tensors,
@@ -130,10 +134,19 @@ def test_graph_replay_matches_eager(name, op, cuda_device):
         A = tw.slice_block(lay, A, "v", "v")
         x = rand(lay.n_u)
         call = lambda: tw.windowed_matvec_block(lay, A, x, in_spaces="v", out_spaces="v")
+    elif op == "scatter":
+        x = rand(lay.nli, lay.ncd)  # the rows R: K4's input
+        call = lambda: tw.windowed_scatter(lay, x)
     else:
         x = rand(lay.n_u + lay.n_ps)
         call = lambda: tw.windowed_matvec(lay, A, x)
     A = A.to(torch.bfloat16)
+    _assert_replay_matches_eager(call, x, lambda: rand(*x.shape))
+
+
+def _assert_replay_matches_eager(call, x, fresh):
+    """Capture call() in a CUDA graph, write fresh() into its input x,
+    replay, and hold the output against an eager call."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # the capture stream's scratch, before the capture
@@ -142,7 +155,7 @@ def test_graph_replay_matches_eager(name, op, cuda_device):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=side):
         y = call()
-    x.copy_(rand(*x.shape))
+    x.copy_(fresh())
     graph.replay()
     torch.cuda.synchronize()
     want = call()
@@ -150,21 +163,61 @@ def test_graph_replay_matches_eager(name, op, cuda_device):
     assert err <= 1e-5 * want.double().abs().max().item(), err
 
 
+def _probe_operands(M, device, seed=None):
+    g = torch.Generator().manual_seed(M if seed is None else seed)
+    a = torch.randn((8 * M, mxu.K), generator=g).to(torch.bfloat16).to(device)
+    b = torch.randn((mxu.K, mxu.N), generator=g).to(torch.bfloat16).to(device)
+    return a, b
+
+
+def _close_to_max(got, want, rel=1e-5):
+    err = (got - want).abs().max().item()
+    assert err <= rel * want.abs().max().item(), err
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("iters", [1, 7, 64, 200])
 @pytest.mark.parametrize("M", mxu.M_VALUES)
-def test_mxu_probe_kernel_matches_plain(M, cuda_device):
+def test_mxu_probe_kernel_matches_plain(M, iters, cuda_device):
     """K5, the tensor-core probe: bf16 products accumulated in float32 in
-    another order, within 1e-5 of the plain output's largest entry."""
-    g = torch.Generator().manual_seed(M)
-    a = torch.randn((8 * M, mxu.K), generator=g).to(torch.bfloat16).to(cuda_device)
-    b = torch.randn((mxu.K, mxu.N), generator=g).to(torch.bfloat16).to(cuda_device)
+    groups, within 1e-5 of the plain output's largest entry; also against
+    the plain version of its own order of sums."""
+    a, b = _probe_operands(M, cuda_device)
     before = mxu.mxu_probe.launches
-    got = mxu.mxu_probe(a, b, M, 64)
-    want = mxu.mxu_probe_reference(a, b, M, 64)
+    got = mxu.mxu_probe(a, b, M, iters)
+    want = mxu.mxu_probe_reference(a, b, M, iters)
     torch.cuda.synchronize()
     assert mxu.mxu_probe.launches == before + 1
-    err = (got - want).abs().max().item()
-    assert err <= 1e-5 * want.abs().max().item(), err
+    assert got.shape == (M, mxu.N) and bool(torch.isfinite(got).all())
+    _close_to_max(got, want)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert mxu.mxu_probe.grid == mxu.probe_grid(M, mxu.N, iters, sms)
+    groups = mxu.mxu_probe.grid["groups"]
+    _close_to_max(got, mxu.mxu_probe_grouped_reference(a, b, M, iters, groups))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [8, 256])
+def test_mxu_probe_one_call_yardstick(M, cuda_device):
+    """K5's library yardstick, one torch.mm of the probe's products laid side
+    by side along K (bf16 operands, float32 output), is K5's function."""
+    a, b = _probe_operands(M, cuda_device)
+    iters = 64
+    a_cat = torch.cat([a[(i % 8) * M:(i % 8 + 1) * M] for i in range(iters)], dim=1)
+    b_stack = b.repeat(iters, 1)
+    got = torch.mm(a_cat, b_stack, out_dtype=torch.float32)
+    assert got.dtype == torch.float32
+    _close_to_max(got, mxu.mxu_probe_reference(a, b, M, iters))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [16, 144])
+def test_mxu_probe_graph_replay_matches_eager(M, cuda_device):
+    """The probe's call (tensor map, scratch, the group reduction) captured
+    in a CUDA graph and replayed on new operands agrees with an eager call."""
+    a, b = _probe_operands(M, cuda_device)
+    fresh_a = _probe_operands(M, cuda_device, seed=M + 1)[0]
+    _assert_replay_matches_eager(lambda: mxu.mxu_probe(a, b, M, 64), a, lambda: fresh_a)
 
 
 @pytest.mark.cuda

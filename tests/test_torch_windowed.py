@@ -186,15 +186,16 @@ def test_wrappers_count_no_launch_on_cpu(case):
     assert all(v == 0 for v in tw.launch_counts().values())
 
 
-def _wide_halo_layout():
+def _wide_halo_layout(build=tw.build_windowed_layout):
     """A layout with a 3-block halo, several chunks and padded slots (no
-    mesh behind it: cell i touches dofs around i)."""
+    mesh behind it: cell i touches dofs around i); ``build`` is either
+    package's layout builder."""
     rng = np.random.default_rng(5)
     n_vs, n_ps, nc = 2048, 2048, 3000
     centre = np.sort(rng.integers(0, n_vs, nc))
     vd = np.clip(centre[:, None] + rng.integers(-200, 201, (nc, 6)), 0, n_vs - 1)
     pd = np.clip(centre[:, None] + rng.integers(-150, 151, (nc, 3)), 0, n_ps - 1)
-    return tw.build_windowed_layout(vd, pd, n_vs, n_ps, 2, target_ow=128, Bc=128)
+    return build(vd, pd, n_vs, n_ps, 2, target_ow=128, Bc=128)
 
 
 def _packed_cases():
@@ -292,6 +293,19 @@ def test_chunked_scatter_matches_plain(name):
     lay = _packed_cases()[name]()
     R = torch.as_tensor(np.random.default_rng(4).standard_normal((lay.nli, lay.ncd)))
     _close(tw._scatter_chunked_reference(lay, R), tw._scatter_reference(lay, R), 1e-12)
+
+
+@pytest.mark.parametrize("name", sorted(CASES) + ["wide-halo"])
+def test_chunked_scatter_matches_jax_reference_f64(name):
+    """K4's order of sums (chunk subwindows, then the fixed-order merge)
+    against JAX's plain scatter, float64, 1e-12 of ||y||_inf."""
+    if name == "wide-halo":
+        tlay, jlay = _wide_halo_layout(), _wide_halo_layout(jw.build_windowed_layout)
+    else:
+        tlay, jlay = _case(name)["tlay"], _case(name)["jlay"]
+    R = np.random.default_rng(6).standard_normal((tlay.nli, tlay.ncd))
+    want = jw._scatter_reference(jlay, jnp.asarray(R))
+    _close(tw._scatter_chunked_reference(tlay, torch.as_tensor(R)), want, 1e-12)
 
 
 def test_matvec_through_chunked_merge_matches_jax_reference_f64(case):
