@@ -7,13 +7,15 @@ Phases (any failure exits non-zero; there is no CPU fallback):
   2. build      nvcc builds navier_stokes_tpu_torch/csrc/windowed.cu and
                 csrc/mxu_probe.cu for sm_90a, both at once; each kernel's
                 registers and spills as ptxas reports them
-  3. kernels    each windowed kernel (K1-K4) against its plain torch version
-                at the shapes of the 102,400-cell channel; CUDA-event times
-                with the inputs out of L2 (and warm), host time a call, the
-                bound in bytes and the share of it reached, one PyTorch call
-                of the same function (K1 and each K2 product: a CSR product
-                with the assembled matrix; K3 index_select; K4 index_add_), the
-                packed position tables against _abs_loc, and K1 / K2 / K4
+  3. kernels    each windowed kernel (K1-K4, and K3 on the pair u, u_old in
+                one launch) against its plain torch version at the shapes of
+                the 102,400-cell channel; CUDA-event times with the inputs
+                out of L2 (and warm), host time a call, the bound in bytes
+                and the share of it reached, one PyTorch call of the same
+                function (K1 and each K2 product: a CSR product with the
+                assembled matrix; K3 index_select, the pair's of the two
+                vectors stacked; K4 index_add_), the packed position tables
+                against _abs_loc, and K1 / K2 / K3 (single and pair) / K4
                 replayed from a CUDA graph
   4. slice      NavierStokesSolver on that channel in float32: 3 BDF1 steps of
                 the windowed, Cahouet-Chabard-preconditioned Newton solve;
@@ -42,8 +44,10 @@ The next-to-last line is the kernels' JSON record, and the last line is
 {"ok": true, "device": {...}}.  In the record, per kernel: ``launches`` on
 the main path (phase 4; K5: its entry point), ``launches_per_newton_step``
 (phase 5), ``max_abs_err`` against the plain version, ``ms`` the wrapper's
-CUDA-event time with its inputs out of L2 (``warm_ms`` in a loop on the
-same inputs, ``host_us`` the host's time to queue a call), ``plain_ms`` the
+CUDA-event time with its inputs out of L2 (``cold_clean_ms`` the same with
+L2 left holding no dirty line, ``warm_ms`` in a loop on the same inputs,
+``host_us`` the host's time to queue a call, ``replay_ms`` a warm replay
+from a CUDA graph where phase 3 makes one), ``plain_ms`` the
 plain version's, ``bound_ms`` the least time the card could take (the bytes
 that must move over 3.35 TB/s, or the operations over 989 TFLOP/s:
 ``bound_by``), ``library_ms`` one PyTorch call computing the same function
@@ -51,7 +55,7 @@ that must move over 3.35 TB/s, or the operations over 989 TFLOP/s:
 which call: for K5 one torch.mm of the products laid side by side along K
 with a float32 output, and ``library_graph_ms`` the products as bf16
 torch.matmul calls replayed from a CUDA graph; K5's ``grid`` is the launch's
-tiles and groups of iterations).
+tiles and groups of iterations).  K3's ``also`` holds the pair's record.
 """
 
 import contextlib
@@ -246,13 +250,19 @@ def assembled(s, u, w):
     return r, ops.matvec(op, w)
 
 
+def stacked(out):
+    """A call's output as one tensor (the pair's two outputs stacked)."""
+    return torch.stack(out) if isinstance(out, tuple) else out
+
+
 def compare(name, kernel, plain, exact=False, bound_bytes=None, library=None):
     """Kernel vs plain on the same inputs, then times in turns (plain,
-    kernel, kernel, plain) with the inputs out of L2, the kernel's warm time
-    and host time a call, and ``library`` (one PyTorch call of the same
-    function) if given.  With ``bound_bytes`` the share of the bound reached
-    is checked: over 1.0 the count of bytes or the timing is wrong."""
-    got, want = kernel(), plain()
+    kernel, kernel, plain) with the inputs out of L2, the kernel's time with
+    L2 holding no dirty line, its warm time and host time a call, and
+    ``library`` (one PyTorch call of the same function) if given.  With
+    ``bound_bytes`` the share of the bound reached is checked: over 1.0 the
+    count of bytes or the timing is wrong."""
+    got, want = stacked(kernel()), stacked(plain())
     torch.cuda.synchronize()
     err = float((got.double() - want.double()).abs().max())
     scale = float(want.double().abs().max())
@@ -260,12 +270,14 @@ def compare(name, kernel, plain, exact=False, bound_bytes=None, library=None):
     p1, k1, k2, p2 = (cuda_ms_cold(plain), cuda_ms_cold(kernel), cuda_ms_cold(kernel),
                       cuda_ms_cold(plain))
     rec = dict(max_abs_err=err, rel_err=err / max(scale, 1e-300),
-               ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, warm_ms=cuda_ms(kernel),
+               ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+               cold_clean_ms=cuda_ms_cold(kernel, clean=True), warm_ms=cuda_ms(kernel),
                host_us=host_us(kernel), library_ms=None)
     line = (f"  {name:<30} max|err| {err:.3e} (rel {rec['rel_err']:.2e}, "
             f"{'bit-equal required' if exact else f'tol {REL_TOL:g}'}) "
-            f"kernel {rec['ms']:.4f} ms (warm {rec['warm_ms']:.4f}, host "
-            f"{rec['host_us']:.1f} us a call)  plain {rec['plain_ms']:.4f} ms")
+            f"kernel {rec['ms']:.4f} ms (clean {rec['cold_clean_ms']:.4f}, warm "
+            f"{rec['warm_ms']:.4f}, host {rec['host_us']:.1f} us a call)  "
+            f"plain {rec['plain_ms']:.4f} ms")
     if library is not None:
         lib = library()
         lib_err = float((lib.double() - want.double()).abs().max())
@@ -293,7 +305,8 @@ def bound_bytes_of(lay, ops):
     once and every output written once: of A the used rows' values in the
     occupied slots; of the packed position tables the occupied slots'
     entries of the spaces the call touches, with their subwindow offsets and
-    the slot counts; the vectors.  K3 writes its whole [nli, ncd] output."""
+    the slot counts; the vectors.  K3 writes its whole [nli, ncd] output;
+    the pair reads the tables once for its two vectors and outputs."""
     pos_v, _, cnt = W.pack_positions(lay)
     n_occ, idx = int(cnt.sum()), pos_v.element_size()
     tables = {"v": lay.k_v * n_occ * idx + lay.offs_v.numel() * 4,
@@ -311,6 +324,7 @@ def bound_bytes_of(lay, ops):
     both = tables["v"] + tables["p"] + cnt.numel() * 4
     out = {
         "K3": 4 * n + both + 4 * lay.nli * lay.ncd,
+        "K3 pair": 2 * (4 * n + 4 * lay.nli * lay.ncd) + both,
         "K4": 4 * lay.nl * n_occ + both + 4 * n,
         "K1 f32": matvec("vp", "vp", 4),
         "K1": matvec("vp", "vp", 2),
@@ -439,9 +453,10 @@ def ptxas_summary(log):
     return list(dict.fromkeys(lines))  # ptxas reports some kernels twice
 
 
-def check_graph_replay(name, call, x):
+def check_graph_replay(name, call, x, exact=False):
     """Capture one wrapper call in a CUDA graph, write new values into its
-    input x, replay, and hold the output against an eager call."""
+    input x, replay, and hold the output against an eager call (``exact``:
+    bit-equal).  Returns the replay's warm time in ms."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # the capture stream's scratch, before the capture
@@ -453,15 +468,17 @@ def check_graph_replay(name, call, x):
     x.copy_(torch.roll(x, 1))
     graph.replay()
     torch.cuda.synchronize()
-    want = call()
+    y, want = stacked(y), stacked(call())
     torch.cuda.synchronize()
     err = float((y.double() - want.double()).abs().max())
     scale = float(want.double().abs().max())
     replay_ms = cuda_ms(graph.replay)
     print(f"  {name}: graph replay vs eager max|err| {err:.3e} (rel {err / scale:.2e}, "
-          f"tol {REL_TOL:g}); replay {replay_ms:.4f} ms warm", flush=True)
-    if not err <= REL_TOL * scale:
+          f"{'bit-equal required' if exact else f'tol {REL_TOL:g}'}); replay "
+          f"{replay_ms:.4f} ms warm", flush=True)
+    if not (torch.equal(y, want) if exact else err <= REL_TOL * scale):
         raise RuntimeError(f"{name}: graph replay disagrees with an eager call")
+    return replay_ms
 
 
 def main():
@@ -498,16 +515,20 @@ def main():
           f"setup {t_setup:.2f} s", flush=True)
     n = solver.dofs.n_total
     calls, ops_ = kb.channel_operands(solver)
-    x, R = ops_["x"], ops_["R"]
+    x, xo, R = ops_["x"], ops_["xo"], ops_["R"]
     check_packed_tables(lay)
     # one PyTorch call of the same function (yardsticks only): K3, K4 through
     # the flat dof index, K1 and each K2 product as a CSR product, its matrix
     # built here, outside the timing
     dof_index = flat_dof_index(lay)
     x_ext = torch.cat([x, x.new_zeros(1)])
+    pair_ext = torch.stack([x_ext, torch.cat([xo, xo.new_zeros(1)])])
     library = {
         "K3": (lambda: torch.index_select(x_ext, 0, dof_index).view(lay.nli, lay.ncd),
                "torch.index_select of x through the flat dof index"),
+        "K3 pair": (lambda: torch.index_select(pair_ext, 1, dof_index).view(2, lay.nli, lay.ncd),
+                    "one torch.index_select of [x, x_old] stacked [2, n + 1], along dim 1 "
+                    "through the flat dof index"),
         "K4": (lambda: x.new_zeros(n + 1).index_add_(0, dof_index, R.reshape(-1))[:n],
                "torch.index_add_ of R through the flat dof index"),
     }
@@ -518,18 +539,20 @@ def main():
         library[key] = csr_yardstick(lay, A, xs, ins, outs)
         print(f"  {key} yardstick: {library[key][1]}", flush=True)
     bounds = bound_bytes_of(lay, ops_)
-    titles = {"K3": "K3 gather", "K4": "K4 scatter", "K1 f32": "K1 matvec, f32 A",
+    titles = {"K3": "K3 gather", "K3 pair": "K3 gather, u and u_old in one launch",
+              "K4": "K4 scatter", "K1 f32": "K1 matvec, f32 A",
               "K1": "K1 matvec, bf16 A (main path)"}
     recs = {}
     for key, (kernel, plain) in calls.items():
         lib_call, lib_what = library.get(key, (None, None))
         recs[key] = compare(titles.get(key, f"{key}, bf16 A"), kernel, plain,
-                            exact=key == "K3", bound_bytes=bounds[key], library=lib_call)
+                            exact=key.startswith("K3"), bound_bytes=bounds[key],
+                            library=lib_call)
         recs[key]["library"] = lib_what
-    check_graph_replay("K2 v->v", calls["K2 v->v"][0], x)
-    check_graph_replay("K1 bf16", calls["K1"][0], x)
-    check_graph_replay("K4", calls["K4"][0], R)
-    del calls, ops_, x, R, x_ext, dof_index, library, csr_operands
+    for key, inp in (("K2 v->v", x), ("K1", x), ("K3", x), ("K3 pair", x), ("K4", R)):
+        recs[key]["replay_ms"] = check_graph_replay(key, calls[key][0], inp,
+                                                    exact=key.startswith("K3"))
+    del calls, ops_, x, xo, R, x_ext, pair_ext, dof_index, library, csr_operands
 
     phase("4 slice: 3 BDF1 steps, float32, windowed + Cahouet-Chabard")
     W.reset_launch_counts()
@@ -615,7 +638,8 @@ def main():
     m_max = max(mxu.M_VALUES)
     k5 = probe_recs[m_max]
     sms = torch.cuda.get_device_properties(DEV).multi_processor_count
-    check_graph_replay(f"K5 M={m_max}", lambda: mxu.mxu_probe(a, b, m_max, PROBE_CHECK_ITERS), a)
+    k5["replay_ms"] = check_graph_replay(
+        f"K5 M={m_max}", lambda: mxu.mxu_probe(a, b, m_max, PROBE_CHECK_ITERS), a)
     flops = 2.0 * m_max * mxu.K * mxu.N * PROBE_CHECK_ITERS
     moved = a.numel() * 2 + b.numel() * 2 + m_max * mxu.N * 4
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, moved / PEAK_BYTES_PER_S * 1e3
@@ -770,8 +794,8 @@ def main():
              "K3": "K3 windowed_gather", "K4": "K4 windowed_scatter"}
     counts = {k.split()[0]: v for k, v in launches.items()}
     timed = {"K1": "K1", "K2": "K2 v->v", "K3": "K3", "K4": "K4"}
-    measured = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library", "warm_ms",
-                "host_us")
+    measured = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
+                "cold_clean_ms", "warm_ms", "host_us")
     kernels = []
     for k in ("K1", "K2", "K3", "K4"):
         mine = {key: r for key, r in recs.items() if key.split()[0] == k}
@@ -780,17 +804,18 @@ def main():
             launches=counts[k], launches_per_newton_step=step_launches[k],
             max_abs_err=max(r["max_abs_err"] for r in mine.values()), timed=timed[k],
             **{key: recs[timed[k]][key] for key in measured},
+            replay_ms=recs[timed[k]].get("replay_ms"),
         )
         if len(mine) > 1:  # the other operands of the same kernel
-            entry["also"] = {key: {m: r[m] for m in measured} for key, r in mine.items()
-                             if key != timed[k]}
+            entry["also"] = {key: {m: r.get(m) for m in (*measured, "replay_ms")}
+                             for key, r in mine.items() if key != timed[k]}
         kernels.append(entry)
     kernels.append(dict(
         name="K5 mxu_probe", route="cuda", source=PROBE_SOURCE, replaces=REPLACES["K5"],
         launches=probe_launches, launches_per_newton_step=0,
         max_abs_err=max(r["max_abs_err"] for r in probe_recs.values()),
         timed=f"M={m_max}, {PROBE_CHECK_ITERS} products",
-        library_graph_ms=k5["library_graph_ms"], grid=k5["grid"],
+        library_graph_ms=k5["library_graph_ms"], grid=k5["grid"], replay_ms=k5["replay_ms"],
         **{key: k5[key] for key in measured},
     ))
     print()

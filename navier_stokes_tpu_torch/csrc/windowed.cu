@@ -4,7 +4,8 @@
 //
 //   K1  ns_matvec, spaces vp->vp    <- _pallas_run(mode="matvec")   (windowed_matvec)
 //   K2  ns_matvec, v->v, v->p, p->p <- _pallas_block                (windowed_matvec_block)
-//   K3  ns_gather                   <- _pallas_run(mode="gather")   (windowed_gather)
+//   K3  ns_gather                   <- _pallas_run(mode="gather")   (windowed_gather,
+//                                                                    windowed_gather_pair)
 //   K4  ns_scatter                  <- _pallas_run(mode="scatter")  (windowed_scatter)
 //
 // What they compute (unchanged from the TPU kernels): the layout puts every
@@ -33,6 +34,7 @@
 //   K2 v->v  12x12: 29 MB (51 MB)                           ~10 us (~16 us)
 //   K2 v->p  12x3: 7 MB (13 MB);  p->p 3x3: 1.8 MB (3.2 MB)  ~3 us, ~1 us
 //   K3, K4   a [16, ncd] float32 array, the tables, a vector: ~4-5 us
+//   K3 pair  two vectors and two arrays, the tables once: 30 MB, ~9 us
 //
 // What the matvec's design does about it:
 //   * One CUDA block per (layout block, chunk), one thread per slot, chunks
@@ -63,6 +65,20 @@
 //     the 2h+1 windows that cover it, chunks in order within a window and
 //     windows in the order of _combine_windows, and writes the final vector.
 //
+// K3 (the gather) writes every entry of its output, padding included, so its
+// bytes are the output's; what it can cut is work and latency.  It has the
+// matvec's grid: one CUDA block per (layout block, chunk), a thread per
+// slot.  A chunk with no occupied slot writes its zero columns as float4s
+// and reads no table; a slot at or past cnt[b] writes zeros and reads
+// nothing.  An occupied slot loads its 9 packed positions, then starts all
+// of its x loads (15 a vector) through the read-only path, then stores its
+// column, so each of the three phases is a set of independent memory
+// operations instead of a table -> x -> store chain per value.  One launch
+// gathers one vector or two (u and u_old of an assembly): the pair reads
+// the tables once.  (A variant that first copied each chunk's spans of x
+// into shared memory with cp.async, then gathered from there, was measured
+// on the same build and was slower; PERF.md has the times.)
+//
 // K4 (the scatter) has the matvec's grid and its tail: one CUDA block per
 // (layout block, chunk), a thread per slot, padded slots and empty chunks
 // skipped; a thread loads all of its slot's rows of R (slot-contiguous, so
@@ -89,8 +105,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;          // K3 and the merge
-constexpr int kMaxChunkThreads = 1024; // K1/K2: one thread per slot of a chunk
+constexpr int kThreads = 256;          // the merge
+constexpr int kMaxChunkThreads = 1024; // K1-K4: one thread per slot of a chunk
 constexpr int kMetaLen = 17;
 constexpr int kBaseStages = 2;         // ring stages of A with shared memory of their own
 constexpr int kMaxSmemBytes = 232448;  // 227 KB: a block's limit on Hopper
@@ -98,7 +114,7 @@ constexpr int kMaxSmemBytes = 232448;  // 227 KB: a block's limit on Hopper
 // error codes of the entry points besides cudaError_t values (all negative)
 constexpr int kErrLayout = -1;  // not the element or the geometry built here
 constexpr int kErrSmem = -2;    // a block would need more shared memory than it may use
-constexpr int kErrAlign = -3;   // A is not 16-byte aligned
+constexpr int kErrAlign = -3;   // A (K1, K2) or X (K3) is not 16-byte aligned
 
 struct Geo {
   int nb, Bmax, Bc, nchunks;
@@ -125,42 +141,77 @@ __device__ __forceinline__ int win_pos(const void* __restrict__ table, int k,
   return v == 0xFFFFu ? -1 : (int)v;
 }
 
-// x value of the space at window position pos of block b (zero off the end)
-__device__ __forceinline__ float win_read(const float* __restrict__ x, int pos,
-                                          int b, int h, int OW, int n) {
-  if (pos < 0) return 0.f;
-  const long gi = (long)(b - h) * OW + pos;
-  return (gi >= 0 && gi < n) ? x[gi] : 0.f;
-}
-
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// ---- K3: X[l, s] = x[dof_l(cell s)]; rows nl..nli-1 zero -------------------
-template <int DIM, int KV, int KP>
-__global__ void __launch_bounds__(kThreads)
-gather_kernel(Geo g, Tables t, const float* __restrict__ x,
+// ---- K3: X[v, l, s] = x_v[dof_l(cell s)] for NVEC vectors; rows >= nl zero --
+// X: [NVEC, nli, ncd].  The matvec's grid: blockIdx.x = c*nb + b, thread tid
+// owns slot (b, c*Bc + tid) and writes its column of every row of every
+// vector (a warp's stores of one row are one 128-byte line).
+
+// the index into the space's vector of window position pos of block b, -1
+// for a sentinel and for the window's zero ends
+__device__ __forceinline__ int vec_index(int pos, int b, int h, int OW, int n) {
+  if (pos < 0) return -1;
+  const int gi = (b - h) * OW + pos;
+  return (gi >= 0 && gi < n) ? gi : -1;
+}
+
+// Three phases a thread, each a set of independent memory operations: the
+// slot's 9 packed positions, then every x value it copies (15 a vector)
+// through the read-only path, then its stores.  Threads at or past cnt[b]
+// read nothing and write zeros.
+template <int DIM, int KV, int KP, int NVEC>
+__global__ void __launch_bounds__(kMaxChunkThreads)
+gather_kernel(Geo g, Tables t, const float* __restrict__ x0, const float* __restrict__ x1,
               float* __restrict__ X, int nli) {
-  const long s = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= g.ncd) return;
-  const int b = (int)(s / g.Bmax), j = (int)(s % g.Bmax);
-#pragma unroll
-  for (int l = 0; l < KV; ++l) {
-    const int pos = win_pos(t.pos_v, KV, g, b, j, l);
-#pragma unroll
-    for (int c = 0; c < DIM; ++c)
-      X[(long)(c * KV + l) * g.ncd + s] =
-          win_read(x + (long)c * g.n_vs, pos, b, g.hv, g.OWv, g.n_vs);
+  constexpr int NV = DIM * KV, NL = NV + KP;
+  const int c = blockIdx.x / g.nb, b = blockIdx.x % g.nb;
+  const int tid = threadIdx.x;
+  const long s0 = (long)b * g.Bmax + (long)c * g.Bc;  // the chunk's first slot
+  const int nv = min(max(t.cnt[b] - c * g.Bc, 0), g.Bc);  // occupied slots here
+  if (nv == 0) {
+    // no table read: the chunk's Bc columns of every row of every vector
+    // (rows of X seen as [NVEC * nli, ncd]) are zero, written as float4s
+    // (Bc, ncd and s0 are multiples of 32)
+    const int q = g.Bc / 4;
+    for (int i = tid; i < NVEC * nli * q; i += blockDim.x) {
+      const int r = i / q;
+      *(float4*)(X + (long)r * g.ncd + s0 + 4 * (i - r * q)) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    return;
   }
-  const float* xp = x + (long)DIM * g.n_vs;
+  const bool active = tid < nv;
+  const int j = c * g.Bc + tid;
+  int iv[KV], ip[KP];  // indices into the spaces' vectors, -1 for zero
 #pragma unroll
-  for (int l = 0; l < KP; ++l) {
-    const int pos = win_pos(t.pos_p, KP, g, b, j, l);
-    X[(long)(DIM * KV + l) * g.ncd + s] = win_read(xp, pos, b, g.hp, g.OWp, g.n_ps);
+  for (int l = 0; l < KV; ++l)
+    iv[l] = vec_index(active ? win_pos(t.pos_v, KV, g, b, j, l) : -1, b, g.hv, g.OWv, g.n_vs);
+#pragma unroll
+  for (int l = 0; l < KP; ++l)
+    ip[l] = vec_index(active ? win_pos(t.pos_p, KP, g, b, j, l) : -1, b, g.hp, g.OWp, g.n_ps);
+  float val[NVEC][NL];
+#pragma unroll
+  for (int v = 0; v < NVEC; ++v) {
+    const float* x = v == 0 ? x0 : x1;
+#pragma unroll
+    for (int cc = 0; cc < DIM; ++cc)
+#pragma unroll
+      for (int l = 0; l < KV; ++l)
+        val[v][cc * KV + l] = iv[l] >= 0 ? __ldg(x + (long)cc * g.n_vs + iv[l]) : 0.f;
+#pragma unroll
+    for (int l = 0; l < KP; ++l)
+      val[v][NV + l] = ip[l] >= 0 ? __ldg(x + (long)DIM * g.n_vs + ip[l]) : 0.f;
   }
-  for (int l = DIM * KV + KP; l < nli; ++l) X[(long)l * g.ncd + s] = 0.f;
+#pragma unroll
+  for (int v = 0; v < NVEC; ++v) {
+    float* col = X + (long)v * nli * g.ncd + s0 + tid;
+#pragma unroll
+    for (int l = 0; l < NL; ++l) col[(long)l * g.ncd] = val[v][l];
+    for (int l = NL; l < nli; ++l) col[(long)l * g.ncd] = 0.f;
+  }
 }
 
 // ---- the ring of A: asynchronous 16-byte copies in commit groups ----------
@@ -713,6 +764,16 @@ int dispatch_spaces(int in_sp, int out_sp, const Geo& g, const Tables& t,
   return (int)cudaErrorInvalidValue;
 }
 
+template <int NVEC>
+int launch_gather(const Geo& g, const Tables& t, const float* x0, const float* x1, float* X,
+                  int nli, cudaStream_t stream) {
+  if (g.Bc > kMaxChunkThreads || g.Bc % 32 != 0 || nli < g.dim * g.k_v + g.k_p)
+    return kErrLayout;
+  if ((uintptr_t)X % 16 != 0) return kErrAlign;
+  gather_kernel<2, 6, 3, NVEC><<<g.nb * g.nchunks, g.Bc, 0, stream>>>(g, t, x0, x1, X, nli);
+  return (int)cudaGetLastError();
+}
+
 int launch_scatter(const Geo& g, const Tables& t, const void* R, float* scratch,
                    float* y, cudaStream_t stream) {
   auto kernel = scatter_kernel<2, 6, 3>;
@@ -753,16 +814,19 @@ long ns_scratch_floats(const int* meta) {
   return subwindow_floats(g, true, true) + span_ints(g);
 }
 
+// X [nvec, nli, ncd] = the gathers of x0 (and x1: nvec 2) in one launch: K3
 int ns_gather(const int* meta, const void* pos_v, const void* pos_p,
               const void* offs_v, const void* offs_p, const void* cnt,
-              const void* x, void* X, int nli, void* stream) {
+              const void* x0, const void* x1, void* X, int nvec, int nli, void* stream) {
   Geo g;
   if (!load_geo(meta, &g)) return kErrLayout;
   const Tables t = make_tables(pos_v, pos_p, offs_v, offs_p, cnt);
-  const int grid = (g.ncd + kThreads - 1) / kThreads;
-  gather_kernel<2, 6, 3><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      g, t, (const float*)x, (float*)X, nli);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (nvec == 1)
+    return launch_gather<1>(g, t, (const float*)x0, (const float*)x0, (float*)X, nli, st);
+  if (nvec == 2)
+    return launch_gather<2>(g, t, (const float*)x0, (const float*)x1, (float*)X, nli, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // y [n_u + n_ps] = sum_cells P_c^T R_c: K4, then the merge

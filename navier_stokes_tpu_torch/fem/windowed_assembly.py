@@ -16,7 +16,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops.windowed import WindowedLayout, windowed_gather, windowed_scatter
+from ..ops.windowed import (
+    WindowedLayout,
+    windowed_gather,
+    windowed_gather_pair,
+    windowed_scatter,
+)
 
 __all__ = ["WindowedAssembly", "build_windowed_assembly", "assemble_windowed"]
 
@@ -435,7 +440,11 @@ def assemble_windowed(
     iJ = wa.invJT_t  # [dim, dim, ncd]; Gp[b,q,d,c] = sum_a iJ[d,a,c] Gr[b,q,a]
     ein = torch.einsum
 
-    X = windowed_gather(lay, u)  # [nli, ncd]
+    # [nli, ncd] each; u and u_old in one kernel launch on the card
+    if include_time_term:
+        X, Xo = windowed_gather_pair(lay, u, u_old)
+    else:
+        X = windowed_gather(lay, u)
     Xv = X[: dim * k_v].reshape(dim, k_v, -1)
     Xp = X[dim * k_v : nl]
 
@@ -443,7 +452,6 @@ def assemble_windowed(
     # first and apply invJT per cell afterwards
     u_q = ein("bq,dbc->dqc", Nv, Xv)
     if include_time_term:
-        Xo = windowed_gather(lay, u_old)
         Xov = Xo[: dim * k_v].reshape(dim, k_v, -1)
         uo_q = ein("bq,dbc->dqc", Nv, Xov)
     gu_ref = ein("dbc,bqe->dqec", Xv, Gr)

@@ -16,12 +16,15 @@ wrapper picks by the device of the tensor it is given:
   ``windowed_matvec``         ``windowed_matvec_reference``  K1 ``ns_matvec``
   ``windowed_matvec_block``   ``_block_reference``           K2 ``ns_matvec``
   ``windowed_gather``         ``_gather_reference``          K3 ``ns_gather``
+  ``windowed_gather_pair``    ``_gather_reference`` twice    K3 ``ns_gather``
   ``windowed_scatter``        ``_scatter_reference``         K4 ``ns_scatter``
   ==========================  =============================  ===============
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
 (and raises if the kernel cannot take it).  Each wrapper counts its kernel
-launches in ``<wrapper>.launches`` (``reset_launch_counts`` zeroes them).
+launches in ``<wrapper>.launches`` (``reset_launch_counts`` zeroes them);
+``windowed_gather_pair`` gathers two vectors in one K3 launch and counts it
+in ``windowed_gather.launches``.
 The kernels compute in float32 and read A in float32 or bfloat16.
 
 The kernels read window positions from one packed table per space
@@ -60,6 +63,7 @@ __all__ = [
     "windowed_matvec_block",
     "windowed_matvec_reference",
     "windowed_gather",
+    "windowed_gather_pair",
     "windowed_scatter",
     "slice_block",
     "block_shape",
@@ -692,7 +696,7 @@ def _load(path: str):
     tables = [p] * 5
     lib.ns_scratch_floats.argtypes = [meta]
     lib.ns_scratch_floats.restype = ctypes.c_long
-    lib.ns_gather.argtypes = [meta, *tables, p, p, i, p]
+    lib.ns_gather.argtypes = [meta, *tables, p, p, p, i, i, p]
     lib.ns_scatter.argtypes = [meta, *tables, p, p, p, p]
     lib.ns_matvec.argtypes = [meta, *tables, p, i, i, i, i, p, p, p, p]
     for fn in (lib.ns_gather, lib.ns_scatter, lib.ns_matvec):
@@ -815,20 +819,44 @@ def windowed_matvec(lay: WindowedLayout, A_t: torch.Tensor, x: torch.Tensor) -> 
     return y
 
 
-def windowed_gather(lay: WindowedLayout, x: torch.Tensor) -> torch.Tensor:
-    """X[l, s] = x[dof_l of cell s] — [nli, nb*Bmax]; rows l >= nl are zero."""
-    if _plain_or_raise(x):
-        return _gather_reference(lay, x)
-    _check_cuda(lay, x)
-    _check_vec(x, lay.n_u + lay.n_ps)
-    X = torch.empty((lay.nli, lay.ncd), dtype=torch.float32, device=x.device)
+def _launch_gather(lay: WindowedLayout, *xs: torch.Tensor) -> torch.Tensor:
+    """One K3 launch for one or two vectors: [len(xs), nli, ncd] (one
+    vector: [nli, ncd])."""
+    _check_cuda(lay, *xs)
+    n = lay.n_u + lay.n_ps
+    for x in xs:
+        _check_vec(x, n)
+    lead = (2,) if len(xs) == 2 else ()
+    X = torch.empty((*lead, lay.nli, lay.ncd), dtype=torch.float32, device=xs[0].device)
+    pk = lay._packed
     err = _lib().ns_gather(
-        *lay._packed.args, x.data_ptr(), X.data_ptr(), lay.nli,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        *pk.args, xs[0].data_ptr(), xs[-1].data_ptr(), X.data_ptr(), len(xs), lay.nli,
+        torch.cuda.current_stream(X.device).cuda_stream,
     )
     _raise_on(err, "ns_gather")
     windowed_gather.launches += 1
     return X
+
+
+def windowed_gather(lay: WindowedLayout, x: torch.Tensor) -> torch.Tensor:
+    """X[l, s] = x[dof_l of cell s] — [nli, nb*Bmax]; rows l >= nl are zero."""
+    if _plain_or_raise(x):
+        return _gather_reference(lay, x)
+    return _launch_gather(lay, x)
+
+
+def windowed_gather_pair(
+    lay: WindowedLayout, u: torch.Tensor, u_old: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(windowed_gather(lay, u), windowed_gather(lay, u_old)); on the card
+    one K3 launch that reads the tables once (u and u_old may be one
+    tensor).  The two results are views of one [2, nli, nb*Bmax] tensor."""
+    plain = _plain_or_raise(u)
+    if _plain_or_raise(u_old) != plain:
+        raise ValueError(f"u on {u.device}, u_old on {u_old.device}")
+    if plain:
+        return _gather_reference(lay, u), _gather_reference(lay, u_old)
+    return _launch_gather(lay, u, u_old).unbind(0)
 
 
 def windowed_scatter(lay: WindowedLayout, R: torch.Tensor) -> torch.Tensor:

@@ -110,14 +110,21 @@ def _states(td, seed=3):
 
 @pytest.mark.parametrize("convection_form", ["reference", "standard"])
 @pytest.mark.parametrize("continuity", [False, True])
-def test_assemble_windowed_matches(convection_form, continuity):
+def test_assemble_windowed_matches(convection_form, continuity, monkeypatch):
+    """With the time term, u and u_old are gathered by one call of the pair
+    (one kernel launch on the card)."""
     jd, td, jctx, tctx, jlay, tlay, pins = _setup()
     jwa_, twa_ = _assemblies()
     u, uo = _states(td)
+    pairs = []
+    real_pair = twa.windowed_gather_pair
+    monkeypatch.setattr(twa, "windowed_gather_pair",
+                        lambda *a: pairs.append(a) or real_pair(*a))
     kw = dict(dt=0.1, nu=0.01, rho=1.3, convection_form=convection_form,
               include_continuity_residual=continuity)
     want = jwa.assemble_windowed(jwa_, jlay, jnp.asarray(u), jnp.asarray(uo), **kw)
     got = twa.assemble_windowed(twa_, tlay, torch.as_tensor(u), torch.as_tensor(uo), **kw)
+    assert len(pairs) == 1
     for g, w in zip(got, want):
         _close(g, w)
 

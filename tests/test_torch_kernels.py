@@ -4,8 +4,8 @@ This file imports no JAX, so it runs on a machine with a GPU and no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
-Without a visible GPU every test skips.  Tolerances: K3 (gather) is a copy
-and must be bit-equal; the others agree to 1e-5 of ||y||_inf (float32 sums
+Without a visible GPU every test skips.  Tolerances: K3 (gather, one vector
+or the pair u, u_old in one launch) is a copy and must be bit-equal; the others agree to 1e-5 of ||y||_inf (float32 sums
 in another order, and shared-memory atomics in a run-dependent order).
 K5, the tensor-core probe, is held to 1e-5 of its output's largest entry
 (bf16 products summed in float32 in groups, in another order).
@@ -34,7 +34,7 @@ LAYOUTS = {
     # more than 4 chunks a block: the merge's general path (as a halo > 1 is)
     "legacy-6chunks": dict(n=20, target_ow=1024, Bc=128),
 }
-OPS = ["gather", "scatter", "matvec", "matvec-bf16A", "v->v", "v->p", "p->p",
+OPS = ["gather", "gather-pair", "scatter", "matvec", "matvec-bf16A", "v->v", "v->p", "p->p",
        "v->v-f32A", "v->p-f32A", "p->p-f32A"]
 
 
@@ -79,6 +79,17 @@ def test_kernel_matches_plain(name, op, cuda_device):
         got, want = tw.windowed_gather(lay, x), tw._gather_reference(lay, x)
         assert torch.equal(got, want)
         assert tw.windowed_gather.launches == 1
+        _assert_zero_padding(lay, got)
+        return
+    if op == "gather-pair":
+        x_old = rand(lay.n_u + lay.n_ps)
+        got = tw.windowed_gather_pair(lay, x, x_old)
+        assert tw.windowed_gather.launches == 1  # one launch for both
+        for g, v in zip(got, (x, x_old)):
+            assert torch.equal(g, tw._gather_reference(lay, v))
+            _assert_zero_padding(lay, g)
+        same = tw.windowed_gather_pair(lay, x, x)  # one tensor as u and u_old
+        assert torch.equal(same[0], same[1]) and torch.equal(same[0], got[0])
         return
     if op == "scatter":
         R = rand(lay.nli, lay.ncd)
@@ -104,6 +115,15 @@ def test_kernel_matches_plain(name, op, cuda_device):
     assert err <= 1e-5 * want.double().abs().max().item(), err
 
 
+def _assert_zero_padding(lay, X):
+    """Rows l >= nl and the columns of padded slots of a gather are 0."""
+    assert not bool(X[lay.nl :].any())
+    pos_v, pos_p, _ = tw.pack_positions(lay)
+    filled = ((tw.unpack_positions(pos_v) >= 0).any(dim=1)
+              | (tw.unpack_positions(pos_p) >= 0).any(dim=1)).reshape(-1)
+    assert not bool(X[:, ~filled].any())
+
+
 @pytest.mark.cuda
 def test_layouts_cover_the_kernel_paths():
     """The layouts above reach one chunk, several and more than 4, a halo of
@@ -117,7 +137,7 @@ def test_layouts_cover_the_kernel_paths():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["refined-Bc256", "legacy-3chunks"])
-@pytest.mark.parametrize("op", ["matvec-bf16A", "v->v", "scatter"])
+@pytest.mark.parametrize("op", ["matvec-bf16A", "v->v", "scatter", "gather", "gather-pair"])
 def test_graph_replay_matches_eager(name, op, cuda_device):
     """A wrapper call is one C call with no host read, so a CUDA graph can
     capture it; the replay, on new inputs written into the captured tensors,
@@ -137,6 +157,10 @@ def test_graph_replay_matches_eager(name, op, cuda_device):
     elif op == "scatter":
         x = rand(lay.nli, lay.ncd)  # the rows R: K4's input
         call = lambda: tw.windowed_scatter(lay, x)
+    elif op.startswith("gather"):
+        x, x_old = rand(lay.n_u + lay.n_ps), rand(lay.n_u + lay.n_ps)
+        call = ((lambda: torch.stack(tw.windowed_gather_pair(lay, x, x_old)))
+                if op == "gather-pair" else (lambda: tw.windowed_gather(lay, x)))
     else:
         x = rand(lay.n_u + lay.n_ps)
         call = lambda: tw.windowed_matvec(lay, A, x)

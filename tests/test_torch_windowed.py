@@ -176,12 +176,37 @@ def test_plain_matches_pallas_interpret_f32(name, op):
     _close(got, want, 1e-5)
 
 
+@pytest.mark.parametrize("same", [False, True], ids=["u-u_old", "one-tensor"])
+@pytest.mark.parametrize("name", ["blocked-h1", "blocked-h2"])
+def test_gather_pair_matches_two_gathers(name, same):
+    """The pair (the assembly's gathers of u and u_old) is two
+    ``_gather_reference`` calls bit for bit, and, in float32, JAX's
+    ``windowed_gather`` run twice in interpret mode (passes=3): a copy, so
+    exactly.  u and u_old may be one tensor."""
+    case = _case(name)
+    jlay, tlay = case["jlay"], case["tlay"]
+    x = case["x"].astype(np.float32)
+    x_old = x if same else np.random.default_rng(12).standard_normal(x.shape).astype(np.float32)
+    u = torch.as_tensor(x)
+    u_old = u if same else torch.as_tensor(x_old)
+    tw.reset_launch_counts()
+    got = tw.windowed_gather_pair(tlay, u, u_old)
+    assert isinstance(got, tuple) and len(got) == 2
+    for g, v, xv in zip(got, (u, u_old), (x, x_old)):
+        assert g.shape == (tlay.nli, tlay.ncd) and g.dtype == torch.float32
+        assert torch.equal(g, tw._gather_reference(tlay, v))
+        want = jw.windowed_gather(jlay, jnp.asarray(xv), passes=3, interpret=True)
+        assert np.array_equal(g.numpy(), np.asarray(want))
+    assert tw.windowed_gather.launches == 0  # the CPU path launches nothing
+
+
 def test_wrappers_count_no_launch_on_cpu(case):
     """The CPU path is the plain version: no kernel launch is counted."""
     tw.reset_launch_counts()
     tlay = case["tlay"]
     x = torch.as_tensor(case["x"])
     tw.windowed_gather(tlay, x)
+    tw.windowed_gather_pair(tlay, x, x)
     tw.windowed_matvec(tlay, torch.as_tensor(case["A"]), x)
     assert all(v == 0 for v in tw.launch_counts().values())
 
