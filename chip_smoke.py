@@ -15,16 +15,19 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 function (K1 and each K2 product: a CSR product with the
                 assembled matrix; K3 index_select, the pair's of the two
                 vectors stacked; K4 index_add_), the packed position tables
-                against _abs_loc, and K1 / K2 / K3 (single and pair) / K4
-                replayed from a CUDA graph
+                against _abs_loc; each kernel called twice on the same
+                inputs (equal bits: K1, K2 and K4 sum in a fixed order), and
+                K1 / K2 / K3 (single and pair) / K4 replayed from a CUDA
+                graph (equal bits to an eager call)
   4. slice      NavierStokesSolver on that channel in float32: 3 BDF1 steps of
                 the windowed, Cahouet-Chabard-preconditioned Newton solve;
                 every Newton loop and every tangent solve must converge
-  5. newton     forced Newton steps at a seeded state; each kernel's
-                launches in one of them
+  5. newton     three forced Newton steps at a seeded state: equal FGMRES
+                counts and bit-equal updates; each kernel's launches in one
   6. launches   each kernel's launch count during phase 4 (all must be > 0)
   7. parity     unit_square(6): float32 on the GPU (kernels) against float64
-                on the CPU (plain versions), Newton residuals per step
+                on the CPU (plain versions), Newton residuals per step; then
+                the same with a time-dependent forcing f(x, t)
   8. probe      K5, the tensor-core probe, against its plain version at
                 every M of the probe, replayed from a CUDA graph, beside one
                 torch.mm of its products, then its entry point's table
@@ -38,7 +41,18 @@ Phases (any failure exits non-zero; there is no CPU fallback):
  11. flat       the 25,600-cell channel, flat against windowed: residual and
                 tangent action at one smooth state, compared node by node;
                 one forced Newton step each (block_triangular, Cahouet-Chabard)
+ 12. steady     the lid-driven cavity at Re 100 on rectangle(256, 256)
+                (131,072 cells), float32: solve_steady from the Stokes guess
+                with FGMRES tangents must converge, its centrelines within
+                0.01 of Ghia et al.'s; K1-K4 must all launch.  At n = 32 the
+                float32 FGMRES solve against a float64 SuperLU one
+ 13. scanned    the same cavity, BDF2, dt 0.05: 6 steps of solve_scanned
+                (chunks of 2, 2 Newton sweeps, a functional, a progress
+                callback, the lid's reaction) against the same 6 steps of
+                solve(); 4 steps in a second solver, its state handed to a
+                third that resumes for 2: bit-equal to the 6-step run
 
+Each phase prints its wall time.
 Files the phases write (.msh, configs, run logs) go to build/chip_smoke/.
 The next-to-last line is the kernels' JSON record, and the last line is
 {"ok": true, "device": {...}}.  In the record, per kernel: ``launches`` on
@@ -59,6 +73,7 @@ tiles and groups of iterations).  K3's ``also`` holds the pair's record.
 """
 
 import contextlib
+import copy
 import json
 import re
 import subprocess
@@ -79,6 +94,7 @@ from navier_stokes_tpu_torch.fem.assembly import assemble_navier_stokes  # noqa:
 from navier_stokes_tpu_torch.fem.windowed_assembly import assemble_windowed  # noqa: E402
 from navier_stokes_tpu_torch.la import operators as ops  # noqa: E402
 from navier_stokes_tpu_torch.ops import windowed as W  # noqa: E402
+from navier_stokes_tpu_torch.scripts import cavity  # noqa: E402
 from navier_stokes_tpu_torch.scripts import kernel_bench as kb  # noqa: E402
 from navier_stokes_tpu_torch.scripts import mxu_probe as mxu  # noqa: E402
 from navier_stokes_tpu_torch.scripts.kernel_bench import (  # noqa: E402
@@ -113,12 +129,60 @@ REL_TOL = 1e-5
 # to 1e-6 / 1e-9, so the rows are set by the discretization, and float32
 # rounding through the solve stays near 1e-6 of the entry row)
 PARITY_TOL = 1e-4
+# the lid-driven cavity (phases 12-13): n x n squares cut in two triangles
+CAVITY_N, CAVITY_SMALL_N = 256, 32
+# Ghia et al.'s centreline values, largest gap of u and of v (their own grid
+# is 129 x 129; the n = 32 float32 run of examples/lid_cavity.py reached
+# 0.0054 / 0.0089 after time marching on the CPU)
+GHIA_TOL = 0.01
+# solve_steady's own stopping rule (its default): alpha ||delta|| / n_dofs
+STEADY_TOL = 1e-8
+
+
+# n = 32: float32 FGMRES against float64 SuperLU, both assembled on the card.
+# The cavity's pressure is defined up to a constant, which the exact tangent
+# leaves free: SuperLU's updates carry an arbitrary pressure constant, so the
+# float64 run is held to its residual (it reaches the float64 floor in ~6
+# exact Newton steps; LU_ITERS of them) and the pressures are compared with
+# their means removed.  float32 rounding through the tangent solves leaves
+# ~1e-7 of max|u| = 1 (8e-8 at n = 16 on the CPU); the bounds allow 100x
+LU_ITERS, LU_RES_TOL = 8, 1e-10
+SMALL_U_TOL, SMALL_P_TOL = 1e-5, 1e-4
+# scanned vs solve(): the same sweeps in the same order (newton.max_iters is
+# the scanned loop's 2), so bit-equal is expected; the bound is JAX's test's
+SCAN_HOST_TOL = 1e-6
 # the card's published peaks (H100 SXM): device memory and dense bf16
 PEAK_BYTES_PER_S, PEAK_BF16_FLOPS = 3.35e12, 989e12
 
 
-def phase(name):
-    print(f"\n== {name}", flush=True)
+class Phases:
+    """Prints each phase's title and, when the next one starts (or at
+    ``end()``), its wall time."""
+
+    def __init__(self):
+        self.name, self.t0 = None, 0.0
+
+    def __call__(self, name):
+        self.end()
+        print(f"\n== {name}", flush=True)
+        self.name, self.t0 = name, time.perf_counter()
+
+    def end(self):
+        if self.name is not None:
+            print(f"  [phase {self.name.split()[0]}: {time.perf_counter() - self.t0:.1f} s]",
+                  flush=True)
+        self.name = None
+
+
+phase = Phases()
+
+
+def forcing_xt(x, t):
+    """A body force that changes in time and space (phase 7)."""
+    f = np.zeros_like(x)
+    f[:, 0] = 2.0 * np.sin(3.0 * t + x[:, 1])
+    f[:, 1] = t * x[:, 0]
+    return f
 
 
 def trajectory(records):
@@ -305,8 +369,9 @@ def bound_bytes_of(lay, ops):
     once and every output written once: of A the used rows' values in the
     occupied slots; of the packed position tables the occupied slots'
     entries of the spaces the call touches, with their subwindow offsets and
-    the slot counts; the vectors.  K3 writes its whole [nli, ncd] output;
-    the pair reads the tables once for its two vectors and outputs."""
+    the slot counts, and (K1, K2, K4) the occupied slots' colours; the
+    vectors.  K3 writes its whole [nli, ncd] output; the pair reads the
+    tables once for its two vectors and outputs."""
     pos_v, _, cnt = W.pack_positions(lay)
     n_occ, idx = int(cnt.sum()), pos_v.element_size()
     tables = {"v": lay.k_v * n_occ * idx + lay.offs_v.numel() * 4,
@@ -317,7 +382,7 @@ def bound_bytes_of(lay, ops):
     def matvec(ins, outs, elt):
         spaces = set(ins) | set(outs)
         return (sum(rows[a] for a in ins) * sum(rows[a] for a in outs) * n_occ * elt
-                + sum(tables[a] for a in spaces) + cnt.numel() * 4
+                + sum(tables[a] for a in spaces) + cnt.numel() * 4 + n_occ
                 + 4 * sum(size[a] for a in ins) + 4 * sum(size[a] for a in outs))
 
     n = lay.n_u + lay.n_ps
@@ -325,7 +390,7 @@ def bound_bytes_of(lay, ops):
     out = {
         "K3": 4 * n + both + 4 * lay.nli * lay.ncd,
         "K3 pair": 2 * (4 * n + 4 * lay.nli * lay.ncd) + both,
-        "K4": 4 * lay.nl * n_occ + both + 4 * n,
+        "K4": 4 * lay.nl * n_occ + both + n_occ + 4 * n,
         "K1 f32": matvec("vp", "vp", 4),
         "K1": matvec("vp", "vp", 2),
     }
@@ -453,6 +518,17 @@ def ptxas_summary(log):
     return list(dict.fromkeys(lines))  # ptxas reports some kernels twice
 
 
+def check_repeat(name, call):
+    """Two calls on the same inputs must give the same bits (every sum of
+    K1-K4 has a fixed order)."""
+    first, second = stacked(call()), stacked(call())
+    torch.cuda.synchronize()
+    same = torch.equal(first, second)
+    print(f"  {name}: two calls on the same inputs bit-equal: {same}", flush=True)
+    if not same:
+        raise RuntimeError(f"{name}: a repeated call changed the result")
+
+
 def check_graph_replay(name, call, x, exact=False):
     """Capture one wrapper call in a CUDA graph, write new values into its
     input x, replay, and hold the output against an eager call (``exact``:
@@ -479,6 +555,184 @@ def check_graph_replay(name, call, x, exact=False):
     if not (torch.equal(y, want) if exact else err <= REL_TOL * scale):
         raise RuntimeError(f"{name}: graph replay disagrees with an eager call")
     return replay_ms
+
+
+def steady_phase():
+    """Phase 12: solve_steady on the n = CAVITY_N cavity (FGMRES, float32),
+    Ghia's centrelines, and float32 FGMRES against float64 SuperLU at n =
+    CAVITY_SMALL_N."""
+    phase(f"12 steady: the lid-driven cavity at Re 100, n = {CAVITY_N}, float32 (solve_steady)")
+    cmesh = nt.rectangle(CAVITY_N, CAVITY_N)
+    ccfg = cavity.cavity_config()
+    clog = nt.RunLog(verbose=False)
+    t0 = time.perf_counter()
+    cs = nt.NavierStokesSolver(cmesh, ccfg, log=clog, inlet=cavity.lid, device=DEV)
+    cs.setup()
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    clay = cs._win_layout
+    pk = clay._packed
+    print(f"  cells {cmesh.n_cells}  n_total {cs.dofs.n_total}  nb {clay.nb}  Bmax {clay.Bmax}  "
+          f"Bc {clay.Bc}  nchunks {clay.nchunks}  ncd {clay.ncd}  occupied chunks "
+          f"{int((pk.cnt[:, None] > torch.arange(clay.nchunks, device=DEV) * clay.Bc).sum())}  "
+          f"slot colours {pk.ncolors}  setup {t_setup:.2f} s", flush=True)
+    W.reset_launch_counts()
+    t0 = time.perf_counter()
+    iters, upd = cs.solve_steady(initial_guess="stokes", tangent_solver="fgmres", tol=STEADY_TOL)
+    torch.cuda.synchronize()
+    t_steady = time.perf_counter() - t0
+    steady_launches = W.launch_counts()
+    its, fail = stokes_solve(clog.records)
+    print(f"  Stokes initial guess: {its} GMRES iterations, "
+          + (f"stopped at ||r|| {fail['residual']:.6e}" if fail else "converged"))
+    # a tangent solve that misses rel_tol logs krylov_failure (its final
+    # ||r||) just before its iteration's steady_newton record (||b||)
+    short, fail = 0, None
+    kt = ccfg.krylov
+    for r in clog.records:
+        if r.get("event") == "krylov_failure" and r.get("system") == "tangent":
+            fail = r
+        elif r.get("event") == "steady_newton":
+            reached = "reached rel_tol"
+            if fail is not None:
+                short += 1
+                how = "capped" if fail["iters"] >= kt.max_iters else "stalled"
+                reached = (f"did not reach rel_tol ({how}): ||r||/||b|| "
+                           f"{fail['residual'] / r['res_norm']:.3e}")
+            print(f"  iteration {r['iter']}: update {r['update']:.6e}, ||r|| {r['res_norm']:.6e}, "
+                  f"GMRES iterations {r['gmres_iters']}, alpha {r['alpha']}; tangent solve "
+                  f"{reached} (rel_tol {kt.rel_tol:g})")
+            fail = None
+    print(f"  {iters} Newton iterations, update {upd:.3e} (tol {STEADY_TOL:g}); "
+          f"{short} tangent solves did not reach rel_tol (stalled or capped); wall "
+          f"{t_steady:.2f} s; launches {steady_launches}", flush=True)
+    if upd > STEADY_TOL:
+        raise RuntimeError("the steady cavity did not converge by its own criterion")
+    if not bool(torch.isfinite(cs.solution).all()):
+        raise RuntimeError("the steady cavity's solution is not finite")
+    err_u, err_v = cavity.ghia_errors(cs)
+    print(f"  centrelines against Ghia et al. (Re 100): max|u - u_Ghia| {err_u:.5f}, "
+          f"max|v - v_Ghia| {err_v:.5f} (tol {GHIA_TOL})", flush=True)
+    if max(err_u, err_v) > GHIA_TOL:
+        raise RuntimeError("the steady cavity misses Ghia et al.'s centrelines")
+    if min(steady_launches.values()) == 0:
+        raise RuntimeError(f"a kernel was never launched by solve_steady: {steady_launches}")
+    small = {}
+    for dtype, tangent in (("float32", "fgmres"), ("float64", "lu")):
+        scfg = cavity.cavity_config(dtype)
+        slog = nt.RunLog(verbose=False)
+        s = nt.NavierStokesSolver(nt.rectangle(CAVITY_SMALL_N, CAVITY_SMALL_N), scfg, log=slog,
+                                  inlet=cavity.lid, device=DEV)
+        t0 = time.perf_counter()
+        if tangent == "lu":
+            # from rest, exact tangents, full steps: the first solves Stokes
+            out = s.solve_steady(tangent_solver="lu", initial_guess="current",
+                                 line_search=False, max_iters=LU_ITERS)
+        else:
+            out = s.solve_steady(tangent_solver="fgmres", tol=STEADY_TOL)
+        torch.cuda.synchronize()
+        recs = [r for r in slog.records if r.get("event") == "steady_newton"]
+        print(f"  n = {CAVITY_SMALL_N}, {dtype}, {tangent}: {out[0]} iterations, "
+              f"{time.perf_counter() - t0:.2f} s; ||r|| per iteration "
+              f"{['%.3e' % r['res_norm'] for r in recs]}; Ghia {cavity.ghia_errors(s)}",
+              flush=True)
+        small[tangent] = (s, recs)
+    (s32, r32), (s64, r64) = small["fgmres"], small["lu"]
+    if r32[-1]["update"] > STEADY_TOL or r64[-1]["res_norm"] > LU_RES_TOL:
+        raise RuntimeError("a small cavity solve did not converge")
+    du = np.abs(s32.velocity(real_only=True) - s64.velocity(real_only=True)).max()
+    p32, p64 = s32.pressure(real_only=True), s64.pressure(real_only=True)
+    dp = np.abs((p32 - p32.mean()) - (p64 - p64.mean())).max()
+    print(f"  float32 FGMRES vs float64 SuperLU: max|du| {du:.3e} (tol {SMALL_U_TOL:g}), "
+          f"max|dp| with means removed {dp:.3e} (tol {SMALL_P_TOL:g})", flush=True)
+    if du > SMALL_U_TOL or dp > SMALL_P_TOL:
+        raise RuntimeError("float32 FGMRES and float64 SuperLU cavities disagree")
+
+
+def scanned_phase():
+    """Phase 13: solve_scanned on the n = CAVITY_N cavity against solve(),
+    and a run resumed in a new solver against the run without a break."""
+    cmesh = nt.rectangle(CAVITY_N, CAVITY_N)
+    phase(f"13 scanned: the cavity, n = {CAVITY_N}, BDF2, solve_scanned against solve(), "
+          "and a resume")
+    scan_cfg = cavity.cavity_config(T=0.3)
+    scan_cfg.newton.max_iters = 2  # solve() then takes the scanned loop's 2 sweeps a step
+
+    def cavity_solver(T):
+        cfg = copy.deepcopy(scan_cfg)
+        cfg.T = T
+        s = nt.NavierStokesSolver(cmesh, cfg, log=nt.RunLog(verbose=False), inlet=cavity.lid,
+                                  device=DEV)
+        return s.setup()
+
+    sa = cavity_solver(0.3)
+    n_u = sa.dofs.n_u
+
+    def functional(u):  # ||u||_2 and max|u| of the velocity
+        return torch.stack([torch.linalg.vector_norm(u[:n_u]), u[:n_u].abs().max()])
+
+    seen = []
+
+    def progress(step, t, f, res=None, iters=None, reaction=None):
+        seen.append(step)
+        print(f"  progress: step {step}, t {t:.2f}, ||u|| {f[-1][0]:.6f}, max|u| {f[-1][1]:.6f}, "
+              f"||r|| {res[-1]:.3e}, GMRES {[int(i) for i in iters]}, lid reaction {reaction[-1]}",
+              flush=True)
+
+    W.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = sa.solve_scanned(chunk=2, newton_iters=2, functional=functional, reaction_tags=(3,),
+                           progress=progress)
+    torch.cuda.synchronize()
+    t_scan = time.perf_counter() - t0
+    scan_launches = W.launch_counts()
+    u6 = sa.solution.clone()
+    shapes = {k: None if v is None else v.shape for k, v in out.items()}
+    print(f"  solve_scanned: 6 steps in {t_scan:.2f} s; per step ||r|| "
+          f"{['%.3e' % r for r in out['residual']]}, GMRES {[int(i) for i in out['gmres_iters']]}; "
+          f"shapes {shapes}; launches {scan_launches}", flush=True)
+    if (seen != [2, 4, 6] or shapes != {"functional": (6, 2), "reaction": (6, 2),
+                                        "residual": (6,), "gmres_iters": (6,)}
+            or not all(np.isfinite(v).all() for v in out.values())
+            or not bool(torch.isfinite(u6).all())):
+        raise RuntimeError("solve_scanned's outputs are not what was asked for")
+    if min(scan_launches.values()) == 0:
+        raise RuntimeError(f"a kernel was never launched by solve_scanned: {scan_launches}")
+    t0 = time.perf_counter()
+    sa.solve()
+    torch.cuda.synchronize()
+    gap = float((sa.solution - u6).abs().max())
+    print(f"  solve(), the same 6 steps: {time.perf_counter() - t0:.2f} s; max|u_scanned - "
+          f"u_solve| {gap:.3e} (tol {SCAN_HOST_TOL:g}), bit-equal "
+          f"{torch.equal(sa.solution, u6)}", flush=True)
+    if gap > SCAN_HOST_TOL:
+        raise RuntimeError("solve_scanned and solve() disagree")
+    # solve() logs what the scanned loop does not: each tangent solve that
+    # missed rel_tol (krylov_failure, its final ||r||) after its Newton
+    # iteration's entry residual (||b||)
+    b_norm, short = None, []
+    for r in sa.log.records:
+        if r.get("event") == "newton":
+            b_norm = r["residual"]
+        elif r.get("event") == "krylov_failure" and r.get("system") == "tangent":
+            short.append(f"{r['iters']} iterations, ||r||/||b|| {r['residual'] / b_norm:.3e}")
+    print(f"  solve()'s tangent solves that did not reach rel_tol "
+          f"{scan_cfg.krylov.rel_tol:g} (stalled or capped): {len(short)} {short}", flush=True)
+    sb = cavity_solver(0.2)
+    sb.solve_scanned(chunk=2, newton_iters=2)
+    sc = cavity_solver(0.3)
+    # what restore_checkpoint sets, handed over on the card (no h5py there)
+    for key in ("solution", "solution_old", "solution_old2"):
+        setattr(sc, key, getattr(sb, key).clone())
+    sc.time, sc._step = sb.time, sb._step
+    sc.solve_scanned(chunk=2, newton_iters=2, resume=True)
+    torch.cuda.synchronize()
+    same = torch.equal(sc.solution, u6)
+    print(f"  4 steps, state handed to a new solver at step {sb._step}, 2 more steps: "
+          f"bit-equal to the 6-step run {same} (max|diff| "
+          f"{float((sc.solution - u6).abs().max()):.3e})", flush=True)
+    if not same or sc._step != 6:
+        raise RuntimeError("the resumed cavity run differs from the run without a break")
 
 
 def main():
@@ -549,10 +803,15 @@ def main():
                             exact=key.startswith("K3"), bound_bytes=bounds[key],
                             library=lib_call)
         recs[key]["library"] = lib_what
-    for key, inp in (("K2 v->v", x), ("K1", x), ("K3", x), ("K3 pair", x), ("K4", R)):
-        recs[key]["replay_ms"] = check_graph_replay(key, calls[key][0], inp,
-                                                    exact=key.startswith("K3"))
-    del calls, ops_, x, xo, R, x_ext, pair_ext, dof_index, library, csr_operands
+    for key, (kernel, _) in calls.items():
+        check_repeat(key, kernel)
+    blocks = ops_["blocks"]
+    replays = (("K2 v->v", blocks["v->v"][1]), ("K2 v->p", blocks["v->p"][1]),
+               ("K2 p->p", blocks["p->p"][1]), ("K1", x), ("K1 f32", x), ("K3", x),
+               ("K3 pair", x), ("K4", R))
+    for key, inp in replays:
+        recs[key]["replay_ms"] = check_graph_replay(key, calls[key][0], inp, exact=True)
+    del calls, ops_, blocks, x, xo, R, x_ext, pair_ext, dof_index, library, csr_operands
 
     phase("4 slice: 3 BDF1 steps, float32, windowed + Cahouet-Chabard")
     W.reset_launch_counts()
@@ -577,7 +836,7 @@ def main():
                             dtype=torch.float32, device=DEV)
     bc_vals = torch.as_tensor(solver.dirichlet.values(solver.cfg.dt), dtype=torch.float32,
                               device=DEV)
-    times = []
+    times, outs = [], []
     for _ in range(3):
         W.reset_launch_counts()
         torch.cuda.synchronize()
@@ -586,13 +845,20 @@ def main():
                                        solver.cfg.dt, True)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        outs.append(out)
         step_launches = {k.split()[0]: v for k, v in W.launch_counts().items()}
         print(f"  forced Newton step: {times[-1] * 1e3:.1f} ms, ||r|| {out[1]:.6e}, "
               f"GMRES iterations {out[2]}, converged {out[3]}", flush=True)
         if not out[3]:
             raise RuntimeError("forced Newton step: tangent solve did not converge")
-    print(f"  median {np.median(times) * 1e3:.1f} ms; launches in one step: {step_launches}",
-          flush=True)
+    same_iters = len({o[2] for o in outs}) == 1
+    same_update = all(torch.equal(o[0], outs[0][0]) for o in outs[1:])
+    print(f"  median {np.median(times) * 1e3:.1f} ms; launches in one step: {step_launches}\n"
+          f"  the three steps: equal FGMRES counts {same_iters} ({[o[2] for o in outs]}), "
+          f"bit-equal u_new {same_update}", flush=True)
+    if not (same_iters and same_update):
+        raise RuntimeError("forced Newton steps from one state differ from run to run")
+    del outs
 
     phase("6 kernel launches during phase 4")
     for k, v in launches.items():
@@ -601,22 +867,25 @@ def main():
         raise RuntimeError(f"a kernel of the main path was never launched: {launches}")
 
     phase("7 small-mesh parity: float32 GPU kernels vs float64 CPU plain versions")
-    runs = {}
-    for dtype, device, rel in (("float64", "cpu", 1e-9), ("float32", DEV, 1e-6)):
-        plog = nt.RunLog(verbose=False)
-        s = nt.NavierStokesSolver(
-            nt.unit_square(6), config(dtype, rel, cells_per_block=16), log=plog, device=device
-        )
-        s.solve()
-        runs[dtype] = trajectory(plog.records)
-    for (step, r64, _, f64), (_, r32, _, f32) in zip(runs["float64"], runs["float32"]):
-        worst = max(abs(a - b) for a, b in zip(r64, r32)) / r64[0]
-        print(f"  step {step}: f64 {['%.6e' % v for v in r64]}\n"
-              f"          f32 {['%.6e' % v for v in r32]}  worst |diff|/entry {worst:.2e}")
-        if len(r64) != len(r32) or worst > PARITY_TOL or f64 or f32:
-            raise RuntimeError(f"step {step}: float32 GPU run departs from float64 CPU run")
-    if len(runs["float64"]) != 3 or len(runs["float32"]) != 3:
-        raise RuntimeError("parity runs did not take 3 steps")
+    for forcing in (None, forcing_xt):
+        runs = {}
+        for dtype, device, rel in (("float64", "cpu", 1e-9), ("float32", DEV, 1e-6)):
+            plog = nt.RunLog(verbose=False)
+            s = nt.NavierStokesSolver(nt.unit_square(6), config(dtype, rel, cells_per_block=16),
+                                      log=plog, forcing=forcing, device=device)
+            s.solve()
+            runs[dtype] = trajectory(plog.records)
+        if forcing is not None:
+            print("  with the time-dependent forcing f(x, t) "
+                  f"(re-evaluated each step: {s._forcing_time_dep}):")
+        for (step, r64, _, f64), (_, r32, _, f32) in zip(runs["float64"], runs["float32"]):
+            worst = max(abs(a - b) for a, b in zip(r64, r32)) / r64[0]
+            print(f"  step {step}: f64 {['%.6e' % v for v in r64]}\n"
+                  f"          f32 {['%.6e' % v for v in r32]}  worst |diff|/entry {worst:.2e}")
+            if len(r64) != len(r32) or worst > PARITY_TOL or f64 or f32:
+                raise RuntimeError(f"step {step}: float32 GPU run departs from float64 CPU run")
+        if len(runs["float64"]) != 3 or len(runs["float32"]) != 3:
+            raise RuntimeError("parity runs did not take 3 steps")
 
     phase("8 probe: K5 against its plain version, then the probe's entry point")
     gen = torch.Generator().manual_seed(5)
@@ -789,6 +1058,10 @@ def main():
     print(f"  entry residuals of the forced step: relative gap {gap:.2e} (tol {FLAT_TOL:g})")
     if gap > FLAT_TOL:
         raise RuntimeError("flat and windowed entry residuals disagree")
+
+    steady_phase()
+    scanned_phase()
+    phase.end()
 
     names = {"K1": "K1 windowed_matvec", "K2": "K2 windowed_matvec_block",
              "K3": "K3 windowed_gather", "K4": "K4 windowed_scatter"}

@@ -9,11 +9,12 @@ Port of ``navier_stokes_tpu/__main__.py`` with the same commands and flags:
 and one more flag, ``--device`` (default ``cuda``): where the solver runs,
 the counterpart of the original's ``JAX_PLATFORMS``.  With ``cuda`` and no
 card visible the command raises; it never carries on on the CPU.  ``--mesh``
-names a gmsh .msh file.
+names a gmsh .msh file.  ``--output-dir`` writes the XDMF/HDF5 files of
+io/xdmf.py, which need h5py: without it the command raises before it
+solves anything.
 
 Not ported, and refused with NotImplementedError: ``--devices`` above 1 and
-``--distributed`` (multi-GPU), and ``--output-dir`` (the XDMF/HDF5 writer
-needs h5py).
+``--distributed`` (multi-GPU).
 """
 
 from __future__ import annotations
@@ -43,22 +44,22 @@ def _add_common(p):
     )
     p.add_argument("--dtype", choices=["auto", "float32", "float64"])
     p.add_argument("--devices", type=int, help="shard over N devices (not ported above 1)")
-    p.add_argument("--output-dir", help="write XDMF/HDF5 output here (not ported: raises)")
+    p.add_argument("--output-dir", help="write XDMF/HDF5 output here (needs h5py)")
     p.add_argument("--log-json", help="dump the structured run log to this file")
     p.add_argument("--device", default="cuda",
                    help="torch device of the solve (default cuda; cpu runs the "
                    "kernels' plain versions)")
 
 
-def _check_unported(args):
+def _check_args(args):
     if getattr(args, "distributed", False) or (args.devices or 1) > 1:
         raise NotImplementedError(
             "--devices > 1 / --distributed: multi-GPU solves are not ported"
         )
     if args.output_dir:
-        raise NotImplementedError(
-            "--output-dir: the XDMF/HDF5 writer (io/) is not ported; it needs h5py"
-        )
+        from .io import h5py
+
+        h5py()  # --output-dir without h5py raises here, before any solve
 
 
 def _device(args):
@@ -100,13 +101,21 @@ def cmd_run(args):
     from .models.navier_stokes import NavierStokesSolver
     from .utils.logging import RunLog
 
-    _check_unported(args)
+    _check_args(args)
     dev = _device(args)
     cfg = _build_config(args)
     log = RunLog()
     solver = NavierStokesSolver(args.mesh, cfg, log=log, device=dev)
     solver.setup()
+    if args.output_dir:
+        from .io.xdmf import XdmfWriter
+
+        writer = XdmfWriter(solver.dofs, output_dir=args.output_dir,
+                            partitioning=solver.cell_owner)  # cpp:702-705
+        solver.output_hooks.append(lambda s, t, sol: writer.write(s, t, sol))
     solver.solve()
+    if args.output_dir:
+        writer.write_series()
     if args.log_json:
         log.dump_json(args.log_json)
     return 0
@@ -116,7 +125,7 @@ def cmd_stokes(args):
     from .models.stokes import StokesSolver
     from .utils.logging import RunLog
 
-    _check_unported(args)
+    _check_args(args)
     dev = _device(args)
     cfg = _build_config(args)
     if not args.config:
@@ -127,6 +136,11 @@ def cmd_stokes(args):
     log = RunLog()
     solver = StokesSolver(args.mesh, cfg, log=log, device=dev)
     solver.solve()
+    if args.output_dir:
+        from .io.xdmf import XdmfWriter
+
+        writer = XdmfWriter(solver.dofs, output_dir=args.output_dir)
+        writer.write(0, 0.0, solver.solution)
     if args.log_json:
         log.dump_json(args.log_json)
     return 0

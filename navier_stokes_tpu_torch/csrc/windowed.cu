@@ -51,8 +51,8 @@
 //   * The chunk's subwindow of x is copied to shared memory once, with
 //     cp.async too, so no thread waits on a load while the first columns of A
 //     are on their way; the 15 gathers a slot hit shared memory; the same
-//     buffer then becomes the chunk's output subwindow, summed with
-//     shared-memory atomicAdds.
+//     buffer then becomes the chunk's output subwindow, summed in the fixed
+//     colour order described below.
 //   * A block's phases (tables and x in, the stream of A, the sums, the
 //     subwindow out) run one after another, so what keeps the memory system
 //     busy is the number of blocks resident on an SM and the columns each
@@ -82,7 +82,7 @@
 // K4 (the scatter) has the matvec's grid and its tail: one CUDA block per
 // (layout block, chunk), a thread per slot, padded slots and empty chunks
 // skipped; a thread loads all of its slot's rows of R (slot-contiguous, so
-// the loads of a warp are coalesced) before its first atomic into the
+// the loads of a warp are coalesced) before its first sum into the
 // chunk's subwindows in shared memory, and the same merge kernel sums the
 // subwindows.  Its accumulators are the chunk's subwindows, not the block's
 // window: ~40 KB at the channel, 5 resident blocks an SM, so all occupied
@@ -91,12 +91,16 @@
 // channel) and tells the merge that span; the scratch, not R, is most of
 // its bytes.
 //
-// Sums into a subwindow are shared-memory atomicAdds (compare-and-swap loops
-// on this card), so their order changes from run to run: the results vary by
-// a few ulps of the window entries, not more.  A fixed-order variant would
-// need the slots that share a row sorted and segmented per chunk (another
-// table to read); it was not built, since the merge across chunks and windows
-// is already fixed-order and the Krylov solvers do not need bit-equal repeats.
+// Sums into a subwindow run in a fixed order, so two calls on the same
+// inputs give the same bits.  The layout colours its occupied slots once, on
+// the host (ops/windowed.py slot_colours): within a chunk no two slots of one
+// colour touch the same window position of either space.  A chunk then sums
+// in ncolors rounds: in round k the slots of colour k add their values with a
+// plain += (no two of them share an address), and a barrier closes the round.
+// Every entry is therefore the sum of its slots' values in colour order, the
+// same on every run, and the merge sums across chunks and windows in a fixed
+// order too.  Eight rounds at the 102,400-cell channel cost no measurable
+// time against shared-memory atomicAdds (PERF.md).
 // Everything computes in float32.
 
 #include <cuda_runtime.h>
@@ -107,7 +111,7 @@ namespace {
 
 constexpr int kThreads = 256;          // the merge
 constexpr int kMaxChunkThreads = 1024; // K1-K4: one thread per slot of a chunk
-constexpr int kMetaLen = 17;
+constexpr int kMetaLen = 18;
 constexpr int kBaseStages = 2;         // ring stages of A with shared memory of their own
 constexpr int kMaxSmemBytes = 232448;  // 227 KB: a block's limit on Hopper
 
@@ -122,6 +126,7 @@ struct Geo {
   int OWv, OWp, hv, hp, RVv, RVp;
   int n_vs, n_ps, ncd;
   int idx32;  // position tables: 0 = uint16 (sentinel 0xFFFF), 1 = int32 (sentinel -1)
+  int ncolors;  // rounds of a chunk's sums: the slot colours are 0 .. ncolors - 1
 };
 
 struct Tables {
@@ -130,6 +135,7 @@ struct Tables {
   const int* __restrict__ offs_v;  // [nb, nchunks] subwindow starts, rows of 128
   const int* __restrict__ offs_p;
   const int* __restrict__ cnt;     // [nb] one past the last occupied slot
+  const uint8_t* __restrict__ colour;  // [nb, Bmax] the round of an occupied slot's sums
 };
 
 // window position of local dof l of slot (b, j), -1 for a sentinel
@@ -333,6 +339,7 @@ matvec_kernel(Geo g, Tables t, const TA* __restrict__ A, int n_out_pad,
   const int base_p = NEED_P ? t.offs_p[b * g.nchunks + c] * 128 : 0;
   int pv[KV], pp[KP];  // -1 for none
   const int j = c * g.Bc + tid;
+  const int colour = active ? t.colour[(long)b * g.Bmax + j] : -1;
 #pragma unroll
   for (int l = 0; l < KV; ++l)
     pv[l] = (NEED_V && active) ? win_pos(t.pos_v, KV, g, b, j, l) : -1;
@@ -402,21 +409,24 @@ matvec_kernel(Geo g, Tables t, const TA* __restrict__ A, int n_out_pad,
   for (int i = tid; i < out_len / 4; i += blockDim.x)
     ((float4*)buf)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
-  if (active) {
-    if constexpr (OUT_V) {
+  // the sums in colour order: no two slots of one round share an entry
+  for (int k = 0; k < g.ncolors; ++k) {
+    if (colour == k) {
+      if constexpr (OUT_V) {
 #pragma unroll
-      for (int cc = 0; cc < DIM; ++cc)
+        for (int cc = 0; cc < DIM; ++cc)
 #pragma unroll
-        for (int l = 0; l < KV; ++l)
-          if (pv[l] >= 0) atomicAdd(&buf[cc * Lv + pv[l]], y[cc * KV + l]);
+          for (int l = 0; l < KV; ++l)
+            if (pv[l] >= 0) buf[cc * Lv + pv[l]] += y[cc * KV + l];
+      }
+      if constexpr (OUT_P) {
+#pragma unroll
+        for (int l = 0; l < KP; ++l)
+          if (pp[l] >= 0) buf[out_p + pp[l]] += y[(OUT_V ? NV : 0) + l];
+      }
     }
-    if constexpr (OUT_P) {
-#pragma unroll
-      for (int l = 0; l < KP; ++l)
-        if (pp[l] >= 0) atomicAdd(&buf[out_p + pp[l]], y[(OUT_V ? NV : 0) + l]);
-    }
+    __syncthreads();
   }
-  __syncthreads();
   // the chunk's subwindows -> scratch (Lv, Lp are multiples of 128 floats)
   if constexpr (OUT_V) {
     for (int cc = 0; cc < DIM; ++cc) {
@@ -463,6 +473,7 @@ scatter_kernel(Geo g, Tables t, const float* __restrict__ R,
   int pv[KV], pp[KP];  // -1 for none
   const int j = c * g.Bc + tid;
   const long s = (long)b * g.Bmax + j;
+  const int colour = active ? t.colour[s] : -1;
   const int base_v = t.offs_v[b * g.nchunks + c] * 128;
   const int base_p = t.offs_p[b * g.nchunks + c] * 128;
 #pragma unroll
@@ -485,24 +496,28 @@ scatter_kernel(Geo g, Tables t, const float* __restrict__ R,
     if (pp[l] >= 0) ext[2] = min(ext[2], pp[l]), ext[3] = max(ext[3], pp[l]);
   }
   __syncthreads();
-  if (active) {
-#pragma unroll
-    for (int cc = 0; cc < DIM; ++cc)
-#pragma unroll
-      for (int l = 0; l < KV; ++l)
-        if (pv[l] >= 0) atomicAdd(&acc[cc * Lv + pv[l]], r[cc * KV + l]);
-#pragma unroll
-    for (int l = 0; l < KP; ++l)
-      if (pp[l] >= 0) atomicAdd(&acc[acc_p + pp[l]], r[NV + l]);
-  }
-  // the block's span: a warp's, then the warps' (Bc is a multiple of 32)
+  // the block's span: a warp's, then the warps' (Bc is a multiple of 32;
+  // integer min and max give the same result in any order)
 #pragma unroll
   for (int k = 0; k < 4; k += 2) {
     ext[k] = __reduce_min_sync(0xFFFFFFFFu, ext[k]);
     ext[k + 1] = __reduce_max_sync(0xFFFFFFFFu, ext[k + 1]);
     if (tid % 32 == 0) atomicMin(&span[k], ext[k]), atomicMax(&span[k + 1], ext[k + 1]);
   }
-  __syncthreads();
+  // the sums in colour order: no two slots of one round share an entry
+  for (int k = 0; k < g.ncolors; ++k) {
+    if (colour == k) {
+#pragma unroll
+      for (int cc = 0; cc < DIM; ++cc)
+#pragma unroll
+        for (int l = 0; l < KV; ++l)
+          if (pv[l] >= 0) acc[cc * Lv + pv[l]] += r[cc * KV + l];
+#pragma unroll
+      for (int l = 0; l < KP; ++l)
+        if (pp[l] >= 0) acc[acc_p + pp[l]] += r[NV + l];
+    }
+    __syncthreads();
+  }
   // the spans of the chunk's subwindows -> the start of its pieces of
   // scratch, in whole float4s (Lv, Lp are multiples of 128 floats); an
   // empty span is [0, 0)
@@ -669,14 +684,15 @@ bool load_geo(const int* meta, Geo* g) {
   if (meta[0] != kMetaLen) return false;
   const int* m = meta + 1;
   *g = Geo{m[0], m[1], m[2],  m[3],  m[4],  m[5],  m[6],  m[7], m[8],
-           m[9], m[10], m[11], m[12], m[13], m[14], m[15], m[16]};
+           m[9], m[10], m[11], m[12], m[13], m[14], m[15], m[16], m[17]};
   // the instantiated element: 2D Taylor-Hood P2/P1
   return g->dim == 2 && g->k_v == 6 && g->k_p == 3;
 }
 
 Tables make_tables(const void* pos_v, const void* pos_p, const void* offs_v,
-                   const void* offs_p, const void* cnt) {
-  return Tables{pos_v, pos_p, (const int*)offs_v, (const int*)offs_p, (const int*)cnt};
+                   const void* offs_p, const void* cnt, const void* colour) {
+  return Tables{pos_v, pos_p, (const int*)offs_v, (const int*)offs_p, (const int*)cnt,
+                (const uint8_t*)colour};
 }
 
 // allow `bytes` of dynamic shared memory for a kernel and prefer shared memory
@@ -804,8 +820,9 @@ int launch_scatter(const Geo& g, const Tables& t, const void* R, float* scratch,
 extern "C" {
 
 // Every entry point returns 0, a cudaError_t value, or one of the negative
-// codes above.  The five table pointers are the packed position tables, the
-// subwindow offsets and the occupied-slot counts of the layout.
+// codes above.  The six table pointers are the packed position tables, the
+// subwindow offsets, the occupied-slot counts and the slot colours of the
+// layout.
 
 // floats of scratch that ns_matvec and ns_scatter may use for this layout
 long ns_scratch_floats(const int* meta) {
@@ -816,11 +833,11 @@ long ns_scratch_floats(const int* meta) {
 
 // X [nvec, nli, ncd] = the gathers of x0 (and x1: nvec 2) in one launch: K3
 int ns_gather(const int* meta, const void* pos_v, const void* pos_p,
-              const void* offs_v, const void* offs_p, const void* cnt,
+              const void* offs_v, const void* offs_p, const void* cnt, const void* colour,
               const void* x0, const void* x1, void* X, int nvec, int nli, void* stream) {
   Geo g;
   if (!load_geo(meta, &g)) return kErrLayout;
-  const Tables t = make_tables(pos_v, pos_p, offs_v, offs_p, cnt);
+  const Tables t = make_tables(pos_v, pos_p, offs_v, offs_p, cnt, colour);
   const cudaStream_t st = (cudaStream_t)stream;
   if (nvec == 1)
     return launch_gather<1>(g, t, (const float*)x0, (const float*)x0, (float*)X, nli, st);
@@ -831,22 +848,22 @@ int ns_gather(const int* meta, const void* pos_v, const void* pos_p,
 
 // y [n_u + n_ps] = sum_cells P_c^T R_c: K4, then the merge
 int ns_scatter(const int* meta, const void* pos_v, const void* pos_p,
-               const void* offs_v, const void* offs_p, const void* cnt,
+               const void* offs_v, const void* offs_p, const void* cnt, const void* colour,
                const void* R, void* scratch, void* y, void* stream) {
   Geo g;
   if (!load_geo(meta, &g)) return kErrLayout;
-  return launch_scatter(g, make_tables(pos_v, pos_p, offs_v, offs_p, cnt), R,
+  return launch_scatter(g, make_tables(pos_v, pos_p, offs_v, offs_p, cnt, colour), R,
                         (float*)scratch, (float*)y, (cudaStream_t)stream);
 }
 
 // y [the out-spaces' planar segment] = A x: K1 / K2, then the merge
 int ns_matvec(const int* meta, const void* pos_v, const void* pos_p,
-              const void* offs_v, const void* offs_p, const void* cnt,
+              const void* offs_v, const void* offs_p, const void* cnt, const void* colour,
               const void* A, int a_bf16, int in_spaces, int out_spaces,
               int n_out_pad, const void* x, void* scratch, void* y, void* stream) {
   Geo g;
   if (!load_geo(meta, &g)) return kErrLayout;
-  const Tables t = make_tables(pos_v, pos_p, offs_v, offs_p, cnt);
+  const Tables t = make_tables(pos_v, pos_p, offs_v, offs_p, cnt, colour);
   return a_bf16 ? dispatch_spaces<__nv_bfloat16>(in_spaces, out_spaces, g, t, A, n_out_pad,
                                                  x, (float*)scratch, (float*)y,
                                                  (cudaStream_t)stream)

@@ -11,13 +11,16 @@ The reference's quirks keep their flags (see the original's docstring):
 ``convection_form`` ("reference": the residual's convection is u^T grad u,
 the Jacobian linearizes (u . grad) u), ``include_continuity_residual`` and
 ``jacobian_mass_rho``.  The global residual is reduced through the gather
-map ``scatter_full`` (a fixed summation order on every device), the outlet
-traction with ``index_add_`` as the original's ``segment_sum``.
+map ``scatter_full`` and the outlet traction through its own gather map
+(``FEMContext._neu_gather``): a fixed summation order on every device, where the
+original's ``segment_sum`` is an ``index_add_`` whose float32 order on the
+card changes from run to run.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Callable
 
 import numpy as np
@@ -73,6 +76,21 @@ class FEMContext:
     @property
     def n_cells(self) -> int:
         return self.cell_dofs.shape[0]
+
+    @cached_property
+    def _neu_gather(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The outlet traction's rows [m] (its unique dofs) and the
+        transpose gather map [m, Kf] from each row to its positions in the
+        flattened [nf, dim, nb_v] face values (ops/scatter.py), made on the
+        host at first use."""
+        from ..ops.scatter import build_gather_map
+
+        gdofs = (self.neu_cell_vdofs.cpu().numpy().astype(np.int64)[:, None, :]
+                 + np.arange(self.dim)[None, :, None] * self.n_vs).ravel()
+        rows, local = np.unique(gdofs, return_inverse=True)
+        dev = self.neu_cell_vdofs.device
+        return (torch.as_tensor(rows, device=dev),
+                torch.as_tensor(build_gather_map(local, len(rows)), device=dev))
 
 
 def build_context(
@@ -163,14 +181,17 @@ def build_context(
 
 def _neumann_residual(ctx: FEMContext, p_out: float) -> torch.Tensor:
     """Scattered outlet traction residual contribution r_i += -p_out n.phi_i
-    (the reference's outlet Neumann term, cpp:314-336)."""
+    (the reference's outlet Neumann term, cpp:314-336), summed through the
+    gather map of ``FEMContext._neu_gather`` in a fixed order."""
+    from ..ops.scatter import gather_scatter
+
     face_r = -p_out * torch.einsum(
         "fd,fbq,fq->fdb", ctx.neu_normal, ctx.neu_N_v, ctx.neu_jxw
     )  # [nf, dim, nb_v]
-    comp = torch.arange(ctx.dim, device=face_r.device)[None, :, None] * ctx.n_vs
-    gdofs = ctx.neu_cell_vdofs.long()[:, None, :] + comp
+    rows, gmap = ctx._neu_gather
     r = face_r.new_zeros(ctx.n_total)
-    return r.index_add_(0, gdofs.reshape(-1), face_r.reshape(-1))
+    r[rows] = gather_scatter(face_r.reshape(-1), gmap)
+    return r
 
 
 # ---------------------------------------------------------------------------

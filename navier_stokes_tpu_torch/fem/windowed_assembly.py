@@ -413,6 +413,30 @@ def build_windowed_assembly(ctx, lay: WindowedLayout, dofs, *, dt, nu, rho, p_ou
 # ---- device assembly (torch) -----------------------------------------------
 
 
+def _tangent(wa, lay, u_q, guW, rho):
+    """A_t: the constant terms plus the convection blocks of the tangent
+    (cpp:259-269), in A_const's storage dtype."""
+    dim, k_v = wa.dim, lay.k_v
+    Nv, W, Gr, iJ = wa.N_v, wa.W_t, wa.G_v, wa.invJT_t
+    ein = torch.einsum
+    # guW: grad u W [dim, dim, nq, ncd]
+    # C2[(a,j) col, (a,i) row] = rho (u . grad N_j) N_i W
+    u_ref = ein("dqc,dec->eqc", u_q, iJ)
+    adv = ein("jqe,eqc->jqc", Gr, u_ref)
+    C2 = ein("jqc,iq->jic", adv * W, rho * Nv)
+
+    st = wa.A_const.dtype  # tangent STORE dtype (bf16 capacity mode)
+    A_t = wa.A_const.clone()
+    for b in range(dim):  # column component (A_t dim 0)
+        for a in range(dim):  # row component (A_t dim 1)
+            # C1 block [(b,j), (a,i)] = rho gu[a,b] N_i N_j W
+            blk = rho * ein("qc,ijq->jic", guW[a, b], wa.NN)
+            if a == b:
+                blk = blk + C2
+            A_t[b * k_v : (b + 1) * k_v, a * k_v : (a + 1) * k_v, :] += blk.to(st)
+    return A_t
+
+
 def assemble_windowed(
     wa: WindowedAssembly,
     lay: WindowedLayout,
@@ -425,13 +449,17 @@ def assemble_windowed(
     convection_form: str = "reference",
     include_continuity_residual: bool = False,
     include_time_term: bool = True,
+    residual_only: bool = False,
 ):
     """One Newton-tangent assembly in the windowed layout.
 
     Returns (A_t [nl, nli, ncd], residual [n_total], diag0 [n_total]), the
     same values as the original.  Dirichlet rows are NOT applied here.
     include_time_term=False drops the residual's -(rho/dt)(u - u_old) term.
-    A_t is a new tensor in A_const's storage dtype.
+    A_t is a new tensor in A_const's storage dtype.  residual_only=True
+    computes the residual alone and returns (None, residual, None): the
+    steady line search's trial residuals (in JAX the compiler drops the
+    unused tangent; in eager torch it would be built).
     """
     dim, k_v, k_p = wa.dim, lay.k_v, lay.k_p
     nl = lay.nl
@@ -458,22 +486,9 @@ def assemble_windowed(
     gu_q = ein("dqec,aec->daqc", gu_ref, iJ)
     p_q = ein("bq,bc->qc", Np, Xp)
 
-    # ---- convection blocks of the tangent (cpp:259-269) -------------------
     guW = gu_q * W  # [dim, dim, nq, ncd]
-    # C2[(a,j) col, (a,i) row] = rho (u . grad N_j) N_i W
-    u_ref = ein("dqc,dec->eqc", u_q, iJ)
-    adv = ein("jqe,eqc->jqc", Gr, u_ref)
-    C2 = ein("jqc,iq->jic", adv * W, rho * Nv)
-
-    st = wa.A_const.dtype  # tangent STORE dtype (bf16 capacity mode)
-    A_t = wa.A_const.clone()
-    for b in range(dim):  # column component (A_t dim 0)
-        for a in range(dim):  # row component (A_t dim 1)
-            # C1 block [(b,j), (a,i)] = rho gu[a,b] N_i N_j W
-            blk = rho * ein("qc,ijq->jic", guW[a, b], wa.NN)
-            if a == b:
-                blk = blk + C2
-            A_t[b * k_v : (b + 1) * k_v, a * k_v : (a + 1) * k_v, :] += blk.to(st)
+    if not residual_only:
+        A_t = _tangent(wa, lay, u_q, guW, rho)
 
     # ---- residual (cpp:287-311), momentum rows [dim, k_v, ncd] ------------
     if convection_form == "reference":
@@ -497,6 +512,8 @@ def assemble_windowed(
         div_u = ein("ddqc->qc", gu_q)
         R[dim * k_v : nl] = ein("qc,iq->ic", div_u * W, Np)
     residual = windowed_scatter(lay, R) + wa.r_const
+    if residual_only:
+        return None, residual, None
 
     # ---- raw diagonal (pre-BC), widened before the cross-cell sum ----------
     ar = torch.arange(nl, device=A_t.device)

@@ -7,9 +7,10 @@ operator stays in unassembled element form
 
 and constrained (Dirichlet) rows are replaced by ``diag * x``, the
 reference's ``apply_boundary_values(..., false)`` row elimination.  The
-reduction goes through the context's transpose gather map when one is given
-(a fixed summation order on every device) and through ``index_add_`` only
-where no map exists.
+reduction goes through a transpose gather map (ops/scatter.py): the
+context's when one is given, else one built from ``cell_dofs`` on the host
+for the call.  Either way each row sums its contributions in a fixed order
+on every device (``index_add_`` on the card would not).
 
 Block views are static slices of the element matrices: the local dof
 layout is component-planar, so the velocity block is
@@ -41,7 +42,7 @@ class ElementOperator:
     cell_dofs: torch.Tensor  # [nc, nl] int32 global ids
     bc_rows: torch.Tensor  # [nbc] int (may be empty)
     bc_diag: torch.Tensor  # [nbc] replacement diagonal for constrained rows
-    # transpose gather map [n, K] (ops/scatter.py); None reduces with index_add_
+    # transpose gather map [n, K] (ops/scatter.py); None builds one per call
     scatter_idx: torch.Tensor | None
     n: int
     # symmetric Dirichlet elimination: also zero constrained COLUMNS, keeping
@@ -51,12 +52,13 @@ class ElementOperator:
 
 
 def _reduce(values_flat, cell_dofs, scatter_idx, n):
-    if scatter_idx is not None:
-        from ..ops.scatter import gather_scatter
+    from ..ops.scatter import build_gather_map, gather_scatter
 
-        return gather_scatter(values_flat, scatter_idx)
-    out = values_flat.new_zeros(n)
-    return out.index_add_(0, cell_dofs.reshape(-1), values_flat)
+    if scatter_idx is None:
+        scatter_idx = torch.as_tensor(
+            build_gather_map(cell_dofs.cpu().numpy(), n), device=values_flat.device
+        )
+    return gather_scatter(values_flat, scatter_idx)
 
 
 def matvec(op: ElementOperator, x: torch.Tensor) -> torch.Tensor:

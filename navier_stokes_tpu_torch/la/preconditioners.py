@@ -64,9 +64,11 @@ def coarse_correction(
     agg:        [n_s] aggregate id per scalar dof (sentinel ``m`` marks
                 padding holes, dropped).
     coarse_inv: [m, m] dense inverse of the coarse Galerkin matrix.
-    agg_size:   contiguous run length of the aggregates: restriction and
-                prolongation are a reshape-sum and a broadcast.  0 selects
-                the general segment-sum path.
+    agg_size:   contiguous run length of the aggregates (> 0; the windowed
+                assembly fits it to the window, ``_fit_agg_to_ow``):
+                restriction and prolongation are a reshape-sum and a
+                broadcast.  The original's segment-sum path for irregular
+                aggregates (agg_size 0) is not ported: no solver reaches it.
     ncomp:      vector components sharing one scalar coarse space (input is
                 component-major [ncomp * n_s]).
     """
@@ -77,29 +79,17 @@ def coarse_correction(
     def _solve(seg):  # [ncomp, m] coarse residual -> [ncomp, m] correction
         return torch.einsum("mk,ck->cm", coarse_inv, seg)
 
-    if agg_size:
-        sa = int(agg_size)
-        mm = -(-n_s // sa)
-        npad = mm * sa - n_s
+    sa = int(agg_size)
+    mm = -(-n_s // sa)
+    npad = mm * sa - n_s
 
-        def coarse(r):
-            r2 = r.reshape(ncomp, n_s)
-            rm = torch.where(hole, 0.0, r2).to(coarse_inv.dtype)
-            seg = torch.nn.functional.pad(rm, (0, npad)).reshape(ncomp, mm, sa).sum(-1)
-            y = _solve(seg)
-            corr = y[:, :, None].expand(ncomp, mm, sa).reshape(ncomp, -1)[:, :n_s]
-            return torch.where(hole, 0.0, corr).to(r.dtype).reshape(-1)
-
-        return coarse
-
-    idx = agg.long()
-
-    def coarse(r):  # general path (irregular aggregates)
-        r2 = r.reshape(ncomp, n_s).to(coarse_inv.dtype)
-        s = r2.new_zeros((ncomp, m_c + 1)).index_add_(1, idx, r2)[:, :m_c]
-        y = _solve(s)
-        y_ext = torch.cat([y, y.new_zeros((ncomp, 1))], dim=1)
-        return y_ext[:, idx].to(r.dtype).reshape(-1)
+    def coarse(r):
+        r2 = r.reshape(ncomp, n_s)
+        rm = torch.where(hole, 0.0, r2).to(coarse_inv.dtype)
+        seg = torch.nn.functional.pad(rm, (0, npad)).reshape(ncomp, mm, sa).sum(-1)
+        y = _solve(seg)
+        corr = y[:, :, None].expand(ncomp, mm, sa).reshape(ncomp, -1)[:, :n_s]
+        return torch.where(hole, 0.0, corr).to(r.dtype).reshape(-1)
 
     return coarse
 

@@ -12,24 +12,35 @@ Port of the single-device paths of ``navier_stokes_tpu/models/navier_stokes.py``
   * preconditioners: identity, block_diagonal, block_triangular (flat and
               windowed), cahouet_chabard (windowed; on the flat path it
               degrades to block_triangular, as in the original).
-  * stokes_initial_guess(), solve_newton(), solve(resume=...), output hooks.
+  * stokes_initial_guess(), solve_newton(), solve(resume=...), output hooks,
+              time-dependent forcing f(x, t) (re-evaluated at each new time
+              level).
+  * solve_steady(): Newton on the steady residual from the Stokes guess,
+              with a backtracking line search; the tangent solved by FGMRES
+              on the windowed kernels or, with tangent_solver="lu", by
+              SuperLU on the host.
+  * solve_scanned(): the time loop in chunks of steps with a fixed number of
+              Newton sweeps a step, per-step functionals and boundary
+              reactions, and the solver's state rebound at every chunk edge.
+  * save_checkpoint() / restore_checkpoint() (io/checkpoint.py, needs h5py).
 
-The JAX version compiles one Newton iteration into one device program; here
-it is eager torch with one host read of the residual norm per Newton
-iteration, one per FGMRES step, and one per iteration of an inner solve
-that stops at a tolerance.
+The JAX version compiles one Newton iteration into one device program (and
+solve_scanned a whole chunk of steps into one lax.scan); here it is eager
+torch with one host read of the residual norm per Newton iteration, one per
+FGMRES step, and one per iteration of an inner solve that stops at a
+tolerance.
 
 Dirichlet semantics match ``apply_boundary_values(..., false)``: constrained
 rows are replaced by ``diag * x`` with the pre-constraint assembled diagonal
 and the residual rows by ``diag * target``.
 
-What this port does not serve raises: steady and scanned solves, more than
-one device, time-dependent forcing, checkpoints.
+What this port does not serve raises: more than one device.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 
 import numpy as np
 import torch
@@ -39,7 +50,10 @@ from ..fem.assembly import assemble_navier_stokes, build_context
 from ..fem.bcs import DirichletBC, build_dirichlet
 from ..fem.dofs import make_dofs, renumber_blocked
 from ..fem.functions import InletVelocity, ZeroForcing
-from ..fem.windowed_assembly import assemble_windowed, build_windowed_assembly
+from ..fem.geometry import cell_geometry
+from ..fem.quadrature import gauss_simplex
+from ..fem.windowed_assembly import (
+    assemble_windowed, build_windowed_assembly, compute_r_const)
 from ..la import operators as ops
 from ..la.cg import cg
 from ..la.gmres import fgmres
@@ -185,16 +199,19 @@ class NavierStokesSolver:
             if self._forcing_time_dep_override is not None
             else _takes_time(self.forcing)
         )
-        if self._forcing_time_dep:
-            raise NotImplementedError("time-dependent forcing is not ported")
+        self._f_qpts = None  # quadrature points of a time-dependent forcing
         self.ctx = build_context(
             self.dofs,
             neumann_tags=cfg.neumann_tags,
-            forcing=self.forcing,
+            forcing=(lambda pts: self.forcing(pts, 0.0))
+            if self._forcing_time_dep
+            else self.forcing,
             quadrature_degree=cfg.quadrature_degree,
             dtype=self._dtype,
             device=self.device,
         )
+        # the output writer's per-cell partitioning: one device owns all
+        self.cell_owner = np.zeros(self.mesh.n_cells, dtype=np.int32)
         if self._win_layout is not None:
             self._setup_windowed_assembly()
 
@@ -209,6 +226,7 @@ class NavierStokesSolver:
         )
         self.solution = torch.zeros(self.dofs.n_total, dtype=self._dtype, device=self.device)
         self.solution_old = self.solution
+        self.solution_old2 = None
         self._is_setup = True
         return self
 
@@ -313,7 +331,8 @@ class NavierStokesSolver:
             )
         raise ValueError(f"unknown preconditioner {kind!r}")
 
-    def _make_windowed_preconditioner(self, lay, A_t, wa, bc_diag, diag0, bc_rows, kind=None):
+    def _make_windowed_preconditioner(self, lay, A_t, wa, bc_diag, diag0, bc_rows,
+                                      mass_coef=None, kind=None, a00_solver=None):
         """Schur preconditioners on the windowed operator.
 
         block_diagonal / block_triangular mirror the reference classes
@@ -321,10 +340,13 @@ class NavierStokesSolver:
         surrogate; their inner solves run on the whole-system kernel (K1).
         cahouet_chabard: S^-1 ~ nu*rho*Mp^-1 + mass_coef*Kp^-1, with
         fixed-length coarse-corrected Jacobi-CG sweeps on A00 and on the
-        pressure Laplacian Kp through the block kernel (K2)."""
+        pressure Laplacian Kp through the block kernel (K2).  mass_coef None
+        is the time-stepping tangent's coefficient; the steady solve passes
+        0.0.  a00_solver None is ``krylov.a00_solver``."""
         cfg = self.cfg
         k = cfg.krylov
         kind = kind or self._precond
+        a00_solver = a00_solver or k.a00_solver
         if kind == "identity":
             return identity()
         n_u = lay.dim * lay.n_vs
@@ -347,7 +369,8 @@ class NavierStokesSolver:
             pA = lambda r: jac_u(r) + coarse_v(r)
 
         if kind == "cahouet_chabard":
-            return self._cahouet_chabard(lay, A_t, wa, bc_diag, bc_rows, diag_u, pA, coarse_v)
+            return self._cahouet_chabard(lay, A_t, wa, bc_diag, bc_rows, diag_u, pA, coarse_v,
+                                         mass_coef, a00_solver)
 
         def apply_full(xu, zero_bc):
             x = xu.new_zeros(n)
@@ -363,7 +386,7 @@ class NavierStokesSolver:
             return y
 
         inner_maxiter = min(k.inner_max_iters, 60)
-        if k.a00_solver == "gmres":
+        if a00_solver == "gmres":
             def a00_solve(vu):
                 return fgmres(
                     A00_mv, vu, atol=k.inner_tol * _norm(vu),
@@ -386,7 +409,8 @@ class NavierStokesSolver:
 
         return apply
 
-    def _cahouet_chabard(self, lay, A_t, wa, bc_diag, bc_rows, diag_u, pA, coarse_v):
+    def _cahouet_chabard(self, lay, A_t, wa, bc_diag, bc_rows, diag_u, pA, coarse_v,
+                         mass_coef, a00_solver):
         cfg = self.cfg
         k = cfg.krylov
         n_u = lay.dim * lay.n_vs
@@ -428,11 +452,12 @@ class NavierStokesSolver:
             pKp = lambda r: jac_kp(r) + coarse_p(r)
             if k.cc_cycle_ap == "vcycle":
                 pKp = two_level_vcycle(Kp_mv, wa.diag_kp, coarse_p, omega=k.cc_vcycle_omega)
-        # the Laplacian term carries the tangent's time coefficient (BDF2
-        # folds its 3/2 into _dt_tangent)
-        mass_coef = (cfg.rho if cfg.jacobian_mass_rho else 1.0) / self._dt_tangent
+        if mass_coef is None:
+            # the Laplacian term carries the tangent's time coefficient (BDF2
+            # folds its 3/2 into _dt_tangent); the steady solve passes 0.0
+            mass_coef = (cfg.rho if cfg.jacobian_mass_rho else 1.0) / self._dt_tangent
 
-        if k.a00_solver == "gmres":
+        if a00_solver == "gmres":
             # convection-robust inner sweep for nonsymmetric A00
             def a00_sweep(vu):
                 return fgmres(
@@ -604,6 +629,287 @@ class NavierStokesSolver:
             self.log.krylov_failure(int(sol.iters), float(sol.residual), system="stokes")
 
     # ------------------------------------------------------------------
+    def solve_steady(
+        self,
+        *,
+        tol: float = 1e-8,
+        max_iters: int = 10,
+        damping: float = 1.0,
+        line_search: bool = True,
+        initial_guess: str = "stokes",
+        tangent_solver: str = "fgmres",
+    ):
+        """Steady Navier-Stokes: Newton on the steady residual (no mass
+        term), stopping on the relative update ``alpha ||delta|| / n_dofs
+        <= tol`` (the reference's legacy loop, cpp:811-833; legacy defaults
+        tol 1e-8, 10 iterations), with optional damping and a backtracking
+        line search on the residual norm.
+
+        The tangent's A00 inner sweeps run FGMRES (the steady tangent is
+        convection-dominated and nonsymmetric) and the Schur surrogate has
+        mass_coef 0.  tangent_solver "fgmres" solves on the windowed kernels;
+        "lu" assembles the flat tangent at dt = 1e30 and solves it exactly
+        with scipy's SuperLU on the host (the verification path, meant for
+        float64).  initial_guess "stokes" starts from
+        ``stokes_initial_guess(self.time)``, "current" from
+        ``self.solution``.  Dirichlet values are read at ``self.time``.
+
+        Returns (n_iters, update_norm).  Requires the windowed operator."""
+        if not self._is_setup:
+            self.setup()
+        cfg, log = self.cfg, self.log
+        if self._win_layout is None:
+            raise NotImplementedError(
+                "solve_steady requires the windowed operator "
+                "(cfg.krylov.matvec='windowed')"
+            )
+        if tangent_solver not in ("fgmres", "lu"):
+            raise ValueError(f"unknown tangent_solver {tangent_solver!r}")
+        if initial_guess not in ("stokes", "current"):
+            raise ValueError(f"unknown initial_guess {initial_guess!r}")
+        k = cfg.krylov
+        lay = self._win_layout
+        wa = build_windowed_assembly(
+            self.ctx, lay, self.dofs,
+            dt=1.0, nu=cfg.nu, rho=cfg.rho, p_out=cfg.p_out,
+            terms="stokes",  # constant tangent part without the mass block
+            pin_pdofs=self.dofs.boundary_scalar_pdofs(cfg.neumann_tags),
+            coarse_agg=k.cc_coarse_agg,
+            coarse_agg_v=k.cc_coarse_agg_v,
+            pin_vdofs=self.dofs.boundary_scalar_vdofs(
+                tuple(cfg.inlet_tags) + tuple(cfg.wall_tags)
+            ),
+            coarse_cond_cap=k.cc_coarse_cond_cap,
+            kp_deflate=k.kp_deflate,
+            kp_deflate_min_amp=k.kp_deflate_min_amp,
+        )
+        bc_rows = self._bc_rows
+        has_bc = bc_rows.shape[0] > 0
+        bc_vals = torch.as_tensor(
+            np.asarray(self.dirichlet.values(self.time)), device=self.device
+        ).to(self._dtype)
+        form = dict(dt=1.0, nu=cfg.nu, rho=cfg.rho, convection_form=cfg.convection_form,
+                    include_continuity_residual=cfg.include_continuity_residual,
+                    include_time_term=False)
+        f = np.float64 if self._dtype == torch.float64 else np.float32
+
+        def fgmres_iteration(u):
+            A_t, residual, diag0 = assemble_windowed(wa, lay, u, u, **form)
+            bc_diag = diag0[bc_rows]
+            residual[bc_rows] = bc_diag * (bc_vals - u[bc_rows])
+            res_norm = _norm(residual)
+
+            def apply_op(v):
+                y = windowed_matvec(lay, A_t, v)
+                if has_bc:
+                    y[bc_rows] = bc_diag * v[bc_rows]
+                return y
+
+            precond = self._make_windowed_preconditioner(
+                lay, A_t, wa, bc_diag, diag0, bc_rows, mass_coef=0.0, a00_solver="gmres",
+            )
+            sol = fgmres(
+                apply_op, residual, atol=f(k.rel_tol) * f(res_norm),
+                restart=k.restart, maxiter=k.max_iters, precond=precond,
+            )
+            return sol.x, bc_diag, res_norm, sol.iters, sol.converged, sol.residual
+
+        _ALPHAS = (1.0, 0.5, 0.25, 0.125)
+
+        def trial_norms(u, delta, bc_diag):
+            # residual norms along the backtracking ladder: each trial
+            # assembles the residual alone (no tangent, no diagonal)
+            norms = []
+            for a in _ALPHAS:
+                ut = u + (a * damping) * delta
+                _, r, _ = assemble_windowed(wa, lay, ut, ut, residual_only=True, **form)
+                r[bc_rows] = bc_diag * (bc_vals - ut[bc_rows])
+                norms.append(_norm(r))
+            return np.asarray(norms)
+
+        do_iter = fgmres_iteration
+        if tangent_solver == "lu":
+            do_iter = self._steady_lu_iteration(bc_rows, bc_vals)
+
+        log.banner()
+        if initial_guess == "stokes":
+            u = self.stokes_initial_guess(self.time).to(self._dtype)
+        else:  # "current": continuation from the solver's state
+            u = self.solution
+        n_scale = float(self.dofs.n_total)
+        upd = tol + 1.0
+        it = 0
+        while it == 0 or (upd > tol and it < max_iters):  # cpp:820
+            delta, bc_diag, res_norm, kiters, kconv, kres = do_iter(u)
+            log.print("Assembling the system")
+            log.gmres_iters(int(kiters))
+            if not kconv:
+                log.krylov_failure(int(kiters), float(kres))
+                if k.on_failure == "raise":
+                    raise RuntimeError(
+                        f"steady tangent solve did not converge: residual "
+                        f"{float(kres):.6e} after {int(kiters)} iterations"
+                    )
+            alpha = damping
+            if line_search:
+                norms = trial_norms(u, delta, bc_diag)
+                r0 = float(res_norm)
+                # largest step with sufficient decrease; fall back to the
+                # best trial (classic backtracking on ||r||)
+                ok = norms <= (1.0 - 1e-4 * np.asarray(_ALPHAS)) * r0
+                pick = int(np.argmax(ok)) if ok.any() else int(np.argmin(norms))
+                alpha = _ALPHAS[pick] * damping
+            u = u + alpha * delta
+            upd = float(alpha) * _norm(delta) / n_scale
+            it += 1
+            log.print(f"Residual = {upd:.6f}")  # cpp:829 legacy format
+            log.records.append({
+                "event": "steady_newton", "iter": it, "update": upd,
+                "res_norm": float(res_norm), "gmres_iters": int(kiters),
+                "alpha": float(alpha),
+            })
+        if it >= max_iters and upd > tol:
+            log.print("WARNING: Newton's method failed to converge\n")  # cpp:831
+        self.solution = u
+        self.solution_old = u.clone()
+        return it, upd
+
+    def _steady_lu_iteration(self, bc_rows, bc_vals):
+        """One exact steady-Newton iteration via host sparse LU (SuperLU).
+
+        The steady tangent is assembled on the flat path with u_old = u and
+        dt = 1e30: the residual's time term vanishes identically and the
+        Jacobian's mass perturbation is ~1e-30 relative.  Dirichlet rows are
+        eliminated with the pre-constraint diagonal (apply_boundary_values
+        semantics, cpp:349-377), in SPEC order: a boolean mask would re-sort
+        the rows and put inlet values on wrong rows (the original measured
+        Cd 0.30 instead of 5.56 that way).  The padding holes of a blocked
+        numbering get unit diagonals (their rows and columns are zero, and
+        their residual is zero, so their update stays zero).  Refused on
+        more than one device (this port serves one)."""
+        import scipy.sparse as sp
+        import scipy.sparse.linalg as spla
+
+        cfg, ctx, dofs = self.cfg, self.ctx, self.dofs
+        n = dofs.n_total
+        nl = ctx.cell_dofs.shape[1]
+        cd = ctx.cell_dofs.cpu().numpy().astype(np.int64)
+        ii = np.broadcast_to(cd[:, :, None], (cd.shape[0], nl, nl))
+        jj = np.broadcast_to(cd[:, None, :], (cd.shape[0], nl, nl))
+        br = bc_rows.cpu().numpy().astype(np.int64)  # spec order
+        rows_mask = np.zeros(n, dtype=bool)
+        rows_mask[br] = True
+        bc_vals_np = bc_vals.cpu().numpy().astype(np.float64)
+        real = np.ones(n, dtype=bool)
+        if dofs.v_mask is not None:
+            vm = np.asarray(dofs.v_mask, bool)
+            for a in range(dofs.dim):
+                real[a * dofs.n_vs : (a + 1) * dofs.n_vs] = vm
+        if dofs.p_mask is not None:
+            real[dofs.n_u :] = np.asarray(dofs.p_mask, bool)
+        hole_diag = sp.diags((~real).astype(np.float64))
+
+        def do_iter(u):
+            cell_mat, _, residual = assemble_navier_stokes(
+                ctx, u, u, dt=1e30, nu=cfg.nu, rho=cfg.rho, p_out=cfg.p_out,
+                convection_form=cfg.convection_form,
+                include_continuity_residual=cfg.include_continuity_residual,
+                jacobian_mass_rho=cfg.jacobian_mass_rho,
+            )
+            cm = cell_mat.cpu().numpy().astype(np.float64)
+            r = residual.cpu().numpy().astype(np.float64)
+            A = sp.coo_matrix((cm.ravel(), (ii.ravel(), jj.ravel())), shape=(n, n)).tocsr()
+            diag0 = np.asarray(A.diagonal())
+            bc_diag = np.where(diag0[br] != 0.0, diag0[br], 1.0)  # spec order
+            # row elimination, unsymmetric (apply_boundary_values semantics)
+            un = u.cpu().numpy().astype(np.float64)
+            keep = sp.diags((~rows_mask).astype(np.float64))
+            A = keep @ A + sp.diags(
+                np.where(rows_mask, np.where(diag0 != 0.0, diag0, 1.0), 0.0)
+            ) + hole_diag
+            r[br] = bc_diag * (bc_vals_np - un[br])
+            r[~real] = 0.0
+            res_norm = float(np.linalg.norm(r))
+            delta = spla.splu(A.tocsc()).solve(r)
+            as_t = lambda a: torch.as_tensor(a, device=self.device).to(self._dtype)  # noqa: E731
+            return as_t(delta), as_t(bc_diag), res_norm, 1, True, 0.0
+
+        return do_iter
+
+    # ------------------------------------------------------------------
+    def _layout_meta(self) -> dict:
+        """Layout identifiers stored in checkpoints: a checkpoint written
+        under one DoF numbering (flat vs windowed, another block size) must
+        not restore into another with a coincidentally equal length."""
+        lay = self._win_layout
+        return {
+            "n_total": int(self.dofs.n_total),
+            "n_vs": int(self.dofs.n_vs),
+            "n_ps": int(self.dofs.n_ps),
+            "matvec": self._matvec,
+            "blocks": None if lay is None else [lay.nb, lay.OWv, lay.OWp],
+            "mesh_cells": int(self.mesh.n_cells),
+        }
+
+    def _planar(self, x) -> np.ndarray:
+        """A state vector in the planar layout on the host (one device: the
+        state is already planar)."""
+        return x.detach().cpu().numpy()
+
+    def save_checkpoint(self, path, step: int | None = None):
+        """Full restart state (solution, previous steps, time, step) in an
+        HDF5 file (io/checkpoint.py; needs h5py)."""
+        from ..io.checkpoint import save_checkpoint
+
+        old2 = self.solution_old2
+        return save_checkpoint(
+            path,
+            solution=np.asarray(self._planar(self.solution), np.float64),
+            solution_old=np.asarray(self._planar(self.solution_old), np.float64),
+            solution_old2=(
+                None if old2 is None else np.asarray(self._planar(old2), np.float64)
+            ),
+            time=self.time,
+            step=step if step is not None else self._step,
+            config={"solver": self.cfg.to_dict(), "layout": self._layout_meta()},
+        )
+
+    def restore_checkpoint(self, path):
+        """Restore what ``save_checkpoint`` wrote; a checkpoint of another
+        DoF layout raises ValueError."""
+        from ..io.checkpoint import load_checkpoint
+
+        if not self._is_setup:
+            self.setup()
+        d = load_checkpoint(path)
+        meta = d.get("config", {}).get("layout")
+        if meta is not None and meta != self._layout_meta():
+            mine = self._layout_meta()
+            diff = {k: (meta.get(k), mine.get(k)) for k in mine if meta.get(k) != mine.get(k)}
+            raise ValueError(
+                f"checkpoint layout mismatch (stored vs current): {diff} — "
+                "restoring would silently permute the solution field"
+            )
+        if len(d["solution"]) != self.dofs.n_total:
+            raise ValueError(
+                f"checkpoint vector length {len(d['solution'])} != solver "
+                f"n_total {self.dofs.n_total}"
+            )
+
+        def as_state(a):
+            return torch.as_tensor(a, device=self.device).to(self._dtype)
+
+        self.solution = as_state(d["solution"])
+        self.solution_old = as_state(d["solution_old"])
+        # BDF2 second history level: restored when present so a resumed run
+        # continues second-order without a BDF1 bootstrap step
+        old2 = d.get("solution_old2")
+        self.solution_old2 = None if old2 is None else as_state(old2)
+        self.time = d["time"]
+        self._step = d["step"]
+        return self
+
+    # ------------------------------------------------------------------
     def solve_newton(self):
         """Newton loop with parity logging (cpp:590-627)."""
         cfg, log = self.cfg, self.log
@@ -649,8 +955,8 @@ class NavierStokesSolver:
     # ------------------------------------------------------------------
     def solve(self, resume: bool = False):
         """Time loop (cpp:629-679).  resume=True continues from the current
-        state (time, step, history) instead of applying the initial
-        condition; checkpoint files are not ported."""
+        state (time, step, history: e.g. after ``restore_checkpoint``)
+        instead of applying the initial condition."""
         if not self._is_setup:
             self.setup()
         cfg, log = self.cfg, self.log
@@ -677,10 +983,218 @@ class NavierStokesSolver:
             self.solution_old2 = self.solution_old if step > 1 else None
             self.solution_old = self.solution.clone()
             log.time_step(step, self.time)
+            if self._forcing_time_dep:
+                # implicit Euler: the residual lives at the new time level
+                self._update_forcing(self.time)
             self.solve_newton()
             self._output(step, self.time)
             log.print()
         return self.solution
+
+    def solve_scanned(
+        self,
+        *,
+        functional=None,
+        functional_args: str = "u",
+        reaction_tags=None,
+        chunk: int = 100,
+        newton_iters: int = 3,
+        resume: bool = False,
+        progress=None,
+        progress_takes_diagnostics: bool | None = None,
+    ):
+        """The time loop in chunks of ``chunk`` steps, each step a fixed
+        number of Newton sweeps (JAX: one ``lax.scan`` a chunk; here a host
+        loop).
+
+        The Dirichlet schedule is computed on the host for the whole run.
+        Each step runs ``newton_iters`` sweeps: forced while the sweep index
+        is below ``newton.min_iters``, the tangent solve skipped once the
+        residual is below ``newton.tol``.  BDF2 steps after the run's first
+        use u_old_eff = (4u - u_old)/3 with dt/1.5.  After every chunk the
+        solver's state (solution, solution_old, solution_old2, time, _step)
+        is rebound, so a progress callback can ``save_checkpoint()``.
+
+        functional: f(solution) -> tensor, after each step (with
+        functional_args "u_uold_dt": f(solution, u_old_eff, dt_res), the
+        history the Newton residual used).  reaction_tags: the boundary
+        reaction on those tags each step (the unconstrained residual rows
+        summed over their velocity dofs, per component; the windowed solver
+        assembles the residual alone).  progress:
+        progress(step, t, fvals_chunk) or, if it takes ``res``/``iters``
+        (or ``progress_takes_diagnostics`` says so), progress(step, t,
+        fvals_chunk, res=..., iters=...[, reaction=...]), once a chunk.
+
+        Returns {"functional": [n_steps, ...] or None, "reaction": [n_steps,
+        dim] or None, "residual": [n_steps] (the last sweep's entry
+        residual), "gmres_iters": [n_steps]}, numpy arrays.  Static forcing
+        only; no per-step output hooks."""
+        if not self._is_setup:
+            self.setup()
+        cfg, log = self.cfg, self.log
+        if self._forcing_time_dep:
+            raise NotImplementedError("solve_scanned needs static forcing")
+        if not resume:
+            self.time = 0.0
+            self._step = 0
+            if cfg.initial_guess == "stokes":
+                self.solution = self.stokes_initial_guess(0.0).to(self._dtype)
+            else:
+                self.solution = torch.zeros(
+                    self.dofs.n_total, dtype=self._dtype, device=self.device
+                )
+            self.solution_old = self.solution.clone()
+            self.solution_old2 = None
+
+        n_steps = int(round((cfg.T - self.time) / cfg.dt))
+        t0 = self.time
+        # the Dirichlet schedule [n_steps, n_bc], made on the host once
+        bc_sched = torch.as_tensor(
+            np.asarray([self.dirichlet.values(t0 + (k + 1) * cfg.dt) for k in range(n_steps)],
+                       np.float64).reshape(n_steps, self.dirichlet.n),
+            device=self.device,
+        ).to(self._dtype)
+        bdf2 = cfg.time_scheme == "bdf2"
+        K = int(newton_iters)
+
+        rx_idx = rx_kw = None
+        if reaction_tags is not None:
+            sdofs = self.dofs.boundary_scalar_vdofs(list(np.atleast_1d(reaction_tags)))
+            rx_idx = torch.as_tensor(
+                sdofs[None, :] + np.arange(self.dofs.dim)[:, None] * self.dofs.n_vs,
+                dtype=torch.int64, device=self.device,
+            )
+            rx_kw = dict(
+                nu=cfg.nu, rho=cfg.rho, convection_form=cfg.convection_form,
+                include_continuity_residual=cfg.include_continuity_residual,
+            )
+
+        def step(u, uo, kstep, bc_vals):
+            if bdf2 and kstep >= 1:  # step 0 of the run bootstraps with BDF1
+                u_old_eff, dt_res = (4.0 * u - uo) / 3.0, cfg.dt / 1.5
+            else:
+                u_old_eff, dt_res = u, cfg.dt
+            uu, res, iters = u, 0.0, 0
+            for k in range(K):
+                uu, res, it, _, _ = self._newton_iteration(
+                    uu, u_old_eff, bc_vals, dt_res,
+                    k < cfg.newton.min_iters,  # anti-freeze forced sweeps
+                )
+                iters += int(it)
+            if functional is None:
+                f = torch.zeros(1, dtype=self._dtype, device=self.device)
+            elif functional_args == "u_uold_dt":
+                # the history the Newton residual used: under BDF2,
+                # (3u - 4uo + uo2)/(2 dt) == (u - u_old_eff)/dt_res
+                f = functional(uu, u_old_eff, dt_res)
+            else:
+                f = functional(uu)
+            if rx_idx is not None:
+                if self._win_layout is not None:  # the residual alone, no tangent
+                    _, r_unc, _ = assemble_windowed(
+                        self._wassembly, self._win_layout, uu, u_old_eff, dt=dt_res,
+                        residual_only=True, **rx_kw,
+                    )
+                else:
+                    _, _, r_unc = assemble_navier_stokes(
+                        self.ctx, uu, u_old_eff, dt=dt_res, p_out=cfg.p_out,
+                        jacobian_mass_rho=cfg.jacobian_mass_rho, **rx_kw,
+                    )
+                # residual = -R_weak: the force BY the fluid ON the boundary
+                # is +the sum of its reaction rows
+                fr = torch.stack([r_unc[rx_idx[d]].sum() for d in range(self.dofs.dim)])
+            else:
+                fr = torch.zeros((), dtype=self._dtype, device=self.device)
+            return uu, (f, fr, res, iters)
+
+        u, uo = self.solution, self.solution_old
+        uo2 = self.solution_old2 if self.solution_old2 is not None else uo
+        kstep = self._step
+        fs, rxs, rs, its = [], [], [], []
+        log.banner()
+        log.print(
+            f"Scanned time loop: {n_steps} steps x {K} Newton its, "
+            f"chunk {chunk} ({cfg.time_scheme})"
+        )
+        # the progress callback's arity, decided once: catching TypeError
+        # around the call would re-invoke (and repeat the side effects of) a
+        # callback that raised TypeError itself
+        prog_legacy = False
+        if progress is not None and progress_takes_diagnostics is not None:
+            prog_legacy = not progress_takes_diagnostics
+        elif progress is not None:
+            import inspect
+
+            try:
+                sig = inspect.signature(progress)
+                prog_legacy = not any(
+                    p.name in ("res", "iters") or p.kind == p.VAR_KEYWORD
+                    for p in sig.parameters.values()
+                )
+            except (TypeError, ValueError):
+                prog_legacy = False
+        done = 0
+        while done < n_steps:
+            m = min(chunk, n_steps - done)
+            out = []
+            for i in range(m):
+                u_new, ys = step(u, uo, kstep, bc_sched[done + i])
+                u, uo, uo2, kstep = u_new, u, uo, kstep + 1
+                out.append(ys)
+            done += m
+            self.time = t0 + done * cfg.dt
+            self._step = self._step + m
+            # the solver's state at every chunk edge, so that a progress
+            # callback can save_checkpoint() mid-run
+            self.solution, self.solution_old, self.solution_old2 = u, uo, uo2
+            fs.append(torch.stack([y[0] for y in out]).cpu().numpy())
+            rxs.append(torch.stack([y[1] for y in out]).cpu().numpy())
+            rs.append(np.asarray([y[2] for y in out]))
+            its.append(np.asarray([y[3] for y in out]))
+            log.print(
+                f"  step {self._step:6d}  t = {self.time:.4f}  "
+                f"||r|| = {float(rs[-1][-1]):.3e}  gmres/step ~ {float(np.mean(its[-1])):.0f}"
+            )
+            if progress is not None:
+                if prog_legacy:  # legacy 3-arg callback
+                    progress(self._step, self.time, fs[-1])
+                else:
+                    kwargs = dict(res=rs[-1], iters=its[-1])
+                    if reaction_tags is not None:
+                        kwargs["reaction"] = rxs[-1]
+                    progress(self._step, self.time, fs[-1], **kwargs)
+        self.solution, self.solution_old = u, uo
+        self.solution_old2 = uo2
+        return {
+            "functional": np.concatenate(fs) if functional is not None else None,
+            "reaction": np.concatenate(rxs) if reaction_tags is not None else None,
+            "residual": np.concatenate(rs) if rs else np.zeros(0),
+            "gmres_iters": np.concatenate(its) if its else np.zeros(0, np.int64),
+        }
+
+    def _update_forcing(self, t: float):
+        """Re-evaluate a time-dependent forcing f(x, t) at time t: ctx.f_q
+        for the flat path and, on the windowed path, wa.r_const (the
+        forcing's residual, recomputed on the host by compute_r_const).
+        The reference's equivalent is ForcingTerm::set_time (never
+        exercised there: its forcing is constant, hpp:414-439)."""
+        if self._f_qpts is None:
+            deg = self.cfg.quadrature_degree or (
+                2 * (self.dofs.element.velocity.degree + 1) - 1
+            )
+            geo = cell_geometry(self.mesh, gauss_simplex(self.mesh.dim, deg))
+            self._f_qpts = geo.qpts  # [nc, nq, dim] natural cell order
+        nc, nq, dim = self._f_qpts.shape
+        f_q = np.asarray(self.forcing(self._f_qpts.reshape(-1, dim), t)).reshape(nc, nq, dim)
+        self.ctx = dataclasses.replace(
+            self.ctx, f_q=torch.as_tensor(f_q, device=self.device).to(self._dtype)
+        )
+        if self._wassembly is not None:
+            r = compute_r_const(self.ctx, self.cfg.p_out)
+            self._wassembly = dataclasses.replace(
+                self._wassembly,
+                r_const=torch.as_tensor(r, device=self.device).to(self._dtype),
+            )
 
     def _output(self, step: int, t: float):
         for hook in self.output_hooks:

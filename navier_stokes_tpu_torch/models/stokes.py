@@ -13,6 +13,8 @@ Default boundary ids follow the reference's Stokes path (mesh-square tag set):
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -21,6 +23,8 @@ from ..fem.assembly import assemble_stokes, build_context
 from ..fem.bcs import DirichletBC, build_dirichlet
 from ..fem.dofs import make_dofs
 from ..fem.functions import InletVelocity, ZeroForcing
+from ..fem.geometry import cell_geometry
+from ..fem.quadrature import gauss_simplex
 from ..la import operators as ops
 from ..la.gmres import fgmres
 from ..la.preconditioners import block_diagonal, block_triangular, identity
@@ -80,10 +84,13 @@ class StokesSolver:
             # layout infeasible: the flat path below
         self.dofs = make_dofs(self.mesh, cfg.degree_velocity, cfg.degree_pressure)
         self._dtype = _resolve_dtype(cfg.dtype)
-        if _takes_time(self.forcing):
-            raise NotImplementedError("time-dependent forcing is not ported")
+        self._forcing_time_dep = _takes_time(self.forcing)
+        self._forcing_t = 0.0
         self.ctx = build_context(
-            self.dofs, neumann_tags=cfg.neumann_tags, forcing=self.forcing,
+            self.dofs, neumann_tags=cfg.neumann_tags,
+            forcing=(lambda pts: self.forcing(pts, 0.0))
+            if self._forcing_time_dep
+            else self.forcing,
             quadrature_degree=cfg.quadrature_degree, dtype=self._dtype, device=self.device,
         )
         specs = [
@@ -96,6 +103,23 @@ class StokesSolver:
         )
         self._is_setup = True
         return self
+
+    def _refresh_forcing(self, t: float):
+        """Re-evaluate a time-dependent forcing f(x, t) at t and swap in
+        ctx.f_q (the flat path; the windowed one keeps the forcing of its
+        solver's setup, at t = 0, as the original does)."""
+        if not self._forcing_time_dep or t == self._forcing_t:
+            return
+        deg = self.cfg.quadrature_degree or (
+            2 * (self.dofs.element.velocity.degree + 1) - 1
+        )
+        geo = cell_geometry(self.mesh, gauss_simplex(self.mesh.dim, deg))
+        nc, nq, dim = geo.qpts.shape
+        f_q = np.asarray(self.forcing(geo.qpts.reshape(-1, dim), t)).reshape(nc, nq, dim)
+        self.ctx = dataclasses.replace(
+            self.ctx, f_q=torch.as_tensor(f_q, device=self.device).to(self._dtype)
+        )
+        self._forcing_t = t
 
     def _solve_flat(self, bc_vals: torch.Tensor):
         cfg, ctx = self.cfg, self.ctx
@@ -153,6 +177,7 @@ class StokesSolver:
         else:
             self.log.banner()
             self.log.print("Assembling the Stokes system")
+            self._refresh_forcing(t)
             bc_vals = torch.as_tensor(
                 np.asarray(self.dirichlet.values(t)), device=self.device
             ).to(self._dtype)

@@ -473,6 +473,57 @@ def pack_positions(lay: WindowedLayout):
     return (*(t.to(torch.int16).contiguous() for t in tables), cnt)
 
 
+def slot_colours(lay: WindowedLayout, pos_v: torch.Tensor, pos_p: torch.Tensor):
+    """The round of every slot's sums in the kernels K1, K2 and K4: (colour
+    [nb, Bmax] uint8, ncolors).
+
+    A greedy colouring of each chunk's occupied slots in slot order: a slot
+    takes the least colour that no earlier slot of its chunk sharing a
+    window position with it (velocity or pressure) has.  So no two slots of
+    one colour in a chunk touch the same entry of its subwindows, and the
+    kernels add one colour at a time with plain adds, in a fixed order (at
+    most 256 colours).  Padded slots get colour 0 and are never summed.  Cells that share a
+    vertex share a P1 dof, so a P2/P1 triangle mesh needs about 8-14
+    colours.  numpy on the host, all chunks at once (slot j of every chunk
+    in one step), in batches of chunks that keep the masks under ~64 MB."""
+    nb, Bc, nch = lay.nb, lay.Bc, lay.nchunks
+    Wv = (2 * lay.hv + 1) * lay.OWv
+    Wp = (2 * lay.hp + 1) * lay.OWp
+    pv = unpack_positions(pos_v).cpu().numpy()  # [nb, k_v, Bmax]
+    pp = unpack_positions(pos_p).cpu().numpy()
+    dump = Wv + Wp  # the column of every missing position, cleared each step
+    keys = np.concatenate(
+        [np.where(pv >= 0, pv, dump), np.where(pp >= 0, pp + Wv, dump)], axis=1
+    )  # [nb, k, Bmax]
+    k = keys.shape[1]
+    keys = keys.reshape(nb, k, nch, Bc).transpose(0, 2, 3, 1).reshape(nb * nch, Bc, k)
+    colour = np.zeros((nb * nch, Bc), dtype=np.uint8)
+    words = 4  # colours taken at a position: 4 x 64 bits, as many as uint8 holds
+    batch = max(1, (64 << 20) // (8 * words * (dump + 1)))
+    full = np.uint64(0xFFFFFFFFFFFFFFFF)
+    for lo in range(0, nb * nch, batch):
+        kb = keys[lo : lo + batch]
+        n = kb.shape[0]
+        rows, first = np.arange(n)[:, None], np.arange(n)
+        used = np.zeros((n, dump + 1, words), dtype=np.uint64)
+        for j in range(Bc):
+            kj = kb[:, j, :]
+            taken = np.bitwise_or.reduce(used[rows, kj], axis=1)  # [n, words]
+            w = np.argmin(taken == full, axis=1)  # the first word with a clear bit
+            tw = taken[first, w]
+            if (tw == full).any():
+                raise ValueError("a chunk needs more than 256 slot colours")
+            free = ~tw & (tw + np.uint64(1))  # its least clear bit
+            colour[lo + first, j] = 64 * w + np.frexp(free.astype(np.float64))[1] - 1
+            used[rows, kj, w[:, None]] |= free[:, None]
+            used[:, dump] = 0
+    colour = colour.reshape(nb, lay.Bmax)
+    filled = (pv >= 0).any(axis=1) | (pp >= 0).any(axis=1)
+    colour[~filled] = 0
+    ncolors = int(colour.max()) + 1 if filled.any() else 0
+    return torch.as_tensor(colour, device=pos_v.device), ncolors
+
+
 def unpack_positions(pos: torch.Tensor) -> torch.Tensor:
     """int64 window positions of a packed table, -1 for padded slots."""
     if pos.dtype == torch.int16:
@@ -693,7 +744,7 @@ def _load(path: str):
     lib = ctypes.CDLL(path)
     p, i = ctypes.c_void_p, ctypes.c_int
     meta = ctypes.POINTER(ctypes.c_int)
-    tables = [p] * 5
+    tables = [p] * 6
     lib.ns_scratch_floats.argtypes = [meta]
     lib.ns_scratch_floats.restype = ctypes.c_long
     lib.ns_gather.argtypes = [meta, *tables, p, p, p, i, i, p]
@@ -706,25 +757,28 @@ def _load(path: str):
 
 class _Packed:
     """What the CUDA entry points take of one layout, made once: the geometry
-    record (struct Geo, windowed.cu), the packed tables of ``pack_positions``
-    and the leading arguments of every call.  Scratch for the window
+    record (struct Geo, windowed.cu), the packed tables of ``pack_positions``,
+    the slot colours of ``slot_colours`` and the leading arguments of every
+    call.  Scratch for the window
     accumulators is kept per stream (calls on one stream run in turn, so
     they can share it; CUDA graphs captured on one capture stream share
     theirs, so replay them on one stream at a time)."""
 
     def __init__(self, lay: WindowedLayout):
         self.pos_v, self.pos_p, self.cnt = pack_positions(lay)
+        self.colour, self.ncolors = slot_colours(lay, self.pos_v, self.pos_p)
         vals = [
             lay.nb, lay.Bmax, lay.Bc, lay.nchunks,
             lay.dim, lay.k_v, lay.k_p,
             lay.OWv, lay.OWp, lay.hv, lay.hp, lay.RVv, lay.RVp,
             lay.n_vs, lay.n_ps, lay.ncd,
-            int(self.pos_v.dtype == torch.int32),
+            int(self.pos_v.dtype == torch.int32), self.ncolors,
         ]
         self.meta = (ctypes.c_int * (len(vals) + 1))(len(vals), *vals)
         self.args = (
             self.meta, self.pos_v.data_ptr(), self.pos_p.data_ptr(),
             lay.offs_v.data_ptr(), lay.offs_p.data_ptr(), self.cnt.data_ptr(),
+            self.colour.data_ptr(),
         )
         self._device = lay.device
         self._scratch = {}

@@ -15,6 +15,7 @@ against the JAX package's, in float64.
 """
 
 import json
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -170,9 +171,61 @@ def test_cli_info_matches_jax(tmp_path, capsys):
 
 
 @pytest.mark.parametrize(
+    "cmd, flags",
+    [
+        ("run", ["--matvec", "windowed", "--preconditioner", "cahouet_chabard"]),
+        ("stokes", ["--dtype", "float64"]),
+    ],
+)
+def test_cli_output_dir_matches_jax(cmd, flags, tmp_path):
+    """--output-dir: the port's CLI writes the files the JAX CLI writes (a
+    step's .h5 and .xdmf, the run's series), with the same mesh, cells and
+    partitioning datasets and XDMF text, and fields within 1e-9."""
+    import h5py
+
+    mesh = _write(tmp_path, "sq.msh", _msh_v2(j_unit_square(3)))
+    argv = [cmd, "--mesh", mesh, *flags]
+    if cmd == "run":
+        argv += ["--config", _run_config(tmp_path)]
+    out = {"jax": tmp_path / "jax_out", "port": tmp_path / "port_out"}
+    assert j_main([*argv, "--output-dir", str(out["jax"])]) == 0
+    assert t_main([*argv, "--output-dir", str(out["port"]), "--device", "cpu"]) == 0
+    names = sorted(p.name for p in out["port"].iterdir())
+    assert names == sorted(p.name for p in out["jax"].iterdir())
+    assert ("output-series.xdmf" in names) == (cmd == "run")
+    assert len([n for n in names if n.endswith(".h5")]) == (3 if cmd == "run" else 1)
+    for name in names:
+        mine, theirs = out["port"] / name, out["jax"] / name
+        if not name.endswith(".h5"):
+            assert mine.read_text() == theirs.read_text()
+            continue
+        with h5py.File(mine) as a, h5py.File(theirs) as b:
+            assert sorted(a) == sorted(b)
+            for k in a:
+                assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+                if k in ("velocity", "pressure"):
+                    np.testing.assert_allclose(a[k][:], b[k][:], rtol=0, atol=1e-9)
+                else:
+                    assert np.array_equal(a[k][:], b[k][:]), (name, k)
+
+
+@pytest.mark.parametrize("cmd", ["run", "stokes"])
+def test_cli_output_dir_names_h5py_when_missing(cmd, tmp_path, monkeypatch):
+    """Where h5py cannot be imported (a GPU host may lack it),
+    --output-dir raises an ImportError that names h5py before any solve:
+    nothing is logged and no directory is made."""
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    mesh = _write(tmp_path, "sq.msh", _msh_v2(j_unit_square(2)))
+    log = tmp_path / "log.json"
+    with pytest.raises(ImportError, match="h5py"):
+        t_main([cmd, "--mesh", mesh, "--device", "cpu", "--output-dir", str(tmp_path / "out"),
+                "--log-json", str(log)])
+    assert not (tmp_path / "out").exists() and not log.exists()
+
+
+@pytest.mark.parametrize(
     "flags, exc, match",
     [
-        (["--output-dir", "out"], NotImplementedError, "h5py"),
         (["--devices", "2"], NotImplementedError, "multi-GPU"),
         (["--distributed"], NotImplementedError, "multi-GPU"),
         (["--device", "cuda"], RuntimeError, "no CUDA device"),

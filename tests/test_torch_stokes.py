@@ -83,6 +83,34 @@ def test_stokes_solver_matches_jax_f64(matvec, precond, a00_solver):
     assert np.abs(ts.pressure(real_only=real) - pe).max() < p_tol
 
 
+def _forcing_xt(x, t):
+    """A body force that changes in time and space."""
+    f = np.zeros_like(x)
+    f[:, 0] = np.cos(2.0 * t) * x[:, 1]
+    f[:, 1] = 0.5 + t * x[:, 0]
+    return f
+
+
+@pytest.mark.parametrize("matvec", ["flat", "windowed"])
+def test_stokes_time_dependent_forcing_matches_jax_f64(matvec):
+    """StokesSolver with f(x, t): the flat path evaluates it at the solve's
+    time, the windowed path at its setup (t = 0), as in the original; the
+    same FGMRES count and solutions within 1e-9."""
+    cfg = functools.partial(_stokes_config, matvec=matvec, precond="block_triangular")
+    js = JStokes(j_unit_square(4), cfg(JConfig), log=JLog(verbose=False),
+                 inlet=poiseuille_inlet, forcing=_forcing_xt)
+    ts = StokesSolver(unit_square(4), cfg(SolverConfig), log=RunLog(verbose=False),
+                      inlet=poiseuille_inlet, forcing=_forcing_xt, device="cpu")
+    js.solve(0.7)
+    ts.solve(0.7)
+    assert _gmres(ts.log) == _gmres(js.log) and ts.result.converged
+    np.testing.assert_allclose(ts.velocity(), js.velocity(), rtol=0, atol=1e-9)
+    np.testing.assert_allclose(ts.pressure(), js.pressure(), rtol=0, atol=1e-9)
+    # the forcing moved the flow off Poiseuille
+    vc = ts.dofs.v_coords
+    assert np.abs(ts.velocity()[:, 0] - vc[:, 1] * (1 - vc[:, 1])).max() > 1e-3
+
+
 def _ns_config(cls, matvec, precond, T=0.15, initial_guess="zero"):
     cfg = cls()
     cfg.dtype = "float64"

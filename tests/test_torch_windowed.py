@@ -348,21 +348,24 @@ def test_matvec_through_chunked_merge_matches_jax_reference_f64(case):
 @pytest.mark.parametrize("name", sorted(CASES) + ["wide-halo"])
 def test_kernel_geometry_record(name):
     """What the CUDA entry points are told about a layout (struct Geo of
-    csrc/windowed.cu): 17 integers, the last the tables' index width; and
-    the occupied chunks of a block are a prefix (the kernels skip the rest
-    by the slot counts alone)."""
+    csrc/windowed.cu): 18 integers, the last two the tables' index width and
+    the number of slot colours (the rounds of a chunk's sums); and the
+    occupied chunks of a block are a prefix (the kernels skip the rest by
+    the slot counts alone)."""
     lay = _packed_cases()[name]()
     pk = lay._packed
     assert pk is lay._packed  # made once
     meta = list(pk.meta)
-    assert meta[0] == 17 and len(meta) == 18
+    assert meta[0] == 18 and len(meta) == 19
     assert meta[1:5] == [lay.nb, lay.Bmax, lay.Bc, lay.nchunks]
     assert meta[5:8] == [lay.dim, lay.k_v, lay.k_p]
     assert meta[8:14] == [lay.OWv, lay.OWp, lay.hv, lay.hp, lay.RVv, lay.RVp]
     assert meta[14:17] == [lay.n_vs, lay.n_ps, lay.ncd]
     assert meta[17] == 0  # 16-bit tables
+    assert meta[18] == pk.ncolors == int(pk.colour.max()) + 1
     filled = (tw.unpack_positions(pk.pos_v) >= 0).any(dim=1)  # [nb, Bmax]
     chunks = filled.reshape(lay.nb, lay.nchunks, lay.Bc).any(dim=2)
     assert bool((chunks.int().diff(dim=1) <= 0).all())
     assert torch.equal(chunks, pk.cnt[:, None] > torch.arange(lay.nchunks) * lay.Bc)
-    assert len(pk.args) == 6 and pk.args[1] == pk.pos_v.data_ptr()
+    assert len(pk.args) == 7 and pk.args[1] == pk.pos_v.data_ptr()
+    assert pk.args[6] == pk.colour.data_ptr()
