@@ -51,18 +51,29 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 callback, the lid's reaction) against the same 6 steps of
                 solve(); 4 steps in a second solver, its state handed to a
                 third that resumes for 2: bit-equal to the 6-step run
+ 14. 3d         P2/P1 tetrahedra on refine_uniform(box(8, 8, 8), 2)
+                (196,608 cells; kernel_bench.box_config, box_inlet: a ramped
+                parabolic inflow), windowed + Cahouet-Chabard, float32 with
+                the tangent stored in bf16: (a) phase 3's checks of every
+                kernel at the box's layout (halo 5, 36 slot colours);
+                (b) 2 BDF1 steps from rest, every Newton loop converging,
+                K1-K4 all launched; (c) three forced Newton steps at a
+                seeded state, as phase 5; (d) refine_uniform(box(4, 4, 4), 1):
+                float32 on the GPU against float64 on the CPU over 2 steps,
+                with the tangent stored in float32 and in bf16
 
 Each phase prints its wall time.
 Files the phases write (.msh, configs, run logs) go to build/chip_smoke/.
 The next-to-last line is the kernels' JSON record, and the last line is
-{"ok": true, "device": {...}}.  In the record, per kernel: ``launches`` on
-the main path (phase 4; K5: its entry point), ``launches_per_newton_step``
-(phase 5), ``max_abs_err`` against the plain version, ``ms`` the wrapper's
-CUDA-event time with its inputs out of L2 (``cold_clean_ms`` the same with
-L2 left holding no dirty line, ``warm_ms`` in a loop on the same inputs,
-``host_us`` the host's time to queue a call, ``replay_ms`` a warm replay
-from a CUDA graph where phase 3 makes one), ``plain_ms`` the
-plain version's, ``bound_ms`` the least time the card could take (the bytes
+{"ok": true, "device": {...}}.  The record has K1-K4 twice, at the
+channel (phases 3-5) and at the box (", 3D": phase 14), and K5.  Per
+kernel: ``launches`` on the main path (phase 4, 14(b); K5: its entry
+point), ``launches_per_newton_step`` (phase 5, 14(c)), ``max_abs_err``
+against the plain version, ``ms`` the wrapper's CUDA-event time with its
+inputs out of L2 (``cold_clean_ms`` the same with L2 left holding no dirty
+line, ``warm_ms`` in a loop on the same inputs, ``host_us`` the host's time
+to queue a call, ``replay_ms`` a warm replay from a CUDA graph where phase
+3 or 14 makes one), ``plain_ms`` the plain version's, ``bound_ms`` the least time the card could take (the bytes
 that must move over 3.35 TB/s, or the operations over 989 TFLOP/s:
 ``bound_by``), ``library_ms`` one PyTorch call computing the same function
 (null where there is none; never used by the package; ``library`` says
@@ -129,6 +140,14 @@ REL_TOL = 1e-5
 # to 1e-6 / 1e-9, so the rows are set by the discretization, and float32
 # rounding through the solve stays near 1e-6 of the entry row)
 PARITY_TOL = 1e-4
+# the box's parity (phase 14(d)): tangents solved to 1e-6 in both runs (the
+# float64 CPU run's plain versions take ~60 s at 1e-6, more than twice that
+# at 1e-9); on the CPU the float32 run with a float32 tangent store meets
+# the float64 rows to 1e-7 of the entry row.  A bf16 tangent store (the
+# main path's) perturbs every Newton update by the store's rounding: up to
+# 4.8e-3 of the entry row on the CPU, so it is held to 1e-2
+BOX_PARITY_REL_TOL = 1e-6
+BOX_BF16_PARITY_TOL = 1e-2
 # the lid-driven cavity (phases 12-13): n x n squares cut in two triangles
 CAVITY_N, CAVITY_SMALL_N = 256, 32
 # Ghia et al.'s centreline values, largest gap of u and of v (their own grid
@@ -364,63 +383,6 @@ def compare(name, kernel, plain, exact=False, bound_bytes=None, library=None):
     return rec
 
 
-def bound_bytes_of(lay, ops):
-    """Bytes each wrapper call must move at this layout, every input read
-    once and every output written once: of A the used rows' values in the
-    occupied slots; of the packed position tables the occupied slots'
-    entries of the spaces the call touches, with their subwindow offsets and
-    the slot counts, and (K1, K2, K4) the occupied slots' colours; the
-    vectors.  K3 writes its whole [nli, ncd] output; the pair reads the
-    tables once for its two vectors and outputs."""
-    pos_v, _, cnt = W.pack_positions(lay)
-    n_occ, idx = int(cnt.sum()), pos_v.element_size()
-    tables = {"v": lay.k_v * n_occ * idx + lay.offs_v.numel() * 4,
-              "p": lay.k_p * n_occ * idx + lay.offs_p.numel() * 4}
-    size = {"v": lay.n_u, "p": lay.n_ps}
-    rows = {"v": lay.dim * lay.k_v, "p": lay.k_p}
-
-    def matvec(ins, outs, elt):
-        spaces = set(ins) | set(outs)
-        return (sum(rows[a] for a in ins) * sum(rows[a] for a in outs) * n_occ * elt
-                + sum(tables[a] for a in spaces) + cnt.numel() * 4 + n_occ
-                + 4 * sum(size[a] for a in ins) + 4 * sum(size[a] for a in outs))
-
-    n = lay.n_u + lay.n_ps
-    both = tables["v"] + tables["p"] + cnt.numel() * 4
-    out = {
-        "K3": 4 * n + both + 4 * lay.nli * lay.ncd,
-        "K3 pair": 2 * (4 * n + 4 * lay.nli * lay.ncd) + both,
-        "K4": 4 * lay.nl * n_occ + both + n_occ + 4 * n,
-        "K1 f32": matvec("vp", "vp", 4),
-        "K1": matvec("vp", "vp", 2),
-    }
-    for key, (A_sub, _) in ops["blocks"].items():
-        i, o = key.split("->")
-        out[f"K2 {key}"] = matvec(i, o, A_sub.element_size())
-    return out
-
-
-def flat_dof_index(lay):
-    """[nli * ncd] int64: the entry of the extended vector [x, 0] that
-    X[l, s] copies (n_total for padded slots, rows past nl and window
-    positions off the vector's ends).  For the library yardsticks only: K3
-    (index_select), K4 (index_add_) and the CSR matrices of K1 and K2."""
-    n = lay.n_u + lay.n_ps
-    pos_v, pos_p, _ = W.pack_positions(lay)
-    b = torch.arange(lay.nb, device=lay.device)[:, None, None]
-    rows = []
-    for pos, OW, h, size, starts in (
-            (pos_v, lay.OWv, lay.hv, lay.n_vs, [c * lay.n_vs for c in range(lay.dim)]),
-            (pos_p, lay.OWp, lay.hp, lay.n_ps, [lay.n_u])):
-        p = W.unpack_positions(pos)  # [nb, k, Bmax]
-        r = (b - h) * OW + p
-        ok = (p >= 0) & (r >= 0) & (r < size)
-        for start in starts:
-            rows.append(torch.where(ok, r + start, n).permute(1, 0, 2).reshape(-1, lay.ncd))
-    rows.append(torch.full((lay.nli - lay.nl, lay.ncd), n, device=lay.device))
-    return torch.cat(rows).reshape(-1)
-
-
 def check_packed_tables(lay):
     """The packed position tables on the card against _abs_loc."""
     pos_v, pos_p, cnt = lay._packed.pos_v, lay._packed.pos_p, lay._packed.cnt
@@ -470,28 +432,6 @@ def probe_one_call(a, b, M, iters):
     return (lambda: torch.mm(a_cat, b_stack, out_dtype=torch.float32),
             f"one torch.mm [{M}, {iters * mxu.K}] @ [{iters * mxu.K}, {b.shape[1]}], "
             "bf16 operands, out_dtype float32")
-
-
-def csr_yardstick(lay, A, x, ins, outs):
-    """(call, what it is): y = A x as one CSR product with the assembled
-    matrix of a windowed operator A [n_in, n_out_pad, ncd] (K1: A_t; K2: a
-    slice_block), built here from the cells' dof indices over the in- and
-    out-spaces' segments, with float32 values (torch's CSR product refuses
-    bf16 values with a float32 vector on the H100)."""
-    n = lay.n_u + lay.n_ps
-    D = flat_dof_index(lay).view(lay.nli, lay.ncd)
-    nv = lay.dim * lay.k_v
-    sl = {"v": slice(0, nv), "p": slice(nv, lay.nl), "vp": slice(0, lay.nl)}
-    rows, cols = D[sl[outs]], D[sl[ins]]
-    vals = A[:, : rows.shape[0], :]  # vals[j, i, s]: out row dof_i(s), in col dof_j(s)
-    R, C = rows[None].expand(vals.shape), cols[:, None].expand(vals.shape)
-    ok = (R < n) & (C < n)
-    start = {"v": 0, "p": lay.n_u, "vp": 0}
-    size = {"v": lay.n_u, "p": lay.n_ps, "vp": n}
-    idx = torch.stack([R[ok] - start[outs], C[ok] - start[ins]])
-    coo = torch.sparse_coo_tensor(idx, vals[ok].float(), (size[outs], size[ins]))
-    csr = coo.coalesce().to_sparse_csr()
-    return (lambda: csr @ x), f"CSR @ x, float32 values ({csr._nnz()} stored entries)"
 
 
 def ptxas_summary(log):
@@ -555,6 +495,40 @@ def check_graph_replay(name, call, x, exact=False):
     if not (torch.equal(y, want) if exact else err <= REL_TOL * scale):
         raise RuntimeError(f"{name}: graph replay disagrees with an eager call")
     return replay_ms
+
+
+TITLES = {"K3": "K3 gather", "K3 pair": "K3 gather, u and u_old in one launch",
+          "K4": "K4 scatter", "K1 f32": "K1 matvec, f32 A", "K1": "K1 matvec, bf16 A (main path)"}
+
+
+def kernels_vs_plain(solver):
+    """Every wrapper call of ``kb.wrapper_operands`` at solver's layout
+    against its plain version (``compare``: errors, times, the bound and one
+    PyTorch call of the same function, built outside the timing: K3, K4
+    through the flat dof index, K1 and each K2 product a CSR product), then
+    each called twice on the same inputs (equal bits) and replayed from a
+    CUDA graph (equal bits to an eager call).  Returns the records by call."""
+    lay = solver._win_layout
+    calls, ops_ = kb.wrapper_operands(solver)
+    check_packed_tables(lay)
+    bounds = kb.bound_bytes_of(lay, ops_)
+    recs = {}
+    for key, (kernel, plain) in calls.items():
+        lib_call, lib_what = kb.library_call(lay, ops_, key)
+        print(f"  {key} yardstick: {lib_what}", flush=True)
+        recs[key] = compare(TITLES.get(key, f"{key}, bf16 A"), kernel, plain,
+                            exact=key.startswith("K3"), bound_bytes=bounds[key], library=lib_call)
+        recs[key]["library"] = lib_what
+        del lib_call  # a CSR matrix holds gigabytes at the box's size
+    for key, (kernel, _) in calls.items():
+        check_repeat(key, kernel)
+    blocks, x = ops_["blocks"], ops_["x"]
+    replays = (("K2 v->v", blocks["v->v"][1]), ("K2 v->p", blocks["v->p"][1]),
+               ("K2 p->p", blocks["p->p"][1]), ("K1", x), ("K1 f32", x), ("K3", x),
+               ("K3 pair", x), ("K4", ops_["R"]))
+    for key, inp in replays:
+        recs[key]["replay_ms"] = check_graph_replay(key, calls[key][0], inp, exact=True)
+    return recs
 
 
 def steady_phase():
@@ -735,6 +709,174 @@ def scanned_phase():
         raise RuntimeError("the resumed cavity run differs from the run without a break")
 
 
+def forced_step(solver, seed=0, reps=3):
+    """``reps`` forced Newton steps at the seeded state 0.05 *
+    standard_normal (numpy seed): each one's wall time, output and kernel
+    launches; the steps must converge, take equal FGMRES counts and give
+    bit-equal updates."""
+    n = solver.dofs.n_total
+    state = torch.as_tensor(0.05 * np.random.default_rng(seed).standard_normal(n),
+                            dtype=torch.float32, device=DEV)
+    bc_vals = torch.as_tensor(solver.dirichlet.values(solver.cfg.dt), dtype=torch.float32,
+                              device=DEV)
+    times, outs = [], []
+    for _ in range(reps):
+        W.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = solver._newton_iteration(state, torch.zeros_like(state), bc_vals,
+                                       solver.cfg.dt, True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        outs.append(out)
+        step_launches = {k.split()[0]: v for k, v in W.launch_counts().items()}
+        print(f"  forced Newton step: {times[-1] * 1e3:.1f} ms, ||r|| {out[1]:.6e}, "
+              f"GMRES iterations {out[2]}, converged {out[3]}", flush=True)
+        if not out[3]:
+            raise RuntimeError("forced Newton step: tangent solve did not converge")
+    same_iters = len({o[2] for o in outs}) == 1
+    same_update = all(torch.equal(o[0], outs[0][0]) for o in outs[1:])
+    print(f"  median {np.median(times) * 1e3:.1f} ms; launches in one step: {step_launches}\n"
+          f"  the {reps} steps: equal FGMRES counts {same_iters} ({[o[2] for o in outs]}), "
+          f"bit-equal u_new {same_update}", flush=True)
+    if not (same_iters and same_update):
+        raise RuntimeError("forced Newton steps from one state differ from run to run")
+    return step_launches
+
+
+def box_parity():
+    """Phase 14(d): refine_uniform(box(4, 4, 4), 1), 2 BDF1 steps: float32
+    on the card (the kernels) against float64 on the CPU (the plain
+    versions), tangents solved to 1e-6 in both; the card's run with the
+    tangent stored in float32 (rows within PARITY_TOL of each step's entry
+    residual) and in bf16 as on the main path (BOX_BF16_PARITY_TOL)."""
+    mesh = nt.refine_uniform(nt.box(4, 4, 4), 1)
+    runs = {}
+    for key, dtype, device, store in (("float64 CPU", "float64", "cpu", "float32"),
+                                      ("float32 GPU, f32 tangent", "float32", DEV, "float32"),
+                                      ("float32 GPU, bf16 tangent", "float32", DEV, "bfloat16")):
+        cfg = kb.box_config(dtype, BOX_PARITY_REL_TOL)
+        cfg.krylov.tangent_store_dtype = store
+        plog = nt.RunLog(verbose=False)
+        s = nt.NavierStokesSolver(mesh, cfg, log=plog, inlet=kb.box_inlet, device=device)
+        t0 = time.perf_counter()
+        s.solve()
+        runs[key] = trajectory(plog.records)
+        print(f"  {key}: {mesh.n_cells} cells, n_total {s.dofs.n_total}, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    ref = runs.pop("float64 CPU")
+    if len(ref) != 2:
+        raise RuntimeError("the parity run did not take 2 steps")
+    for key, tol in (("float32 GPU, f32 tangent", PARITY_TOL),
+                     ("float32 GPU, bf16 tangent", BOX_BF16_PARITY_TOL)):
+        for (step, r64, _, f64), (_, r32, _, f32) in zip(ref, runs[key]):
+            worst = max(abs(a - b) for a, b in zip(r64, r32)) / r64[0]
+            print(f"  step {step}: f64 {['%.6e' % v for v in r64]}\n"
+                  f"          {key} {['%.6e' % v for v in r32]}  worst |diff|/entry "
+                  f"{worst:.2e} (tol {tol:g})", flush=True)
+            if len(r64) != len(r32) or worst > tol or f64 or f32:
+                raise RuntimeError(f"step {step}: {key} departs from the float64 CPU run")
+
+
+def box_phase():
+    """Phase 14: the 3D path (P2/P1 tetrahedra) on the 196,608-tet box:
+    (a) the kernels against their plain versions at its layout, (b) two
+    BDF1 steps from rest with the ramped inlet, (c) a forced Newton step,
+    (d) small-mesh parity.  Returns (a)'s records, (b)'s launches and (c)'s
+    launches in one step."""
+    phase("14 3D: P2/P1 tetrahedra, refine_uniform(box(8, 8, 8), 2), windowed + "
+          "Cahouet-Chabard, float32")
+    mesh = kb.box_mesh()
+    log = nt.RunLog(verbose=False)
+    t0 = time.perf_counter()
+    solver = nt.NavierStokesSolver(mesh, kb.box_config(), log=log, inlet=kb.box_inlet,
+                                   device=DEV)
+    solver.setup()
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    lay, pk = solver._win_layout, solver._win_layout._packed
+    if lay.dim != 3 or solver._matvec != "windowed":
+        raise RuntimeError("the box did not take the 3D windowed path")
+    print(f"  cells {mesh.n_cells}  n_total {solver.dofs.n_total}  nb {lay.nb}  Bmax {lay.Bmax}  "
+          f"Bc {lay.Bc}  nchunks {lay.nchunks}  ncd {lay.ncd} (pad {lay.pad_factor:.2f})  "
+          f"OWv/OWp {lay.OWv}/{lay.OWp}  hv/hp {lay.hv}/{lay.hp}  RVv/RVp {lay.RVv}/{lay.RVp}  "
+          f"nl/nli {lay.nl}/{lay.nli}  tables {pk.pos_v.dtype}  slot colours {pk.ncolors}  "
+          f"A_t {tuple(solver._wassembly.A_const.shape)} {solver._wassembly.A_const.dtype}  "
+          f"setup {t_setup:.2f} s; device memory {torch.cuda.memory_allocated() / 1e9:.2f} GB",
+          flush=True)
+    print("  (a) kernels vs plain at the box's layout", flush=True)
+    recs = kernels_vs_plain(solver)
+
+    print("  (b) 2 BDF1 steps from rest, ramped inlet", flush=True)
+    marks = []
+
+    def mark(step, t, sol):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    solver.output_hooks.append(mark)
+    W.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    solver.solve()
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    launches = W.launch_counts()
+    solver.output_hooks.remove(mark)
+    steps = trajectory(log.records)
+    check_converged(steps, solver.cfg.newton.tol)
+    if len(steps) != 2 or not bool(torch.isfinite(solver.solution).all()):
+        raise RuntimeError("the box run did not take 2 finite steps")
+    step_s = np.diff([t0, *marks])
+    vel = solver.velocity(real_only=True)
+    print(f"  solve {t_solve:.2f} s; step times {['%.2f s' % t for t in step_s]}; max |u| "
+          f"{np.abs(vel).max():.4e}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches {launches}", flush=True)
+    if min(launches.values()) == 0:
+        raise RuntimeError(f"a kernel of the 3D path was never launched: {launches}")
+
+    print("  (c) forced Newton step at a seeded state", flush=True)
+    step_launches = forced_step(solver)
+    if min(step_launches.values()) == 0:
+        raise RuntimeError(f"a kernel was not launched by the 3D Newton step: {step_launches}")
+    del solver
+
+    print("  (d) small-mesh parity: float32 GPU kernels vs float64 CPU plain versions",
+          flush=True)
+    box_parity()
+    return recs, launches, step_launches
+
+
+MEASURED = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
+            "cold_clean_ms", "warm_ms", "host_us")
+
+
+def kernel_entries(recs, launches, step_launches, suffix):
+    """The kernels line's entries of K1-K4 from ``kernels_vs_plain``'s
+    records: the launches of a main-path run and of one forced Newton step,
+    the largest error over a kernel's calls, the measured numbers of its
+    timed call, and the others' under ``also``."""
+    names = {"K1": "K1 windowed_matvec", "K2": "K2 windowed_matvec_block",
+             "K3": "K3 windowed_gather", "K4": "K4 windowed_scatter"}
+    counts = {k.split()[0]: v for k, v in launches.items()}
+    timed = {"K1": "K1", "K2": "K2 v->v", "K3": "K3", "K4": "K4"}
+    out = []
+    for k in ("K1", "K2", "K3", "K4"):
+        mine = {key: r for key, r in recs.items() if key.split()[0] == k}
+        entry = dict(
+            name=names[k] + suffix, route="cuda", source=KERNEL_SOURCE, replaces=REPLACES[k],
+            launches=counts[k], launches_per_newton_step=step_launches[k],
+            max_abs_err=max(r["max_abs_err"] for r in mine.values()), timed=timed[k],
+            **{key: recs[timed[k]][key] for key in MEASURED},
+            replay_ms=recs[timed[k]].get("replay_ms"),
+        )
+        if len(mine) > 1:  # the other operands of the same kernel
+            entry["also"] = {key: {m: r.get(m) for m in (*MEASURED, "replay_ms")}
+                             for key, r in mine.items() if key != timed[k]}
+        out.append(entry)
+    return out
+
+
 def main():
     phase("1 device")
     name = torch.cuda.get_device_name(0)
@@ -768,50 +910,7 @@ def main():
           f"{lay.OWp}  hv/hp {lay.hv}/{lay.hp}  nl/nli {lay.nl}/{lay.nli}  "
           f"setup {t_setup:.2f} s", flush=True)
     n = solver.dofs.n_total
-    calls, ops_ = kb.channel_operands(solver)
-    x, xo, R = ops_["x"], ops_["xo"], ops_["R"]
-    check_packed_tables(lay)
-    # one PyTorch call of the same function (yardsticks only): K3, K4 through
-    # the flat dof index, K1 and each K2 product as a CSR product, its matrix
-    # built here, outside the timing
-    dof_index = flat_dof_index(lay)
-    x_ext = torch.cat([x, x.new_zeros(1)])
-    pair_ext = torch.stack([x_ext, torch.cat([xo, xo.new_zeros(1)])])
-    library = {
-        "K3": (lambda: torch.index_select(x_ext, 0, dof_index).view(lay.nli, lay.ncd),
-               "torch.index_select of x through the flat dof index"),
-        "K3 pair": (lambda: torch.index_select(pair_ext, 1, dof_index).view(2, lay.nli, lay.ncd),
-                    "one torch.index_select of [x, x_old] stacked [2, n + 1], along dim 1 "
-                    "through the flat dof index"),
-        "K4": (lambda: x.new_zeros(n + 1).index_add_(0, dof_index, R.reshape(-1))[:n],
-               "torch.index_add_ of R through the flat dof index"),
-    }
-    csr_operands = {"K1 f32": (ops_["A_t"], x, "vp", "vp"), "K1": (ops_["A_bf"], x, "vp", "vp")}
-    for pair, (A_sub, xs) in ops_["blocks"].items():
-        csr_operands[f"K2 {pair}"] = (A_sub, xs, *pair.split("->"))
-    for key, (A, xs, ins, outs) in csr_operands.items():
-        library[key] = csr_yardstick(lay, A, xs, ins, outs)
-        print(f"  {key} yardstick: {library[key][1]}", flush=True)
-    bounds = bound_bytes_of(lay, ops_)
-    titles = {"K3": "K3 gather", "K3 pair": "K3 gather, u and u_old in one launch",
-              "K4": "K4 scatter", "K1 f32": "K1 matvec, f32 A",
-              "K1": "K1 matvec, bf16 A (main path)"}
-    recs = {}
-    for key, (kernel, plain) in calls.items():
-        lib_call, lib_what = library.get(key, (None, None))
-        recs[key] = compare(titles.get(key, f"{key}, bf16 A"), kernel, plain,
-                            exact=key.startswith("K3"), bound_bytes=bounds[key],
-                            library=lib_call)
-        recs[key]["library"] = lib_what
-    for key, (kernel, _) in calls.items():
-        check_repeat(key, kernel)
-    blocks = ops_["blocks"]
-    replays = (("K2 v->v", blocks["v->v"][1]), ("K2 v->p", blocks["v->p"][1]),
-               ("K2 p->p", blocks["p->p"][1]), ("K1", x), ("K1 f32", x), ("K3", x),
-               ("K3 pair", x), ("K4", R))
-    for key, inp in replays:
-        recs[key]["replay_ms"] = check_graph_replay(key, calls[key][0], inp, exact=True)
-    del calls, ops_, blocks, x, xo, R, x_ext, pair_ext, dof_index, library, csr_operands
+    recs = kernels_vs_plain(solver)
 
     phase("4 slice: 3 BDF1 steps, float32, windowed + Cahouet-Chabard")
     W.reset_launch_counts()
@@ -832,33 +931,7 @@ def main():
           f"max |u| {np.abs(vel).max():.4e}", flush=True)
 
     phase("5 forced Newton step at a seeded state")
-    state = torch.as_tensor(0.05 * np.random.default_rng(0).standard_normal(n),
-                            dtype=torch.float32, device=DEV)
-    bc_vals = torch.as_tensor(solver.dirichlet.values(solver.cfg.dt), dtype=torch.float32,
-                              device=DEV)
-    times, outs = [], []
-    for _ in range(3):
-        W.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = solver._newton_iteration(state, torch.zeros_like(state), bc_vals,
-                                       solver.cfg.dt, True)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        outs.append(out)
-        step_launches = {k.split()[0]: v for k, v in W.launch_counts().items()}
-        print(f"  forced Newton step: {times[-1] * 1e3:.1f} ms, ||r|| {out[1]:.6e}, "
-              f"GMRES iterations {out[2]}, converged {out[3]}", flush=True)
-        if not out[3]:
-            raise RuntimeError("forced Newton step: tangent solve did not converge")
-    same_iters = len({o[2] for o in outs}) == 1
-    same_update = all(torch.equal(o[0], outs[0][0]) for o in outs[1:])
-    print(f"  median {np.median(times) * 1e3:.1f} ms; launches in one step: {step_launches}\n"
-          f"  the three steps: equal FGMRES counts {same_iters} ({[o[2] for o in outs]}), "
-          f"bit-equal u_new {same_update}", flush=True)
-    if not (same_iters and same_update):
-        raise RuntimeError("forced Newton steps from one state differ from run to run")
-    del outs
+    step_launches = forced_step(solver)
 
     phase("6 kernel launches during phase 4")
     for k, v in launches.items():
@@ -1061,35 +1134,18 @@ def main():
 
     steady_phase()
     scanned_phase()
+    recs3, launches3, step_launches3 = box_phase()
     phase.end()
 
-    names = {"K1": "K1 windowed_matvec", "K2": "K2 windowed_matvec_block",
-             "K3": "K3 windowed_gather", "K4": "K4 windowed_scatter"}
-    counts = {k.split()[0]: v for k, v in launches.items()}
-    timed = {"K1": "K1", "K2": "K2 v->v", "K3": "K3", "K4": "K4"}
-    measured = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
-                "cold_clean_ms", "warm_ms", "host_us")
-    kernels = []
-    for k in ("K1", "K2", "K3", "K4"):
-        mine = {key: r for key, r in recs.items() if key.split()[0] == k}
-        entry = dict(
-            name=names[k], route="cuda", source=KERNEL_SOURCE, replaces=REPLACES[k],
-            launches=counts[k], launches_per_newton_step=step_launches[k],
-            max_abs_err=max(r["max_abs_err"] for r in mine.values()), timed=timed[k],
-            **{key: recs[timed[k]][key] for key in measured},
-            replay_ms=recs[timed[k]].get("replay_ms"),
-        )
-        if len(mine) > 1:  # the other operands of the same kernel
-            entry["also"] = {key: {m: r.get(m) for m in (*measured, "replay_ms")}
-                             for key, r in mine.items() if key != timed[k]}
-        kernels.append(entry)
+    kernels = (kernel_entries(recs, launches, step_launches, "")
+               + kernel_entries(recs3, launches3, step_launches3, ", 3D"))
     kernels.append(dict(
         name="K5 mxu_probe", route="cuda", source=PROBE_SOURCE, replaces=REPLACES["K5"],
         launches=probe_launches, launches_per_newton_step=0,
         max_abs_err=max(r["max_abs_err"] for r in probe_recs.values()),
         timed=f"M={m_max}, {PROBE_CHECK_ITERS} products",
         library_graph_ms=k5["library_graph_ms"], grid=k5["grid"], replay_ms=k5["replay_ms"],
-        **{key: k5[key] for key in measured},
+        **{key: k5[key] for key in MEASURED},
     ))
     print()
     print(smi)  # the card's name and power limit, as nvidia-smi gives them

@@ -101,6 +101,32 @@
 // same on every run, and the merge sums across chunks and windows in a fixed
 // order too.  Eight rounds at the 102,400-cell channel cost no measurable
 // time against shared-memory atomicAdds (PERF.md).
+//
+// 3D (Taylor-Hood P2/P1 tetrahedra: 10 velocity and 4 pressure dofs a cell,
+// 34 rows of A, nli 40).  A chunk's four component subwindows do not fit a
+// block's shared memory at the sizes users run: at the 196,608-tet box
+// (refine_uniform(box(8, 8, 8), 2), nb 220, Bmax 1280, Bc 256, hv = hp = 5,
+// RVv 144, RVp 32) they take 3*144*128*4 + 32*128*4 = 237,568 bytes against
+// the 232,448 a block may have.  So every 3D layout runs one other design
+// (matvec3_kernel, scatter3_kernel; K3 is the 2D kernel instantiated for
+// the tetrahedron):
+//   * K1/K2 read x's values of a slot (34, 30 or 4) from device memory into
+//     registers through the read-only path, as K3 does, with no subwindow of
+//     x in shared memory; A streams through the same cp.async ring, which
+//     has the block's shared memory to itself until the sums.
+//   * K1, K2 and K4 sum their outputs one space-component at a time into
+//     one component-sized buffer (RVv*128 floats, 73,728 bytes at the box):
+//     dim + 1 passes (fewer for K2), each the ncolors rounds of the slot
+//     colours (33-36 on tetrahedra), after which the span of the subwindow
+//     that the chunk's cells touch goes to scratch, as K4 does in 2D, and
+//     the merge reads the spans (merge_kernel<., true>).
+//   * At most 512 threads a block (Bc <= 512), so a thread may hold 128
+//     registers: x's and y's 34 values a slot live in registers.
+// Bound: bytes, as in 2D.  At the box with bf16 A, counting the occupied
+// slots' columns of the used rows once: K1 34x34 values a cell, 455 MB,
+// ~136 us; K2 v->v 30x30, 354 MB; K3 a [40, ncd] float32 array, 45 MB.  The
+// scratch the passes write and the merge reads (the spans of up to 261 MB
+// of subwindows) is not in the bound.
 // Everything computes in float32.
 
 #include <cuda_runtime.h>
@@ -111,6 +137,7 @@ namespace {
 
 constexpr int kThreads = 256;          // the merge
 constexpr int kMaxChunkThreads = 1024; // K1-K4: one thread per slot of a chunk
+constexpr int kMax3dThreads = 512;     // the same in 3D: up to 128 registers a thread
 constexpr int kMetaLen = 18;
 constexpr int kBaseStages = 2;         // ring stages of A with shared memory of their own
 constexpr int kMaxSmemBytes = 232448;  // 227 KB: a block's limit on Hopper
@@ -170,7 +197,7 @@ __device__ __forceinline__ int vec_index(int pos, int b, int h, int OW, int n) {
 // through the read-only path, then its stores.  Threads at or past cnt[b]
 // read nothing and write zeros.
 template <int DIM, int KV, int KP, int NVEC>
-__global__ void __launch_bounds__(kMaxChunkThreads)
+__global__ void __launch_bounds__(DIM == 2 ? kMaxChunkThreads : kMax3dThreads)
 gather_kernel(Geo g, Tables t, const float* __restrict__ x0, const float* __restrict__ x1,
               float* __restrict__ X, int nli) {
   constexpr int NV = DIM * KV, NL = NV + KP;
@@ -538,6 +565,245 @@ scatter_kernel(Geo g, Tables t, const float* __restrict__ R,
   }
 }
 
+// ---- 3D: one component's subwindow at a time (K1, K2, K4) -----------------
+// One pass: zero the float4s [v0, v1) of buf, sum val[l] at pos[l] in the
+// colour rounds, copy [v0, v1) to dst[v0, v1) (dst: the chunk's piece of
+// scratch, moved back by v0 float4s so that its entry 0 holds float4 v0).
+template <int K>
+__device__ __forceinline__ void component_pass(float* buf, int v0, int v1, int ncolors,
+                                               int colour, const int (&pos)[K],
+                                               const float (&val)[K], float4* __restrict__ dst) {
+  float4* b4 = (float4*)buf;
+  for (int i = v0 + threadIdx.x; i < v1; i += blockDim.x) b4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+  // the sums in colour order: no two slots of one round share an entry
+  for (int k = 0; k < ncolors; ++k) {
+    if (colour == k) {
+#pragma unroll
+      for (int l = 0; l < K; ++l)
+        if (pos[l] >= 0) buf[pos[l]] += val[l];
+    }
+    __syncthreads();
+  }
+  for (int i = v0 + threadIdx.x; i < v1; i += blockDim.x) dst[i] = b4[i];
+  __syncthreads();  // buf is read out before the next pass zeroes it
+}
+
+// The chunk's sums of every slot's values val (the out-spaces' rows: v
+// components, then p) into its subwindows, one component a pass, and the
+// spans [start, end) of window positions written, for the merge.  pv, pp:
+// positions in the chunk's subwindows (-1 for none).  span: shared, set to
+// {INT_MAX, -1, INT_MAX, -1} by one thread before a barrier that every
+// thread has passed.
+template <int DIM, int KV, int KP, bool OUT_V, bool OUT_P, int N>
+__device__ __forceinline__ void sum_components(
+    const Geo& g, int b, int c, float* buf, int* span, int colour, const int (&pv)[KV],
+    const int (&pp)[KP], const float (&val)[N], int base_v, int base_p,
+    float* __restrict__ sub_v, float* __restrict__ sub_p, int* __restrict__ span_v,
+    int* __restrict__ span_p) {
+  constexpr int NV = DIM * KV;
+  int ext[4] = {0x7FFFFFFF, -1, 0x7FFFFFFF, -1};  // this slot's, as span
+  if constexpr (OUT_V) {
+#pragma unroll
+    for (int l = 0; l < KV; ++l)
+      if (pv[l] >= 0) ext[0] = min(ext[0], pv[l]), ext[1] = max(ext[1], pv[l]);
+  }
+  if constexpr (OUT_P) {
+#pragma unroll
+    for (int l = 0; l < KP; ++l)
+      if (pp[l] >= 0) ext[2] = min(ext[2], pp[l]), ext[3] = max(ext[3], pp[l]);
+  }
+  // the block's span: a warp's, then the warps' (integer min and max give
+  // the same result in any order)
+#pragma unroll
+  for (int k = 0; k < 4; k += 2) {
+    ext[k] = __reduce_min_sync(0xFFFFFFFFu, ext[k]);
+    ext[k + 1] = __reduce_max_sync(0xFFFFFFFFu, ext[k + 1]);
+    if (threadIdx.x % 32 == 0) atomicMin(&span[k], ext[k]), atomicMax(&span[k + 1], ext[k + 1]);
+  }
+  __syncthreads();
+  const long piece = (long)b * g.nchunks + c, pieces = (long)g.nb * g.nchunks;
+  if constexpr (OUT_V) {
+    const int Lv = g.RVv * 128;
+    const int v0 = span[1] < 0 ? 0 : span[0] / 4, v1 = span[1] < 0 ? 0 : span[1] / 4 + 1;
+#pragma unroll
+    for (int cc = 0; cc < DIM; ++cc) {
+      float v[KV];
+#pragma unroll
+      for (int l = 0; l < KV; ++l) v[l] = val[cc * KV + l];
+      component_pass<KV>(buf, v0, v1, g.ncolors, colour, pv, v,
+                         (float4*)(sub_v + (cc * pieces + piece) * Lv) - v0);
+    }
+    if (threadIdx.x == 0) span_v[2 * piece] = base_v + 4 * v0, span_v[2 * piece + 1] = base_v + 4 * v1;
+  }
+  if constexpr (OUT_P) {
+    const int Lp = g.RVp * 128;
+    const int p0 = span[3] < 0 ? 0 : span[2] / 4, p1 = span[3] < 0 ? 0 : span[3] / 4 + 1;
+    float v[KP];
+#pragma unroll
+    for (int l = 0; l < KP; ++l) v[l] = val[(OUT_V ? NV : 0) + l];
+    component_pass<KP>(buf, p0, p1, g.ncolors, colour, pp, v, (float4*)(sub_p + piece * Lp) - p0);
+    if (threadIdx.x == 0) span_p[2 * piece] = base_p + 4 * p0, span_p[2 * piece + 1] = base_p + 4 * p1;
+  }
+}
+
+// ---- 3D K1 / K2: y = sum_cells P_c^T A_c P_c x over the chosen spaces ------
+// The 2D kernel's grid, operands and ring of A; x is read into registers per
+// slot (vec_index of each position), and the sums go through
+// sum_components into sub_v [DIM, nb, nchunks, RVv*128] / sub_p [nb,
+// nchunks, RVp*128] with span tables span_v / span_p [nb, nchunks, 2].
+// Shared memory: the ring (STAGES stages of N_OUT x Bc values of A) while A
+// streams, then one component's subwindow.
+template <int DIM, int KV, int KP, bool IN_V, bool IN_P, bool OUT_V, bool OUT_P,
+          typename TA, int STAGES>
+__global__ void __launch_bounds__(kMax3dThreads)
+matvec3_kernel(Geo g, Tables t, const TA* __restrict__ A, int n_out_pad,
+               const float* __restrict__ x, float* __restrict__ sub_v,
+               float* __restrict__ sub_p, int* __restrict__ span_v, int* __restrict__ span_p) {
+  constexpr int NV = DIM * KV;
+  constexpr int N_IN = (IN_V ? NV : 0) + (IN_P ? KP : 0);
+  constexpr int N_OUT = (OUT_V ? NV : 0) + (OUT_P ? KP : 0);
+  constexpr bool NEED_V = IN_V || OUT_V;
+  constexpr bool NEED_P = IN_P || OUT_P;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int span[4];
+
+  const int c = blockIdx.x / g.nb, b = blockIdx.x % g.nb;
+  const int tid = threadIdx.x;
+  const int nv = min(max(t.cnt[b] - c * g.Bc, 0), g.Bc);  // occupied slots here
+  if (nv == 0) return;  // the merge kernel skips this chunk too
+  const bool active = tid < nv;
+  if (tid == 0) span[0] = span[2] = 0x7FFFFFFF, span[1] = span[3] = -1;
+
+  // the stream of A, as in matvec_kernel: column q (N_OUT rows of the
+  // occupied slots' values) -> ring stage q % STAGES, one commit group
+  const uint32_t row_bytes = g.Bc * sizeof(TA);
+  const uint32_t stage_bytes = N_OUT * row_bytes;
+  const int warp = tid / 32, lane = tid % 32, nwarps = blockDim.x / 32;
+  const int row_pieces = (nv * (int)sizeof(TA) + 15) / 16;
+  const long row_stride = (long)g.ncd * sizeof(TA);
+  const long col_stride = n_out_pad * row_stride, row_step = nwarps * row_stride;
+  const uint32_t dst_step = nwarps * row_bytes;
+  const uint32_t dst_first = smem_addr(smem) + warp * row_bytes + 16 * lane;
+  const char* src_first = (const char*)(A + (long)b * g.Bmax + (long)c * g.Bc) +
+                          warp * row_stride + 16 * lane;  // of the next column
+  auto fetch = [&](int stage, bool any) {
+    if (any) {
+      const char* src = src_first;
+      uint32_t dst = dst_first + stage * stage_bytes;
+      for (int i = warp; i < N_OUT; i += nwarps, src += row_step, dst += dst_step)
+        for (int k = lane, o = 0; k < row_pieces; k += 32, o += 512)
+          cp_async16(dst + o, src + o);
+      src_first += col_stride;
+    }
+    cp_commit();  // one group a column, empty past the last
+  };
+#pragma unroll
+  for (int q = 0; q < STAGES - 1; ++q) fetch(q, q < N_IN);
+
+  // while the first columns fly: this slot's positions and its values of x
+  const int j = c * g.Bc + tid;
+  const int colour = active ? t.colour[(long)b * g.Bmax + j] : -1;
+  int pv[KV], pp[KP];  // window positions, -1 for none
+#pragma unroll
+  for (int l = 0; l < KV; ++l)
+    pv[l] = (NEED_V && active) ? win_pos(t.pos_v, KV, g, b, j, l) : -1;
+#pragma unroll
+  for (int l = 0; l < KP; ++l)
+    pp[l] = (NEED_P && active) ? win_pos(t.pos_p, KP, g, b, j, l) : -1;
+  float xin[N_IN];
+  if constexpr (IN_V) {
+#pragma unroll
+    for (int l = 0; l < KV; ++l) {
+      const int gi = vec_index(pv[l], b, g.hv, g.OWv, g.n_vs);
+#pragma unroll
+      for (int cc = 0; cc < DIM; ++cc)
+        xin[cc * KV + l] = gi >= 0 ? __ldg(x + (long)cc * g.n_vs + gi) : 0.f;
+    }
+  }
+  if constexpr (IN_P) {
+    const float* xp = x + (IN_V ? (long)DIM * g.n_vs : 0);
+#pragma unroll
+    for (int l = 0; l < KP; ++l) {
+      const int gi = vec_index(pp[l], b, g.hp, g.OWp, g.n_ps);
+      xin[(IN_V ? NV : 0) + l] = gi >= 0 ? __ldg(xp + gi) : 0.f;
+    }
+  }
+  // positions in the chunk's subwindows
+  const int base_v = NEED_V ? t.offs_v[b * g.nchunks + c] * 128 : 0;
+  const int base_p = NEED_P ? t.offs_p[b * g.nchunks + c] * 128 : 0;
+#pragma unroll
+  for (int l = 0; l < KV; ++l)
+    pv[l] = (pv[l] >= base_v && pv[l] < base_v + g.RVv * 128) ? pv[l] - base_v : -1;
+#pragma unroll
+  for (int l = 0; l < KP; ++l)
+    pp[l] = (pp[l] >= base_p && pp[l] < base_p + g.RVp * 128) ? pp[l] - base_p : -1;
+
+  // y_i = sum_q A[q, i, s] x_q, in f32, one column of A a ring stage
+  float y[N_OUT];
+#pragma unroll
+  for (int i = 0; i < N_OUT; ++i) y[i] = 0.f;
+  const TA* mine = (const TA*)smem + tid;  // this slot's value in row 0 of stage 0
+  const int stage_elems = N_OUT * g.Bc;
+#pragma unroll
+  for (int q = 0; q < N_IN; ++q) {
+    cp_wait<STAGES - 2>();  // this thread's pieces of column q have landed
+    __syncthreads();        // ... and everyone's; and column q - 1 is consumed
+    fetch((q + STAGES - 1) % STAGES, q + STAGES - 1 < N_IN);
+    if (active) {
+      const TA* col = mine + (q % STAGES) * stage_elems;
+#pragma unroll
+      for (int i = 0; i < N_OUT; ++i, col += g.Bc) y[i] = fmaf(widen(*col), xin[q], y[i]);
+    }
+  }
+  __syncthreads();  // every column is consumed: the ring's memory becomes buf
+  sum_components<DIM, KV, KP, OUT_V, OUT_P>(g, b, c, (float*)smem, span, colour, pv, pp, y,
+                                            base_v, base_p, sub_v, sub_p, span_v, span_p);
+}
+
+// ---- 3D K4: y = sum_cells P_c^T R_c for per-slot rows R [>= nl, ncd] -------
+// scatter_kernel's grid, loads and outputs (subwindow spans and their
+// tables), summed through sum_components: dim + 1 passes over one
+// component-sized buffer.
+template <int DIM, int KV, int KP>
+__global__ void __launch_bounds__(kMax3dThreads)
+scatter3_kernel(Geo g, Tables t, const float* __restrict__ R,
+                float* __restrict__ sub_v, float* __restrict__ sub_p,
+                int* __restrict__ span_v, int* __restrict__ span_p) {
+  constexpr int NV = DIM * KV;
+  extern __shared__ __align__(16) float buf[];
+  __shared__ int span[4];
+  const int c = blockIdx.x / g.nb, b = blockIdx.x % g.nb;
+  const int tid = threadIdx.x;
+  const int nv = min(max(t.cnt[b] - c * g.Bc, 0), g.Bc);  // occupied slots here
+  if (nv == 0) return;  // the merge kernel skips this chunk too
+  const bool active = tid < nv;
+  if (tid == 0) span[0] = span[2] = 0x7FFFFFFF, span[1] = span[3] = -1;
+
+  float r[NV + KP];
+  int pv[KV], pp[KP];  // -1 for none
+  const int j = c * g.Bc + tid;
+  const long s = (long)b * g.Bmax + j;
+  const int colour = active ? t.colour[s] : -1;
+  const int base_v = t.offs_v[b * g.nchunks + c] * 128;
+  const int base_p = t.offs_p[b * g.nchunks + c] * 128;
+#pragma unroll
+  for (int l = 0; l < NV + KP; ++l) r[l] = active ? R[(long)l * g.ncd + s] : 0.f;
+#pragma unroll
+  for (int l = 0; l < KV; ++l) {
+    const int p = active ? win_pos(t.pos_v, KV, g, b, j, l) : -1;
+    pv[l] = (p >= base_v && p < base_v + g.RVv * 128) ? p - base_v : -1;
+  }
+#pragma unroll
+  for (int l = 0; l < KP; ++l) {
+    const int p = active ? win_pos(t.pos_p, KP, g, b, j, l) : -1;
+    pp[l] = (p >= base_p && p < base_p + g.RVp * 128) ? p - base_p : -1;
+  }
+  __syncthreads();  // span is set
+  sum_components<DIM, KV, KP, true, true>(g, b, c, buf, span, colour, pv, pp, r, base_v,
+                                          base_p, sub_v, sub_p, span_v, span_p);
+}
+
 // ---- the merge: chunk subwindows -> the planar vector -----------------------
 // One space's accumulators: sub[ncomp, nb, nsub, len].  Entry d of piece c of
 // block b is window position offs[b, c]*128 + d; window position j*OW + o of
@@ -666,7 +932,8 @@ cudaError_t launch_merge_as(const MergeSpace& v, const MergeSpace& p, float* y,
   return cudaGetLastError();
 }
 
-// SPAN: both spaces carry their span tables (K4), or neither does (K1, K2)
+// SPAN: both spaces carry their span tables (K4, and K1 / K2 in 3D), or
+// neither does (K1, K2 in 2D)
 template <bool SPAN>
 cudaError_t launch_merge(const MergeSpace& v, const MergeSpace& p, float* y,
                          cudaStream_t stream) {
@@ -685,8 +952,9 @@ bool load_geo(const int* meta, Geo* g) {
   const int* m = meta + 1;
   *g = Geo{m[0], m[1], m[2],  m[3],  m[4],  m[5],  m[6],  m[7], m[8],
            m[9], m[10], m[11], m[12], m[13], m[14], m[15], m[16], m[17]};
-  // the instantiated element: 2D Taylor-Hood P2/P1
-  return g->dim == 2 && g->k_v == 6 && g->k_p == 3;
+  // the instantiated elements: Taylor-Hood P2/P1 on triangles and on tetrahedra
+  return (g->dim == 2 && g->k_v == 6 && g->k_p == 3) ||
+         (g->dim == 3 && g->k_v == 10 && g->k_p == 4);
 }
 
 Tables make_tables(const void* pos_v, const void* pos_p, const void* offs_v,
@@ -719,8 +987,11 @@ int set_smem(K kernel, int bytes, int* allowed) {
 long subwindow_floats(const Geo& g, bool v, bool p) {
   return (long)g.nb * g.nchunks * 128 * ((v ? g.dim * g.RVv : 0) + (p ? g.RVp : 0));
 }
-// and K4's span tables after them
+// and the span tables of K4 (and of K1 / K2 in 3D) after them
 long span_ints(const Geo& g) { return 4L * g.nb * g.nchunks; }
+int* span_tables(const Geo& g, float* scratch) {
+  return (int*)(scratch + subwindow_floats(g, true, true));
+}
 
 // the ring depths the matvec kernel is compiled for
 constexpr int kStageChoices[] = {2, 4, 7};
@@ -764,44 +1035,101 @@ int launch_matvec(const Geo& g, const Tables& t, const void* A, int n_out_pad,
   return (int)launch_merge<false>(mv, mp, y, stream);
 }
 
+// 3D: tetrahedra, Taylor-Hood P2/P1 (matvec3_kernel, then the merge of spans)
+template <bool IN_V, bool IN_P, bool OUT_V, bool OUT_P, typename TA>
+int launch_matvec_3d(const Geo& g, const Tables& t, const void* A, int n_out_pad,
+                     const void* x, float* scratch, float* y, cudaStream_t stream) {
+  constexpr int KV = 10, KP = 4;
+  constexpr int N_OUT = (OUT_V ? 3 * KV : 0) + (OUT_P ? KP : 0);
+  using Kernel = void (*)(Geo, Tables, const TA*, int, const float*, float*, float*, int*, int*);
+  const Kernel kernels[] = {
+      matvec3_kernel<3, KV, KP, IN_V, IN_P, OUT_V, OUT_P, TA, kStageChoices[0]>,
+      matvec3_kernel<3, KV, KP, IN_V, IN_P, OUT_V, OUT_P, TA, kStageChoices[1]>,
+      matvec3_kernel<3, KV, KP, IN_V, IN_P, OUT_V, OUT_P, TA, kStageChoices[2]>};
+  // A is copied in 16-byte pieces: every chunk's row of A must start on one
+  if (g.Bc > kMax3dThreads || g.Bc % 32 != 0 || (g.Bc * sizeof(TA)) % 16 != 0) return kErrLayout;
+  if ((uintptr_t)A % 16 != 0) return kErrAlign;
+  const int Lv = g.RVv * 128, Lp = g.RVp * 128;
+  const long buf_bytes = 4L * max(OUT_V ? Lv : 0, OUT_P ? Lp : 0);
+  const long stage_bytes = (long)N_OUT * g.Bc * sizeof(TA);
+  // the ring and the component buffer take turns in the same memory
+  const long bytes = kBaseStages * stage_bytes > buf_bytes ? kBaseStages * stage_bytes : buf_bytes;
+  int choice = 0;  // the deepest ring that fits
+  for (int k = 1; k < 3; ++k)
+    if (kStageChoices[k] * stage_bytes <= bytes) choice = k;
+  static int allowed[3][kMaxDevices] = {};  // per instantiation and depth
+  int e = set_smem(kernels[choice], (int)bytes, allowed[choice]);
+  if (e != 0) return e;
+  float* sub_v = scratch;
+  float* sub_p = scratch + subwindow_floats(g, OUT_V, false);
+  int* span_v = span_tables(g, scratch);
+  int* span_p = span_v + 2L * g.nb * g.nchunks;
+  kernels[choice]<<<g.nb * g.nchunks, g.Bc, bytes, stream>>>(
+      g, t, (const TA*)A, n_out_pad, (const float*)x, sub_v, sub_p, span_v, span_p);
+  cudaError_t ce = cudaGetLastError();
+  if (ce != cudaSuccess) return (int)ce;
+  const MergeSpace mv{sub_v, nullptr, t.cnt, span_v, OUT_V ? g.dim : 0, g.nb, g.nchunks,
+                      Lv, g.OWv, g.hv, g.n_vs, g.Bc};
+  const MergeSpace mp{sub_p, nullptr, t.cnt, span_p, OUT_P ? 1 : 0, g.nb, g.nchunks,
+                      Lp, g.OWp, g.hp, g.n_ps, g.Bc};
+  return (int)launch_merge<true>(mv, mp, y, stream);
+}
+
+template <bool IN_V, bool IN_P, bool OUT_V, bool OUT_P, typename TA>
+int launch_matvec_any(const Geo& g, const Tables& t, const void* A, int n_out_pad,
+                      const void* x, float* scratch, float* y, cudaStream_t st) {
+  if (g.dim == 3)
+    return launch_matvec_3d<IN_V, IN_P, OUT_V, OUT_P, TA>(g, t, A, n_out_pad, x, scratch, y, st);
+  return launch_matvec<IN_V, IN_P, OUT_V, OUT_P, TA>(g, t, A, n_out_pad, x, scratch, y, st);
+}
+
 template <typename TA>
 int dispatch_spaces(int in_sp, int out_sp, const Geo& g, const Tables& t,
                     const void* A, int n_out_pad, const void* x, float* scratch,
                     float* y, cudaStream_t st) {
   // spaces: 1 = velocity, 2 = pressure, 3 = both
   if (in_sp == 3 && out_sp == 3)
-    return launch_matvec<true, true, true, true, TA>(g, t, A, n_out_pad, x, scratch, y, st);
+    return launch_matvec_any<true, true, true, true, TA>(g, t, A, n_out_pad, x, scratch, y, st);
   if (in_sp == 1 && out_sp == 1)
-    return launch_matvec<true, false, true, false, TA>(g, t, A, n_out_pad, x, scratch, y, st);
+    return launch_matvec_any<true, false, true, false, TA>(g, t, A, n_out_pad, x, scratch, y, st);
   if (in_sp == 1 && out_sp == 2)
-    return launch_matvec<true, false, false, true, TA>(g, t, A, n_out_pad, x, scratch, y, st);
+    return launch_matvec_any<true, false, false, true, TA>(g, t, A, n_out_pad, x, scratch, y, st);
   if (in_sp == 2 && out_sp == 2)
-    return launch_matvec<false, true, false, true, TA>(g, t, A, n_out_pad, x, scratch, y, st);
+    return launch_matvec_any<false, true, false, true, TA>(g, t, A, n_out_pad, x, scratch, y, st);
   return (int)cudaErrorInvalidValue;
 }
 
 template <int NVEC>
 int launch_gather(const Geo& g, const Tables& t, const float* x0, const float* x1, float* X,
                   int nli, cudaStream_t stream) {
-  if (g.Bc > kMaxChunkThreads || g.Bc % 32 != 0 || nli < g.dim * g.k_v + g.k_p)
+  const int max_threads = g.dim == 2 ? kMaxChunkThreads : kMax3dThreads;
+  if (g.Bc > max_threads || g.Bc % 32 != 0 || nli < g.dim * g.k_v + g.k_p)
     return kErrLayout;
   if ((uintptr_t)X % 16 != 0) return kErrAlign;
-  gather_kernel<2, 6, 3, NVEC><<<g.nb * g.nchunks, g.Bc, 0, stream>>>(g, t, x0, x1, X, nli);
+  if (g.dim == 3)
+    gather_kernel<3, 10, 4, NVEC><<<g.nb * g.nchunks, g.Bc, 0, stream>>>(g, t, x0, x1, X, nli);
+  else
+    gather_kernel<2, 6, 3, NVEC><<<g.nb * g.nchunks, g.Bc, 0, stream>>>(g, t, x0, x1, X, nli);
   return (int)cudaGetLastError();
 }
 
+// K4: scatter_kernel (2D: all of a chunk's subwindows in shared memory) or
+// scatter3_kernel (3D: one component's at a time), then the merge of the
+// spans they wrote
 int launch_scatter(const Geo& g, const Tables& t, const void* R, float* scratch,
                    float* y, cudaStream_t stream) {
-  auto kernel = scatter_kernel<2, 6, 3>;
-  if (g.Bc > kMaxChunkThreads || g.Bc % 32 != 0) return kErrLayout;
+  using Kernel = void (*)(Geo, Tables, const float*, float*, float*, int*, int*);
+  const bool tets = g.dim == 3;
+  const Kernel kernel = tets ? Kernel(scatter3_kernel<3, 10, 4>) : Kernel(scatter_kernel<2, 6, 3>);
+  if (g.Bc > (tets ? kMax3dThreads : kMaxChunkThreads) || g.Bc % 32 != 0) return kErrLayout;
   const int Lv = g.RVv * 128, Lp = g.RVp * 128;
-  const int bytes = 4 * (g.dim * Lv + Lp);
-  static int allowed[kMaxDevices] = {};
-  int e = set_smem(kernel, bytes, allowed);
+  const int bytes = 4 * (tets ? max(Lv, Lp) : g.dim * Lv + Lp);
+  static int allowed[2][kMaxDevices] = {};  // per kernel
+  int e = set_smem(kernel, bytes, allowed[tets]);
   if (e != 0) return e;
   float* sub_v = scratch;
   float* sub_p = scratch + subwindow_floats(g, true, false);
-  int* span_v = (int*)(scratch + subwindow_floats(g, true, true));
+  int* span_v = span_tables(g, scratch);
   int* span_p = span_v + 2L * g.nb * g.nchunks;
   kernel<<<g.nb * g.nchunks, (g.Bc + 31) / 32 * 32, bytes, stream>>>(g, t, (const float*)R,
                                                                      sub_v, sub_p, span_v,

@@ -482,10 +482,11 @@ def slot_colours(lay: WindowedLayout, pos_v: torch.Tensor, pos_p: torch.Tensor):
     window position with it (velocity or pressure) has.  So no two slots of
     one colour in a chunk touch the same entry of its subwindows, and the
     kernels add one colour at a time with plain adds, in a fixed order (at
-    most 256 colours).  Padded slots get colour 0 and are never summed.  Cells that share a
-    vertex share a P1 dof, so a P2/P1 triangle mesh needs about 8-14
-    colours.  numpy on the host, all chunks at once (slot j of every chunk
-    in one step), in batches of chunks that keep the masks under ~64 MB."""
+    most 256 colours).  Padded slots get colour 0 and are never summed.
+    Cells that share a vertex share a P1 dof, so a P2/P1 triangle mesh needs
+    about 8-14 colours and a tetrahedral one about 33-36.  numpy on the
+    host, all chunks at once (slot j of every chunk in one step), in batches
+    of chunks that keep the masks under ~64 MB."""
     nb, Bc, nch = lay.nb, lay.Bc, lay.nchunks
     Wv = (2 * lay.hv + 1) * lay.OWv
     Wp = (2 * lay.hp + 1) * lay.OWp
@@ -686,10 +687,14 @@ _NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 _SPACE_CODE = {"v": 1, "p": 2, "vp": 3}
+# the elements the kernels are instantiated for: (dim, k_v, k_p) of P2/P1
+_ELEMENTS = ((2, 6, 3), (3, 10, 4))
 # what the entry points return besides 0 and cudaError_t values (windowed.cu)
 _KERNEL_ERRORS = {
-    -1: "the layout is not one the kernels are built for (2D P2/P1, chunks of "
-        "at most 1024 slots whose rows of A are 16-byte multiples)",
+    -1: "the layout is not one the kernels are built for (P2/P1 on triangles or "
+        "tetrahedra, chunks of at most 1024 slots in 2D and 512 in 3D whose rows "
+        "of A are 16-byte multiples; the gather, the scatter and the 3D products "
+        "take whole warps: a multiple of 32 slots)",
     -2: "a block would need more shared memory than it may use",
     -3: "the operator's storage is not 16-byte aligned",
 }
@@ -801,10 +806,11 @@ def _check_cuda(lay: WindowedLayout, *tensors):
     dev = tensors[0].device
     if lay.device != dev:
         raise ValueError(f"layout on {lay.device}, tensors on {dev}")
-    if (lay.dim, lay.k_v, lay.k_p) != (2, 6, 3):
+    if (lay.dim, lay.k_v, lay.k_p) not in _ELEMENTS:
         raise NotImplementedError(
-            "the CUDA windowed kernels are built for 2D Taylor-Hood P2/P1 "
-            f"(dim, k_v, k_p) = (2, 6, 3); got {(lay.dim, lay.k_v, lay.k_p)}"
+            "the CUDA windowed kernels are built for Taylor-Hood P2/P1 on "
+            f"triangles and tetrahedra (dim, k_v, k_p) in {_ELEMENTS}; got "
+            f"{(lay.dim, lay.k_v, lay.k_p)}"
         )
     for t in tensors:
         if t.device != dev or not t.is_contiguous():

@@ -1,6 +1,6 @@
 """Time the windowed kernels' wrappers and the Newton step on one GPU.
 
-    python -m navier_stokes_tpu_torch.scripts.kernel_bench [--label NAME]
+    python -m navier_stokes_tpu_torch.scripts.kernel_bench [--label NAME] [--case box]
 
 Run from a directory that holds the package (the repository root, or an
 unpacked copy of another commit: the script uses only the package's public
@@ -10,7 +10,9 @@ it prints one JSON object with, for each wrapper call (K1 with bf16 and
 float32 A, the three K2 products with bf16 A, K3, the K3 pair -- the
 gathers of u and u_old of an assembly, one launch where the tree has
 ``windowed_gather_pair``, else two ``windowed_gather`` calls -- K4, and
-K5, the tensor-core probe, at M 256 over 64 products):
+K5, the tensor-core probe, at M 256 over 64 products).  ``--case box``
+times the same wrapper calls (not K5) at the 3D layout of the 196,608-tet
+box (``box_mesh``, ``box_config``: chip_smoke.py phase 14):
 
   warm_ms        CUDA-event time of a call in a loop of calls on the same
                  inputs (what fits the 50 MB L2 stays there)
@@ -23,18 +25,27 @@ K5, the tensor-core probe, at M 256 over 64 products):
                  L2 holds only clean lines, so nothing is written back
   host_us        host time a call: the median of 5 batches of 200 calls
                  queued with no synchronisation
+  bound_ms       the bytes a windowed wrapper call must move
+                 (``bound_bytes_of``) over 3.35 TB/s; ``share`` is
+                 bound_ms / cold_ms
+  library_ms     cold time of one PyTorch call of the same function
+                 (``library_call``: a CSR product, index_select or
+                 index_add_), never used by the package
 
 and the median host-clock time of a forced Newton step at a seeded state
-and of the 3-step BDF1 solve.  ``--profile`` adds each call's device time
-by CUDA kernel (torch.profiler) warm, after the write and after the write
-and the read.  ``--only`` takes names ("K3 pair") or families ("K3": K3
-and the K3 pair).  The timing helpers are chip_smoke.py's too.
+and of the BDF1 solve (3 steps on the channel, 2 on the box).
+``--profile`` adds each call's device time by CUDA kernel
+(torch.profiler) warm, after the write and after the write and the read,
+and the device time by CUDA kernel of one forced Newton step.  ``--only``
+takes names ("K3 pair") or families ("K3": K3 and the K3 pair).  The
+timing helpers are chip_smoke.py's too.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -42,8 +53,13 @@ import time
 import numpy as np
 import torch
 
+from ..ops import windowed as W
+
 FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
 REPS = 30  # timed calls behind every warm and cold figure of main()
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM device memory (the bound's rate)
+# the CUDA kernels of csrc/windowed.cu, by their names in a profiler trace
+WINDOWED_KERNEL = re.compile(r"\b(matvec3?|gather|scatter3?|merge)_kernel\b")
 
 
 def channel_config(dtype="float32", rel_tol=1e-2, cells_per_block=448):
@@ -68,6 +84,48 @@ def channel_config(dtype="float32", rel_tol=1e-2, cells_per_block=448):
     cfg.jacobian_mass_rho = True
     cfg.newton.max_iters = 20
     return cfg
+
+
+BOX_RAMP_T = 0.1  # the box inlet's ramp time
+BOX_U_M = 1.5  # the box inlet's peak velocity
+
+
+def box_config(dtype="float32", rel_tol=1e-2):
+    """The 3D case (chip_smoke.py phase 14): bench.py's tetrahedral leg on a
+    unit cube -- P2/P1 tetrahedra, windowed + Cahouet-Chabard with 6 A00
+    sweeps and the tangent stored in bf16 -- in channel_config's corrected
+    formulation, BDF1, dt 0.05, 2 steps; inlet tag 0 (``box_inlet``),
+    outlet 1, walls 2-5.  The A00 sweeps are FGMRES, not bench.py's CG: at
+    the 196,608-tet box convection dominates A00 in step 2 (u/h 48 against
+    rho/dt 20) and the CG-swept tangent solve stalls at 5e-2 of ||b||, with
+    the tangent stored in float32 as in bf16 (``box_a00``); the JAX
+    package's CG sweeps lose to convection alike (tests/test_torch_3d.py,
+    PERF.md §6)."""
+    cfg = channel_config(dtype, rel_tol)
+    cfg.T = 0.1  # 2 BDF1 steps at dt = 0.05
+    cfg.inlet_tags, cfg.neumann_tags, cfg.wall_tags = (0,), (1,), (2, 3, 4, 5)
+    cfg.krylov.tangent_store_dtype = "bfloat16"
+    cfg.krylov.cc_iters_a00 = 6
+    cfg.krylov.a00_solver = "gmres"
+    return cfg
+
+
+def box_inlet(x, t=0.0):
+    """u = (16 u_m y(1-y) z(1-z) min(1, t / BOX_RAMP_T), 0, 0) on the unit
+    cube's inlet face: a parabolic profile with peak u_m = BOX_U_M, ramped
+    up from rest."""
+    v = np.zeros_like(x)
+    y, z = x[:, 1], x[:, 2]
+    v[:, 0] = 16.0 * BOX_U_M * y * (1.0 - y) * z * (1.0 - z) * min(1.0, t / BOX_RAMP_T)
+    return v
+
+
+def box_mesh():
+    """refine_uniform(box(8, 8, 8), 2): 196,608 tetrahedra (bench.py's 3D
+    leg where it has no .msh of its own, at its default refine 2)."""
+    from .. import box, refine_uniform
+
+    return refine_uniform(box(8, 8, 8), 2)
 
 
 def cuda_ms(fn, reps=20):
@@ -172,12 +230,11 @@ def device_time_by_kernel(fn, reps=30, evict=None):
     return {k: (t / reps, n / reps) for k, (t, n) in times.items()}
 
 
-def channel_operands(solver, seed=1):
+def wrapper_operands(solver, seed=1):
     """Seeded operands of every wrapper at solver's layout: {name: (call,
     plain call)} for K1 (float32 and bf16 A), K2 (bf16 A), K3, the K3 pair,
     K4."""
     from ..fem.windowed_assembly import assemble_windowed
-    from ..ops import windowed as W
 
     lay, wa = solver._win_layout, solver._wassembly
     dev = lay.device
@@ -189,6 +246,7 @@ def channel_operands(solver, seed=1):
 
     x, u, xo = vec(), 0.05 * vec(), vec()
     A_t, _, _ = assemble_windowed(wa, lay, u, torch.zeros_like(u), dt=0.05, nu=1e-3, rho=1.0)
+    A_t = A_t.float()  # the tangent's store may be bf16 (the box's is)
     R = torch.as_tensor(rng.standard_normal((lay.nli, lay.ncd)), dtype=torch.float32,
                         device=dev)
     A_bf = A_t.to(torch.bfloat16)
@@ -220,6 +278,114 @@ def channel_operands(solver, seed=1):
         )
     operands = dict(x=x, xo=xo, R=R, A_t=A_t, A_bf=A_bf, blocks=blocks)
     return calls, operands
+
+
+def bound_bytes_of(lay, operands):
+    """Bytes each wrapper call must move at this layout, every input read
+    once and every output written once: of A the used rows' values in the
+    occupied slots; of the packed position tables the occupied slots'
+    entries of the spaces the call touches, with their subwindow offsets and
+    the slot counts, and (K1, K2, K4) the occupied slots' colours; the
+    vectors.  K3 writes its whole [nli, ncd] output; the pair reads the
+    tables once for its two vectors and outputs."""
+    pos_v, _, cnt = W.pack_positions(lay)
+    n_occ, idx = int(cnt.sum()), pos_v.element_size()
+    tables = {"v": lay.k_v * n_occ * idx + lay.offs_v.numel() * 4,
+              "p": lay.k_p * n_occ * idx + lay.offs_p.numel() * 4}
+    size = {"v": lay.n_u, "p": lay.n_ps}
+    rows = {"v": lay.dim * lay.k_v, "p": lay.k_p}
+
+    def matvec(ins, outs, elt):
+        spaces = set(ins) | set(outs)
+        return (sum(rows[a] for a in ins) * sum(rows[a] for a in outs) * n_occ * elt
+                + sum(tables[a] for a in spaces) + cnt.numel() * 4 + n_occ
+                + 4 * sum(size[a] for a in ins) + 4 * sum(size[a] for a in outs))
+
+    n = lay.n_u + lay.n_ps
+    both = tables["v"] + tables["p"] + cnt.numel() * 4
+    out = {
+        "K3": 4 * n + both + 4 * lay.nli * lay.ncd,
+        "K3 pair": 2 * (4 * n + 4 * lay.nli * lay.ncd) + both,
+        "K4": 4 * lay.nl * n_occ + both + n_occ + 4 * n,
+        "K1 f32": matvec("vp", "vp", 4),
+        "K1": matvec("vp", "vp", 2),
+    }
+    for key, (A_sub, _) in operands["blocks"].items():
+        i, o = key.split("->")
+        out[f"K2 {key}"] = matvec(i, o, A_sub.element_size())
+    return out
+
+
+def flat_dof_index(lay):
+    """[nli * ncd] int64: the entry of the extended vector [x, 0] that
+    X[l, s] copies (n_total for padded slots, rows past nl and window
+    positions off the vector's ends).  For the library yardsticks only: K3
+    (index_select), K4 (index_add_) and the CSR matrices of K1 and K2."""
+    n = lay.n_u + lay.n_ps
+    pos_v, pos_p, _ = W.pack_positions(lay)
+    b = torch.arange(lay.nb, device=lay.device)[:, None, None]
+    rows = []
+    for pos, OW, h, size, starts in (
+            (pos_v, lay.OWv, lay.hv, lay.n_vs, [c * lay.n_vs for c in range(lay.dim)]),
+            (pos_p, lay.OWp, lay.hp, lay.n_ps, [lay.n_u])):
+        p = W.unpack_positions(pos)  # [nb, k, Bmax]
+        r = (b - h) * OW + p
+        ok = (p >= 0) & (r >= 0) & (r < size)
+        for start in starts:
+            rows.append(torch.where(ok, r + start, n).permute(1, 0, 2).reshape(-1, lay.ncd))
+    rows.append(torch.full((lay.nli - lay.nl, lay.ncd), n, device=lay.device))
+    return torch.cat(rows).reshape(-1)
+
+
+def csr_yardstick(lay, A, x, ins, outs):
+    """(call, what it is): y = A x as one CSR product with the assembled
+    matrix of a windowed operator A [n_in, n_out_pad, ncd] (K1: A_t; K2: a
+    slice_block), built here from the cells' dof indices over the in- and
+    out-spaces' segments, with float32 values (torch's CSR product refuses
+    bf16 values with a float32 vector on the H100)."""
+    n = lay.n_u + lay.n_ps
+    D = flat_dof_index(lay).view(lay.nli, lay.ncd)
+    nv = lay.dim * lay.k_v
+    sl = {"v": slice(0, nv), "p": slice(nv, lay.nl), "vp": slice(0, lay.nl)}
+    rows, cols = D[sl[outs]], D[sl[ins]]
+    vals = A[:, : rows.shape[0], :]  # vals[j, i, s]: out row dof_i(s), in col dof_j(s)
+    R, C = rows[None].expand(vals.shape), cols[:, None].expand(vals.shape)
+    ok = (R < n) & (C < n)
+    start = {"v": 0, "p": lay.n_u, "vp": 0}
+    size = {"v": lay.n_u, "p": lay.n_ps, "vp": n}
+    idx = torch.stack([R[ok] - start[outs], C[ok] - start[ins]])
+    coo = torch.sparse_coo_tensor(idx, vals[ok].float(), (size[outs], size[ins]))
+    csr = coo.coalesce().to_sparse_csr()
+    return (lambda: csr @ x), f"CSR @ x, float32 values ({csr._nnz()} stored entries)"
+
+
+def library_call(lay, operands, key):
+    """(call, what it is): one PyTorch call computing wrapper call ``key``'s
+    function on ``wrapper_operands``' operands, for a yardstick only (never
+    used by the package): K3 index_select (the pair: one index_select of
+    both vectors stacked) and K4 index_add_ through the flat dof index, K1
+    and each K2 product a CSR product with the assembled matrix, built
+    here, outside any timing."""
+    x, xo, R = operands["x"], operands["xo"], operands["R"]
+    n = lay.n_u + lay.n_ps
+    if key.startswith("K3") or key == "K4":
+        dof_index = flat_dof_index(lay)
+        x_ext = torch.cat([x, x.new_zeros(1)])
+        if key == "K3":
+            return (lambda: torch.index_select(x_ext, 0, dof_index).view(lay.nli, lay.ncd),
+                    "torch.index_select of x through the flat dof index")
+        if key == "K3 pair":
+            pair_ext = torch.stack([x_ext, torch.cat([xo, xo.new_zeros(1)])])
+            return (lambda: torch.index_select(pair_ext, 1, dof_index).view(2, lay.nli, lay.ncd),
+                    "one torch.index_select of [x, x_old] stacked [2, n + 1], along dim 1 "
+                    "through the flat dof index")
+        return (lambda: x.new_zeros(n + 1).index_add_(0, dof_index, R.reshape(-1))[:n],
+                "torch.index_add_ of R through the flat dof index")
+    if key.startswith("K1"):
+        return csr_yardstick(lay, operands["A_t" if key == "K1 f32" else "A_bf"], x, "vp", "vp")
+    pair = key.split()[1]
+    A_sub, xs = operands["blocks"][pair]
+    return csr_yardstick(lay, A_sub, xs, *pair.split("->"))
 
 
 def probe_call(M=256, iters=64, seed=5):
@@ -255,6 +421,8 @@ def forced_newton_step(solver, reps=3, seed=0):
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="navier_stokes_tpu_torch.scripts.kernel_bench")
     ap.add_argument("--label", default="", help="a name for this tree in the record")
+    ap.add_argument("--case", choices=("channel", "box"), default="channel",
+                    help="the 102,400-cell channel (2D) or the 196,608-tet box (3D)")
     ap.add_argument("--kernels-only", action="store_true",
                     help="skip the Newton step and the solve")
     ap.add_argument("--only", default="", help="comma-separated wrapper names to time")
@@ -269,16 +437,25 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    mesh = nt.refine_uniform(nt.rectangle(80, 40, 0, 7, 0, 4), 2)
-    solver = nt.NavierStokesSolver(mesh, channel_config(), log=nt.RunLog(verbose=False),
-                                   device=torch.device("cuda:0"))
+    dev = torch.device("cuda:0")
+    if args.case == "box":
+        mesh = box_mesh()
+        solver = nt.NavierStokesSolver(mesh, box_config(), log=nt.RunLog(verbose=False),
+                                       inlet=box_inlet, device=dev)
+    else:
+        mesh = nt.refine_uniform(nt.rectangle(80, 40, 0, 7, 0, 4), 2)
+        solver = nt.NavierStokesSolver(mesh, channel_config(), log=nt.RunLog(verbose=False),
+                                       device=dev)
     solver.setup()
-    calls, operands = channel_operands(solver)
-    calls["K5"] = (probe_call(), None)
+    calls, operands = wrapper_operands(solver)
     lay = solver._win_layout
+    bounds = bound_bytes_of(lay, operands)
+    if args.case == "channel":
+        calls["K5"] = (probe_call(), None)
     print(f"  layout: nb {lay.nb} Bmax {lay.Bmax} Bc {lay.Bc} nchunks {lay.nchunks} "
           f"RVv/RVp {lay.RVv}/{lay.RVp} hv/hp {lay.hv}/{lay.hp}", flush=True)
-    rec = {"label": args.label, "card": smi, "cells": mesh.n_cells, "kernels": {}}
+    rec = {"label": args.label, "card": smi, "case": args.case, "cells": mesh.n_cells,
+           "kernels": {}}
     only = [k.strip() for k in args.only.split(",") if k.strip()]
     for name, (call, _) in calls.items():
         if only and not any(name == k or name.startswith(k + " ") for k in only):
@@ -290,8 +467,17 @@ def main(argv=None):
                                   cuda_ms_cold(call, REPS), cuda_ms(call, REPS))
         rec["kernels"][name] = r = dict(warm_ms=(w1 + w2) / 2, cold_ms=(c1 + c2) / 2,
                                         cold_clean_ms=(d1 + d2) / 2, host_us=host_us(call))
-        print(f"  {name:<8} warm {w1:.4f}/{w2:.4f} ms  cold {c1:.4f}/{c2:.4f} ms  "
-              f"cold_clean {d1:.4f}/{d2:.4f} ms  host {r['host_us']:.1f} us", flush=True)
+        line = (f"  {name:<8} warm {w1:.4f}/{w2:.4f} ms  cold {c1:.4f}/{c2:.4f} ms  "
+                f"cold_clean {d1:.4f}/{d2:.4f} ms  host {r['host_us']:.1f} us")
+        if name in bounds:  # the windowed wrappers: the bound and a library call
+            r.update(bound_bytes=bounds[name], bound_ms=bounds[name] / PEAK_BYTES_PER_S * 1e3)
+            r["share"] = r["bound_ms"] / r["cold_ms"]
+            lib, r["library"] = library_call(lay, operands, name)
+            r["library_ms"] = cuda_ms_cold(lib, REPS)
+            del lib
+            line += (f"  bound {r['bound_ms']:.4f} ms ({r['bound_bytes'] / 1e6:.1f} MB), share "
+                     f"{r['share']:.3f}  library {r['library_ms']:.4f} ms ({r['library']})")
+        print(line, flush=True)
         if args.profile:
             for mode, clean in (("warm", None), ("cold", False), ("cold_clean", True)):
                 evict = None if clean is None else evictor(clean)
@@ -307,11 +493,24 @@ def main(argv=None):
     rec["newton_step_ms"] = [t * 1e3 for t in times]
     rec["newton_step_median_ms"] = float(np.median(times) * 1e3)
     rec["newton_step"] = dict(residual=float(res), fgmres_iters=int(iters), converged=bool(ok))
+    if args.profile:
+        # one forced step's device time: the windowed kernels' and the rest's
+        by_kernel = device_time_by_kernel(lambda: forced_newton_step(solver, reps=1), reps=1)
+        ours = {k: v for k, v in by_kernel.items() if WINDOWED_KERNEL.search(k)}
+        rec["newton_step_device_us"] = dict(
+            total=sum(us for us, _ in by_kernel.values()),
+            windowed=sum(us for us, _ in ours.values()),
+            by_kernel=dict(sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:20]))
+        print(f"  forced step: median {rec['newton_step_median_ms']:.1f} ms; device "
+              f"{rec['newton_step_device_us']['total'] / 1e3:.1f} ms, of it the windowed "
+              f"kernels {rec['newton_step_device_us']['windowed'] / 1e3:.1f} ms", flush=True)
+        for kname, (us, n) in rec["newton_step_device_us"]["by_kernel"].items():
+            print(f"           {us:10.1f} us ({n:g} launches)  {kname}", flush=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     solver.solve()
     torch.cuda.synchronize()
-    rec["solve_3_steps_s"] = time.perf_counter() - t0
+    rec[f"solve_{solver._step}_steps_s"] = time.perf_counter() - t0
     print(json.dumps(rec))
     return 0
 

@@ -10,6 +10,10 @@
   another order (one-hot MXU dots there, direct gathers here).
 * The kernels' packed position tables against ``_abs_loc``, and the plain
   version of their merge kernel against ``_combine_windows``.
+* The cases are P2/P1 on triangles (unit squares) and on tetrahedra (unit
+  cubes cut into 6 tetrahedra a cube: box(2, 2, 2), and
+  refine_uniform(box(4, 4, 4), 1) at the solver's default block and chunk
+  sizes, 3 chunks a block).
 * The CUDA kernels against the plain versions: tests/test_torch_kernels.py.
 """
 
@@ -21,7 +25,8 @@ import pytest
 import torch
 
 from navier_stokes_tpu.fem.dofs import make_dofs, renumber_blocked
-from navier_stokes_tpu.mesh.generate import unit_square
+from navier_stokes_tpu.mesh.generate import box, unit_square
+from navier_stokes_tpu.mesh.mesh import refine_uniform
 from navier_stokes_tpu.ops import windowed as jw
 from navier_stokes_tpu_torch import convert
 from navier_stokes_tpu_torch.ops import windowed as tw
@@ -32,19 +37,24 @@ CASES = {
     "legacy-h2-short": dict(n=12, target_ow=128, Bc=128),
     "legacy-3chunks": dict(n=12, target_ow=256, Bc=128),
     "blocked-Bc256": dict(n=12, cpb=16, Bc=256),
+    "box-h1": dict(box=2, cpb=16, Bc=128),
+    "box-refined-Bc256": dict(box=4, refine=1, cpb=448, Bc=256),
 }
 BLOCKS = [("v", "v"), ("v", "p"), ("p", "p"), ("p", "v"), ("vp", "p")]
 
 
 def _layouts(case):
     c = CASES[case]
-    dofs = make_dofs(unit_square(c["n"]))
+    mesh = box(c["box"], c["box"], c["box"]) if "box" in c else unit_square(c["n"])
+    if c.get("refine"):
+        mesh = refine_uniform(mesh, c["refine"])
+    dofs = make_dofs(mesh)
     if "cpb" in c:
         dofs, bi = renumber_blocked(dofs, cells_per_block=c["cpb"])
         kw = dict(block_info=bi, Bc=c["Bc"])
     else:
         kw = dict(target_ow=c["target_ow"], Bc=c["Bc"])
-    args = (dofs.cell_vdofs, dofs.cell_pdofs, dofs.n_vs, dofs.n_ps, 2)
+    args = (dofs.cell_vdofs, dofs.cell_pdofs, dofs.n_vs, dofs.n_ps, mesh.dim)
     return dofs, jw.build_windowed_layout(*args, **kw), tw.build_windowed_layout(*args, **kw)
 
 
@@ -137,7 +147,7 @@ def test_windows_and_block_form_match_jax(case):
 KERNEL_OPS = ["gather", "scatter", "matvec", "matvec-bf16A", "v->v", "v->p", "p->p"]
 
 
-@pytest.mark.parametrize("name", ["blocked-h1", "blocked-h2"])
+@pytest.mark.parametrize("name", ["blocked-h1", "blocked-h2", "box-h1"])
 @pytest.mark.parametrize("op", KERNEL_OPS)
 def test_plain_matches_pallas_interpret_f32(name, op):
     """float32: the port's plain versions against the Pallas kernels in
@@ -177,7 +187,7 @@ def test_plain_matches_pallas_interpret_f32(name, op):
 
 
 @pytest.mark.parametrize("same", [False, True], ids=["u-u_old", "one-tensor"])
-@pytest.mark.parametrize("name", ["blocked-h1", "blocked-h2"])
+@pytest.mark.parametrize("name", ["blocked-h1", "blocked-h2", "box-h1"])
 def test_gather_pair_matches_two_gathers(name, same):
     """The pair (the assembly's gathers of u and u_old) is two
     ``_gather_reference`` calls bit for bit, and, in float32, JAX's
@@ -278,11 +288,12 @@ def test_packed_positions_widen_to_int32():
     assert torch.equal(tw.unpack_positions(pos_v), narrow)
 
 
-@pytest.mark.parametrize("h", [0, 1, 3])
+@pytest.mark.parametrize("h", [0, 1, 3, 5])
 @pytest.mark.parametrize("n_short", [0, 37])
 def test_merge_reference_equals_combine_windows(h, n_short):
     """Whole windows: the merge kernel's plain version is the fixed-order
-    shifted adds of ``_combine_windows``, bit for bit."""
+    shifted adds of ``_combine_windows``, bit for bit (h 5: the halo of the
+    196,608-tet box, which the merge kernel's general path sums)."""
     nb, OW = 7, 128
     n = nb * OW - n_short
     rng = np.random.default_rng(h)
