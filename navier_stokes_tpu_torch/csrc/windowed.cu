@@ -91,8 +91,8 @@
 // channel) and tells the merge that span; the scratch, not R, is most of
 // its bytes.
 //
-// Sums into a subwindow run in a fixed order, so two calls on the same
-// inputs give the same bits.  The layout colours its occupied slots once, on
+// Sums into a subwindow (K1, K2 and K4 in 2D, K4 in 3D) run in a fixed
+// order, so two calls on the same inputs give the same bits.  The layout colours its occupied slots once, on
 // the host (ops/windowed.py slot_colours): within a chunk no two slots of one
 // colour touch the same window position of either space.  A chunk then sums
 // in ncolors rounds: in round k the slots of colour k add their values with a
@@ -107,31 +107,51 @@
 // block's shared memory at the sizes users run: at the 196,608-tet box
 // (refine_uniform(box(8, 8, 8), 2), nb 220, Bmax 1280, Bc 256, hv = hp = 5,
 // RVv 144, RVp 32) they take 3*144*128*4 + 32*128*4 = 237,568 bytes against
-// the 232,448 a block may have.  So every 3D layout runs one other design
-// (matvec3_kernel, scatter3_kernel; K3 is the 2D kernel instantiated for
-// the tetrahedron):
-//   * K1/K2 read x's values of a slot (34, 30 or 4) from device memory into
-//     registers through the read-only path, as K3 does, with no subwindow of
-//     x in shared memory; A streams through the same cp.async ring, which
-//     has the block's shared memory to itself until the sums.
-//   * K1, K2 and K4 sum their outputs one space-component at a time into
-//     one component-sized buffer (RVv*128 floats, 73,728 bytes at the box):
-//     dim + 1 passes (fewer for K2), each the ncolors rounds of the slot
-//     colours (33-36 on tetrahedra), after which the span of the subwindow
-//     that the chunk's cells touch goes to scratch, as K4 does in 2D, and
-//     the merge reads the spans (merge_kernel<., true>).
-//   * At most 512 threads a block (Bc <= 512), so a thread may hold 128
-//     registers: x's and y's 34 values a slot live in registers.
+// the 232,448 a block may have.  The chunk's cells touch far fewer of those
+// positions (at most 1,392 velocity and 427 pressure ones there).  So every
+// 3D layout runs other kernels (K3 is the 2D kernel instantiated for the
+// tetrahedron):
+//   * K1/K2 (matvec3_kernel, then merge3_kernel; replace _pallas_run(mode=
+//     "matvec") and _pallas_block) work on the chunk's ENTRIES: the distinct
+//     window positions its slots touch, listed on the host once per layout
+//     (ops/windowed.py compact_tables).  The block copies x at its entries,
+//     all components, to shared memory (18.4 KB at the box) while the first
+//     columns of A fly in the 2D kernel's cp.async ring (whole, half or
+//     several columns a stage, whichever lets the most blocks share an SM;
+//     the copies of A ask L2 to evict them first, so that x, the tables and
+//     the scratch stay there); each column reads a slot's x value through
+//     the slot's 16-bit entry index.  After the last column every slot puts
+//     its outputs into the ring's memory, the chunk's (slot, dof) pairs go
+//     to shared memory in one coalesced copy, and after one barrier each
+//     thread sums the entries it owns, each over its pairs in a host-made
+//     order (slots ascending): one pass for every component, no colour
+//     rounds (64 registers a thread, so 4 blocks of 256 share an SM).  Each
+//     sum goes to its place in a
+//     scratch vector ordered by row (8.1 MB at the box), and the merge sums
+//     each row's places in order: on average 2.29 a velocity row there, the
+//     row's entries by window (j = 0..2h, as _combine_windows) and chunk.
+//   * K4 (scatter3_kernel) sums one space-component at a time into one
+//     component-sized buffer (RVv*128 floats, 73,728 bytes at the box):
+//     dim + 1 passes, each the ncolors rounds of the slot colours (33-36 on
+//     tetrahedra), after which the span of the subwindow that the chunk's
+//     cells touch goes to scratch, as K4 does in 2D, and the merge reads
+//     the spans (merge_kernel<., true>).
+//   * At most 512 threads a block (Bc <= 512).
 // Bound: bytes, as in 2D.  At the box with bf16 A, counting the occupied
 // slots' columns of the used rows once: K1 34x34 values a cell, 455 MB,
 // ~136 us; K2 v->v 30x30, 354 MB; K3 a [40, ncd] float32 array, 45 MB.  The
-// scratch the passes write and the merge reads (the spans of up to 261 MB
-// of subwindows) is not in the bound.
+// bound counts x and y once; K1/K2 also read x at every chunk's entries
+// (8.1 MB at the box, where the vector is 5.1 MB) and their tables (the
+// entry indices and lists and the row offsets, ~22 MB), and write and read
+// the compact scratch (8.1 MB each way): 506 MB in all for K1 with bf16 A
+// (scripts/kernel_bench.py moved_bytes_3d).
 // Everything computes in float32.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -264,6 +284,21 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
 
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// cp_async16 for data read once (the 3D matvec's A), marked to be evicted
+// first from L2, so that what is read again (x, the tables, the scratch that
+// the merge reads back) stays there
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+__device__ __forceinline__ void cp_async16_once(uint32_t dst, const void* src, uint64_t policy) {
+  asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "l"(policy)
+               : "memory");
 }
 
 // wait until at most N of this thread's commit groups are still in flight
@@ -565,7 +600,7 @@ scatter_kernel(Geo g, Tables t, const float* __restrict__ R,
   }
 }
 
-// ---- 3D: one component's subwindow at a time (K1, K2, K4) -----------------
+// ---- 3D K4: one component's subwindow at a time ----------------------------
 // One pass: zero the float4s [v0, v1) of buf, sum val[l] at pos[l] in the
 // colour rounds, copy [v0, v1) to dst[v0, v1) (dst: the chunk's piece of
 // scratch, moved back by v0 float4s so that its entry 0 holds float4 v0).
@@ -648,117 +683,246 @@ __device__ __forceinline__ void sum_components(
 }
 
 // ---- 3D K1 / K2: y = sum_cells P_c^T A_c P_c x over the chosen spaces ------
-// The 2D kernel's grid, operands and ring of A; x is read into registers per
-// slot (vec_index of each position), and the sums go through
-// sum_components into sub_v [DIM, nb, nchunks, RVv*128] / sub_p [nb,
-// nchunks, RVp*128] with span tables span_v / span_p [nb, nchunks, 2].
-// Shared memory: the ring (STAGES stages of N_OUT x Bc values of A) while A
-// streams, then one component's subwindow.
+// One space's compact tables (ops/windowed.py compact_tables), made once per
+// layout on the host.  A chunk's ENTRIES are the distinct window positions
+// its slots touch; the chunks' lists lie one after another, and so do their
+// entries' (slot, dof) pairs.
+struct Compact {
+  const int* __restrict__ off;       // [nb * nchunks + 1] a chunk's first entry
+  const int* __restrict__ row;       // [E] the space's vector row of each entry
+  const int* __restrict__ dst;       // [E] its place in the row-ordered scratch
+  const uint16_t* __restrict__ idx;  // [nb, k, Bmax] a slot's dof's entry in its chunk
+  const int* __restrict__ tr_off;    // [E + 1] an entry's first (slot, dof) pair
+  const uint16_t* __restrict__ tr;   // the pairs l * Bc + j, slots j ascending
+  const int* __restrict__ row_ptr;   // [n + 1] a row's first place in the scratch
+  int E, max_e, max_pairs;           // entries in all; the most entries, pairs of a chunk
+};
+
+// entry (in its chunk's list) of local dof l of slot (b, j), -1 for none
+__device__ __forceinline__ int chunk_entry(const uint16_t* __restrict__ idx, int k,
+                                           const Geo& g, int b, int j, int l) {
+  const uint16_t v = idx[((long)b * k + l) * g.Bmax + j];
+  return v == 0xFFFFu ? -1 : (int)v;
+}
+
+// The (slot, dof) pairs of the chunk's entries [e0, e0 + ne) of one space,
+// and each entry's first pair counted from the chunk's first, -> shared
+// memory in coalesced copies: pairs at sh, the ne + 1 offsets after them.
+// Returns the offsets' address.
+__device__ __forceinline__ uint16_t* stage_pairs(const Compact& t, int e0, int ne, uint16_t* sh) {
+  const int t0 = t.tr_off[e0], np = t.tr_off[e0 + ne] - t0;
+  for (int i = threadIdx.x; i < np; i += blockDim.x) sh[i] = t.tr[t0 + i];
+  for (int i = threadIdx.x; i <= ne; i += blockDim.x) sh[np + i] = (uint16_t)(t.tr_off[e0 + i] - t0);
+  return sh + np;
+}
+
+// A chunk's sums at its ne entries, NC components of a space of K dofs: ys
+// [NC * K][Bc] holds every slot's values (row cc*K + l, column j), and an
+// entry's sum adds its pairs' values in order (pairs, first: stage_pairs).
+// A thread takes entries tid, tid + blockDim.x, ... and writes each sum to
+// its place dst[e] in the scratch out [NC][E].
+template <int NC, int K>
+__device__ __forceinline__ void chunk_sums(const int* __restrict__ dst, int ne,
+                                           const uint16_t* pairs, const uint16_t* first,
+                                           const float* ys, int Bc, float* __restrict__ out,
+                                           int E) {
+  for (int e = threadIdx.x; e < ne; e += blockDim.x) {
+    const long d = dst[e];
+    float s[NC];
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc) s[cc] = 0.f;
+    const int k1 = first[e + 1];
+    for (int k = first[e]; k < k1; ++k) {
+      const int code = pairs[k];
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) s[cc] += ys[cc * K * Bc + code];
+    }
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc) out[cc * (long)E + d] = s[cc];
+  }
+}
+
+// The 2D kernel's grid, operands and ring of A: one CUDA block per (chunk c,
+// layout block b), blockIdx.x = c*nb + b, thread tid owns slot (b, c*Bc +
+// tid).  A ring stage holds GROUP columns of A (SPLIT 1), or half of one
+// (SPLIT 2, GROUP 1: half the shared memory a stage, so that more blocks
+// fit an SM).
+// Shared memory: [the ring, STAGES stages of ROWS x Bc values of A; later
+// ys, N_OUT x Bc floats | the region].  While the first stages fly the block
+// copies x at its entries of the in-spaces to the region (DIM rows of the
+// velocity's, then the pressure's); every column then reads a slot's x
+// value there through the slot's entry index.  After the last column the
+// slots' outputs go to ys and the chunk's (slot, dof) pairs of the
+// out-spaces to the region, and after one barrier each thread sums the
+// entries it owns (chunk_sums) into the scratch: sub [DIM][cv.E] (OUT_V),
+// then [cp.E] (OUT_P), in row order, for merge3_kernel.
 template <int DIM, int KV, int KP, bool IN_V, bool IN_P, bool OUT_V, bool OUT_P,
-          typename TA, int STAGES>
+          typename TA, int STAGES, int SPLIT, int GROUP>
 __global__ void __launch_bounds__(kMax3dThreads)
-matvec3_kernel(Geo g, Tables t, const TA* __restrict__ A, int n_out_pad,
-               const float* __restrict__ x, float* __restrict__ sub_v,
-               float* __restrict__ sub_p, int* __restrict__ span_v, int* __restrict__ span_p) {
+matvec3_kernel(Geo g, const int* __restrict__ cnt, Compact cv, Compact cp,
+               const TA* __restrict__ A, int n_out_pad, const float* __restrict__ x,
+               float* __restrict__ sub) {
+  static_assert((SPLIT == 1 && GROUP >= 1) || (SPLIT == 2 && GROUP == 1),
+                "a stage holds whole columns or half of one");
   constexpr int NV = DIM * KV;
   constexpr int N_IN = (IN_V ? NV : 0) + (IN_P ? KP : 0);
   constexpr int N_OUT = (OUT_V ? NV : 0) + (OUT_P ? KP : 0);
-  constexpr bool NEED_V = IN_V || OUT_V;
-  constexpr bool NEED_P = IN_P || OUT_P;
+  constexpr int NR = (N_OUT + SPLIT - 1) / SPLIT;  // rows of a column a stage
+  constexpr int ROWS = GROUP * NR;                 // rows of A a stage
+  constexpr int PIECES = SPLIT == 2 ? 2 * N_IN : (N_IN + GROUP - 1) / GROUP;  // stages a chunk
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ int span[4];
 
   const int c = blockIdx.x / g.nb, b = blockIdx.x % g.nb;
   const int tid = threadIdx.x;
-  const int nv = min(max(t.cnt[b] - c * g.Bc, 0), g.Bc);  // occupied slots here
-  if (nv == 0) return;  // the merge kernel skips this chunk too
+  const int nv = min(max(cnt[b] - c * g.Bc, 0), g.Bc);  // occupied slots here
+  if (nv == 0) return;  // a chunk without a cell has no entry
   const bool active = tid < nv;
-  if (tid == 0) span[0] = span[2] = 0x7FFFFFFF, span[1] = span[3] = -1;
+  const int piece = b * g.nchunks + c;
 
-  // the stream of A, as in matvec_kernel: column q (N_OUT rows of the
-  // occupied slots' values) -> ring stage q % STAGES, one commit group
+  // the stream of A: stage p holds columns q0 = (p / SPLIT) * GROUP, ...
+  // (rows [part*NR, ...) of them, part = p % SPLIT) of the occupied slots,
+  // in ring stage p % STAGES, one commit group; warp w copies the stage's
+  // rows w, w + nwarps, ..., a lane a piece
   const uint32_t row_bytes = g.Bc * sizeof(TA);
-  const uint32_t stage_bytes = N_OUT * row_bytes;
+  const uint32_t stage_bytes = ROWS * row_bytes;
   const int warp = tid / 32, lane = tid % 32, nwarps = blockDim.x / 32;
   const int row_pieces = (nv * (int)sizeof(TA) + 15) / 16;
   const long row_stride = (long)g.ncd * sizeof(TA);
-  const long col_stride = n_out_pad * row_stride, row_step = nwarps * row_stride;
-  const uint32_t dst_step = nwarps * row_bytes;
-  const uint32_t dst_first = smem_addr(smem) + warp * row_bytes + 16 * lane;
-  const char* src_first = (const char*)(A + (long)b * g.Bmax + (long)c * g.Bc) +
-                          warp * row_stride + 16 * lane;  // of the next column
-  auto fetch = [&](int stage, bool any) {
-    if (any) {
-      const char* src = src_first;
-      uint32_t dst = dst_first + stage * stage_bytes;
-      for (int i = warp; i < N_OUT; i += nwarps, src += row_step, dst += dst_step)
+  const long col_stride = n_out_pad * row_stride;
+  const uint32_t dst_first = smem_addr(smem) + 16 * lane;
+  const char* src_first = (const char*)(A + (long)b * g.Bmax + (long)c * g.Bc) + 16 * lane;
+  const uint64_t once = evict_first_policy();
+  auto fetch = [&](int stage, int p) {
+    if (p < PIECES) {
+      const int q0 = (p / SPLIT) * GROUP, part = p % SPLIT;
+      const int rows = SPLIT == 2 ? (part == 1 ? N_OUT - NR : NR)
+                                  : min(GROUP, N_IN - q0) * N_OUT;
+      const char* src0 = src_first + q0 * col_stride + part * NR * row_stride;
+      const uint32_t dst0 = dst_first + stage * stage_bytes;
+      for (int i = warp; i < rows; i += nwarps) {
+        const char* src = src0 + (i / NR) * col_stride + (i % NR) * row_stride;
+        const uint32_t dst = dst0 + i * row_bytes;
         for (int k = lane, o = 0; k < row_pieces; k += 32, o += 512)
-          cp_async16(dst + o, src + o);
-      src_first += col_stride;
+          cp_async16_once(dst + o, src + o, once);
+      }
     }
-    cp_commit();  // one group a column, empty past the last
+    cp_commit();  // one group a stage, empty past the last
   };
 #pragma unroll
-  for (int q = 0; q < STAGES - 1; ++q) fetch(q, q < N_IN);
+  for (int p = 0; p < STAGES - 1; ++p) fetch(p, p);
 
-  // while the first columns fly: this slot's positions and its values of x
+  // while the first stages fly: the chunk's entries, this slot's entry
+  // indices and x at the chunk's entries -> xs
+  const int region = max((int)(STAGES * stage_bytes), N_OUT * g.Bc * 4);
+  float* xs = (float*)(smem + region);
+  int ev0 = 0, nev = 0, ep0 = 0, nep = 0;  // the chunk's entries [e0, e0 + ne)
+  if constexpr (IN_V || OUT_V) ev0 = cv.off[piece], nev = cv.off[piece + 1] - ev0;
+  if constexpr (IN_P || OUT_P) ep0 = cp.off[piece], nep = cp.off[piece + 1] - ep0;
   const int j = c * g.Bc + tid;
-  const int colour = active ? t.colour[(long)b * g.Bmax + j] : -1;
-  int pv[KV], pp[KP];  // window positions, -1 for none
+  int iv[KV], ip[KP];  // entries in the chunk's lists, -1 for none
 #pragma unroll
-  for (int l = 0; l < KV; ++l)
-    pv[l] = (NEED_V && active) ? win_pos(t.pos_v, KV, g, b, j, l) : -1;
+  for (int l = 0; l < KV; ++l) iv[l] = (IN_V && active) ? chunk_entry(cv.idx, KV, g, b, j, l) : -1;
 #pragma unroll
-  for (int l = 0; l < KP; ++l)
-    pp[l] = (NEED_P && active) ? win_pos(t.pos_p, KP, g, b, j, l) : -1;
-  float xin[N_IN];
+  for (int l = 0; l < KP; ++l) ip[l] = (IN_P && active) ? chunk_entry(cp.idx, KP, g, b, j, l) : -1;
   if constexpr (IN_V) {
+    for (int e = tid; e < nev; e += blockDim.x) {
+      const long r = cv.row[ev0 + e];
 #pragma unroll
-    for (int l = 0; l < KV; ++l) {
-      const int gi = vec_index(pv[l], b, g.hv, g.OWv, g.n_vs);
-#pragma unroll
-      for (int cc = 0; cc < DIM; ++cc)
-        xin[cc * KV + l] = gi >= 0 ? __ldg(x + (long)cc * g.n_vs + gi) : 0.f;
+      for (int cc = 0; cc < DIM; ++cc) xs[cc * nev + e] = __ldg(x + cc * (long)g.n_vs + r);
     }
   }
+  const int xs_p = IN_V ? DIM * nev : 0;  // the pressure's row of xs
   if constexpr (IN_P) {
-    const float* xp = x + (IN_V ? (long)DIM * g.n_vs : 0);
-#pragma unroll
-    for (int l = 0; l < KP; ++l) {
-      const int gi = vec_index(pp[l], b, g.hp, g.OWp, g.n_ps);
-      xin[(IN_V ? NV : 0) + l] = gi >= 0 ? __ldg(xp + gi) : 0.f;
-    }
+    const float* xp = x + (IN_V ? DIM * (long)g.n_vs : 0);
+    for (int e = tid; e < nep; e += blockDim.x) xs[xs_p + e] = __ldg(xp + cp.row[ep0 + e]);
   }
-  // positions in the chunk's subwindows
-  const int base_v = NEED_V ? t.offs_v[b * g.nchunks + c] * 128 : 0;
-  const int base_p = NEED_P ? t.offs_p[b * g.nchunks + c] * 128 : 0;
-#pragma unroll
-  for (int l = 0; l < KV; ++l)
-    pv[l] = (pv[l] >= base_v && pv[l] < base_v + g.RVv * 128) ? pv[l] - base_v : -1;
-#pragma unroll
-  for (int l = 0; l < KP; ++l)
-    pp[l] = (pp[l] >= base_p && pp[l] < base_p + g.RVp * 128) ? pp[l] - base_p : -1;
+  __syncthreads();  // xs is complete
 
-  // y_i = sum_q A[q, i, s] x_q, in f32, one column of A a ring stage
+  // y_i = sum_q A[q, i, s] x_q, in f32, one stage at a time
   float y[N_OUT];
 #pragma unroll
   for (int i = 0; i < N_OUT; ++i) y[i] = 0.f;
   const TA* mine = (const TA*)smem + tid;  // this slot's value in row 0 of stage 0
-  const int stage_elems = N_OUT * g.Bc;
+  const int stage_elems = ROWS * g.Bc;
+  for (int p = 0; p < PIECES; ++p) {
+    cp_wait<STAGES - 2>();  // this thread's pieces of stage p have landed
+    __syncthreads();        // ... and everyone's; and stage p - 1 is consumed
+    fetch((p + STAGES - 1) % STAGES, p + STAGES - 1);
+    if (!active) continue;
 #pragma unroll
-  for (int q = 0; q < N_IN; ++q) {
-    cp_wait<STAGES - 2>();  // this thread's pieces of column q have landed
-    __syncthreads();        // ... and everyone's; and column q - 1 is consumed
-    fetch((q + STAGES - 1) % STAGES, q + STAGES - 1 < N_IN);
-    if (active) {
-      const TA* col = mine + (q % STAGES) * stage_elems;
+    for (int u = 0; u < GROUP; ++u) {
+      const int q = (p / SPLIT) * GROUP + u;
+      if (GROUP > 1 && q >= N_IN) break;
+      float xq = 0.f;
+      if (IN_V && q < NV) {
+        const int e = iv[q % KV];
+        if (e >= 0) xq = xs[(q / KV) * nev + e];
+      } else if (IN_P) {
+        const int e = ip[max(q - (IN_V ? NV : 0), 0)];
+        if (e >= 0) xq = xs[xs_p + e];
+      }
+      const TA* col = mine + (p % STAGES) * stage_elems + u * NR * g.Bc;
+      if (p % SPLIT == 0) {
 #pragma unroll
-      for (int i = 0; i < N_OUT; ++i, col += g.Bc) y[i] = fmaf(widen(*col), xin[q], y[i]);
+        for (int i = 0; i < NR; ++i, col += g.Bc) y[i] = fmaf(widen(*col), xq, y[i]);
+      } else {
+#pragma unroll
+        for (int i = NR; i < N_OUT; ++i, col += g.Bc) y[i] = fmaf(widen(*col), xq, y[i]);
+      }
     }
   }
-  __syncthreads();  // every column is consumed: the ring's memory becomes buf
-  sum_components<DIM, KV, KP, OUT_V, OUT_P>(g, b, c, (float*)smem, span, colour, pv, pp, y,
-                                            base_v, base_p, sub_v, sub_p, span_v, span_p);
+  __syncthreads();  // the ring and xs are consumed
+  float* ys = (float*)smem;
+  if (active) {
+#pragma unroll
+    for (int i = 0; i < N_OUT; ++i) ys[i * g.Bc + tid] = y[i];
+  }
+  uint16_t* pairs_v = (uint16_t*)(smem + region);
+  uint16_t* first_v = pairs_v;
+  if constexpr (OUT_V) first_v = stage_pairs(cv, ev0, nev, pairs_v);
+  uint16_t* pairs_p = OUT_V ? first_v + nev + 1 : pairs_v;
+  uint16_t* first_p = pairs_p;
+  if constexpr (OUT_P) first_p = stage_pairs(cp, ep0, nep, pairs_p);
+  __syncthreads();
+  if constexpr (OUT_V)
+    chunk_sums<DIM, KV>(cv.dst + ev0, nev, pairs_v, first_v, ys, g.Bc, sub, cv.E);
+  if constexpr (OUT_P)
+    chunk_sums<1, KP>(cp.dst + ep0, nep, pairs_p, first_p, ys + (OUT_V ? NV : 0) * g.Bc, g.Bc,
+                      sub + (OUT_V ? DIM * (long)cv.E : 0), cp.E);
+}
+
+// ---- the 3D merge: the row-ordered scratch -> the planar vector ------------
+// One space: sub [ncomp][E] in row order; row r of component cc is the sum
+// of sub[cc][row_ptr[r] .. row_ptr[r + 1]) in order (0 for a row no cell
+// touches).
+struct RowMerge {
+  const float* __restrict__ sub;
+  const int* __restrict__ row_ptr;
+  int ncomp, n, E;
+};
+
+__device__ __forceinline__ void merge_row3(const RowMerge& m, int r, float* __restrict__ y) {
+  const int k0 = m.row_ptr[r], k1 = m.row_ptr[r + 1];
+  for (int cc = 0; cc < m.ncomp; ++cc) {
+    const float* s = m.sub + cc * (long)m.E;
+    float acc = 0.f;
+    for (int k = k0; k < k1; ++k) acc += s[k];
+    y[cc * (long)m.n + r] = acc;
+  }
+}
+
+// y = [v components (ncomp * n each), then p]; either space may be absent
+// (ncomp 0).  A thread a row of a space, all its components.  Each space
+// has its own call, so that it reads its record from the kernel's
+// parameters (a record picked at run time would be copied to local memory).
+__global__ void __launch_bounds__(kThreads)
+merge3_kernel(RowMerge v, RowMerge p, float* __restrict__ y) {
+  const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long rows_v = v.ncomp ? v.n : 0;
+  if (t < rows_v)
+    merge_row3(v, (int)t, y);
+  else if (t - rows_v < (p.ncomp ? p.n : 0))
+    merge_row3(p, (int)(t - rows_v), y + (long)v.ncomp * v.n);
 }
 
 // ---- 3D K4: y = sum_cells P_c^T R_c for per-slot rows R [>= nl, ncd] -------
@@ -932,7 +1096,7 @@ cudaError_t launch_merge_as(const MergeSpace& v, const MergeSpace& p, float* y,
   return cudaGetLastError();
 }
 
-// SPAN: both spaces carry their span tables (K4, and K1 / K2 in 3D), or
+// SPAN: both spaces carry their span tables (K4), or
 // neither does (K1, K2 in 2D)
 template <bool SPAN>
 cudaError_t launch_merge(const MergeSpace& v, const MergeSpace& p, float* y,
@@ -987,7 +1151,7 @@ int set_smem(K kernel, int bytes, int* allowed) {
 long subwindow_floats(const Geo& g, bool v, bool p) {
   return (long)g.nb * g.nchunks * 128 * ((v ? g.dim * g.RVv : 0) + (p ? g.RVp : 0));
 }
-// and the span tables of K4 (and of K1 / K2 in 3D) after them
+// and the span tables of K4 after them
 long span_ints(const Geo& g) { return 4L * g.nb * g.nchunks; }
 int* span_tables(const Geo& g, float* scratch) {
   return (int*)(scratch + subwindow_floats(g, true, true));
@@ -1035,67 +1199,145 @@ int launch_matvec(const Geo& g, const Tables& t, const void* A, int n_out_pad,
   return (int)launch_merge<false>(mv, mp, y, stream);
 }
 
-// 3D: tetrahedra, Taylor-Hood P2/P1 (matvec3_kernel, then the merge of spans)
+// the rings the 3D matvec kernel is compiled for: (stages, split, group).
+// Products with wide columns (K1, K2 v->v: 30-34 rows) stream a column or
+// half of one a stage; narrow ones (4 rows) several columns a stage.
+struct Ring3d {
+  int stages, split, group;
+};
+constexpr int kNumRings3d = 6;
+constexpr Ring3d kRings3dWide[kNumRings3d] = {{2, 1, 1}, {3, 1, 1}, {4, 1, 1},
+                                              {2, 2, 1}, {3, 2, 1}, {4, 2, 1}};
+constexpr Ring3d kRings3dNarrow[kNumRings3d] = {{2, 1, 4}, {3, 1, 4}, {4, 1, 4},
+                                                {2, 1, 1}, {4, 1, 1}, {8, 1, 1}};
+
+// 3D: tetrahedra, Taylor-Hood P2/P1 (matvec3_kernel, then merge3_kernel).
+// The ring, from the occupancy calculator's count of resident blocks (asked
+// once a device, chunk width and region size; measured in PERF.md): for wide
+// columns the ring that lets the most blocks reside on an SM, since more
+// blocks overlap more of one another's x copies and sums with the stream
+// of A; for narrow ones (2 KB a column) the one with the most bytes of A in
+// flight on an SM.  Ties go to the fewest barriers a chunk, then the
+// shallowest ring.
 template <bool IN_V, bool IN_P, bool OUT_V, bool OUT_P, typename TA>
-int launch_matvec_3d(const Geo& g, const Tables& t, const void* A, int n_out_pad,
-                     const void* x, float* scratch, float* y, cudaStream_t stream) {
+int launch_matvec_3d(const Geo& g, const int* cnt, const Compact& cv, const Compact& cp,
+                     const void* A, int n_out_pad, const void* x, float* scratch, float* y,
+                     cudaStream_t stream) {
   constexpr int KV = 10, KP = 4;
+  constexpr int N_IN = (IN_V ? 3 * KV : 0) + (IN_P ? KP : 0);
   constexpr int N_OUT = (OUT_V ? 3 * KV : 0) + (OUT_P ? KP : 0);
-  using Kernel = void (*)(Geo, Tables, const TA*, int, const float*, float*, float*, int*, int*);
-  const Kernel kernels[] = {
-      matvec3_kernel<3, KV, KP, IN_V, IN_P, OUT_V, OUT_P, TA, kStageChoices[0]>,
-      matvec3_kernel<3, KV, KP, IN_V, IN_P, OUT_V, OUT_P, TA, kStageChoices[1]>,
-      matvec3_kernel<3, KV, KP, IN_V, IN_P, OUT_V, OUT_P, TA, kStageChoices[2]>};
+  constexpr const Ring3d* rings = N_OUT > 8 ? kRings3dWide : kRings3dNarrow;
+  using Kernel = void (*)(Geo, const int*, Compact, Compact, const TA*, int, const float*, float*);
+#define NS_MATVEC3(r) matvec3_kernel<3, KV, KP, IN_V, IN_P, OUT_V, OUT_P, TA, rings[r].stages, \
+                                     rings[r].split, rings[r].group>
+  const Kernel kernels[kNumRings3d] = {NS_MATVEC3(0), NS_MATVEC3(1), NS_MATVEC3(2),
+                                       NS_MATVEC3(3), NS_MATVEC3(4), NS_MATVEC3(5)};
+#undef NS_MATVEC3
   // A is copied in 16-byte pieces: every chunk's row of A must start on one
   if (g.Bc > kMax3dThreads || g.Bc % 32 != 0 || (g.Bc * sizeof(TA)) % 16 != 0) return kErrLayout;
   if ((uintptr_t)A % 16 != 0) return kErrAlign;
-  const int Lv = g.RVv * 128, Lp = g.RVp * 128;
-  const long buf_bytes = 4L * max(OUT_V ? Lv : 0, OUT_P ? Lp : 0);
-  const long stage_bytes = (long)N_OUT * g.Bc * sizeof(TA);
-  // the ring and the component buffer take turns in the same memory
-  const long bytes = kBaseStages * stage_bytes > buf_bytes ? kBaseStages * stage_bytes : buf_bytes;
-  int choice = 0;  // the deepest ring that fits
-  for (int k = 1; k < 3; ++k)
-    if (kStageChoices[k] * stage_bytes <= bytes) choice = k;
-  static int allowed[3][kMaxDevices] = {};  // per instantiation and depth
-  int e = set_smem(kernels[choice], (int)bytes, allowed[choice]);
-  if (e != 0) return e;
-  float* sub_v = scratch;
-  float* sub_p = scratch + subwindow_floats(g, OUT_V, false);
-  int* span_v = span_tables(g, scratch);
-  int* span_p = span_v + 2L * g.nb * g.nchunks;
-  kernels[choice]<<<g.nb * g.nchunks, g.Bc, bytes, stream>>>(
-      g, t, (const TA*)A, n_out_pad, (const float*)x, sub_v, sub_p, span_v, span_p);
-  cudaError_t ce = cudaGetLastError();
+  // the region: x at the entries of the in-spaces, then the pairs and
+  // offsets of the out-spaces
+  const long xs_bytes = 4L * ((IN_V ? g.dim * cv.max_e : 0) + (IN_P ? cp.max_e : 0));
+  const long pair_bytes = 2L * ((OUT_V ? cv.max_pairs + cv.max_e + 1 : 0) +
+                                (OUT_P ? cp.max_pairs + cp.max_e + 1 : 0));
+  const long region_bytes = (std::max(xs_bytes, pair_bytes) + 15) / 16 * 16;
+  const long ys_bytes = 4L * N_OUT * g.Bc;
+  auto stage_bytes = [&](int r) {
+    return (long)rings[r].group * ((N_OUT + rings[r].split - 1) / rings[r].split) * g.Bc *
+           (long)sizeof(TA);
+  };
+  auto smem_bytes = [&](int r) {
+    return std::max(rings[r].stages * stage_bytes(r), ys_bytes) + region_bytes;
+  };
+  auto barriers = [&](int r) {  // a chunk's stages
+    return rings[r].split == 2 ? 2 * N_IN : (N_IN + rings[r].group - 1) / rings[r].group;
+  };
+  static int allowed[kNumRings3d][kMaxDevices] = {};  // per instantiation and ring
+  static long chosen_for = -1;                       // (device, Bc, region) of the choice
+  static int chosen = 0;
+  int dev = 0;
+  cudaError_t ce = cudaGetDevice(&dev);
   if (ce != cudaSuccess) return (int)ce;
-  const MergeSpace mv{sub_v, nullptr, t.cnt, span_v, OUT_V ? g.dim : 0, g.nb, g.nchunks,
-                      Lv, g.OWv, g.hv, g.n_vs, g.Bc};
-  const MergeSpace mp{sub_p, nullptr, t.cnt, span_p, OUT_P ? 1 : 0, g.nb, g.nchunks,
-                      Lp, g.OWp, g.hp, g.n_ps, g.Bc};
-  return (int)launch_merge<true>(mv, mp, y, stream);
+  const long key = ((long)dev * 1024 + g.Bc) * (1L << 32) + region_bytes;
+  if (key != chosen_for) {
+    int best = -1, best_blocks = 0;
+    long best_score = 0;
+    for (int r = 0; r < kNumRings3d; ++r) {
+      const long bytes = smem_bytes(r);
+      if (bytes > kMaxSmemBytes) continue;
+      int e = set_smem(kernels[r], (int)bytes, allowed[r]);
+      if (e != 0) return e;
+      int blocks = 0;
+      ce = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernels[r], g.Bc, bytes);
+      if (ce != cudaSuccess) return (int)ce;
+      // wide: resident blocks; narrow: stages of A in flight on an SM
+      const long score = N_OUT > 8 ? blocks
+                                   : blocks * std::min(rings[r].stages - 1, barriers(r)) *
+                                         stage_bytes(r);
+      if (best < 0 || score > best_score ||
+          (score == best_score && (barriers(r) < barriers(best) ||
+                                   (barriers(r) == barriers(best) &&
+                                    rings[r].stages < rings[best].stages))))
+        best = r, best_blocks = blocks, best_score = score;
+    }
+    if (best < 0 || best_blocks == 0) return kErrSmem;
+    chosen_for = key, chosen = best;
+  }
+  const long bytes = smem_bytes(chosen);
+  int e = set_smem(kernels[chosen], (int)bytes, allowed[chosen]);
+  if (e != 0) return e;
+  kernels[chosen]<<<g.nb * g.nchunks, g.Bc, bytes, stream>>>(g, cnt, cv, cp, (const TA*)A,
+                                                             n_out_pad, (const float*)x, scratch);
+  ce = cudaGetLastError();
+  if (ce != cudaSuccess) return (int)ce;
+  const RowMerge mv{scratch, cv.row_ptr, OUT_V ? g.dim : 0, g.n_vs, cv.E};
+  const RowMerge mp{scratch + (OUT_V ? (long)g.dim * cv.E : 0), cp.row_ptr, OUT_P ? 1 : 0,
+                    g.n_ps, cp.E};
+  const long rows = (OUT_V ? g.n_vs : 0) + (OUT_P ? g.n_ps : 0);
+  merge3_kernel<<<(int)((rows + kThreads - 1) / kThreads), kThreads, 0, stream>>>(mv, mp, y);
+  return (int)cudaGetLastError();
+}
+
+// one space's Compact record from the host's pack of kCompactLen values a
+// space (ns_matvec's `compact`): 7 table addresses, E, the most entries and
+// the most pairs of a chunk
+constexpr int kCompactLen = 10;
+Compact unpack_compact(const int64_t* c) {
+  return Compact{(const int*)c[0], (const int*)c[1], (const int*)c[2], (const uint16_t*)c[3],
+                 (const int*)c[4], (const uint16_t*)c[5], (const int*)c[6], (int)c[7], (int)c[8],
+                 (int)c[9]};
 }
 
 template <bool IN_V, bool IN_P, bool OUT_V, bool OUT_P, typename TA>
-int launch_matvec_any(const Geo& g, const Tables& t, const void* A, int n_out_pad,
-                      const void* x, float* scratch, float* y, cudaStream_t st) {
-  if (g.dim == 3)
-    return launch_matvec_3d<IN_V, IN_P, OUT_V, OUT_P, TA>(g, t, A, n_out_pad, x, scratch, y, st);
+int launch_matvec_any(const Geo& g, const Tables& t, const int64_t* compact, const void* A,
+                      int n_out_pad, const void* x, float* scratch, float* y, cudaStream_t st) {
+  if (g.dim == 3) {
+    if (compact == nullptr) return kErrLayout;
+    return launch_matvec_3d<IN_V, IN_P, OUT_V, OUT_P, TA>(
+        g, t.cnt, unpack_compact(compact), unpack_compact(compact + kCompactLen), A, n_out_pad, x,
+        scratch, y, st);
+  }
   return launch_matvec<IN_V, IN_P, OUT_V, OUT_P, TA>(g, t, A, n_out_pad, x, scratch, y, st);
 }
 
 template <typename TA>
-int dispatch_spaces(int in_sp, int out_sp, const Geo& g, const Tables& t,
+int dispatch_spaces(int in_sp, int out_sp, const Geo& g, const Tables& t, const int64_t* compact,
                     const void* A, int n_out_pad, const void* x, float* scratch,
                     float* y, cudaStream_t st) {
   // spaces: 1 = velocity, 2 = pressure, 3 = both
   if (in_sp == 3 && out_sp == 3)
-    return launch_matvec_any<true, true, true, true, TA>(g, t, A, n_out_pad, x, scratch, y, st);
+    return launch_matvec_any<true, true, true, true, TA>(g, t, compact, A, n_out_pad, x, scratch,
+                                                         y, st);
   if (in_sp == 1 && out_sp == 1)
-    return launch_matvec_any<true, false, true, false, TA>(g, t, A, n_out_pad, x, scratch, y, st);
+    return launch_matvec_any<true, false, true, false, TA>(g, t, compact, A, n_out_pad, x,
+                                                           scratch, y, st);
   if (in_sp == 1 && out_sp == 2)
-    return launch_matvec_any<true, false, false, true, TA>(g, t, A, n_out_pad, x, scratch, y, st);
+    return launch_matvec_any<true, false, false, true, TA>(g, t, compact, A, n_out_pad, x,
+                                                           scratch, y, st);
   if (in_sp == 2 && out_sp == 2)
-    return launch_matvec_any<false, true, false, true, TA>(g, t, A, n_out_pad, x, scratch, y, st);
+    return launch_matvec_any<false, true, false, true, TA>(g, t, compact, A, n_out_pad, x,
+                                                           scratch, y, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1184,18 +1426,20 @@ int ns_scatter(const int* meta, const void* pos_v, const void* pos_p,
                         (float*)scratch, (float*)y, (cudaStream_t)stream);
 }
 
-// y [the out-spaces' planar segment] = A x: K1 / K2, then the merge
+// y [the out-spaces' planar segment] = A x: K1 / K2, then the merge.
+// compact: the 3D kernel's tables (ops/windowed.py _Packed.compact_args:
+// velocity's, then pressure's), null in 2D.
 int ns_matvec(const int* meta, const void* pos_v, const void* pos_p,
               const void* offs_v, const void* offs_p, const void* cnt, const void* colour,
-              const void* A, int a_bf16, int in_spaces, int out_spaces,
+              const int64_t* compact, const void* A, int a_bf16, int in_spaces, int out_spaces,
               int n_out_pad, const void* x, void* scratch, void* y, void* stream) {
   Geo g;
   if (!load_geo(meta, &g)) return kErrLayout;
   const Tables t = make_tables(pos_v, pos_p, offs_v, offs_p, cnt, colour);
-  return a_bf16 ? dispatch_spaces<__nv_bfloat16>(in_spaces, out_spaces, g, t, A, n_out_pad,
-                                                 x, (float*)scratch, (float*)y,
+  return a_bf16 ? dispatch_spaces<__nv_bfloat16>(in_spaces, out_spaces, g, t, compact, A,
+                                                 n_out_pad, x, (float*)scratch, (float*)y,
                                                  (cudaStream_t)stream)
-                : dispatch_spaces<float>(in_spaces, out_spaces, g, t, A, n_out_pad, x,
+                : dispatch_spaces<float>(in_spaces, out_spaces, g, t, compact, A, n_out_pad, x,
                                          (float*)scratch, (float*)y, (cudaStream_t)stream);
 }
 

@@ -34,7 +34,10 @@ allow), derived once per layout from the JAX-shaped ``loc_*_hi``/``loc_*_lo``/
 (layout block, chunk), sum into the chunk's subwindows and end in a merge
 kernel launched by the same C call (plain version of that order:
 ``_scatter_chunked_reference`` through ``_merge_reference``), so a wrapper
-call is one C call and does no torch arithmetic after it.
+call is one C call and does no torch arithmetic after it.  On tetrahedra
+K1 and K2 sum each chunk's slots at the distinct positions they touch
+instead, and merge through a list of each row's sums (``compact_tables``;
+plain version of that order: ``_compact_matvec_reference``).
 """
 
 from __future__ import annotations
@@ -73,6 +76,8 @@ __all__ = [
     "launch_counts",
     "pack_positions",
     "unpack_positions",
+    "CompactSpace",
+    "compact_tables",
 ]
 
 _ALIGN_ROWS = 8  # subwindow offsets in whole 8-row groups (layout compatibility)
@@ -474,8 +479,8 @@ def pack_positions(lay: WindowedLayout):
 
 
 def slot_colours(lay: WindowedLayout, pos_v: torch.Tensor, pos_p: torch.Tensor):
-    """The round of every slot's sums in the kernels K1, K2 and K4: (colour
-    [nb, Bmax] uint8, ncolors).
+    """The round of every slot's sums in the kernels K1, K2 and K4 (K4 only
+    on tetrahedra): (colour [nb, Bmax] uint8, ncolors).
 
     A greedy colouring of each chunk's occupied slots in slot order: a slot
     takes the least colour that no earlier slot of its chunk sharing a
@@ -531,6 +536,124 @@ def unpack_positions(pos: torch.Tensor) -> torch.Tensor:
         p = pos.long() & 0xFFFF
         return torch.where(p == _POS16_SENTINEL, torch.full_like(p, -1), p)
     return pos.long()
+
+
+# a block's shared memory on Hopper (windowed.cu kMaxSmemBytes)
+_MAX_SMEM_BYTES = 232448
+
+
+@dataclass(frozen=True)
+class CompactSpace:
+    """One space's tables of the 3D matvec kernel (K1/K2 on tetrahedra).
+
+    A chunk's ENTRIES are the distinct window positions its slots touch,
+    sorted; the chunks' lists lie one after another, chunk (b, c) at piece
+    b*nchunks + c.  The kernel sums a chunk's slots' values into its entries
+    (``tr``: each entry's (slot, dof) pairs, slots ascending) and writes each
+    entry's sum to its place ``dst`` in a scratch vector ordered by row; the
+    merge sums a row's places ``row_ptr[r]:row_ptr[r+1]`` in order.  A row's
+    places are its entries by block descending (the windows j = 0..2h of
+    ``_combine_windows``), then chunk ascending.  int16 tables hold the bits
+    of a uint16 (sentinel 0xFFFF)."""
+
+    off: torch.Tensor  # [nb*nchunks + 1] int32: a chunk's first entry
+    row: torch.Tensor  # [E] int32: the space's vector row of each entry
+    dst: torch.Tensor  # [E] int32: its place in the row-ordered scratch
+    idx: torch.Tensor  # [nb, k, Bmax] int16: a slot's dof's entry in its chunk's list
+    tr_off: torch.Tensor  # [E + 1] int32: an entry's first (slot, dof) pair in tr
+    tr: torch.Tensor  # [T] int16: the pairs, l*Bc + j (j: slot in its chunk)
+    row_ptr: torch.Tensor  # [n + 1] int32: a row's first place in the scratch
+    max_entries: int  # the most entries of one chunk
+    max_pairs: int  # the most (slot, dof) pairs of one chunk
+
+    @property
+    def E(self) -> int:
+        return int(self.row.numel())
+
+    def to(self, device) -> "CompactSpace":
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self) if not f.name.startswith("max_")})
+
+
+def _compact_space(lay: WindowedLayout, pos: np.ndarray, k: int, OW: int, h: int,
+                   n: int) -> CompactSpace:
+    """``CompactSpace`` of one space from its window positions pos [nb, k,
+    Bmax] (-1 for none), numpy on the host."""
+    nb, nch, Bc = lay.nb, lay.nchunks, lay.Bc
+    W = (2 * h + 1) * OW
+    q = pos.reshape(nb, k, nch, Bc).transpose(0, 2, 3, 1)  # [nb, nchunks, Bc, k]
+    b, c, j, l = np.nonzero(q >= 0)  # every (slot, dof) pair: by chunk, slot, dof
+    piece = b * nch + c
+    uniq, inv = np.unique(piece * np.int64(W) + q[b, c, j, l], return_inverse=True)
+    inv = inv.reshape(-1)
+    E = len(uniq)
+    ent_piece, ent_pos = uniq // W, uniq % W
+    off = np.searchsorted(ent_piece, np.arange(nb * nch + 1))
+    max_e = int(np.diff(off).max()) if E else 0
+    if max_e >= 0xFFFF or k * Bc > 0x10000:
+        raise ValueError(f"a chunk's list ({max_e} entries, {k} x {Bc} slot dofs) does not "
+                         "fit the 3D matvec's 16-bit indices")
+    idx = np.full((nb, nch, Bc, k), -1, dtype=np.int64)
+    idx[b, c, j, l] = inv - off[piece]
+    idx = idx.transpose(0, 3, 1, 2).reshape(nb, k, nch * Bc)
+    # an entry's pairs in np.nonzero's order: slots ascending (a slot
+    # touches a position once)
+    by_entry = np.argsort(inv, kind="stable")
+    tr = (l * Bc + j)[by_entry]
+    tr_off = np.concatenate([[0], np.cumsum(np.bincount(inv, minlength=E))])
+    eb, ec = ent_piece // nch, ent_piece % nch
+    row = (eb - h) * OW + ent_pos
+    if E and (row.min() < 0 or row.max() >= n):
+        raise ValueError("a window position of an occupied slot lies off the vector")
+    dst = np.empty(E, dtype=np.int64)
+    dst[np.lexsort((ec, -eb, row))] = np.arange(E)
+    row_ptr = np.concatenate([[0], np.cumsum(np.bincount(row, minlength=n))])
+
+    def i32(a):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32))
+
+    def u16(a):
+        return torch.as_tensor(np.ascontiguousarray(a.astype(np.uint16).view(np.int16)))
+
+    return CompactSpace(off=i32(off), row=i32(row), dst=i32(dst), idx=u16(idx),
+                        tr_off=i32(tr_off), tr=u16(tr), row_ptr=i32(row_ptr), max_entries=max_e,
+                        max_pairs=int(np.diff(tr_off[off]).max()) if E else 0)
+
+
+def compact_smem_bytes(lay: WindowedLayout, tabs: dict) -> int:
+    """The least shared memory of the 3D matvec's largest call (K1, float32
+    A; windowed.cu launch_matvec_3d): the slots' outputs (nl rows of Bc
+    floats, which the smallest ring of A also takes), and a region that
+    holds x at the chunk's entries (dim rows of the velocity's, the
+    pressure's) and later the chunk's (slot, dof) pairs with each entry's
+    first pair (uint16s)."""
+    v, p = tabs["v"], tabs["p"]
+    xs = 4 * (lay.dim * v.max_entries + p.max_entries)
+    pairs = 2 * (v.max_pairs + v.max_entries + 1 + p.max_pairs + p.max_entries + 1)
+    return 4 * lay.nl * lay.Bc + _round_up(max(xs, pairs), 16)
+
+
+def compact_tables(lay: WindowedLayout) -> dict:
+    """{"v": CompactSpace, "p": CompactSpace}: the 3D matvec kernel's tables,
+    made once per layout with numpy (on the layout's device).  Raises
+    ValueError where a chunk's lists exceed what the kernel takes: 16-bit
+    indices, and a block's shared memory (``compact_smem_bytes``)."""
+    pos_v, pos_p, _ = pack_positions(lay)
+    tabs = {
+        key: _compact_space(lay, unpack_positions(pos).cpu().numpy(), k, OW, h, n)
+        for key, pos, k, OW, h, n in (("v", pos_v, lay.k_v, lay.OWv, lay.hv, lay.n_vs),
+                                      ("p", pos_p, lay.k_p, lay.OWp, lay.hp, lay.n_ps))
+    }
+    need = compact_smem_bytes(lay, tabs)
+    if need > _MAX_SMEM_BYTES:
+        v, p = tabs["v"], tabs["p"]
+        raise ValueError(
+            f"the 3D matvec cannot take this layout: a chunk of {lay.Bc} slots touches up to "
+            f"{v.max_entries} velocity and {p.max_entries} pressure positions through up to "
+            f"{v.max_pairs} and {p.max_pairs} (slot, dof) pairs, so a block needs {need} bytes "
+            f"of shared memory against the {_MAX_SMEM_BYTES} it may use")
+    return {key: t.to(lay.device) for key, t in tabs.items()}
 
 
 def _gather_reference(lay: WindowedLayout, x: torch.Tensor) -> torch.Tensor:
@@ -637,6 +760,59 @@ def _scatter_chunked_reference(lay: WindowedLayout, R: torch.Tensor) -> torch.Te
                lay.RVv, lay.OWv, lay.hv, lay.n_vs)
     yp = space(pos_p, lay.offs_p, Rn[nv:][None], lay.RVp, lay.OWp, lay.hp, lay.n_ps)
     return torch.cat([yv.reshape(-1), yp.reshape(-1)])
+
+
+def _compact_matvec_reference(lay: WindowedLayout, A_sub: torch.Tensor, x: torch.Tensor,
+                              in_spaces: str, out_spaces: str, tables=None) -> torch.Tensor:
+    """``windowed_matvec_reference`` / ``_block_reference`` in the 3D matvec
+    kernel's order, through ``compact_tables``: x at every chunk's entries,
+    each slot's values through its entry indices, the contraction, then each
+    chunk's sums at its entries (their (slot, dof) pairs in order) written
+    to their places in the row-ordered scratch, then the merge of each
+    row's places in order.  The plain version of K1 and K2 in 3D, as
+    ``_scatter_chunked_reference`` is of K4; x and the result are the
+    in- and out-spaces' planar segments."""
+    tabs = compact_tables(lay) if tables is None else tables
+    nb, nch, Bc, Bmax = lay.nb, lay.nchunks, lay.Bc, lay.Bmax
+    k = {"v": lay.k_v, "p": lay.k_p}
+    ncomp = {"v": lay.dim, "p": 1}
+    n = {"v": lay.n_vs, "p": lay.n_ps}
+    dev = x.device
+    piece = (torch.arange(nb, device=dev)[:, None] * nch
+             + torch.arange(Bmax, device=dev)[None, :] // Bc)  # [nb, Bmax]
+    cols, at = [], 0
+    for s in (s for s in "vp" if s in in_spaces):
+        t = tabs[s]
+        seg = x[at : at + ncomp[s] * n[s]].reshape(ncomp[s], n[s])
+        at += ncomp[s] * n[s]
+        xe = seg[:, t.row.long()]  # [ncomp, E]: x at every chunk's entries
+        local = t.idx.long() & 0xFFFF  # [nb, k, Bmax]
+        ok = local != 0xFFFF
+        ent = torch.where(ok, t.off.long()[piece][:, None, :] + local, 0)
+        for cc in range(ncomp[s]):
+            v = torch.where(ok, xe[cc][ent], torch.zeros((), dtype=x.dtype, device=dev))
+            cols.append(v.permute(1, 0, 2).reshape(k[s], lay.ncd))
+    X = torch.cat(cols)
+    outs = [s for s in "vp" if s in out_spaces]
+    n_out = sum(ncomp[s] * k[s] for s in outs)
+    Y = torch.einsum("jis,js->is", A_sub[:, :n_out].to(x.dtype), X)  # [n_out, ncd]
+    ys, r0 = [], 0
+    for s in outs:
+        t = tabs[s]
+        ent_of = torch.repeat_interleave(torch.arange(t.E, device=dev), torch.diff(t.tr_off.long()))
+        ent_piece = torch.searchsorted(t.off.long(), torch.arange(t.E, device=dev), right=True) - 1
+        code = t.tr.long() & 0xFFFF
+        p = ent_piece[ent_of]
+        col = (p // nch) * Bmax + (p % nch) * Bc + code % Bc  # the pair's slot
+        place_row = torch.repeat_interleave(torch.arange(n[s], device=dev),
+                                            torch.diff(t.row_ptr.long()))
+        for cc in range(ncomp[s]):
+            sums = Y.new_zeros(t.E).index_add_(0, ent_of, Y[r0 + cc * k[s] + code // Bc, col])
+            scratch = torch.empty_like(sums)
+            scratch[t.dst.long()] = sums
+            ys.append(Y.new_zeros(n[s]).index_add_(0, place_row, scratch))
+        r0 += ncomp[s] * k[s]
+    return torch.cat(ys)
 
 
 def windowed_matvec_reference(
@@ -754,7 +930,7 @@ def _load(path: str):
     lib.ns_scratch_floats.restype = ctypes.c_long
     lib.ns_gather.argtypes = [meta, *tables, p, p, p, i, i, p]
     lib.ns_scatter.argtypes = [meta, *tables, p, p, p, p]
-    lib.ns_matvec.argtypes = [meta, *tables, p, i, i, i, i, p, p, p, p]
+    lib.ns_matvec.argtypes = [meta, *tables, p, p, i, i, i, i, p, p, p, p]
     for fn in (lib.ns_gather, lib.ns_scatter, lib.ns_matvec):
         fn.restype = i
     return lib
@@ -763,13 +939,17 @@ def _load(path: str):
 class _Packed:
     """What the CUDA entry points take of one layout, made once: the geometry
     record (struct Geo, windowed.cu), the packed tables of ``pack_positions``,
-    the slot colours of ``slot_colours`` and the leading arguments of every
-    call.  Scratch for the window
+    the slot colours of ``slot_colours``, the leading arguments of every
+    call and, for the 3D matvec, the tables of ``compact_tables`` (made at
+    its first call).  Scratch for the window
     accumulators is kept per stream (calls on one stream run in turn, so
     they can share it; CUDA graphs captured on one capture stream share
-    theirs, so replay them on one stream at a time)."""
+    theirs, so replay them on one stream at a time).  The 3D matvec's
+    scratch, dim*E_v + E_p floats, fits in it: a chunk's entries are
+    distinct positions of its subwindows."""
 
     def __init__(self, lay: WindowedLayout):
+        self._lay = lay
         self.pos_v, self.pos_p, self.cnt = pack_positions(lay)
         self.colour, self.ncolors = slot_colours(lay, self.pos_v, self.pos_p)
         vals = [
@@ -787,6 +967,22 @@ class _Packed:
         )
         self._device = lay.device
         self._scratch = {}
+
+    @cached_property
+    def compact_args(self):
+        """ns_matvec's ``compact`` argument: per space (velocity, then
+        pressure) the addresses of the 7 tables of ``compact_tables`` (kept
+        in ``self.compact``), E and the most entries and pairs of a chunk
+        (struct Compact, windowed.cu); None in 2D."""
+        if self._lay.dim != 3:
+            return None
+        self.compact = compact_tables(self._lay)
+        vals = []
+        for t in (self.compact["v"], self.compact["p"]):
+            vals += [getattr(t, name).data_ptr()
+                     for name in ("off", "row", "dst", "idx", "tr_off", "tr", "row_ptr")]
+            vals += [t.E, t.max_entries, t.max_pairs]
+        return (ctypes.c_int64 * len(vals))(*vals)
 
     def scratch(self, stream: int) -> int:
         """Address of this stream's scratch (allocated at first use, of the
@@ -844,7 +1040,7 @@ def _launch_matvec(lay, A, x, in_spaces, out_spaces, n_out_pad):
     pk = lay._packed
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _lib().ns_matvec(
-        *pk.args, A.data_ptr(), int(A.dtype == torch.bfloat16),
+        *pk.args, pk.compact_args, A.data_ptr(), int(A.dtype == torch.bfloat16),
         _SPACE_CODE[in_spaces], _SPACE_CODE[out_spaces], n_out_pad,
         x.data_ptr(), pk.scratch(stream), y.data_ptr(), stream,
     )

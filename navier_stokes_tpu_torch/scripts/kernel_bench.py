@@ -31,6 +31,9 @@ box (``box_mesh``, ``box_config``: chip_smoke.py phase 14):
   library_ms     cold time of one PyTorch call of the same function
                  (``library_call``: a CSR product, index_select or
                  index_add_), never used by the package
+  moved_bytes    (K1, K2 in 3D) the bytes the kernel and its merge really
+                 move (``moved_bytes_3d``): the bound's, plus x at every
+                 chunk's entries, the compact tables and the scratch
 
 and the median host-clock time of a forced Newton step at a seeded state
 and of the BDF1 solve (3 steps on the channel, 2 on the box).
@@ -59,7 +62,7 @@ FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
 REPS = 30  # timed calls behind every warm and cold figure of main()
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM device memory (the bound's rate)
 # the CUDA kernels of csrc/windowed.cu, by their names in a profiler trace
-WINDOWED_KERNEL = re.compile(r"\b(matvec3?|gather|scatter3?|merge)_kernel\b")
+WINDOWED_KERNEL = re.compile(r"\b(matvec3?|gather|scatter3?|merge3?)_kernel\b")
 
 
 def channel_config(dtype="float32", rel_tol=1e-2, cells_per_block=448):
@@ -316,6 +319,55 @@ def bound_bytes_of(lay, operands):
     return out
 
 
+def moved_bytes_3d(lay, operands):
+    """{call: bytes} that the 3D matvec kernel and its merge really move for
+    K1 and each K2 product (``bound_bytes_of`` counts each input once
+    instead): A as in the bound; x at every chunk's entries of the
+    in-spaces; of ``compact_tables`` the occupied slots' entry indices and
+    the entries' rows of the in-spaces, the (slot, dof) pairs with their
+    offsets, the entries' places and the row offsets of the out-spaces;
+    the compact scratch written by the chunks and read by the merge; y."""
+    tabs = W.compact_tables(lay)
+    _, _, cnt = W.pack_positions(lay)
+    n_occ = int(cnt.sum())
+    ncomp = {"v": lay.dim, "p": 1}
+    k = {"v": lay.k_v, "p": lay.k_p}
+    n = {"v": lay.n_vs, "p": lay.n_ps}
+
+    def matvec(ins, outs, elt):
+        a = sum(ncomp[s] * k[s] for s in ins) * sum(ncomp[s] * k[s] for s in outs) * n_occ * elt
+        total = a + cnt.numel() * 4
+        for s in ins:
+            t = tabs[s]
+            total += 4 * ncomp[s] * t.E + 2 * k[s] * n_occ + 4 * (t.E + t.off.numel())
+        for s in outs:
+            t = tabs[s]
+            total += (2 * 4 * ncomp[s] * t.E + 2 * t.tr.numel() + 4 * (2 * t.E + 1)
+                      + 4 * t.row_ptr.numel() + 4 * ncomp[s] * n[s])
+            if s not in ins:
+                total += 4 * t.off.numel()
+        return total
+
+    out = {"K1 f32": matvec("vp", "vp", 4), "K1": matvec("vp", "vp", 2)}
+    for key, (A_sub, _) in operands["blocks"].items():
+        i, o = key.split("->")
+        out[f"K2 {key}"] = matvec(i, o, A_sub.element_size())
+    return out
+
+
+def compact_stats(lay) -> str:
+    """One line on a 3D layout's compact tables (host numpy): entries in all
+    and at most a chunk, (slot, dof) pairs an entry, places a touched row."""
+    parts = []
+    for key, t in W.compact_tables(lay).items():
+        pairs = np.diff(t.tr_off.cpu().numpy())
+        places = np.diff(t.row_ptr.cpu().numpy())
+        parts.append(f"{key}: {t.E} entries, at most {t.max_entries} a chunk; pairs an entry "
+                     f"{pairs.mean():.2f} (at most {pairs.max()}); places a touched row "
+                     f"{places[places > 0].mean():.2f} (at most {places.max()})")
+    return "  compact tables " + "; ".join(parts)
+
+
 def flat_dof_index(lay):
     """[nli * ncd] int64: the entry of the extended vector [x, 0] that
     X[l, s] copies (n_total for padded slots, rows past nl and window
@@ -450,10 +502,13 @@ def main(argv=None):
     calls, operands = wrapper_operands(solver)
     lay = solver._win_layout
     bounds = bound_bytes_of(lay, operands)
+    moved = moved_bytes_3d(lay, operands) if lay.dim == 3 and hasattr(W, "compact_tables") else {}
     if args.case == "channel":
         calls["K5"] = (probe_call(), None)
     print(f"  layout: nb {lay.nb} Bmax {lay.Bmax} Bc {lay.Bc} nchunks {lay.nchunks} "
           f"RVv/RVp {lay.RVv}/{lay.RVp} hv/hp {lay.hv}/{lay.hp}", flush=True)
+    if moved:
+        print(compact_stats(lay), flush=True)
     rec = {"label": args.label, "card": smi, "case": args.case, "cells": mesh.n_cells,
            "kernels": {}}
     only = [k.strip() for k in args.only.split(",") if k.strip()]
@@ -477,6 +532,9 @@ def main(argv=None):
             del lib
             line += (f"  bound {r['bound_ms']:.4f} ms ({r['bound_bytes'] / 1e6:.1f} MB), share "
                      f"{r['share']:.3f}  library {r['library_ms']:.4f} ms ({r['library']})")
+        if name in moved:
+            r["moved_bytes"] = moved[name]
+            line += f"  moved {moved[name] / 1e6:.1f} MB"
         print(line, flush=True)
         if args.profile:
             for mode, clean in (("warm", None), ("cold", False), ("cold_clean", True)):

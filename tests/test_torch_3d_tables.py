@@ -1,0 +1,246 @@
+"""The 3D matvec kernel's host tables and its plain two-stage model.
+
+On tetrahedra K1 and K2 (csrc/windowed.cu ``matvec3_kernel`` and
+``merge3_kernel``) sum each chunk's slots at the distinct window positions
+the chunk touches (its entries), write every sum to its place in a scratch
+vector ordered by row, and merge each row's places in order
+(``ops/windowed.py`` ``compact_tables``).  Here, on the CPU:
+
+* the tables: each chunk's list sorted and distinct and equal to the
+  positions its slots touch; every occupied (slot, dof) pair listed exactly
+  once, under the entry its index names, slots ascending; each row's places
+  its entries by window (j = 0..2h, as ``_combine_windows``) and then chunk;
+  the 16-bit indices fit; max_entries and max_pairs are the longest lists;
+  a layout whose chunk lists do not fit a block's shared memory raises;
+* ``_compact_matvec_reference`` (the kernels' order in plain torch) against
+  ``windowed_matvec_reference`` and ``_block_reference`` in float64, to
+  1e-12 of ||y||_inf (the same sums in another order), for vp->vp, v->v,
+  v->p and p->p; and on one layout against the JAX package's references.
+
+Layouts: the card tests' three tetrahedral ones (tests/test_torch_kernels.py
+``TETS``: one chunk at halo 1; 3 chunks of 256; halo 2) and box(2, 2, 2) on
+the default (unblocked) layout, one block with no halo.  The kernels on the
+card: tests/test_torch_kernels.py.
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from navier_stokes_tpu.ops import windowed as jw
+from navier_stokes_tpu_torch import convert
+from navier_stokes_tpu_torch.fem.dofs import make_dofs, renumber_blocked
+from navier_stokes_tpu_torch.mesh.generate import box
+from navier_stokes_tpu_torch.mesh.mesh import refine_uniform
+from navier_stokes_tpu_torch.ops import windowed as tw
+
+LAYOUTS = {
+    "box-h1": dict(box=2, cpb=16, Bc=128),
+    "box-refined-Bc256": dict(box=4, refine=1, cpb=448, Bc=256),
+    "box-refined-h2": dict(box=8, refine=1, cpb=448, Bc=256),
+    "box2-unblocked": dict(box=2, target_ow=1024, Bc=128),
+}
+PRODUCTS = [("vp", "vp"), ("v", "v"), ("v", "p"), ("p", "p")]
+
+
+def _build(c):
+    mesh = box(c["box"], c["box"], c["box"])
+    if c.get("refine"):
+        mesh = refine_uniform(mesh, c["refine"])
+    dofs = make_dofs(mesh)
+    if "cpb" in c:
+        dofs, bi = renumber_blocked(dofs, cells_per_block=c["cpb"])
+        kw = dict(block_info=bi, Bc=c["Bc"])
+    else:
+        kw = dict(target_ow=c["target_ow"], Bc=c["Bc"])
+    return (dofs.cell_vdofs, dofs.cell_pdofs, dofs.n_vs, dofs.n_ps, 3), kw
+
+
+@functools.lru_cache(maxsize=None)
+def _layout(name):
+    args, kw = _build(LAYOUTS[name])
+    return tw.build_windowed_layout(*args, **kw)
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(name):
+    return tw.compact_tables(_layout(name))
+
+
+def _spaces(lay):
+    """(key, packed positions [nb, k, Bmax], k, OW, h, n) of each space."""
+    pos_v, pos_p, _ = tw.pack_positions(lay)
+    return (("v", tw.unpack_positions(pos_v).numpy(), lay.k_v, lay.OWv, lay.hv, lay.n_vs),
+            ("p", tw.unpack_positions(pos_p).numpy(), lay.k_p, lay.OWp, lay.hp, lay.n_ps))
+
+
+def _entry_chunks(lay, t):
+    """(block, chunk) of every entry of a space's tables."""
+    off = t.off.numpy()
+    piece = np.repeat(np.arange(len(off) - 1), np.diff(off))
+    return piece // lay.nchunks, piece % lay.nchunks
+
+
+def test_layouts_cover_the_kernel_paths():
+    """One chunk and several, halos 0, 1 and 2."""
+    lays = [_layout(name) for name in LAYOUTS]
+    assert {lay.nchunks > 1 for lay in lays} == {True, False}
+    assert {lay.hv for lay in lays} == {0, 1, 2}
+
+
+@pytest.mark.parametrize("name", sorted(LAYOUTS))
+def test_chunk_lists_sorted_distinct_and_complete(name):
+    """A chunk's entries are the window positions its slots touch, sorted
+    and distinct; max_entries is the longest list."""
+    lay, tabs = _layout(name), _tables(name)
+    for key, pos, k, OW, h, n in _spaces(lay):
+        t = tabs[key]
+        off, row = t.off.numpy(), t.row.numpy().astype(np.int64)
+        assert off[0] == 0 and off[-1] == t.E and np.all(np.diff(off) >= 0)
+        assert t.max_entries == np.diff(off).max()
+        eb, _ = _entry_chunks(lay, t)
+        wpos = row - (eb - h) * OW  # the entries' window positions
+        for b in range(lay.nb):
+            for c in range(lay.nchunks):
+                p = b * lay.nchunks + c
+                got = wpos[off[p] : off[p + 1]]
+                want = np.unique(pos[b, :, c * lay.Bc : (c + 1) * lay.Bc])
+                assert np.array_equal(got, want[want >= 0]), (key, b, c)
+                assert np.all(np.diff(got) > 0)
+
+
+@pytest.mark.parametrize("name", sorted(LAYOUTS))
+def test_every_slot_dof_listed_once_under_its_entry(name):
+    """The (slot, dof) pairs of all entries are the occupied slots' dofs,
+    each once; a pair sits under the entry that its slot's index names and
+    at that entry's window position; an entry's pairs have slots
+    ascending; max_pairs is the most pairs of a chunk."""
+    lay, tabs = _layout(name), _tables(name)
+    Bc, nch = lay.Bc, lay.nchunks
+    for key, pos, k, OW, h, n in _spaces(lay):
+        t = tabs[key]
+        off, tr_off = t.off.numpy(), t.tr_off.numpy()
+        code = t.tr.numpy().astype(np.int64) & 0xFFFF
+        idx = t.idx.numpy().astype(np.int64) & 0xFFFF  # [nb, k, Bmax]
+        assert tr_off[0] == 0 and tr_off[-1] == len(code) and np.all(np.diff(tr_off) > 0)
+        assert t.max_pairs == np.diff(tr_off[off]).max()
+        eb, ec = _entry_chunks(lay, t)
+        ent = np.repeat(np.arange(t.E), np.diff(tr_off))  # the entry of every pair
+        l, j = code // Bc, code % Bc
+        assert l.max() < k
+        b, slot = eb[ent], ec[ent] * Bc + j
+        assert np.all(idx[b, l, slot] == ent - off[b * nch + ec[ent]])
+        wpos = t.row.numpy()[ent] - (b - h) * OW
+        assert np.all(pos[b, l, slot] == wpos)
+        listed = np.zeros(pos.shape, dtype=np.int64)
+        np.add.at(listed, (b, l, slot), 1)
+        assert np.array_equal(listed, (pos >= 0).astype(np.int64))
+        assert np.all(idx[pos < 0] == 0xFFFF)
+        same = ent[1:] == ent[:-1]
+        assert np.all(j[1:][same] > j[:-1][same])
+
+
+@pytest.mark.parametrize("name", sorted(LAYOUTS))
+def test_row_lists_follow_window_then_chunk_order(name):
+    """Every entry has one place; row r's places hold the entries of row r,
+    by window j = 0..2h (the block b_r + h - j descending) and then chunk
+    ascending; a row with no entry has no place."""
+    lay, tabs = _layout(name), _tables(name)
+    for key, pos, k, OW, h, n in _spaces(lay):
+        t = tabs[key]
+        dst, row_ptr = t.dst.numpy(), t.row_ptr.numpy()
+        assert row_ptr[0] == 0 and row_ptr[-1] == t.E and len(row_ptr) == n + 1
+        assert np.array_equal(np.sort(dst), np.arange(t.E))
+        at = np.empty(t.E, dtype=np.int64)
+        at[dst] = np.arange(t.E)  # the entry at each place
+        eb, ec = _entry_chunks(lay, t)
+        rows = t.row.numpy()[at]
+        assert np.array_equal(rows, np.repeat(np.arange(n), np.diff(row_ptr)))
+        window = rows // OW + h - eb[at]
+        assert window.min() >= 0 and window.max() <= 2 * h
+        same = rows[1:] == rows[:-1]
+        later = (window[1:] > window[:-1]) | ((window[1:] == window[:-1])
+                                              & (ec[at][1:] > ec[at][:-1]))
+        assert np.all(later[same])
+
+
+@pytest.mark.parametrize("name", sorted(LAYOUTS))
+def test_indices_fit_16_bits(name):
+    """Entry indices and (slot, dof) codes are stored as uint16 bits in
+    int16, 0xFFFF only for a padded slot; rows, places and offsets are
+    int32."""
+    lay, tabs = _layout(name), _tables(name)
+    for key, pos, k, OW, h, n in _spaces(lay):
+        t = tabs[key]
+        assert t.idx.dtype == torch.int16 and t.tr.dtype == torch.int16
+        assert tuple(t.idx.shape) == (lay.nb, k, lay.Bmax)
+        idx = t.idx.numpy().astype(np.int64) & 0xFFFF
+        assert idx[pos >= 0].max() < t.max_entries < 0xFFFF
+        assert (t.tr.numpy().astype(np.int64) & 0xFFFF).max() < k * lay.Bc <= 0x10000
+        for name_ in ("off", "row", "dst", "tr_off", "row_ptr"):
+            assert getattr(t, name_).dtype == torch.int32
+
+
+def test_chunk_lists_too_large_raise(monkeypatch):
+    """A layout whose chunk lists need more shared memory than a block may
+    use raises ValueError naming the numbers: here the smallest layout
+    against a limit 4 bytes short of its need."""
+    lay = _layout("box-h1")
+    need = tw.compact_smem_bytes(lay, _tables("box-h1"))
+    assert need <= tw._MAX_SMEM_BYTES
+    monkeypatch.setattr(tw, "_MAX_SMEM_BYTES", need - 4)
+    with pytest.raises(ValueError, match=f"a chunk of 128 slots .* needs {need} bytes"):
+        tw.compact_tables(lay)
+
+
+def _operands(lay, ins, outs, seed):
+    rng = np.random.default_rng(seed)
+    A = torch.as_tensor(rng.standard_normal((lay.nl, lay.nli, lay.ncd)))
+    x = torch.as_tensor(rng.standard_normal(lay.n_u + lay.n_ps))
+    if ins == "vp":
+        return A, x
+    xs = x[: lay.n_u] if ins == "v" else x[lay.n_u :]
+    return tw.slice_block(lay, A, ins, outs), xs
+
+
+def _close(got, want, rel=1e-12):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= rel * np.abs(want).max(), (
+        np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize("ins, outs", PRODUCTS)
+@pytest.mark.parametrize("name", sorted(LAYOUTS))
+def test_compact_model_matches_plain_f64(name, ins, outs):
+    """The two-stage model through the tables equals the plain versions of
+    K1 (vp->vp) and K2 (v->v, v->p, p->p) in float64."""
+    lay = _layout(name)
+    A, x = _operands(lay, ins, outs, 3)
+    got = tw._compact_matvec_reference(lay, A, x, ins, outs, _tables(name))
+    if ins == "vp":
+        want = tw.windowed_matvec_reference(lay, A, x)
+    else:
+        want = tw._block_reference(lay, A, x, ins, outs)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("ins, outs", PRODUCTS)
+def test_compact_model_matches_jax_f64(ins, outs):
+    """On box-refined-Bc256 the model, on the port's copy of the JAX
+    package's layout (``convert``), equals the JAX package's plain
+    windowed_matvec_reference / _block_reference in float64."""
+    args, kw = _build(LAYOUTS["box-refined-Bc256"])
+    jlay = jw.build_windowed_layout(*args, **kw)
+    lay = convert.layout_from_arrays(convert.arrays_of(jlay))
+    A, x = _operands(lay, ins, outs, 4)
+    got = tw._compact_matvec_reference(lay, A, x, ins, outs)
+    if ins == "vp":
+        want = jw.windowed_matvec_reference(jlay, jnp.asarray(A.numpy()), jnp.asarray(x.numpy()))
+    else:
+        want = jw._block_reference(jlay, jnp.asarray(A.numpy()), jnp.asarray(x.numpy()), ins,
+                                   outs, None)
+    _close(got, want)

@@ -6,11 +6,13 @@ This file imports no JAX, so it runs on a machine with a GPU and no JAX:
 
 Without a visible GPU every test skips but the slot colouring's, which
 checks a host table.  The layouts are P2/P1 on triangles (2D) and on
-tetrahedra (3D, the kernels' other design: one component's subwindow in
-shared memory at a time).  Tolerances: K3 (gather, one vector or the pair u,
-u_old in one launch) is a copy and must be bit-equal; the others agree to
-1e-5 of ||y||_inf (float32 sums in another order: the kernels sum a chunk's
-slots in colour order).  K1, K2 and K4 sum in a fixed order, so a repeated
+tetrahedra (3D, the kernels' other design: K1/K2 sum each chunk at the
+distinct positions it touches and merge through per-row lists, K4 one
+component's subwindow at a time).  Tolerances: K3 (gather, one vector or the
+pair u, u_old in one launch) is a copy and must be bit-equal; the others
+agree to 1e-5 of ||y||_inf (float32 sums in another order: the kernels sum
+a chunk's slots in colour order, 3D K1/K2 in the order of
+``compact_tables``).  K1, K2 and K4 sum in a fixed order, so a repeated
 call and a CUDA-graph replay give the same bits as an eager call.  K5, the
 tensor-core probe, is held to 1e-5 of its output's largest entry (bf16
 products summed in float32 in groups, in another order).
@@ -236,6 +238,42 @@ def test_repeat_calls_are_bit_equal(name, op, cuda_device):
     first, second = call(), call()
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", TETS)
+def test_tet_merge_counts_every_window(name, cuda_device):
+    """With A the identity on every cell and x all ones, K1 (bf16 and
+    float32 A) and K2 v->v and p->p give each row the number of cells that
+    touch it, exactly: every (slot, dof) pair reaches its row through the
+    chunk sums and the row-list merge.  On the halo-2 layout some rows
+    take entries from blocks 2 away from their own (the merge's outermost
+    windows, j = 0 and 2h)."""
+    lay = _layout(name)
+    counts = []
+    for pos, OW, h, n in ((tw.pack_positions(lay)[0], lay.OWv, lay.hv, lay.n_vs),
+                          (tw.pack_positions(lay)[1], lay.OWp, lay.hp, lay.n_ps)):
+        p = tw.unpack_positions(pos)  # [nb, k, Bmax]
+        rows = (torch.arange(lay.nb)[:, None, None] - h) * OW + p
+        counts.append(torch.bincount(rows[p >= 0], minlength=n).float())
+    t = tw.compact_tables(lay)["v"]
+    block = torch.repeat_interleave(torch.arange(lay.nb * lay.nchunks), torch.diff(t.off.long()))
+    reach = (t.row.long() // lay.OWv - block // lay.nchunks).abs()
+    assert int(reach.max()) == lay.hv
+    lay = lay.to(cuda_device)
+    A = torch.zeros((lay.nl, lay.nli, lay.ncd), device=cuda_device)
+    A[torch.arange(lay.nl), torch.arange(lay.nl)] = 1.0
+    x = torch.ones(lay.n_u + lay.n_ps, device=cuda_device)
+    want = torch.cat([counts[0].repeat(lay.dim), counts[1]]).to(cuda_device)
+    for A_op in (A, A.to(torch.bfloat16)):
+        assert torch.equal(tw.windowed_matvec(lay, A_op, x), want)
+    A_bf = A.to(torch.bfloat16)
+    assert torch.equal(tw.windowed_matvec_block(lay, tw.slice_block(lay, A_bf, "v", "v"),
+                                                x[: lay.n_u], in_spaces="v", out_spaces="v"),
+                       want[: lay.n_u])
+    assert torch.equal(tw.windowed_matvec_block(lay, tw.slice_block(lay, A_bf, "p", "p"),
+                                                x[lay.n_u :], in_spaces="p", out_spaces="p"),
+                       want[lay.n_u :])
 
 
 @pytest.mark.parametrize("name", sorted(LAYOUTS))
