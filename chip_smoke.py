@@ -55,12 +55,14 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 (196,608 cells; kernel_bench.box_config, box_inlet: a ramped
                 parabolic inflow), windowed + Cahouet-Chabard, float32 with
                 the tangent stored in bf16: (a) phase 3's checks of every
-                kernel at the box's layout (halo 5, 36 slot colours);
+                kernel at the box's layout (halo 5), with the bytes K1, K2
+                and K4 really move and the size of the compact scratch;
                 (b) 2 BDF1 steps from rest, every Newton loop converging,
-                K1-K4 all launched; (c) three forced Newton steps at a
-                seeded state, as phase 5; (d) refine_uniform(box(4, 4, 4), 1):
-                float32 on the GPU against float64 on the CPU over 2 steps,
-                with the tangent stored in float32 and in bf16
+                K1-K4 all launched, the peak device memory; (c) three
+                forced Newton steps at a seeded state, as phase 5;
+                (d) refine_uniform(box(4, 4, 4), 1): float32 on the GPU
+                against float64 on the CPU over 2 steps, with the tangent
+                stored in float32 and in bf16
 
 Each phase prints its wall time.
 Files the phases write (.msh, configs, run logs) go to build/chip_smoke/.
@@ -512,6 +514,7 @@ def kernels_vs_plain(solver):
     calls, ops_ = kb.wrapper_operands(solver)
     check_packed_tables(lay)
     bounds = kb.bound_bytes_of(lay, ops_)
+    moved = kb.moved_bytes_3d(lay, ops_) if lay.dim == 3 else {}
     recs = {}
     for key, (kernel, plain) in calls.items():
         lib_call, lib_what = kb.library_call(lay, ops_, key)
@@ -519,6 +522,9 @@ def kernels_vs_plain(solver):
         recs[key] = compare(TITLES.get(key, f"{key}, bf16 A"), kernel, plain,
                             exact=key.startswith("K3"), bound_bytes=bounds[key], library=lib_call)
         recs[key]["library"] = lib_what
+        if key in moved:  # a host count from the tables, printed and not in the kernels line
+            print(f"  {key} really moves {moved[key] / 1e6:.1f} MB "
+                  "(kernel_bench.moved_bytes_3d)", flush=True)
         del lib_call  # a CSR matrix holds gigabytes at the box's size
     for key, (kernel, _) in calls.items():
         check_repeat(key, kernel)
@@ -806,6 +812,13 @@ def box_phase():
           flush=True)
     print("  (a) kernels vs plain at the box's layout", flush=True)
     recs = kernels_vs_plain(solver)
+    tabs = pk.compact
+    scratch = [buf.numel() * buf.element_size() for buf in pk._scratch.values()]
+    print(f"  scratch: {len(scratch)} buffer(s) (one a stream) of {max(scratch) / 1e6:.1f} MB, "
+          f"dim*E_v + E_p = {lay.dim} x {tabs['v'].E} + {tabs['p'].E} floats; peak device "
+          f"memory so far {torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    if any(b != 4 * (lay.dim * tabs["v"].E + tabs["p"].E) for b in scratch):
+        raise RuntimeError("the 3D scratch is not the compact vector's size")
 
     print("  (b) 2 BDF1 steps from rest, ramped inlet", flush=True)
     marks = []

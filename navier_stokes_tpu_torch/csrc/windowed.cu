@@ -91,12 +91,13 @@
 // channel) and tells the merge that span; the scratch, not R, is most of
 // its bytes.
 //
-// Sums into a subwindow (K1, K2 and K4 in 2D, K4 in 3D) run in a fixed
-// order, so two calls on the same inputs give the same bits.  The layout colours its occupied slots once, on
-// the host (ops/windowed.py slot_colours): within a chunk no two slots of one
-// colour touch the same window position of either space.  A chunk then sums
-// in ncolors rounds: in round k the slots of colour k add their values with a
-// plain += (no two of them share an address), and a barrier closes the round.
+// Sums into a subwindow (K1, K2 and K4 in 2D) run in a fixed order, so two
+// calls on the same inputs give the same bits.  The layout colours its
+// occupied slots once, on the host (ops/windowed.py slot_colours): within a
+// chunk no two slots of one colour touch the same window position of either
+// space.  A chunk then sums in ncolors rounds: in round k the slots of
+// colour k add their values with a plain += (no two of them share an
+// address), and a barrier closes the round.
 // Every entry is therefore the sum of its slots' values in colour order, the
 // same on every run, and the merge sums across chunks and windows in a fixed
 // order too.  Eight rounds at the 102,400-cell channel cost no measurable
@@ -130,20 +131,25 @@
 //     scratch vector ordered by row (8.1 MB at the box), and the merge sums
 //     each row's places in order: on average 2.29 a velocity row there, the
 //     row's entries by window (j = 0..2h, as _combine_windows) and chunk.
-//   * K4 (scatter3_kernel) sums one space-component at a time into one
-//     component-sized buffer (RVv*128 floats, 73,728 bytes at the box):
-//     dim + 1 passes, each the ncolors rounds of the slot colours (33-36 on
-//     tetrahedra), after which the span of the subwindow that the chunk's
-//     cells touch goes to scratch, as K4 does in 2D, and the merge reads
-//     the spans (merge_kernel<., true>).
+//   * K4 (scatter3_kernel, then merge3_kernel; replaces _pallas_run(mode=
+//     "scatter")) is K1's output half without A: the block copies the
+//     chunk's occupied columns of R's nl rows to shared memory (34.8 KB at
+//     the box) with the chunk's (slot, dof) pairs after them (at most
+//     10.8 KB there), and after one barrier the same per-entry sums write
+//     the same row-ordered scratch, which the same merge reads.  No slot
+//     colour and no subwindow: both spaces in one pass, and shared memory
+//     lets 5 blocks of 256 share an SM at the box.
+//   * The scratch of a 3D layout is that compact vector, dim*E_v + E_p
+//     floats (8.1 MB at the box).
 //   * At most 512 threads a block (Bc <= 512).
 // Bound: bytes, as in 2D.  At the box with bf16 A, counting the occupied
 // slots' columns of the used rows once: K1 34x34 values a cell, 455 MB,
-// ~136 us; K2 v->v 30x30, 354 MB; K3 a [40, ncd] float32 array, 45 MB.  The
-// bound counts x and y once; K1/K2 also read x at every chunk's entries
-// (8.1 MB at the box, where the vector is 5.1 MB) and their tables (the
-// entry indices and lists and the row offsets, ~22 MB), and write and read
-// the compact scratch (8.1 MB each way): 506 MB in all for K1 with bf16 A
+// ~136 us; K2 v->v 30x30, 354 MB; K3 a [40, ncd] float32 array, 45 MB; K4
+// that array's nl rows and y, 37.5 MB.  The bound counts x and y once;
+// K1/K2 also read x at every chunk's entries (8.1 MB at the box, where the
+// vector is 5.1 MB) and their tables (the entry indices and lists and the
+// row offsets, ~22 MB), and write and read the compact scratch (8.1 MB each
+// way): 506 MB in all for K1 with bf16 A; K4 reads no entry index and no x
 // (scripts/kernel_bench.py moved_bytes_3d).
 // Everything computes in float32.
 
@@ -165,7 +171,7 @@ constexpr int kMaxSmemBytes = 232448;  // 227 KB: a block's limit on Hopper
 // error codes of the entry points besides cudaError_t values (all negative)
 constexpr int kErrLayout = -1;  // not the element or the geometry built here
 constexpr int kErrSmem = -2;    // a block would need more shared memory than it may use
-constexpr int kErrAlign = -3;   // A (K1, K2) or X (K3) is not 16-byte aligned
+constexpr int kErrAlign = -3;   // A (K1, K2), X (K3) or 3D R (K4) is not 16-byte aligned
 
 struct Geo {
   int nb, Bmax, Bc, nchunks;
@@ -600,88 +606,6 @@ scatter_kernel(Geo g, Tables t, const float* __restrict__ R,
   }
 }
 
-// ---- 3D K4: one component's subwindow at a time ----------------------------
-// One pass: zero the float4s [v0, v1) of buf, sum val[l] at pos[l] in the
-// colour rounds, copy [v0, v1) to dst[v0, v1) (dst: the chunk's piece of
-// scratch, moved back by v0 float4s so that its entry 0 holds float4 v0).
-template <int K>
-__device__ __forceinline__ void component_pass(float* buf, int v0, int v1, int ncolors,
-                                               int colour, const int (&pos)[K],
-                                               const float (&val)[K], float4* __restrict__ dst) {
-  float4* b4 = (float4*)buf;
-  for (int i = v0 + threadIdx.x; i < v1; i += blockDim.x) b4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  __syncthreads();
-  // the sums in colour order: no two slots of one round share an entry
-  for (int k = 0; k < ncolors; ++k) {
-    if (colour == k) {
-#pragma unroll
-      for (int l = 0; l < K; ++l)
-        if (pos[l] >= 0) buf[pos[l]] += val[l];
-    }
-    __syncthreads();
-  }
-  for (int i = v0 + threadIdx.x; i < v1; i += blockDim.x) dst[i] = b4[i];
-  __syncthreads();  // buf is read out before the next pass zeroes it
-}
-
-// The chunk's sums of every slot's values val (the out-spaces' rows: v
-// components, then p) into its subwindows, one component a pass, and the
-// spans [start, end) of window positions written, for the merge.  pv, pp:
-// positions in the chunk's subwindows (-1 for none).  span: shared, set to
-// {INT_MAX, -1, INT_MAX, -1} by one thread before a barrier that every
-// thread has passed.
-template <int DIM, int KV, int KP, bool OUT_V, bool OUT_P, int N>
-__device__ __forceinline__ void sum_components(
-    const Geo& g, int b, int c, float* buf, int* span, int colour, const int (&pv)[KV],
-    const int (&pp)[KP], const float (&val)[N], int base_v, int base_p,
-    float* __restrict__ sub_v, float* __restrict__ sub_p, int* __restrict__ span_v,
-    int* __restrict__ span_p) {
-  constexpr int NV = DIM * KV;
-  int ext[4] = {0x7FFFFFFF, -1, 0x7FFFFFFF, -1};  // this slot's, as span
-  if constexpr (OUT_V) {
-#pragma unroll
-    for (int l = 0; l < KV; ++l)
-      if (pv[l] >= 0) ext[0] = min(ext[0], pv[l]), ext[1] = max(ext[1], pv[l]);
-  }
-  if constexpr (OUT_P) {
-#pragma unroll
-    for (int l = 0; l < KP; ++l)
-      if (pp[l] >= 0) ext[2] = min(ext[2], pp[l]), ext[3] = max(ext[3], pp[l]);
-  }
-  // the block's span: a warp's, then the warps' (integer min and max give
-  // the same result in any order)
-#pragma unroll
-  for (int k = 0; k < 4; k += 2) {
-    ext[k] = __reduce_min_sync(0xFFFFFFFFu, ext[k]);
-    ext[k + 1] = __reduce_max_sync(0xFFFFFFFFu, ext[k + 1]);
-    if (threadIdx.x % 32 == 0) atomicMin(&span[k], ext[k]), atomicMax(&span[k + 1], ext[k + 1]);
-  }
-  __syncthreads();
-  const long piece = (long)b * g.nchunks + c, pieces = (long)g.nb * g.nchunks;
-  if constexpr (OUT_V) {
-    const int Lv = g.RVv * 128;
-    const int v0 = span[1] < 0 ? 0 : span[0] / 4, v1 = span[1] < 0 ? 0 : span[1] / 4 + 1;
-#pragma unroll
-    for (int cc = 0; cc < DIM; ++cc) {
-      float v[KV];
-#pragma unroll
-      for (int l = 0; l < KV; ++l) v[l] = val[cc * KV + l];
-      component_pass<KV>(buf, v0, v1, g.ncolors, colour, pv, v,
-                         (float4*)(sub_v + (cc * pieces + piece) * Lv) - v0);
-    }
-    if (threadIdx.x == 0) span_v[2 * piece] = base_v + 4 * v0, span_v[2 * piece + 1] = base_v + 4 * v1;
-  }
-  if constexpr (OUT_P) {
-    const int Lp = g.RVp * 128;
-    const int p0 = span[3] < 0 ? 0 : span[2] / 4, p1 = span[3] < 0 ? 0 : span[3] / 4 + 1;
-    float v[KP];
-#pragma unroll
-    for (int l = 0; l < KP; ++l) v[l] = val[(OUT_V ? NV : 0) + l];
-    component_pass<KP>(buf, p0, p1, g.ncolors, colour, pp, v, (float4*)(sub_p + piece * Lp) - p0);
-    if (threadIdx.x == 0) span_p[2 * piece] = base_p + 4 * p0, span_p[2 * piece + 1] = base_p + 4 * p1;
-  }
-}
-
 // ---- 3D K1 / K2: y = sum_cells P_c^T A_c P_c x over the chosen spaces ------
 // One space's compact tables (ops/windowed.py compact_tables), made once per
 // layout on the host.  A chunk's ENTRIES are the distinct window positions
@@ -926,46 +850,50 @@ merge3_kernel(RowMerge v, RowMerge p, float* __restrict__ y) {
 }
 
 // ---- 3D K4: y = sum_cells P_c^T R_c for per-slot rows R [>= nl, ncd] -------
-// scatter_kernel's grid, loads and outputs (subwindow spans and their
-// tables), summed through sum_components: dim + 1 passes over one
-// component-sized buffer.
+// matvec3_kernel's grid and its output half, R's rows in place of the
+// slots' products: one CUDA block per (chunk c, layout block b), blockIdx.x =
+// c*nb + b.  Shared memory: [ys, the chunk's occupied columns of R's NL rows,
+// NL x Bc floats (R's row order: velocity rows cc*KV + l, then pressure rows
+// NV + l, as chunk_sums reads them) | the chunk's (slot, dof) pairs and
+// offsets of both spaces].  R is copied with asynchronous copies while the
+// pairs are staged; after one barrier each thread sums the entries it owns
+// into the scratch sub [DIM][cv.E], then [cp.E], for merge3_kernel.  R is
+// 16-byte aligned (launch_scatter_3d refuses it otherwise), so its rows go in
+// 16-byte pieces (a chunk's row starts on one: ncd and the chunk's first slot
+// are multiples of 32).
 template <int DIM, int KV, int KP>
 __global__ void __launch_bounds__(kMax3dThreads)
-scatter3_kernel(Geo g, Tables t, const float* __restrict__ R,
-                float* __restrict__ sub_v, float* __restrict__ sub_p,
-                int* __restrict__ span_v, int* __restrict__ span_p) {
-  constexpr int NV = DIM * KV;
-  extern __shared__ __align__(16) float buf[];
-  __shared__ int span[4];
+scatter3_kernel(Geo g, const int* __restrict__ cnt, Compact cv, Compact cp,
+                const float* __restrict__ R, float* __restrict__ sub) {
+  constexpr int NV = DIM * KV, NL = NV + KP;
+  extern __shared__ __align__(16) unsigned char smem[];
   const int c = blockIdx.x / g.nb, b = blockIdx.x % g.nb;
-  const int tid = threadIdx.x;
-  const int nv = min(max(t.cnt[b] - c * g.Bc, 0), g.Bc);  // occupied slots here
-  if (nv == 0) return;  // the merge kernel skips this chunk too
-  const bool active = tid < nv;
-  if (tid == 0) span[0] = span[2] = 0x7FFFFFFF, span[1] = span[3] = -1;
+  const int nv = min(max(cnt[b] - c * g.Bc, 0), g.Bc);  // occupied slots here
+  if (nv == 0) return;  // a chunk without a cell has no entry
+  const int piece = b * g.nchunks + c;
 
-  float r[NV + KP];
-  int pv[KV], pp[KP];  // -1 for none
-  const int j = c * g.Bc + tid;
-  const long s = (long)b * g.Bmax + j;
-  const int colour = active ? t.colour[s] : -1;
-  const int base_v = t.offs_v[b * g.nchunks + c] * 128;
-  const int base_p = t.offs_p[b * g.nchunks + c] * 128;
-#pragma unroll
-  for (int l = 0; l < NV + KP; ++l) r[l] = active ? R[(long)l * g.ncd + s] : 0.f;
-#pragma unroll
-  for (int l = 0; l < KV; ++l) {
-    const int p = active ? win_pos(t.pos_v, KV, g, b, j, l) : -1;
-    pv[l] = (p >= base_v && p < base_v + g.RVv * 128) ? p - base_v : -1;
-  }
-#pragma unroll
-  for (int l = 0; l < KP; ++l) {
-    const int p = active ? win_pos(t.pos_p, KP, g, b, j, l) : -1;
-    pp[l] = (p >= base_p && p < base_p + g.RVp * 128) ? p - base_p : -1;
-  }
-  __syncthreads();  // span is set
-  sum_components<DIM, KV, KP, true, true>(g, b, c, buf, span, colour, pv, pp, r, base_v,
-                                          base_p, sub_v, sub_p, span_v, span_p);
+  // R -> ys: warp w copies rows w, w + nwarps, ..., a lane a piece; R is
+  // read once, so its copies ask L2 to evict them first
+  float* ys = (float*)smem;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nwarps = blockDim.x / 32;
+  const float* src = R + (long)b * g.Bmax + (long)c * g.Bc;
+  const uint64_t once = evict_first_policy();
+  const int pieces = (nv + 3) / 4;  // the last one's padded slots lie in the chunk
+  for (int l = warp; l < NL; l += nwarps)
+    for (int k = lane; k < pieces; k += 32)
+      cp_async16_once(smem_addr(ys + l * g.Bc + 4 * k), src + (long)l * g.ncd + 4 * k, once);
+  cp_commit();
+  const int ev0 = cv.off[piece], nev = cv.off[piece + 1] - ev0;
+  const int ep0 = cp.off[piece], nep = cp.off[piece + 1] - ep0;
+  uint16_t* pairs_v = (uint16_t*)(smem + 4 * NL * g.Bc);
+  uint16_t* first_v = stage_pairs(cv, ev0, nev, pairs_v);
+  uint16_t* pairs_p = first_v + nev + 1;
+  uint16_t* first_p = stage_pairs(cp, ep0, nep, pairs_p);
+  cp_wait<0>();
+  __syncthreads();  // ys and the pairs are complete
+  chunk_sums<DIM, KV>(cv.dst + ev0, nev, pairs_v, first_v, ys, g.Bc, sub, cv.E);
+  chunk_sums<1, KP>(cp.dst + ep0, nep, pairs_p, first_p, ys + NV * g.Bc, g.Bc,
+                    sub + DIM * (long)cv.E, cp.E);
 }
 
 // ---- the merge: chunk subwindows -> the planar vector -----------------------
@@ -1147,7 +1075,7 @@ int set_smem(K kernel, int bytes, int* allowed) {
   return (int)e;
 }
 
-// floats of scratch: the chunk subwindows of a matvec or of K4
+// floats of 2D scratch: the chunk subwindows of a matvec or of K4
 long subwindow_floats(const Geo& g, bool v, bool p) {
   return (long)g.nb * g.nchunks * 128 * ((v ? g.dim * g.RVv : 0) + (p ? g.RVp : 0));
 }
@@ -1197,6 +1125,18 @@ int launch_matvec(const Geo& g, const Tables& t, const void* A, int n_out_pad,
   const MergeSpace mp{sub_p, t.offs_p, t.cnt, nullptr, OUT_P ? 1 : 0, g.nb, g.nchunks,
                       Lp, g.OWp, g.hp, g.n_ps, g.Bc};
   return (int)launch_merge<false>(mv, mp, y, stream);
+}
+
+// the 3D merge of the out-spaces' row-ordered scratch (sub [dim][cv.E], then
+// [cp.E]) into y, launched after a 3D chunk kernel on its stream
+int launch_merge3(const Geo& g, const Compact& cv, const Compact& cp, bool out_v, bool out_p,
+                  const float* scratch, float* y, cudaStream_t stream) {
+  const RowMerge mv{scratch, cv.row_ptr, out_v ? g.dim : 0, g.n_vs, cv.E};
+  const RowMerge mp{scratch + (out_v ? (long)g.dim * cv.E : 0), cp.row_ptr, out_p ? 1 : 0,
+                    g.n_ps, cp.E};
+  const long rows = (out_v ? g.n_vs : 0) + (out_p ? g.n_ps : 0);
+  merge3_kernel<<<(int)((rows + kThreads - 1) / kThreads), kThreads, 0, stream>>>(mv, mp, y);
+  return (int)cudaGetLastError();
 }
 
 // the rings the 3D matvec kernel is compiled for: (stages, split, group).
@@ -1291,12 +1231,7 @@ int launch_matvec_3d(const Geo& g, const int* cnt, const Compact& cv, const Comp
                                                              n_out_pad, (const float*)x, scratch);
   ce = cudaGetLastError();
   if (ce != cudaSuccess) return (int)ce;
-  const RowMerge mv{scratch, cv.row_ptr, OUT_V ? g.dim : 0, g.n_vs, cv.E};
-  const RowMerge mp{scratch + (OUT_V ? (long)g.dim * cv.E : 0), cp.row_ptr, OUT_P ? 1 : 0,
-                    g.n_ps, cp.E};
-  const long rows = (OUT_V ? g.n_vs : 0) + (OUT_P ? g.n_ps : 0);
-  merge3_kernel<<<(int)((rows + kThreads - 1) / kThreads), kThreads, 0, stream>>>(mv, mp, y);
-  return (int)cudaGetLastError();
+  return launch_merge3(g, cv, cp, OUT_V, OUT_P, scratch, y, stream);
 }
 
 // one space's Compact record from the host's pack of kCompactLen values a
@@ -1355,27 +1290,22 @@ int launch_gather(const Geo& g, const Tables& t, const float* x0, const float* x
   return (int)cudaGetLastError();
 }
 
-// K4: scatter_kernel (2D: all of a chunk's subwindows in shared memory) or
-// scatter3_kernel (3D: one component's at a time), then the merge of the
-// spans they wrote
+// 2D K4: scatter_kernel (all of a chunk's subwindows in shared memory), then
+// the merge of the spans it wrote
 int launch_scatter(const Geo& g, const Tables& t, const void* R, float* scratch,
                    float* y, cudaStream_t stream) {
-  using Kernel = void (*)(Geo, Tables, const float*, float*, float*, int*, int*);
-  const bool tets = g.dim == 3;
-  const Kernel kernel = tets ? Kernel(scatter3_kernel<3, 10, 4>) : Kernel(scatter_kernel<2, 6, 3>);
-  if (g.Bc > (tets ? kMax3dThreads : kMaxChunkThreads) || g.Bc % 32 != 0) return kErrLayout;
+  if (g.Bc > kMaxChunkThreads || g.Bc % 32 != 0) return kErrLayout;
   const int Lv = g.RVv * 128, Lp = g.RVp * 128;
-  const int bytes = 4 * (tets ? max(Lv, Lp) : g.dim * Lv + Lp);
-  static int allowed[2][kMaxDevices] = {};  // per kernel
-  int e = set_smem(kernel, bytes, allowed[tets]);
+  const int bytes = 4 * (g.dim * Lv + Lp);
+  static int allowed[kMaxDevices] = {};
+  int e = set_smem(scatter_kernel<2, 6, 3>, bytes, allowed);
   if (e != 0) return e;
   float* sub_v = scratch;
   float* sub_p = scratch + subwindow_floats(g, true, false);
   int* span_v = span_tables(g, scratch);
   int* span_p = span_v + 2L * g.nb * g.nchunks;
-  kernel<<<g.nb * g.nchunks, (g.Bc + 31) / 32 * 32, bytes, stream>>>(g, t, (const float*)R,
-                                                                     sub_v, sub_p, span_v,
-                                                                     span_p);
+  scatter_kernel<2, 6, 3><<<g.nb * g.nchunks, (g.Bc + 31) / 32 * 32, bytes, stream>>>(
+      g, t, (const float*)R, sub_v, sub_p, span_v, span_p);
   cudaError_t ce = cudaGetLastError();
   if (ce != cudaSuccess) return (int)ce;
   const MergeSpace mv{sub_v, nullptr, t.cnt, span_v, g.dim, g.nb, g.nchunks, Lv, g.OWv, g.hv,
@@ -1383,6 +1313,27 @@ int launch_scatter(const Geo& g, const Tables& t, const void* R, float* scratch,
   const MergeSpace mp{sub_p, nullptr, t.cnt, span_p, 1, g.nb, g.nchunks, Lp, g.OWp, g.hp,
                       g.n_ps, g.Bc};
   return (int)launch_merge<true>(mv, mp, y, stream);
+}
+
+// 3D K4: scatter3_kernel on the compact tables, then merge3_kernel.  Shared
+// memory: R's nl rows of a chunk and the most (slot, dof) pairs and entry
+// offsets of a chunk of both spaces (within compact_smem_bytes, which
+// compact_tables holds to a block's limit).
+int launch_scatter_3d(const Geo& g, const int* cnt, const Compact& cv, const Compact& cp,
+                      const void* R, float* scratch, float* y, cudaStream_t stream) {
+  constexpr int KV = 10, KP = 4, NL = 3 * KV + KP;
+  if (g.Bc > kMax3dThreads || g.Bc % 32 != 0) return kErrLayout;
+  if ((uintptr_t)R % 16 != 0) return kErrAlign;
+  const long bytes = 4L * NL * g.Bc +
+                     2L * (cv.max_pairs + cv.max_e + 1 + cp.max_pairs + cp.max_e + 1);
+  static int allowed[kMaxDevices] = {};
+  int e = set_smem(scatter3_kernel<3, KV, KP>, (int)bytes, allowed);
+  if (e != 0) return e;
+  scatter3_kernel<3, KV, KP><<<g.nb * g.nchunks, g.Bc, bytes, stream>>>(
+      g, cnt, cv, cp, (const float*)R, scratch);
+  cudaError_t ce = cudaGetLastError();
+  if (ce != cudaSuccess) return (int)ce;
+  return launch_merge3(g, cv, cp, true, true, scratch, y, stream);
 }
 
 }  // namespace
@@ -1394,10 +1345,16 @@ extern "C" {
 // subwindow offsets, the occupied-slot counts and the slot colours of the
 // layout.
 
-// floats of scratch that ns_matvec and ns_scatter may use for this layout
-long ns_scratch_floats(const int* meta) {
+// floats of scratch that ns_matvec and ns_scatter may use for this layout:
+// in 2D the chunk subwindows and K4's span tables; in 3D the row-ordered
+// compact vector of compact (as ns_matvec's), dim*E_v + E_p
+long ns_scratch_floats(const int* meta, const int64_t* compact) {
   Geo g;
   if (!load_geo(meta, &g)) return kErrLayout;
+  if (g.dim == 3) {
+    if (compact == nullptr) return kErrLayout;
+    return g.dim * unpack_compact(compact).E + (long)unpack_compact(compact + kCompactLen).E;
+  }
   return subwindow_floats(g, true, true) + span_ints(g);
 }
 
@@ -1416,14 +1373,22 @@ int ns_gather(const int* meta, const void* pos_v, const void* pos_p,
   return (int)cudaErrorInvalidValue;
 }
 
-// y [n_u + n_ps] = sum_cells P_c^T R_c: K4, then the merge
+// y [n_u + n_ps] = sum_cells P_c^T R_c: K4, then the merge.  compact: as
+// ns_matvec's (the 3D kernels' tables), null in 2D.
 int ns_scatter(const int* meta, const void* pos_v, const void* pos_p,
                const void* offs_v, const void* offs_p, const void* cnt, const void* colour,
-               const void* R, void* scratch, void* y, void* stream) {
+               const int64_t* compact, const void* R, void* scratch, void* y, void* stream) {
   Geo g;
   if (!load_geo(meta, &g)) return kErrLayout;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (g.dim == 3) {
+    if (compact == nullptr) return kErrLayout;
+    return launch_scatter_3d(g, (const int*)cnt, unpack_compact(compact),
+                             unpack_compact(compact + kCompactLen), R, (float*)scratch, (float*)y,
+                             st);
+  }
   return launch_scatter(g, make_tables(pos_v, pos_p, offs_v, offs_p, cnt, colour), R,
-                        (float*)scratch, (float*)y, (cudaStream_t)stream);
+                        (float*)scratch, (float*)y, st);
 }
 
 // y [the out-spaces' planar segment] = A x: K1 / K2, then the merge.

@@ -35,9 +35,10 @@ allow), derived once per layout from the JAX-shaped ``loc_*_hi``/``loc_*_lo``/
 kernel launched by the same C call (plain version of that order:
 ``_scatter_chunked_reference`` through ``_merge_reference``), so a wrapper
 call is one C call and does no torch arithmetic after it.  On tetrahedra
-K1 and K2 sum each chunk's slots at the distinct positions they touch
+K1, K2 and K4 sum each chunk's slots at the distinct positions they touch
 instead, and merge through a list of each row's sums (``compact_tables``;
-plain version of that order: ``_compact_matvec_reference``).
+plain versions of that order: ``_compact_matvec_reference`` and
+``_compact_scatter_reference``).
 """
 
 from __future__ import annotations
@@ -479,8 +480,9 @@ def pack_positions(lay: WindowedLayout):
 
 
 def slot_colours(lay: WindowedLayout, pos_v: torch.Tensor, pos_p: torch.Tensor):
-    """The round of every slot's sums in the kernels K1, K2 and K4 (K4 only
-    on tetrahedra): (colour [nb, Bmax] uint8, ncolors).
+    """The round of every slot's sums in the kernels K1, K2 and K4, in 2D
+    only (the 3D kernels sum through ``compact_tables``): (colour [nb, Bmax]
+    uint8, ncolors).
 
     A greedy colouring of each chunk's occupied slots in slot order: a slot
     takes the least colour that no earlier slot of its chunk sharing a
@@ -544,11 +546,11 @@ _MAX_SMEM_BYTES = 232448
 
 @dataclass(frozen=True)
 class CompactSpace:
-    """One space's tables of the 3D matvec kernel (K1/K2 on tetrahedra).
+    """One space's tables of the 3D kernels (K1, K2 and K4 on tetrahedra).
 
     A chunk's ENTRIES are the distinct window positions its slots touch,
     sorted; the chunks' lists lie one after another, chunk (b, c) at piece
-    b*nchunks + c.  The kernel sums a chunk's slots' values into its entries
+    b*nchunks + c.  A kernel sums a chunk's slots' values into its entries
     (``tr``: each entry's (slot, dof) pairs, slots ascending) and writes each
     entry's sum to its place ``dst`` in a scratch vector ordered by row; the
     merge sums a row's places ``row_ptr[r]:row_ptr[r+1]`` in order.  A row's
@@ -622,12 +624,13 @@ def _compact_space(lay: WindowedLayout, pos: np.ndarray, k: int, OW: int, h: int
 
 
 def compact_smem_bytes(lay: WindowedLayout, tabs: dict) -> int:
-    """The least shared memory of the 3D matvec's largest call (K1, float32
+    """The least shared memory of the 3D kernels' largest call (K1, float32
     A; windowed.cu launch_matvec_3d): the slots' outputs (nl rows of Bc
     floats, which the smallest ring of A also takes), and a region that
     holds x at the chunk's entries (dim rows of the velocity's, the
     pressure's) and later the chunk's (slot, dof) pairs with each entry's
-    first pair (uint16s)."""
+    first pair (uint16s).  K4 (launch_scatter_3d) takes the rows and the
+    pairs, so no more."""
     v, p = tabs["v"], tabs["p"]
     xs = 4 * (lay.dim * v.max_entries + p.max_entries)
     pairs = 2 * (v.max_pairs + v.max_entries + 1 + p.max_pairs + p.max_entries + 1)
@@ -635,10 +638,10 @@ def compact_smem_bytes(lay: WindowedLayout, tabs: dict) -> int:
 
 
 def compact_tables(lay: WindowedLayout) -> dict:
-    """{"v": CompactSpace, "p": CompactSpace}: the 3D matvec kernel's tables,
-    made once per layout with numpy (on the layout's device).  Raises
-    ValueError where a chunk's lists exceed what the kernel takes: 16-bit
-    indices, and a block's shared memory (``compact_smem_bytes``)."""
+    """{"v": CompactSpace, "p": CompactSpace}: the 3D kernels' tables, made
+    once per layout with numpy (on the layout's device).  Raises ValueError
+    where a chunk's lists exceed what the kernels take: 16-bit indices, and
+    a block's shared memory (``compact_smem_bytes``)."""
     pos_v, pos_p, _ = pack_positions(lay)
     tabs = {
         key: _compact_space(lay, unpack_positions(pos).cpu().numpy(), k, OW, h, n)
@@ -735,8 +738,8 @@ def _scatter_chunked_reference(lay: WindowedLayout, R: torch.Tensor) -> torch.Te
     """``_scatter_reference`` in the kernels' order: every chunk sums its
     slots' rows into its own subwindow (packed positions less the chunk's
     offset), then ``_merge_reference`` sums the subwindows that cover each
-    row.  This is the plain version of K4, and of what K1 and K2 do after
-    their contraction."""
+    row.  This is the plain version of K4 in 2D, and of what K1 and K2 do
+    there after their contraction."""
     pos_v, pos_p, cnt = pack_positions(lay)
     Rn = R[: lay.nl].reshape(lay.nl, lay.nb, lay.nchunks, lay.Bc)
     nv = lay.dim * lay.k_v
@@ -769,9 +772,9 @@ def _compact_matvec_reference(lay: WindowedLayout, A_sub: torch.Tensor, x: torch
     each slot's values through its entry indices, the contraction, then each
     chunk's sums at its entries (their (slot, dof) pairs in order) written
     to their places in the row-ordered scratch, then the merge of each
-    row's places in order.  The plain version of K1 and K2 in 3D, as
-    ``_scatter_chunked_reference`` is of K4; x and the result are the
-    in- and out-spaces' planar segments."""
+    row's places in order (``_compact_scatter_reference``).  The plain
+    version of K1 and K2 in 3D; x and the result are the in- and
+    out-spaces' planar segments."""
     tabs = compact_tables(lay) if tables is None else tables
     nb, nch, Bc, Bmax = lay.nb, lay.nchunks, lay.Bc, lay.Bmax
     k = {"v": lay.k_v, "p": lay.k_p}
@@ -796,22 +799,38 @@ def _compact_matvec_reference(lay: WindowedLayout, A_sub: torch.Tensor, x: torch
     outs = [s for s in "vp" if s in out_spaces]
     n_out = sum(ncomp[s] * k[s] for s in outs)
     Y = torch.einsum("jis,js->is", A_sub[:, :n_out].to(x.dtype), X)  # [n_out, ncd]
+    return _compact_scatter_reference(lay, Y, tabs, out_spaces)
+
+
+def _compact_scatter_reference(lay: WindowedLayout, R: torch.Tensor, tables=None,
+                               out_spaces: str = "vp") -> torch.Tensor:
+    """``_scatter_reference`` in the 3D kernels' order, through
+    ``compact_tables``: each chunk's sums at its entries (their (slot, dof)
+    pairs in order, slots ascending) written to their places in the
+    row-ordered scratch, then each row's places summed in order.  R holds
+    the out-spaces' rows (velocity components, then pressure; [>= nl, ncd]
+    for "vp"); the result is their planar segment.  The plain version of K4
+    in 3D, and of what K1 and K2 do there after their contraction."""
+    tabs = compact_tables(lay) if tables is None else tables
+    nch, Bc, Bmax = lay.nchunks, lay.Bc, lay.Bmax
+    dev = R.device
     ys, r0 = [], 0
-    for s in outs:
+    for s in (s for s in "vp" if s in out_spaces):
         t = tabs[s]
+        k, ncomp, n = (lay.k_v, lay.dim, lay.n_vs) if s == "v" else (lay.k_p, 1, lay.n_ps)
         ent_of = torch.repeat_interleave(torch.arange(t.E, device=dev), torch.diff(t.tr_off.long()))
         ent_piece = torch.searchsorted(t.off.long(), torch.arange(t.E, device=dev), right=True) - 1
         code = t.tr.long() & 0xFFFF
         p = ent_piece[ent_of]
         col = (p // nch) * Bmax + (p % nch) * Bc + code % Bc  # the pair's slot
-        place_row = torch.repeat_interleave(torch.arange(n[s], device=dev),
+        place_row = torch.repeat_interleave(torch.arange(n, device=dev),
                                             torch.diff(t.row_ptr.long()))
-        for cc in range(ncomp[s]):
-            sums = Y.new_zeros(t.E).index_add_(0, ent_of, Y[r0 + cc * k[s] + code // Bc, col])
+        for cc in range(ncomp):
+            sums = R.new_zeros(t.E).index_add_(0, ent_of, R[r0 + cc * k + code // Bc, col])
             scratch = torch.empty_like(sums)
             scratch[t.dst.long()] = sums
-            ys.append(Y.new_zeros(n[s]).index_add_(0, place_row, scratch))
-        r0 += ncomp[s] * k[s]
+            ys.append(R.new_zeros(n).index_add_(0, place_row, scratch))
+        r0 += ncomp * k
     return torch.cat(ys)
 
 
@@ -872,7 +891,7 @@ _KERNEL_ERRORS = {
         "of A are 16-byte multiples; the gather, the scatter and the 3D products "
         "take whole warps: a multiple of 32 slots)",
     -2: "a block would need more shared memory than it may use",
-    -3: "the operator's storage is not 16-byte aligned",
+    -3: "the operand's storage (A, X, or R in 3D) is not 16-byte aligned",
 }
 
 
@@ -926,10 +945,10 @@ def _load(path: str):
     p, i = ctypes.c_void_p, ctypes.c_int
     meta = ctypes.POINTER(ctypes.c_int)
     tables = [p] * 6
-    lib.ns_scratch_floats.argtypes = [meta]
+    lib.ns_scratch_floats.argtypes = [meta, p]
     lib.ns_scratch_floats.restype = ctypes.c_long
     lib.ns_gather.argtypes = [meta, *tables, p, p, p, i, i, p]
-    lib.ns_scatter.argtypes = [meta, *tables, p, p, p, p]
+    lib.ns_scatter.argtypes = [meta, *tables, p, p, p, p, p]
     lib.ns_matvec.argtypes = [meta, *tables, p, p, i, i, i, i, p, p, p, p]
     for fn in (lib.ns_gather, lib.ns_scatter, lib.ns_matvec):
         fn.restype = i
@@ -940,13 +959,12 @@ class _Packed:
     """What the CUDA entry points take of one layout, made once: the geometry
     record (struct Geo, windowed.cu), the packed tables of ``pack_positions``,
     the slot colours of ``slot_colours``, the leading arguments of every
-    call and, for the 3D matvec, the tables of ``compact_tables`` (made at
-    its first call).  Scratch for the window
-    accumulators is kept per stream (calls on one stream run in turn, so
-    they can share it; CUDA graphs captured on one capture stream share
-    theirs, so replay them on one stream at a time).  The 3D matvec's
-    scratch, dim*E_v + E_p floats, fits in it: a chunk's entries are
-    distinct positions of its subwindows."""
+    call and, for the 3D K1, K2 and K4, the tables of ``compact_tables``
+    (made at the first call of one of them).  Scratch is kept per stream
+    (calls on one stream run in turn, so they can share it; CUDA graphs
+    captured on one capture stream share theirs, so replay them on one
+    stream at a time): in 2D the chunk subwindows and K4's span tables, in
+    3D the row-ordered compact vector, dim*E_v + E_p floats."""
 
     def __init__(self, lay: WindowedLayout):
         self._lay = lay
@@ -970,10 +988,11 @@ class _Packed:
 
     @cached_property
     def compact_args(self):
-        """ns_matvec's ``compact`` argument: per space (velocity, then
-        pressure) the addresses of the 7 tables of ``compact_tables`` (kept
-        in ``self.compact``), E and the most entries and pairs of a chunk
-        (struct Compact, windowed.cu); None in 2D."""
+        """The ``compact`` argument of ns_matvec, ns_scatter and
+        ns_scratch_floats: per space (velocity, then pressure) the addresses
+        of the 7 tables of ``compact_tables`` (kept in ``self.compact``), E
+        and the most entries and pairs of a chunk (struct Compact,
+        windowed.cu); None in 2D."""
         if self._lay.dim != 3:
             return None
         self.compact = compact_tables(self._lay)
@@ -989,7 +1008,7 @@ class _Packed:
         size the library asks for)."""
         buf = self._scratch.get(stream)
         if buf is None:
-            n = _lib().ns_scratch_floats(self.meta)
+            n = _lib().ns_scratch_floats(self.meta, self.compact_args)
             if n < 0:
                 _raise_on(n, "ns_scratch_floats")
             buf = torch.empty(n, dtype=torch.float32, device=self._device)
@@ -1117,9 +1136,11 @@ def windowed_gather_pair(
 
 def windowed_scatter(lay: WindowedLayout, R: torch.Tensor) -> torch.Tensor:
     """y = sum_cells P_c^T R_c for per-cell row values R [>=nl, nb*Bmax]:
-    per-block window accumulation, then the overlaps merge.  On the card:
-    per-chunk subwindow accumulation, then the merge, in one C call (in the
-    order of ``_scatter_chunked_reference``)."""
+    per-block window accumulation, then the overlaps merge.  On the card,
+    in one C call: per-chunk subwindow accumulation, then the merge, in 2D
+    (in the order of ``_scatter_chunked_reference``); per-chunk sums at the
+    chunk's entries, then the row-list merge, in 3D (in the order of
+    ``_compact_scatter_reference``)."""
     if _plain_or_raise(R):
         return _scatter_reference(lay, R)
     _check_cuda(lay, R)
@@ -1129,7 +1150,7 @@ def windowed_scatter(lay: WindowedLayout, R: torch.Tensor) -> torch.Tensor:
     pk = lay._packed
     stream = torch.cuda.current_stream(R.device).cuda_stream
     err = _lib().ns_scatter(
-        *pk.args, R.data_ptr(), pk.scratch(stream), y.data_ptr(), stream
+        *pk.args, pk.compact_args, R.data_ptr(), pk.scratch(stream), y.data_ptr(), stream
     )
     _raise_on(err, "ns_scatter")
     windowed_scatter.launches += 1

@@ -31,9 +31,9 @@ box (``box_mesh``, ``box_config``: chip_smoke.py phase 14):
   library_ms     cold time of one PyTorch call of the same function
                  (``library_call``: a CSR product, index_select or
                  index_add_), never used by the package
-  moved_bytes    (K1, K2 in 3D) the bytes the kernel and its merge really
-                 move (``moved_bytes_3d``): the bound's, plus x at every
-                 chunk's entries, the compact tables and the scratch
+  moved_bytes    (K1, K2, K4 in 3D) the bytes the kernel and its merge
+                 really move (``moved_bytes_3d``): the bound's, plus x at
+                 every chunk's entries, the compact tables and the scratch
 
 and the median host-clock time of a forced Newton step at a seeded state
 and of the BDF1 solve (3 steps on the channel, 2 on the box).
@@ -320,19 +320,25 @@ def bound_bytes_of(lay, operands):
 
 
 def moved_bytes_3d(lay, operands):
-    """{call: bytes} that the 3D matvec kernel and its merge really move for
-    K1 and each K2 product (``bound_bytes_of`` counts each input once
-    instead): A as in the bound; x at every chunk's entries of the
-    in-spaces; of ``compact_tables`` the occupied slots' entry indices and
-    the entries' rows of the in-spaces, the (slot, dof) pairs with their
-    offsets, the entries' places and the row offsets of the out-spaces;
-    the compact scratch written by the chunks and read by the merge; y."""
+    """{call: bytes} that the 3D kernels and their merge really move for K1,
+    each K2 product and K4 (``bound_bytes_of`` counts each input once
+    instead): A as in the bound (K4: the occupied slots' nl rows of R); x
+    at every chunk's entries of the in-spaces; of ``compact_tables`` the
+    occupied slots' entry indices and the entries' rows of the in-spaces,
+    the (slot, dof) pairs with their offsets, the entries' places and the
+    row offsets of the out-spaces; the compact scratch written by the
+    chunks and read by the merge; y."""
     tabs = W.compact_tables(lay)
     _, _, cnt = W.pack_positions(lay)
     n_occ = int(cnt.sum())
     ncomp = {"v": lay.dim, "p": 1}
     k = {"v": lay.k_v, "p": lay.k_p}
     n = {"v": lay.n_vs, "p": lay.n_ps}
+
+    def out_space(s):  # the sums' tables and the scratch each way, y
+        t = tabs[s]
+        return (2 * 4 * ncomp[s] * t.E + 2 * t.tr.numel() + 4 * (2 * t.E + 1)
+                + 4 * t.row_ptr.numel() + 4 * ncomp[s] * n[s])
 
     def matvec(ins, outs, elt):
         a = sum(ncomp[s] * k[s] for s in ins) * sum(ncomp[s] * k[s] for s in outs) * n_occ * elt
@@ -341,14 +347,12 @@ def moved_bytes_3d(lay, operands):
             t = tabs[s]
             total += 4 * ncomp[s] * t.E + 2 * k[s] * n_occ + 4 * (t.E + t.off.numel())
         for s in outs:
-            t = tabs[s]
-            total += (2 * 4 * ncomp[s] * t.E + 2 * t.tr.numel() + 4 * (2 * t.E + 1)
-                      + 4 * t.row_ptr.numel() + 4 * ncomp[s] * n[s])
-            if s not in ins:
-                total += 4 * t.off.numel()
+            total += out_space(s) + (0 if s in ins else 4 * tabs[s].off.numel())
         return total
 
-    out = {"K1 f32": matvec("vp", "vp", 4), "K1": matvec("vp", "vp", 2)}
+    out = {"K1 f32": matvec("vp", "vp", 4), "K1": matvec("vp", "vp", 2),
+           "K4": (4 * lay.nl * n_occ + cnt.numel() * 4
+                  + sum(out_space(s) + 4 * tabs[s].off.numel() for s in "vp"))}
     for key, (A_sub, _) in operands["blocks"].items():
         i, o = key.split("->")
         out[f"K2 {key}"] = matvec(i, o, A_sub.element_size())

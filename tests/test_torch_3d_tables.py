@@ -1,10 +1,11 @@
-"""The 3D matvec kernel's host tables and its plain two-stage model.
+"""The 3D kernels' host tables and their plain two-stage models.
 
 On tetrahedra K1 and K2 (csrc/windowed.cu ``matvec3_kernel`` and
-``merge3_kernel``) sum each chunk's slots at the distinct window positions
-the chunk touches (its entries), write every sum to its place in a scratch
-vector ordered by row, and merge each row's places in order
-(``ops/windowed.py`` ``compact_tables``).  Here, on the CPU:
+``merge3_kernel``) and K4 (``scatter3_kernel`` and the same merge) sum each
+chunk's slots at the distinct window positions the chunk touches (its
+entries), write every sum to its place in a scratch vector ordered by row,
+and merge each row's places in order (``ops/windowed.py``
+``compact_tables``).  Here, on the CPU:
 
 * the tables: each chunk's list sorted and distinct and equal to the
   positions its slots touch; every occupied (slot, dof) pair listed exactly
@@ -15,7 +16,10 @@ vector ordered by row, and merge each row's places in order
 * ``_compact_matvec_reference`` (the kernels' order in plain torch) against
   ``windowed_matvec_reference`` and ``_block_reference`` in float64, to
   1e-12 of ||y||_inf (the same sums in another order), for vp->vp, v->v,
-  v->p and p->p; and on one layout against the JAX package's references.
+  v->p and p->p; and on one layout against the JAX package's references;
+* ``_compact_scatter_reference`` (K4's order) against ``_scatter_reference``
+  in float64 to 1e-12 of ||y||_inf, and on one layout against the JAX
+  package's ``windowed_scatter`` (its plain path on the CPU).
 
 Layouts: the card tests' three tetrahedral ones (tests/test_torch_kernels.py
 ``TETS``: one chunk at halo 1; 3 chunks of 256; halo 2) and box(2, 2, 2) on
@@ -244,3 +248,28 @@ def test_compact_model_matches_jax_f64(ins, outs):
         want = jw._block_reference(jlay, jnp.asarray(A.numpy()), jnp.asarray(x.numpy()), ins,
                                    outs, None)
     _close(got, want)
+
+
+def _rows(lay, seed):
+    """Seeded per-slot rows R [nli, ncd], the scatter's input."""
+    return torch.as_tensor(np.random.default_rng(seed).standard_normal((lay.nli, lay.ncd)))
+
+
+@pytest.mark.parametrize("name", sorted(LAYOUTS))
+def test_compact_scatter_model_matches_plain_f64(name):
+    """K4's two-stage model through the tables (per-chunk entry sums, the
+    row-list merge) equals the plain scatter in float64."""
+    lay = _layout(name)
+    R = _rows(lay, 5)
+    _close(tw._compact_scatter_reference(lay, R, _tables(name)), tw._scatter_reference(lay, R))
+
+
+def test_compact_scatter_model_matches_jax_f64():
+    """On box-refined-Bc256 K4's model, on the port's copy of the JAX
+    package's layout (``convert``), equals the JAX package's
+    windowed_scatter (its plain path on the CPU) in float64."""
+    args, kw = _build(LAYOUTS["box-refined-Bc256"])
+    jlay = jw.build_windowed_layout(*args, **kw)
+    lay = convert.layout_from_arrays(convert.arrays_of(jlay))
+    R = _rows(lay, 6)
+    _close(tw._compact_scatter_reference(lay, R), jw.windowed_scatter(jlay, jnp.asarray(R.numpy())))

@@ -6,13 +6,12 @@ This file imports no JAX, so it runs on a machine with a GPU and no JAX:
 
 Without a visible GPU every test skips but the slot colouring's, which
 checks a host table.  The layouts are P2/P1 on triangles (2D) and on
-tetrahedra (3D, the kernels' other design: K1/K2 sum each chunk at the
-distinct positions it touches and merge through per-row lists, K4 one
-component's subwindow at a time).  Tolerances: K3 (gather, one vector or the
-pair u, u_old in one launch) is a copy and must be bit-equal; the others
-agree to 1e-5 of ||y||_inf (float32 sums in another order: the kernels sum
-a chunk's slots in colour order, 3D K1/K2 in the order of
-``compact_tables``).  K1, K2 and K4 sum in a fixed order, so a repeated
+tetrahedra (3D, the kernels' other design: K1, K2 and K4 sum each chunk at
+the distinct positions it touches and merge through per-row lists).
+Tolerances: K3 (gather, one vector or the pair u, u_old in one launch) is a
+copy and must be bit-equal; the others agree to 1e-5 of ||y||_inf (float32
+sums in another order: the 2D kernels sum a chunk's slots in colour order,
+the 3D ones in the order of ``compact_tables``).  K1, K2 and K4 sum in a fixed order, so a repeated
 call and a CUDA-graph replay give the same bits as an eager call.  K5, the
 tensor-core probe, is held to 1e-5 of its output's largest entry (bf16
 products summed in float32 in groups, in another order).
@@ -244,15 +243,18 @@ def test_repeat_calls_are_bit_equal(name, op, cuda_device):
 @pytest.mark.parametrize("name", TETS)
 def test_tet_merge_counts_every_window(name, cuda_device):
     """With A the identity on every cell and x all ones, K1 (bf16 and
-    float32 A) and K2 v->v and p->p give each row the number of cells that
-    touch it, exactly: every (slot, dof) pair reaches its row through the
-    chunk sums and the row-list merge.  On the halo-2 layout some rows
-    take entries from blocks 2 away from their own (the merge's outermost
-    windows, j = 0 and 2h)."""
+    float32 A) and K2 v->v and p->p, and K4 with R = 1 on every occupied
+    slot's nl rows, give each row the number of cells that touch it,
+    exactly: every (slot, dof) pair reaches its row through the chunk sums
+    and the row-list merge.  On the halo-2 layout some rows take entries
+    from blocks 2 away from their own (the merge's outermost windows, j = 0
+    and 2h)."""
     lay = _layout(name)
+    pos_v, pos_p, _ = tw.pack_positions(lay)
+    filled = ((tw.unpack_positions(pos_v) >= 0).any(dim=1)
+              | (tw.unpack_positions(pos_p) >= 0).any(dim=1)).reshape(-1)
     counts = []
-    for pos, OW, h, n in ((tw.pack_positions(lay)[0], lay.OWv, lay.hv, lay.n_vs),
-                          (tw.pack_positions(lay)[1], lay.OWp, lay.hp, lay.n_ps)):
+    for pos, OW, h, n in ((pos_v, lay.OWv, lay.hv, lay.n_vs), (pos_p, lay.OWp, lay.hp, lay.n_ps)):
         p = tw.unpack_positions(pos)  # [nb, k, Bmax]
         rows = (torch.arange(lay.nb)[:, None, None] - h) * OW + p
         counts.append(torch.bincount(rows[p >= 0], minlength=n).float())
@@ -274,6 +276,29 @@ def test_tet_merge_counts_every_window(name, cuda_device):
     assert torch.equal(tw.windowed_matvec_block(lay, tw.slice_block(lay, A_bf, "p", "p"),
                                                 x[lay.n_u :], in_spaces="p", out_spaces="p"),
                        want[lay.n_u :])
+    R = torch.zeros((lay.nli, lay.ncd), device=cuda_device)
+    R[: lay.nl, filled.to(cuda_device)] = 1.0
+    assert torch.equal(tw.windowed_scatter(lay, R), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", TETS)
+def test_tet_scratch_is_the_compact_vector(name, cuda_device):
+    """A tetrahedral layout's scratch (one buffer a stream, shared by K1,
+    K2 and K4) is the row-ordered compact vector: dim*E_v + E_p floats,
+    whichever of K4 and K1 makes it first."""
+    rand = _rand_on(cuda_device, 16)
+    for first in ("scatter", "matvec"):
+        lay = _layout(name).to(cuda_device)  # a new layout: its own tables and scratch
+        call, _ = _op_call(lay, first, rand)
+        call()
+        call, _ = _op_call(lay, "matvec" if first == "scatter" else "scatter", rand)
+        call()
+        torch.cuda.synchronize()
+        tabs = lay._packed.compact
+        scratch = list(lay._packed._scratch.values())
+        assert len(scratch) == 1 and scratch[0].dtype == torch.float32
+        assert scratch[0].numel() == lay.dim * tabs["v"].E + tabs["p"].E
 
 
 @pytest.mark.parametrize("name", sorted(LAYOUTS))
@@ -383,6 +408,21 @@ def test_kernel_rejects_misaligned_operator(cuda_device):
     assert A.is_contiguous() and A.data_ptr() % 16 != 0
     with pytest.raises(RuntimeError, match="16-byte aligned"):
         tw.windowed_matvec(lay, A, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", TETS)
+def test_tet_scatter_rejects_misaligned_rows(name, cuda_device):
+    """The 3D K4 copies R's rows in 16-byte pieces: rows whose storage
+    starts off a 16-byte boundary raise instead of launching."""
+    lay = _layout(name).to(cuda_device)
+    flat = torch.zeros(lay.nli * lay.ncd + 1, dtype=torch.float32, device=cuda_device)
+    R = flat[1:].view(lay.nli, lay.ncd)
+    assert R.is_contiguous() and R.data_ptr() % 16 != 0
+    tw.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="16-byte aligned"):
+        tw.windowed_scatter(lay, R)
+    assert all(v == 0 for v in tw.launch_counts().values())
 
 
 @pytest.mark.cuda
