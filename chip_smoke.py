@@ -63,6 +63,25 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 (d) refine_uniform(box(4, 4, 4), 1): float32 on the GPU
                 against float64 on the CPU over 2 steps, with the tangent
                 stored in float32 and in bf16
+ 15. multi-rank the channel of phases 3-6 on 2 and then 4 ranks of the one
+                card, each rank a process (spawned, joined through
+                initialize_distributed) in a gloo group (NCCL refuses two
+                ranks on one device; the edge blocks go through pinned host
+                buffers), the windowed operator sharded by owned block
+                ranges, against one device at the ranks' numbering
+                (nb_multiple) and phase 4-5: per rank, (a) K1-K4 against
+                their plain versions at its framed local layout, the
+                sharded wrappers against theirs with the group and the
+                sharded gather and scatter against one device's, and the
+                floats one K1 product sends; (b) two forced Newton steps at
+                phase 5's state (bit-equal; entry ||r|| within 1e-6 of
+                phase 5's, FGMRES count within 2, the update node by node
+                within MULTI_UPDATE_TOL); (c) 2 BDF1 steps (K1-K4 launched
+                on every rank; Newton counts equal to phase 4's steps 1-2,
+                step 1's first two residuals within MULTI_FIRST_TOL, the
+                velocity node by node within MULTI_VEL_TOL of max |u|: see
+                their comment, each bound with a control it must fail); the
+                forced step's wall time at 1, 2 and 4 ranks
 
 Each phase prints its wall time.
 Files the phases write (.msh, configs, run logs) go to build/chip_smoke/.
@@ -83,6 +102,11 @@ which call: for K5 one torch.mm of the products laid side by side along K
 with a float32 output, and ``library_graph_ms`` the products as bf16
 torch.matmul calls replayed from a CUDA graph; K5's ``grid`` is the launch's
 tiles and groups of iterations).  K3's ``also`` holds the pair's record.
+The channel's K1-K4 entries also carry phase 15's 2-rank run:
+``sharded_launches`` (each rank's launches in its 2 BDF1 steps) and
+``sharded_max_abs_err`` (the largest error at the ranks' framed layouts,
+alone and sharded, against the plain versions and one device's); null for
+the box and K5.
 """
 
 import contextlib
@@ -107,6 +131,7 @@ from navier_stokes_tpu_torch.fem.assembly import assemble_navier_stokes  # noqa:
 from navier_stokes_tpu_torch.fem.windowed_assembly import assemble_windowed  # noqa: E402
 from navier_stokes_tpu_torch.la import operators as ops  # noqa: E402
 from navier_stokes_tpu_torch.ops import windowed as W  # noqa: E402
+from navier_stokes_tpu_torch.parallel import windowed_spmd as wspmd  # noqa: E402
 from navier_stokes_tpu_torch.scripts import cavity  # noqa: E402
 from navier_stokes_tpu_torch.scripts import kernel_bench as kb  # noqa: E402
 from navier_stokes_tpu_torch.scripts import mxu_probe as mxu  # noqa: E402
@@ -719,7 +744,8 @@ def forced_step(solver, seed=0, reps=3):
     """``reps`` forced Newton steps at the seeded state 0.05 *
     standard_normal (numpy seed): each one's wall time, output and kernel
     launches; the steps must converge, take equal FGMRES counts and give
-    bit-equal updates."""
+    bit-equal updates.  Returns (one step's launches, {the state, its
+    entry ||r||, FGMRES count, median ms})."""
     n = solver.dofs.n_total
     state = torch.as_tensor(0.05 * np.random.default_rng(seed).standard_normal(n),
                             dtype=torch.float32, device=DEV)
@@ -747,7 +773,8 @@ def forced_step(solver, seed=0, reps=3):
           f"bit-equal u_new {same_update}", flush=True)
     if not (same_iters and same_update):
         raise RuntimeError("forced Newton steps from one state differ from run to run")
-    return step_launches
+    return step_launches, dict(state=state, u_new=outs[0][0], entry=outs[0][1],
+                               iters=outs[0][2], ms=float(np.median(times)) * 1e3)
 
 
 def box_parity():
@@ -849,7 +876,7 @@ def box_phase():
         raise RuntimeError(f"a kernel of the 3D path was never launched: {launches}")
 
     print("  (c) forced Newton step at a seeded state", flush=True)
-    step_launches = forced_step(solver)
+    step_launches, _ = forced_step(solver)
     if min(step_launches.values()) == 0:
         raise RuntimeError(f"a kernel was not launched by the 3D Newton step: {step_launches}")
     del solver
@@ -860,15 +887,350 @@ def box_phase():
     return recs, launches, step_launches
 
 
+# ---- phase 15: the windowed path on 2 and 4 ranks ---------------------------
+
+MULTI_RANKS = (2, 4)
+# The ranks are held to one device at their own numbering (nb_multiple =
+# the rank count: the same blocks, windows and coarse aggregates), so that
+# what differs is only the order of float32 sums at halo rows and in the
+# all-reduced dots.  Phase 4-5's run has another block count (nb 229
+# against 230 and 232), so other Cahouet-Chabard aggregates: it is the
+# control that the update and first-residual bounds must tell apart.
+# Readings on an NVIDIA H100 80GB HBM3 at 700 W, 2 / 4 ranks (PERF.md):
+#
+# the entry ||r|| of the forced step at phase 5's state: the same state in
+# another numbering, float32 sums in another order (gaps 0 and 1.0e-7)
+MULTI_ENTRY_REL_TOL = 1e-6
+# the forced step's FGMRES count against phase 5's: float32 rounding in
+# another order steers the Krylov iterates
+MULTI_ITERS_SLACK = 2
+# the forced step's update, node by node, as a share of its largest entry:
+# 2.1e-6 / 1.5e-6; the control 4.3e-3 / 4.5e-3
+MULTI_UPDATE_TOL = 1e-4
+# step 1's entry residual and its residual after the first Newton update,
+# relative: 5.2e-6 / 4.8e-6; the control 3.7e-3 / 2.8e-3
+MULTI_FIRST_TOL = 1e-4
+# The velocity after each BDF1 step, node by node, as a share of max |u|:
+# 1.45e-1 and 1.07e-1 / 1.37e-1 and 8.5e-2 (steps 1 and 2), about twice
+# the widest.  Rounding alone spreads it that far: step 1's second tangent
+# solve (rel_tol 1e-2, 350-511 FGMRES iterations) is steered by it, and
+# the Newton loop stops anywhere below an absolute ||r|| of 1e-2; the
+# other numbering sits inside the spread (4.5e-2 / 9.8e-2).  So this bound
+# is a backstop; the two above hold the sharded path.  Its control: the
+# flow's own change over step 2 (1.69 / 1.71) must exceed it.
+MULTI_VEL_TOL = 0.3
+MULTI_TIMEOUT_S = 600  # a group of ranks that takes longer has hung
+
+
+def channel_mesh():
+    """The 102,400-cell channel of phases 3-6 and 15."""
+    return nt.refine_uniform(nt.rectangle(80, 40, 0, 7, 0, 4), 2)
+
+
+def natural(s, y):
+    """(velocity [dim, n_v], pressure [n_p]) of solver s's planar vector y
+    in the mesh's natural dof order, whatever the blocked numbering."""
+    d = s.dofs
+    y = np.asarray(y, np.float64)
+    return y[: d.n_u].reshape(d.dim, d.n_vs)[:, d.v_perm], y[d.n_u:][d.p_perm]
+
+
+def from_natural(s, v, p):
+    """The planar vector of solver s holding natural-order v and p (zero on
+    the padding holes of its numbering)."""
+    d = s.dofs
+    y = np.zeros(d.n_total)
+    y[: d.n_u].reshape(d.dim, d.n_vs)[:, d.v_perm] = v
+    y[d.n_u:][d.p_perm] = p
+    return y
+
+
+def node_gap(a, b):
+    """max |a - b| over max |b|, the natural-order arrays flattened."""
+    a, b = np.concatenate([np.ravel(t) for t in a]), np.concatenate([np.ravel(t) for t in b])
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def channel_run(s, state, rank=0):
+    """Solver s (2 BDF1 steps, not yet set up) on phase 15's work: a forced
+    Newton step at phase 5's natural-order state, then the 2 steps from
+    rest.  Every rank calls it.  Returns the natural-order update and
+    velocities, the entry ||r||, the FGMRES count, the Newton residuals and
+    the forced step's wall times (it is taken twice: bit-equal)."""
+    s.setup()
+    y = from_natural(s, *state)
+    if s._dist is not None:
+        y = wspmd.to_dist(y, s._dist)[rank * s._n_state:][: s._n_state]
+    x = torch.as_tensor(y, dtype=torch.float32, device=DEV)
+    bc = s._bc_values(s.cfg.dt)
+    outs, times = [], []
+    for _ in range(2):
+        W.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(s._newton_iteration(x, torch.zeros_like(x), bc, s.cfg.dt, True))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_launches = {k.split()[0]: c for k, c in W.launch_counts().items()}
+    step_floats = W.exchange_floats()
+    (u1, r1, it1, ok1, _), (u2, _, it2, _, _) = outs
+    if not (ok1 and it1 == it2 and torch.equal(u1, u2)):
+        raise RuntimeError(f"rank {rank}: two forced steps from one state differ "
+                           f"({it1} and {it2} FGMRES iterations, converged {ok1})")
+    vel = {}
+    s.output_hooks.append(
+        lambda step, t, sol: vel.__setitem__(step, natural(s, sol.cpu())[0]))
+    W.reset_launch_counts()
+    t0 = time.perf_counter()
+    s.solve()
+    torch.cuda.synchronize()
+    return dict(update=natural(s, s._planar(u1 - x)), entry=r1, iters=it1, velocity=vel,
+                steps=trajectory(s.log.records), step_ms=[t * 1e3 for t in times],
+                solve_s=time.perf_counter() - t0, step_launches=step_launches,
+                step_exchange_floats=step_floats,
+                launches={k.split()[0]: c for k, c in W.launch_counts().items()})
+
+
+def sharded_vs_plain(s, ops_, rank):
+    """On the card, the sharded wrappers (frame, kernel, unframe; the edge
+    blocks through pinned host buffers) against their plain versions with
+    the same group, at the main path's operands; the gather and the
+    scatter also against the global layout's plain versions on the same
+    global vectors (seeded alike on every rank).  Returns {name: max|err|}."""
+    lay, g, lg, dl = s._win_layout, s._group, s._lay_global, s._dist
+    n_u = lay.dim * lay.nvs_own
+    rng = np.random.default_rng(11)
+    xg = torch.as_tensor(rng.standard_normal(lg.n_u + lg.n_ps), dtype=torch.float32)
+    Rg = torch.as_tensor(rng.standard_normal((lg.nli, lg.ncd)), dtype=torch.float32)
+    own = slice(rank * dl.nb_loc * lay.Bmax, (rank + 1) * dl.nb_loc * lay.Bmax)
+    F = lay.frame * lay.Bmax
+
+    def chunk(v):
+        return wspmd.to_dist(v, dl)[rank * dl.llen:][: dl.llen].to(DEV)
+
+    x, xo = chunk(xg), chunk(0.5 * xg)
+    R = torch.nn.functional.pad(Rg[:, own], (F, F)).to(DEV)
+    calls = {
+        "K1 group": (lambda: W.windowed_matvec(lay, ops_["A_bf"], x, g),
+                     lambda: W.windowed_matvec_reference(lay, ops_["A_bf"], x, g)),
+        "K3 group": (lambda: W.windowed_gather(lay, x, g),
+                     lambda: W._gather_reference(lay, x, g)),
+        "K3 pair group": (lambda: W.windowed_gather_pair(lay, x, xo, g),
+                          lambda: (W._gather_reference(lay, x, g),
+                                   W._gather_reference(lay, xo, g))),
+        "K4 group": (lambda: W.windowed_scatter(lay, R, g),
+                     lambda: W._scatter_reference(lay, R, g)),
+    }
+    for key, (A_sub, _) in ops_["blocks"].items():
+        i, o = key.split("->")
+        xi = x[:n_u] if i == "v" else x[n_u:]
+        calls[f"K2 {key} group"] = (
+            lambda A_sub=A_sub, xi=xi, i=i, o=o: W.windowed_matvec_block(
+                lay, A_sub, xi, in_spaces=i, out_spaces=o, group=g),
+            lambda A_sub=A_sub, xi=xi, i=i, o=o: W._block_reference(lay, A_sub, xi, i, o, g))
+    errs = {}
+    for key, (kernel, plain) in calls.items():
+        got, want = stacked(kernel()), stacked(plain())
+        errs[key] = float((got.double() - want.double()).abs().max())
+        ok = (torch.equal(got, want) if key.startswith("K3")
+              else errs[key] <= REL_TOL * float(want.double().abs().max()))
+        if not ok:
+            raise RuntimeError(f"rank {rank}: {key} disagrees with its plain version "
+                               f"(max|err| {errs[key]:.3e})")
+    # against one device's view: the gather at the owned columns is exact,
+    # the scatter's owned chunk within REL_TOL
+    X = W.windowed_gather(lay, x, g)[:, F: F + dl.nb_loc * lay.Bmax].cpu()
+    errs["K3 global"] = float((X - W._gather_reference(lg, xg)[:, own]).abs().max())
+    want = chunk(W._scatter_reference(lg, Rg)).double()
+    errs["K4 global"] = float((W.windowed_scatter(lay, R, g).double() - want).abs().max())
+    if errs["K3 global"] != 0 or errs["K4 global"] > REL_TOL * float(want.abs().max()):
+        raise RuntimeError(f"rank {rank}: the sharded gather or scatter departs from one "
+                           f"device's ({errs['K3 global']:.3e}, {errs['K4 global']:.3e})")
+    return errs
+
+
+def multi_rank(rank, n, init, ref_path):
+    """One rank of phase 15 (spawned; joins a gloo group on the one card
+    through ``initialize_distributed``): (a) K1-K4 against their plain
+    versions at the rank's framed layout, the sharded wrappers against
+    theirs with the group and against one device's, and the floats one K1
+    product sends; (b) ``channel_run``.  Each rank writes its numbers to
+    OUT, rank 0 also the natural-order results (the parent compares)."""
+    from navier_stokes_tpu_torch.parallel.bootstrap import (initialize_distributed,
+                                                            shutdown_distributed)
+
+    torch.cuda.set_device(DEV)
+    if not initialize_distributed(backend="gloo", init_method=init, world_size=n, rank=rank):
+        raise RuntimeError(f"rank {rank}: no process group joined")
+    ref = torch.load(ref_path, weights_only=False)
+    cfg = config()
+    cfg.T = 0.1  # 2 BDF1 steps
+    s = nt.NavierStokesSolver(channel_mesh(), cfg, log=nt.RunLog(verbose=False), n_devices=n,
+                              device=DEV)
+    t0 = time.perf_counter()
+    s.setup()
+    torch.cuda.synchronize()
+    lay = s._win_layout
+    res = dict(rank=rank, errs={}, setup_s=time.perf_counter() - t0, nb=s._dist.nb,
+               nb_loc=s._dist.nb_loc, frame=lay.frame, nb_framed=lay.nb, ncd=lay.ncd,
+               frame_cols=2 * lay.frame * lay.Bmax)
+
+    # (a) the kernels at the framed layout alone, then sharded
+    calls, ops_ = kb.wrapper_operands(s)
+    for key, (kernel, plain) in calls.items():
+        got, want = stacked(kernel()), stacked(plain())
+        err = float((got.double() - want.double()).abs().max())
+        exact = key.startswith("K3")
+        res["errs"][key] = err
+        if not (torch.equal(got, want) if exact else err <= REL_TOL * float(want.abs().max())):
+            raise RuntimeError(f"rank {rank}: {key} disagrees with its plain version at the "
+                               f"framed layout (max|err| {err:.3e})")
+    res["errs"].update(sharded_vs_plain(s, ops_, rank))
+    x_own = torch.as_tensor(np.random.default_rng(rank).standard_normal(s._n_state),
+                            dtype=torch.float32, device=DEV)
+    W.reset_launch_counts()
+    W.windowed_matvec(lay, ops_["A_bf"], x_own, s._group)
+    res["floats_per_matvec"], res["llen"] = W.exchange_floats(), s._n_state
+    # what framing costs a product: the sharded K1 product (frame, exchange,
+    # K1, exchange, fold) against the bare K1 call at the framed layout,
+    # each over 20 warm calls between CUDA events (the exchange syncs)
+    res["k1_framed_ms"] = kb.cuda_ms(lambda: W.windowed_matvec(lay, ops_["A_bf"], ops_["x"]))
+    res["k1_sharded_ms"] = kb.cuda_ms(
+        lambda: W.windowed_matvec(lay, ops_["A_bf"], x_own, s._group))
+    del calls, ops_
+
+    # (b) the forced step and the 2 steps
+    run = channel_run(s, ref["state"], rank)
+    if min(run["launches"].values()) == 0:
+        raise RuntimeError(f"rank {rank}: a kernel was never launched: {run['launches']}")
+    if rank == 0:
+        torch.save(run, OUT / f"multi_rank_{n}.pt")
+    res.update({k: run[k] for k in ("step_ms", "solve_s", "step_launches",
+                                    "step_exchange_floats", "launches")})
+    (OUT / f"multi_rank_{n}_{rank}.json").write_text(json.dumps(res))
+    shutdown_distributed()
+
+
+def one_device_at(ref, n):
+    """``channel_run`` on one device at the n-rank run's numbering."""
+    cfg = config()
+    cfg.T = 0.1
+    s = nt.NavierStokesSolver(channel_mesh(), cfg, log=nt.RunLog(verbose=False), device=DEV,
+                              nb_multiple=n)
+    run = channel_run(s, ref["state"])
+    run["nb"] = s._win_layout.nb
+    return run
+
+
+def residual_gaps(a, b):
+    """The relative gaps between two runs' Newton residuals, step by step."""
+    return [[abs(x - y) / y for x, y in zip(ra, rb)]
+            for (_, ra, _, _), (_, rb, _, _) in zip(a, b)]
+
+
+def multi_rank_phase(ref, smi):
+    """Phase 15: the owned-range domain decomposition on 2 and 4 ranks of
+    the one card (gloo, edge blocks through pinned host buffers; NCCL
+    refuses two ranks on one device), each rank a process, against one
+    device at the same numbering (the bounds above) and phase 4-5's run
+    (entry ||r||, FGMRES and Newton counts).  Phase 4-5's run is also the
+    control: another numbering, which the update bound must tell apart.
+    Returns the 2-rank run's per-rank numbers."""
+    import torch.multiprocessing as mp
+
+    phase("15 multi-rank: the channel on 2 and 4 ranks of the card (gloo), against one "
+          "device at the ranks' numbering and phase 4-5")
+    ref_path = OUT / "multi_rank_ref.pt"
+    torch.save(ref, ref_path)
+    out = {}
+    for n in MULTI_RANKS:
+        one = one_device_at(ref, n)
+        torch.cuda.empty_cache()
+        store = OUT / f"multi_rank_store_{n}"
+        store.unlink(missing_ok=True)
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(multi_rank, args=(n, f"file://{store}", str(ref_path)),
+                                 nprocs=n, join=False, start_method="spawn")
+        deadline = time.monotonic() + MULTI_TIMEOUT_S
+        while not ctx.join(timeout=10):
+            if time.monotonic() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise RuntimeError(f"{n} ranks outlasted {MULTI_TIMEOUT_S} s")
+        out[n] = [json.loads((OUT / f"multi_rank_{n}_{r}.json").read_text()) for r in range(n)]
+        got = torch.load(OUT / f"multi_rank_{n}.pt", weights_only=False)
+        r0 = out[n][0]
+        print(f"  {n} ranks: nb {r0['nb']} = {n} x {r0['nb_loc']}, frame {r0['frame']} blocks a "
+              f"side: K1-K4 launch on {r0['nb_framed']} blocks, {r0['ncd']} slot columns of "
+              f"which {r0['frame_cols']} frame padding; owned vector {r0['llen']}; setup "
+              f"{r0['setup_s']:.1f} s; one device at nb_multiple {n}: nb {one['nb']}", flush=True)
+        check_converged(got["steps"], config().newton.tol)
+        print("  one device at the same numbering:", flush=True)
+        check_converged(one["steps"], config().newton.tol)
+        entry = abs(got["entry"] - ref["entry"]) / ref["entry"]
+        upd, upd_ctrl = (node_gap(got["update"], one["update"]),
+                         node_gap(ref["update"], one["update"]))
+        res, res_ctrl = (residual_gaps(got["steps"], one["steps"]),
+                         residual_gaps(ref["steps"], one["steps"]))
+        vel = [node_gap(got["velocity"][k], one["velocity"][k]) for k in (1, 2)]
+        vel_ctrl = node_gap(ref["velocity"], one["velocity"][2])
+        step_change = node_gap(one["velocity"][1], one["velocity"][2])
+        newton = [len(r) for _, r, _, _ in got["steps"]]
+        print(f"  forced step: entry ||r|| {got['entry']:.6e} (phase 5 {ref['entry']:.6e}, "
+              f"gap {entry:.2e}, tol {MULTI_ENTRY_REL_TOL:g}); FGMRES {got['iters']} (phase 5 "
+              f"{ref['iters']}, same numbering {one['iters']}); update node by node within "
+              f"{upd:.2e} of its max of one device's at the same numbering (tol "
+              f"{MULTI_UPDATE_TOL:g}; control, phase 5's at its own numbering: {upd_ctrl:.2e})\n"
+              f"  2 BDF1 steps: Newton counts {newton} (phase 4 {ref['newton']}); residuals' "
+              f"relative gaps {[['%.1e' % x for x in r] for r in res]} (tol "
+              f"{MULTI_FIRST_TOL:g} on step 1's first two; control, phase 4's: "
+              f"{[['%.1e' % x for x in r] for r in res_ctrl]}); velocity node by node within "
+              f"{vel[0]:.2e} (step 1), {vel[1]:.2e} (step 2) of max |u| (tol {MULTI_VEL_TOL:g}; "
+              f"controls: phase 4's at step 2 {vel_ctrl:.2e}, the flow's change over step 2 "
+              f"{step_change:.2e}); {got['solve_s']:.1f} s (one device {one['solve_s']:.1f} s)"
+              f"\n  [{n} ranks: {time.perf_counter() - t0:.1f} s with process start]", flush=True)
+        if entry > MULTI_ENTRY_REL_TOL or abs(got["iters"] - ref["iters"]) > MULTI_ITERS_SLACK:
+            raise RuntimeError(f"{n} ranks: the forced step departs from phase 5's")
+        if upd > MULTI_UPDATE_TOL or upd_ctrl <= MULTI_UPDATE_TOL:
+            raise RuntimeError(f"{n} ranks: the update bound fails or cannot tell another "
+                               "numbering apart")
+        if newton != ref["newton"] or newton != [len(r) for _, r, _, _ in one["steps"]]:
+            raise RuntimeError(f"{n} ranks: the Newton counts depart from one device's")
+        if max(res[0][:2]) > MULTI_FIRST_TOL or max(res_ctrl[0][:2]) <= MULTI_FIRST_TOL:
+            raise RuntimeError(f"{n} ranks: the first Newton update's residual bound fails "
+                               "or cannot tell another numbering apart")
+        if max(vel) > MULTI_VEL_TOL or step_change <= MULTI_VEL_TOL:
+            raise RuntimeError(f"{n} ranks: the velocity departs from one device's, or its "
+                               "bound cannot see a time step's change")
+    for n, rs in out.items():
+        for r in rs:
+            print(f"  {n} ranks, rank {r['rank']}: one K1 product sends {r['floats_per_matvec']} "
+                  f"floats, {r['floats_per_matvec'] / r['llen']:.4f} of its vector "
+                  f"({r['llen']}), {r['k1_sharded_ms']:.4f} ms a product against "
+                  f"{r['k1_framed_ms']:.4f} for K1 alone at the framed layout (warm); "
+                  f"forced step sends {r['step_exchange_floats']}; launches: "
+                  f"forced step {r['step_launches']}, 2 steps {r['launches']}; max|err| "
+                  f"at the framed layout {max(r['errs'].values()):.3e}", flush=True)
+        print(f"  {n} ranks, largest error a check: "
+              + ", ".join(f"{k} {max(r['errs'][k] for r in rs):.2e}" for k in rs[0]['errs']),
+              flush=True)
+    print(f"  forced step wall time ({smi}): 1 rank {ref['ms']:.1f} ms (phase 5's median), "
+          + ", ".join(f"{n} ranks {min(out[n][0]['step_ms']):.1f} ms" for n in MULTI_RANKS),
+          flush=True)
+    return out[2]
+
+
 MEASURED = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
             "cold_clean_ms", "warm_ms", "host_us")
 
 
-def kernel_entries(recs, launches, step_launches, suffix):
+def kernel_entries(recs, launches, step_launches, suffix, sharded=None):
     """The kernels line's entries of K1-K4 from ``kernels_vs_plain``'s
     records: the launches of a main-path run and of one forced Newton step,
     the largest error over a kernel's calls, the measured numbers of its
-    timed call, and the others' under ``also``."""
+    timed call, and the others' under ``also``; with ``sharded`` (phase
+    15's 2-rank numbers) each rank's launches in its 2 BDF1 steps and the
+    largest error of the kernel's checks on the ranks (else null)."""
     names = {"K1": "K1 windowed_matvec", "K2": "K2 windowed_matvec_block",
              "K3": "K3 windowed_gather", "K4": "K4 windowed_scatter"}
     counts = {k.split()[0]: v for k, v in launches.items()}
@@ -882,6 +1244,10 @@ def kernel_entries(recs, launches, step_launches, suffix):
             max_abs_err=max(r["max_abs_err"] for r in mine.values()), timed=timed[k],
             **{key: recs[timed[k]][key] for key in MEASURED},
             replay_ms=recs[timed[k]].get("replay_ms"),
+            sharded_ranks=2 if sharded else None,
+            sharded_launches=[r["launches"][k] for r in sharded] if sharded else None,
+            sharded_max_abs_err=max(e for r in sharded for key, e in r["errs"].items()
+                                    if key.split()[0] == k) if sharded else None,
         )
         if len(mine) > 1:  # the other operands of the same kernel
             entry["also"] = {key: {m: r.get(m) for m in (*MEASURED, "replay_ms")}
@@ -910,7 +1276,7 @@ def main():
             print(f"  ptxas: {line}")
 
     phase("3 kernels vs plain at the channel's shapes")
-    mesh = nt.refine_uniform(nt.rectangle(80, 40, 0, 7, 0, 4), 2)
+    mesh = channel_mesh()
     log = nt.RunLog(verbose=False)
     solver = nt.NavierStokesSolver(mesh, config(), log=log, device=DEV)
     t0 = time.perf_counter()
@@ -926,12 +1292,20 @@ def main():
     recs = kernels_vs_plain(solver)
 
     phase("4 slice: 3 BDF1 steps, float32, windowed + Cahouet-Chabard")
+    kept = {}  # step 2's state, for phase 15
+
+    def keep(step, t, sol):
+        if step == 2:
+            kept["u"] = sol.clone()
+
+    solver.output_hooks.append(keep)
     W.reset_launch_counts()
     t0 = time.perf_counter()
     solver.solve()
     torch.cuda.synchronize()
     t_solve = time.perf_counter() - t0
     launches = W.launch_counts()
+    solver.output_hooks.remove(keep)
     steps = trajectory(log.records)
     check_converged(steps, solver.cfg.newton.tol)
     sol = solver.solution
@@ -944,7 +1318,12 @@ def main():
           f"max |u| {np.abs(vel).max():.4e}", flush=True)
 
     phase("5 forced Newton step at a seeded state")
-    step_launches = forced_step(solver)
+    step_launches, forced = forced_step(solver)
+    multi_ref = dict(  # phase 15's state, targets and controls, in the natural dof order
+        state=natural(solver, forced["state"].cpu()), entry=forced["entry"],
+        iters=forced["iters"], ms=forced["ms"], newton=[len(r) for _, r, _, _ in steps[:2]],
+        update=natural(solver, (forced["u_new"] - forced["state"]).cpu()),
+        velocity=natural(solver, kept["u"].cpu())[0], steps=steps[:2])
 
     phase("6 kernel launches during phase 4")
     for k, v in launches.items():
@@ -1148,13 +1527,15 @@ def main():
     steady_phase()
     scanned_phase()
     recs3, launches3, step_launches3 = box_phase()
+    sharded = multi_rank_phase(multi_ref, smi)
     phase.end()
 
-    kernels = (kernel_entries(recs, launches, step_launches, "")
+    kernels = (kernel_entries(recs, launches, step_launches, "", sharded)
                + kernel_entries(recs3, launches3, step_launches3, ", 3D"))
     kernels.append(dict(
         name="K5 mxu_probe", route="cuda", source=PROBE_SOURCE, replaces=REPLACES["K5"],
         launches=probe_launches, launches_per_newton_step=0,
+        sharded_ranks=None, sharded_launches=None, sharded_max_abs_err=None,
         max_abs_err=max(r["max_abs_err"] for r in probe_recs.values()),
         timed=f"M={m_max}, {PROBE_CHECK_ITERS} products",
         library_graph_ms=k5["library_graph_ms"], grid=k5["grid"], replay_ms=k5["replay_ms"],

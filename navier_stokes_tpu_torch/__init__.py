@@ -14,6 +14,8 @@ module here sits at the same relative path as its counterpart there:
   models/    NavierStokesSolver (flat and windowed, BDF1/BDF2, identity /
              block / Cahouet-Chabard preconditioners, Stokes initial
              guess), StokesSolver, flow functionals
+  parallel/  multi-rank runs: joining the process group, the windowed
+             operator sharded by owned block ranges
   scripts/   the tensor-core probe (csrc/mxu_probe.cu)
   utils/     run logging, phase timers
   convert    state carried over from the JAX package's objects

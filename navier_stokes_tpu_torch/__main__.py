@@ -6,15 +6,24 @@ Port of ``navier_stokes_tpu/__main__.py`` with the same commands and flags:
   stokes  steady Stokes
   info    parse a mesh and print its stats
 
-and one more flag, ``--device`` (default ``cuda``): where the solver runs,
-the counterpart of the original's ``JAX_PLATFORMS``.  With ``cuda`` and no
-card visible the command raises; it never carries on on the CPU.  ``--mesh``
-names a gmsh .msh file.  ``--output-dir`` writes the XDMF/HDF5 files of
-io/xdmf.py, which need h5py: without it the command raises before it
-solves anything.
+and two more flags: ``--device`` (default ``cuda``), where the solver
+runs, the counterpart of the original's ``JAX_PLATFORMS`` (with ``cuda`` and
+no card visible the command raises; it never carries on on the CPU), and
+``--backend``, the process group's (default NCCL on GPUs, gloo on the CPU).
+``--mesh`` names a gmsh .msh file.  ``--output-dir`` writes the XDMF/HDF5
+files of io/xdmf.py, which need h5py: without it the command raises before
+it solves anything.
 
-Not ported, and refused with NotImplementedError: ``--devices`` above 1 and
-``--distributed`` (multi-GPU).
+Multi-rank runs: one process a rank under torchrun, with ``--distributed``
+(join the process group from torchrun's environment) and ``--devices N``
+(N ranks, the windowed operator sharded over them)::
+
+    torchrun --nproc-per-node 2 -m navier_stokes_tpu_torch run --mesh m.msh \\
+        --matvec windowed --devices 2 --distributed --device cpu
+
+Rank 0 prints, writes the output files and the ``--log-json`` file.  Ranks
+that share one GPU need ``--backend gloo`` (NCCL refuses two ranks on one
+device).
 """
 
 from __future__ import annotations
@@ -35,7 +44,7 @@ def _add_common(p):
         choices=["identity", "block_diagonal", "block_triangular", "cahouet_chabard"],
     )
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process runs (not ported: raises)")
+                   help="join the process group of a torchrun launch (one process a rank)")
     p.add_argument("--matvec", choices=["flat", "windowed"])
     p.add_argument("--time-scheme", dest="time_scheme", choices=["bdf1", "bdf2"])
     p.add_argument(
@@ -43,7 +52,10 @@ def _add_common(p):
         help="'stokes' = the reference's designed initial-guess path (cpp:636-644)",
     )
     p.add_argument("--dtype", choices=["auto", "float32", "float64"])
-    p.add_argument("--devices", type=int, help="shard over N devices (not ported above 1)")
+    p.add_argument("--devices", type=int,
+                   help="shard the windowed operator over N ranks (the process group's size)")
+    p.add_argument("--backend", choices=["nccl", "gloo"],
+                   help="the process group's backend (default nccl on cuda, gloo on cpu)")
     p.add_argument("--output-dir", help="write XDMF/HDF5 output here (needs h5py)")
     p.add_argument("--log-json", help="dump the structured run log to this file")
     p.add_argument("--device", default="cuda",
@@ -52,20 +64,42 @@ def _add_common(p):
 
 
 def _check_args(args):
-    if getattr(args, "distributed", False) or (args.devices or 1) > 1:
-        raise NotImplementedError(
-            "--devices > 1 / --distributed: multi-GPU solves are not ported"
-        )
     if args.output_dir:
         from .io import h5py
 
         h5py()  # --output-dir without h5py raises here, before any solve
 
 
+def _start(args):
+    """Join the process group under --distributed (rank 0 then prints), and
+    return (device, run log)."""
+    from .parallel.bootstrap import initialize_distributed
+    from .utils.logging import coordinator_log
+
+    _check_args(args)
+    if args.distributed:
+        import torch
+
+        cuda = torch.device(args.device).type == "cuda"
+        initialize_distributed(backend=args.backend or ("nccl" if cuda else "gloo"))
+    return _device(args), coordinator_log()
+
+
+def _finish(args, log):
+    from .parallel.bootstrap import is_coordinator, shutdown_distributed
+
+    if args.log_json and is_coordinator():
+        log.dump_json(args.log_json)
+    shutdown_distributed()
+    return 0
+
+
 def _device(args):
     import torch
 
-    dev = torch.device(args.device)
+    from .parallel.bootstrap import local_device
+
+    dev = local_device(args.device) if (args.devices or 1) > 1 else torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"--device {args.device}: no CUDA device visible to torch "
@@ -99,13 +133,10 @@ def _build_config(args):
 
 def cmd_run(args):
     from .models.navier_stokes import NavierStokesSolver
-    from .utils.logging import RunLog
 
-    _check_args(args)
-    dev = _device(args)
+    dev, log = _start(args)
     cfg = _build_config(args)
-    log = RunLog()
-    solver = NavierStokesSolver(args.mesh, cfg, log=log, device=dev)
+    solver = NavierStokesSolver(args.mesh, cfg, log=log, n_devices=args.devices, device=dev)
     solver.setup()
     if args.output_dir:
         from .io.xdmf import XdmfWriter
@@ -116,34 +147,27 @@ def cmd_run(args):
     solver.solve()
     if args.output_dir:
         writer.write_series()
-    if args.log_json:
-        log.dump_json(args.log_json)
-    return 0
+    return _finish(args, log)
 
 
 def cmd_stokes(args):
     from .models.stokes import StokesSolver
-    from .utils.logging import RunLog
 
-    _check_args(args)
-    dev = _device(args)
+    dev, log = _start(args)
     cfg = _build_config(args)
     if not args.config:
         # the reference Stokes path's tag set (mesh-square, cpp:472,511)
         cfg.inlet_tags, cfg.neumann_tags, cfg.wall_tags = (0,), (1,), (2, 3)
         if not args.preconditioner:
             cfg.krylov.preconditioner = "block_triangular"  # cpp:546
-    log = RunLog()
-    solver = StokesSolver(args.mesh, cfg, log=log, device=dev)
+    solver = StokesSolver(args.mesh, cfg, log=log, n_devices=args.devices, device=dev)
     solver.solve()
     if args.output_dir:
         from .io.xdmf import XdmfWriter
 
         writer = XdmfWriter(solver.dofs, output_dir=args.output_dir)
-        writer.write(0, 0.0, solver.solution)
-    if args.log_json:
-        log.dump_json(args.log_json)
-    return 0
+        writer.write(0, 0.0, solver._planar())
+    return _finish(args, log)
 
 
 def cmd_info(args):

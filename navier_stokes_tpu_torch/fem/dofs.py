@@ -220,14 +220,16 @@ class TaylorHoodDofs:
 
 
 def renumber_blocked(
-    dofs: TaylorHoodDofs, cells_per_block: int = 512
+    dofs: TaylorHoodDofs, cells_per_block: int = 512, nb_multiple: int = 1
 ) -> tuple[TaylorHoodDofs, dict]:
     """Block-padded locality renumbering for the windowed TPU kernels.
 
     One shared block structure drives BOTH spaces: cells are ordered for
     locality (bandwidth-minimizing Reverse-Cuthill-McKee on the vertex-dof
-    graph; the original's Morton ``order="sfc"`` and SPMD ``nb_multiple``
-    options are not part of this copy) and cut into nb contiguous blocks; each scalar DoF is OWNED by the block
+    graph; the original's Morton ``order="sfc"`` option is not part of this
+    copy) and cut into nb contiguous blocks, nb rounded up to a multiple of
+    ``nb_multiple`` (the rank count of a sharded run: each rank owns a
+    contiguous run of whole blocks); each scalar DoF is OWNED by the block
     of its first-touch cell and numbered ``block * OW + rank`` where OW is
     the 128-rounded max per-block count.  The global vector therefore
     contains padding HOLES (dofs that no cell references); they are benign —
@@ -251,6 +253,7 @@ def renumber_blocked(
     cell_order = np.argsort(rcm_perm[cv].min(axis=1), kind="stable")
 
     nb = max(1, -(-nc // cells_per_block))
+    nb = -(-nb // nb_multiple) * nb_multiple
     cell_block = np.empty(nc, dtype=np.int64)
     cell_block[cell_order] = np.arange(nc) // (-(-nc // nb))
 

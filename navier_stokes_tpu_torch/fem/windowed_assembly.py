@@ -450,6 +450,7 @@ def assemble_windowed(
     include_continuity_residual: bool = False,
     include_time_term: bool = True,
     residual_only: bool = False,
+    group=None,
 ):
     """One Newton-tangent assembly in the windowed layout.
 
@@ -460,6 +461,12 @@ def assemble_windowed(
     computes the residual alone and returns (None, residual, None): the
     steady line search's trial residuals (in JAX the compiler drops the
     unused tangent; in eager torch it would be built).
+
+    group: a sharded run's process group, with lay the rank's framed layout,
+    wa its shard (``parallel/windowed_spmd.shard_wa``) and u, u_old, the
+    residual and diag0 its owned vectors.  Every contraction stays local to
+    the rank's slots; only the gather (K3) and the scatters (K4) exchange
+    edge blocks with the neighbours.
     """
     dim, k_v, k_p = wa.dim, lay.k_v, lay.k_p
     nl = lay.nl
@@ -470,9 +477,9 @@ def assemble_windowed(
 
     # [nli, ncd] each; u and u_old in one kernel launch on the card
     if include_time_term:
-        X, Xo = windowed_gather_pair(lay, u, u_old)
+        X, Xo = windowed_gather_pair(lay, u, u_old, group)
     else:
-        X = windowed_gather(lay, u)
+        X = windowed_gather(lay, u, group)
     Xv = X[: dim * k_v].reshape(dim, k_v, -1)
     Xp = X[dim * k_v : nl]
 
@@ -511,7 +518,7 @@ def assemble_windowed(
     if include_continuity_residual:
         div_u = ein("ddqc->qc", gu_q)
         R[dim * k_v : nl] = ein("qc,iq->ic", div_u * W, Np)
-    residual = windowed_scatter(lay, R) + wa.r_const
+    residual = windowed_scatter(lay, R, group) + wa.r_const
     if residual_only:
         return None, residual, None
 
@@ -519,6 +526,6 @@ def assemble_windowed(
     ar = torch.arange(nl, device=A_t.device)
     Dv = r_mom.new_zeros((lay.nli, lay.ncd))
     Dv[:nl] = A_t[ar, ar, :].to(r_mom.dtype)
-    diag0 = windowed_scatter(lay, Dv)
+    diag0 = windowed_scatter(lay, Dv, group)
 
     return A_t, residual, diag0

@@ -6,6 +6,7 @@ stores the full Taylor-Hood coefficient vector, the previous-step solution
 (needed by the implicit-Euler time term, cpp:666), BDF2's second history
 level when there is one, scalar time state, and the config dict for
 validation.  Arrays are numpy; the solver hands over host float64 copies.
+In a multi-rank run only rank 0 writes; every rank may read.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import json
 
 import numpy as np
 
+from ..parallel.bootstrap import is_coordinator
 from . import h5py as _h5py
 
 __all__ = ["save_checkpoint", "load_checkpoint"]
@@ -23,6 +25,8 @@ def save_checkpoint(
     path, *, solution, solution_old, time, step, config=None, solution_old2=None
 ):
     h5py = _h5py()
+    if not is_coordinator():
+        return path
     with h5py.File(path, "w") as f:
         f.create_dataset("solution", data=np.asarray(solution, dtype=np.float64))
         f.create_dataset("solution_old", data=np.asarray(solution_old, dtype=np.float64))

@@ -12,7 +12,9 @@ equivalently the writer down-samples Taylor-Hood to mesh vertices (the
 first n_nodes scalar velocity DoFs / all P1 pressure DoFs).  The solution
 may be a numpy array or a torch tensor on any device: it is copied to the
 host and written with h5py.  The writer asks for h5py when it is made, so
-a run that cannot write fails before it solves anything.
+a run that cannot write fails before it solves anything.  In a multi-rank
+run every rank makes the writer and calls it (the solver hands each the
+gathered state), and only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import os
 import numpy as np
 import torch
 
+from ..parallel.bootstrap import is_coordinator
 from . import h5py as _h5py
 
 __all__ = ["XdmfWriter"]
@@ -42,11 +45,18 @@ class XdmfWriter:
             partitioning = np.zeros(mesh.n_cells, dtype=np.float64)
         self._partitioning = np.asarray(partitioning, dtype=np.float64)
         _h5py()  # fail here, before a solve, where h5py is missing
-        os.makedirs(output_dir, exist_ok=True)
+        self._writes = is_coordinator()
+        if self._writes:
+            os.makedirs(output_dir, exist_ok=True)
 
     # -- reference-compatible per-step write (cpp:709-727) -------------------
 
     def write(self, step: int, t: float, solution):
+        """Write one step's files (rank 0 only); returns the .h5 name."""
+        name = f"{self.prefix}-{step:04d}"
+        h5name = name + ".h5"
+        if not self._writes:
+            return h5name
         h5py = _h5py()
         dofs = self.dofs
         mesh = dofs.mesh
@@ -62,8 +72,6 @@ class XdmfWriter:
             vel[:, c] = sol[c * dofs.n_vs + vv]
         pres = sol[dofs.n_u + vp]
 
-        name = f"{self.prefix}-{step:04d}"
-        h5name = name + ".h5"
         with h5py.File(os.path.join(self.dir, h5name), "w") as f:
             f.create_dataset("nodes", data=self._nodes)
             f.create_dataset("cells", data=self._cells.astype(np.uint32))
@@ -79,6 +87,8 @@ class XdmfWriter:
     def write_series(self, filename: str | None = None):
         """One XDMF indexing the whole time series (ParaView time animation)."""
         filename = filename or f"{self.prefix}-series.xdmf"
+        if not self._writes:
+            return filename
         with open(os.path.join(self.dir, filename), "w") as f:
             f.write(self._xdmf_document(self.entries))
         return filename

@@ -7,7 +7,8 @@ iteration runs only while ||r|| > atol, ||r|| is finite and k < maxiter.
 With ``atol=0`` (the fixed-length sweeps of the Cahouet-Chabard
 preconditioner) the loop runs ``maxiter`` masked iterations and never reads
 the device from the host; with ``atol > 0`` it reads the stop flag once per
-iteration and leaves the loop early.
+iteration and leaves the loop early.  With a process group every dot is
+all-reduced (la/operators.py ``vdot``), so every rank steps alike.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+
+from .operators import vdot as _vdot
 
 __all__ = ["CgResult", "cg"]
 
@@ -34,10 +37,14 @@ def cg(
     atol: float,
     maxiter: int = 2000,
     precond: Callable | None = None,
+    group=None,
 ) -> CgResult:
-    """Solve an SPD system to the ABSOLUTE tolerance ||b - A x|| <= atol."""
+    """Solve an SPD system to the ABSOLUTE tolerance ||b - A x|| <= atol
+    (group: the process group of a sharded run)."""
     M = precond or (lambda v: v)
-    vdot = torch.dot
+
+    def vdot(a, c):
+        return _vdot(a, c, group)
 
     if x0 is None:
         # linear operator: r(0) = b exactly, no A@0 matvec

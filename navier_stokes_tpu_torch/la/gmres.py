@@ -10,6 +10,11 @@ column of H (its projections, ||w|| and ||A z||), from which the host
 decides acceptance and convergence.  The original's tile loop over the
 filled prefix of V is plain ``V[:k+1]`` slicing here.
 
+With a process group (a sharded run: every vector is the rank's owned
+chunk), the projections and norms are all-reduced before the host reads
+them, so every rank builds the same Hessenberg column and takes the same
+decisions (the original's ``axis_name`` psums).
+
 The ``deflate`` augmentation of the original is not ported (the main path
 passes None); giving it raises.
 """
@@ -21,6 +26,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 from scipy.linalg import solve_triangular
+
+from .operators import all_reduce, vnorm
 
 __all__ = ["GmresResult", "fgmres"]
 
@@ -46,11 +53,13 @@ def fgmres(
     maxiter: int = 1000,
     precond: Callable | None = None,
     deflate=None,
+    group=None,
 ) -> GmresResult:
     """Right-preconditioned flexible GMRES; stops at ||r||_2 <= atol.
 
     A solve converging at k iterations costs k + ceil(k/restart) matvecs
-    (+1 when x0 is given) and k preconditioner applications."""
+    (+1 when x0 is given) and k preconditioner applications.  group: the
+    process group of a sharded run (dots and norms over every rank)."""
     if deflate is not None:
         raise NotImplementedError("FGMRES deflation (kp_deflate) is not ported")
     n = b.shape[0]
@@ -64,7 +73,7 @@ def fgmres(
     Z = torch.empty((m, n), dtype=b.dtype, device=b.device)
 
     def norm(v):
-        return torch.linalg.vector_norm(v)
+        return vnorm(v, group)
 
     def cycle(x, r, prev_res):
         beta_d = norm(r)
@@ -84,9 +93,9 @@ def fgmres(
             w0n = norm(w)  # pre-orthogonalization magnitude
             # CGS2 against the filled prefix V[0..k]
             Vk = V[: k + 1]
-            h1 = Vk @ w
+            h1 = all_reduce(Vk @ w, group)
             w = w - h1 @ Vk
-            h2 = Vk @ w
+            h2 = all_reduce(Vk @ w, group)
             w = w - h2 @ Vk
             # the one device read of the step: H column, ||w||, ||A z||
             hv = torch.cat([h1 + h2, torch.stack([norm(w), w0n])]).cpu().numpy()

@@ -15,6 +15,12 @@ on every device (``index_add_`` on the card would not).
 Block views are static slices of the element matrices: the local dof
 layout is component-planar, so the velocity block is
 ``cell_mat[:, :dim*nb_v, :dim*nb_v]`` acting on the velocity segment.
+
+``all_reduce``, ``vdot`` and ``vnorm`` are the reductions of a sharded run
+(the original's ``axis_name`` psums, the reference's Epetra all-reduce):
+with a process group, each rank's partial sum is summed over the ranks, so
+every rank holds the same value and takes the same decisions from it;
+without one they are the single-device dot and norm, unchanged.
 """
 
 from __future__ import annotations
@@ -25,6 +31,9 @@ import numpy as np
 import torch
 
 __all__ = [
+    "all_reduce",
+    "vdot",
+    "vnorm",
     "ElementOperator",
     "matvec",
     "diagonal",
@@ -32,6 +41,33 @@ __all__ = [
     "velocity_block",
     "pressure_mass_block",
 ]
+
+
+def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
+    """t summed over the ranks of ``group`` (in place); t itself without.
+    Under gloo a CUDA tensor is summed through a host copy."""
+    if group is not None:
+        import torch.distributed as dist
+
+        if t.is_cuda and dist.get_backend(group) == "gloo":
+            host = t.cpu()
+            dist.all_reduce(host, group=group)
+            t.copy_(host)
+        else:
+            dist.all_reduce(t, group=group)
+    return t
+
+
+def vdot(a: torch.Tensor, b: torch.Tensor, group=None) -> torch.Tensor:
+    """a . b over every rank's entries."""
+    return all_reduce(torch.dot(a, b), group)
+
+
+def vnorm(v: torch.Tensor, group=None) -> torch.Tensor:
+    """||v||_2 over every rank's entries."""
+    if group is None:
+        return torch.linalg.vector_norm(v)
+    return torch.sqrt(vdot(v, v, group))
 
 
 @dataclass(frozen=True)

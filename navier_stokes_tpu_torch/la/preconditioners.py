@@ -24,7 +24,7 @@ import torch
 
 from .cg import cg
 from .gmres import fgmres
-from .operators import ElementOperator, _reduce, diagonal, matvec
+from .operators import ElementOperator, _reduce, all_reduce, diagonal, matvec, vnorm
 
 __all__ = [
     "identity",
@@ -58,6 +58,7 @@ def coarse_correction(
     coarse_inv: torch.Tensor,
     agg_size: int,
     ncomp: int = 1,
+    group=None,
 ) -> Callable:
     """Two-level aggregation correction ``r -> Z Kc^-1 Zt r``.
 
@@ -71,6 +72,12 @@ def coarse_correction(
                 aggregates (agg_size 0) is not ported: no solver reaches it.
     ncomp:      vector components sharing one scalar coarse space (input is
                 component-major [ncomp * n_s]).
+    group:      a sharded run's process group: agg and r are the rank's owned
+                chunks, whole aggregates (agg_size divides the owned length),
+                and rank k's aggregates are [k*m_loc, (k+1)*m_loc) of the
+                global [m]; the coarse residual is summed locally, placed in
+                the global [ncomp, m] and all-reduced, the solve replicated
+                (the original's ``axis_name`` path).
     """
     m_c = coarse_inv.shape[0]
     n_s = agg.shape[0]
@@ -78,6 +85,27 @@ def coarse_correction(
 
     def _solve(seg):  # [ncomp, m] coarse residual -> [ncomp, m] correction
         return torch.einsum("mk,ck->cm", coarse_inv, seg)
+
+    if group is not None:
+        import torch.distributed as dist
+
+        rank, m_loc = dist.get_rank(group), n_s // int(agg_size)
+        if n_s % int(agg_size) or m_loc * dist.get_world_size(group) != m_c:
+            raise ValueError(
+                f"a rank's {n_s} dofs are not whole aggregates of {agg_size} "
+                f"({m_c} in all)")
+        own = slice(rank * m_loc, (rank + 1) * m_loc)
+
+        def coarse_sharded(r):
+            r2 = r.reshape(ncomp, n_s)
+            rm = torch.where(hole, 0.0, r2).to(coarse_inv.dtype)
+            seg = rm.new_zeros((ncomp, m_c))
+            seg[:, own] = rm.reshape(ncomp, m_loc, -1).sum(-1)
+            y = _solve(all_reduce(seg, group))[:, own]
+            corr = y[:, :, None].expand(ncomp, m_loc, n_s // m_loc).reshape(ncomp, -1)
+            return torch.where(hole, 0.0, corr).to(r.dtype).reshape(-1)
+
+        return coarse_sharded
 
     sa = int(agg_size)
     mm = -(-n_s // sa)
@@ -114,17 +142,17 @@ def two_level_vcycle(
     return apply
 
 
-def _norm(v: torch.Tensor) -> float:
-    return float(torch.linalg.vector_norm(v))
+def _norm(v: torch.Tensor, group=None) -> float:
+    return float(vnorm(v, group))
 
 
 def inner_cg(matvec: Callable, b: torch.Tensor, atol: float, maxiter: int,
-             precond: Callable) -> torch.Tensor:
+             precond: Callable, group=None) -> torch.Tensor:
     """An inner CG solve to ``atol`` (> 0 reads the stop flag each
     iteration); atol 0 means b = 0, whose solution is zero."""
     if atol == 0:
         return torch.zeros_like(b)
-    return cg(matvec, b, atol=atol, maxiter=maxiter, precond=precond).x
+    return cg(matvec, b, atol=atol, maxiter=maxiter, precond=precond, group=group).x
 
 
 def rect_matvec(

@@ -34,7 +34,16 @@ Dirichlet semantics match ``apply_boundary_values(..., false)``: constrained
 rows are replaced by ``diag * x`` with the pre-constraint assembled diagonal
 and the residual rows by ``diag * target``.
 
-What this port does not serve raises: more than one device.
+Several ranks (``n_devices`` > 1, one process a rank, the process group
+joined first: parallel/bootstrap.py) run the owned-range windowed domain
+decomposition of parallel/windowed_spmd.py, as the original's windowed SPMD
+does: each rank builds the host structures in full, then keeps on its device
+its framed local layout, its shard of the assembly precompute and the owned
+chunks of every state and Krylov vector.  The kernels exchange edge blocks
+with the ring neighbours (ops/windowed.py), dots and norms all-reduce, and
+the planar state is gathered only for output, checkpoints and functionals.
+The flat operator's replicated multi-device design is not ported: asking for
+it raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -56,6 +65,7 @@ from ..fem.windowed_assembly import (
     assemble_windowed, build_windowed_assembly, compute_r_const)
 from ..la import operators as ops
 from ..la.cg import cg
+from ..la.operators import vnorm
 from ..la.gmres import fgmres
 from ..la.preconditioners import (
     block_diagonal, block_triangular, coarse_correction, identity, inner_cg, jacobi,
@@ -65,6 +75,8 @@ from ..mesh.msh_io import read_msh
 from ..ops.windowed import (
     build_windowed_layout, slice_block, windowed_matvec, windowed_matvec_block,
     windowed_scatter)
+from ..parallel import windowed_spmd as wspmd
+from ..parallel.bootstrap import local_device, process_count, process_index
 from ..utils.logging import RunLog
 from ..utils.timers import PhaseTimers
 
@@ -101,8 +113,32 @@ def _takes_time(forcing) -> bool:
     return len(positional) >= 2
 
 
-def _norm(v: torch.Tensor) -> float:
-    return float(torch.linalg.vector_norm(v))
+def _norm(v: torch.Tensor, group=None) -> float:
+    return float(vnorm(v, group))
+
+
+def _check_devices(n_devices, cfg, dim):
+    """Raise unless n_devices is one this port runs: None, or the size of
+    the joined process group, with the windowed operator on triangles above
+    one."""
+    if n_devices is None:
+        return
+    if n_devices > 1 and cfg.krylov.matvec != "windowed":
+        raise NotImplementedError(
+            "multi-device solves run the windowed operator only: the flat "
+            "operator's replicated design (the original's parallel/spmd.py) "
+            "is not ported yet (ROADMAP.md, Queue 1)")
+    if n_devices > 1 and dim != 2:
+        raise NotImplementedError(
+            "multi-device solves run 2D meshes only: the sharded 3D path "
+            "(framed tetrahedral layouts and their compact tables) is not "
+            "ported yet (ROADMAP.md, Queue 1)")
+    world = process_count()
+    if n_devices != world:
+        raise ValueError(
+            f"n_devices={n_devices}, but the process group has {world} rank(s): "
+            "start one process a rank (torchrun) and join the group first "
+            "(parallel.bootstrap.initialize_distributed)")
 
 
 def _resolve_dtype(name: str) -> torch.dtype:
@@ -124,16 +160,27 @@ class NavierStokesSolver:
         n_devices: int | None = None,
         forcing_time_dependent: bool | None = None,
         device="cuda",
+        nb_multiple: int | None = None,
     ):
         """mesh: a Mesh or the path of a gmsh .msh file.  device: where the
         state, the operator and the kernels live ("cuda" runs the
-        hand-written kernels; "cpu" their plain versions)."""
-        if n_devices is not None and n_devices > 1:
-            raise NotImplementedError("multi-device solves are not ported")
+        hand-written kernels; "cpu" their plain versions; in a sharded run
+        a bare "cuda" is the rank's ``cuda:LOCAL_RANK``).  n_devices: the
+        number of ranks of a sharded run, which must be the size of the
+        joined process group (None: this process alone).  nb_multiple: the
+        windowed layout's block count is rounded up to a multiple of it
+        (default n_devices): one device at an n-rank run's numbering, so
+        the two runs share blocks and coarse aggregates."""
         self.cfg = config or SolverConfig()
-        self.log = log or RunLog()
         self.mesh = read_msh(mesh) if isinstance(mesh, str) else mesh
-        self.device = torch.device(device)
+        _check_devices(n_devices, self.cfg, self.mesh.dim)
+        self.n_devices = n_devices
+        self.nb_multiple = nb_multiple or n_devices or 1
+        if self.nb_multiple % (n_devices or 1):
+            raise ValueError(f"nb_multiple={nb_multiple} is not a multiple of "
+                             f"n_devices={n_devices}")
+        self.log = log or RunLog()
+        self.device = local_device(device) if (n_devices or 1) > 1 else torch.device(device)
         self.forcing = forcing or ZeroForcing()
         self._forcing_time_dep_override = forcing_time_dependent
         self.inlet = inlet or InletVelocity(
@@ -166,10 +213,19 @@ class NavierStokesSolver:
         self.dofs = make_dofs(self.mesh, cfg.degree_velocity, cfg.degree_pressure)
         self._win_layout = None
         self._wassembly = None
+        # a sharded run: the process group, the distributed vector layout and
+        # the global layout beside the rank's framed one (None on one device)
+        self._group = torch.distributed.group.WORLD if (self.n_devices or 1) > 1 else None
+        self._dist = None
+        self._lay_global = None
         # the resolved operator mode lives on the solver, not in the config
         self._matvec = k.matvec
         if self._matvec == "windowed":
             self._setup_windowed_layout()
+        if self._group is not None and self._dist is None:
+            raise NotImplementedError(
+                "no windowed layout fits this mesh at this rank count, and the flat "
+                "operator's multi-device design is not ported yet (ROADMAP.md, Queue 1)")
         self._precond = k.preconditioner
         if self._matvec == "flat" and self._precond == "cahouet_chabard":
             # the CC Schur sweep is built on the windowed block kernels
@@ -200,6 +256,8 @@ class NavierStokesSolver:
             else _takes_time(self.forcing)
         )
         self._f_qpts = None  # quadrature points of a time-dependent forcing
+        # a sharded run keeps the flat context on the host: it feeds the
+        # host precompute, whose shards go to the device
         self.ctx = build_context(
             self.dofs,
             neumann_tags=cfg.neumann_tags,
@@ -208,10 +266,17 @@ class NavierStokesSolver:
             else self.forcing,
             quadrature_degree=cfg.quadrature_degree,
             dtype=self._dtype,
-            device=self.device,
+            device=self.device if self._dist is None else "cpu",
         )
-        # the output writer's per-cell partitioning: one device owns all
+        # the output writer's per-cell partitioning: the rank owning each
+        # cell's home block (one device owns all)
         self.cell_owner = np.zeros(self.mesh.n_cells, dtype=np.int32)
+        if self._dist is not None:
+            lay = self._lay_global
+            ids = lay.cell_ids.numpy()  # [nb, Bmax], padded slots repeat ids
+            valid = lay.loc_p_hi.numpy()[:, 0, :] < lay.RVp
+            block_of = np.broadcast_to(np.arange(lay.nb)[:, None], ids.shape)
+            self.cell_owner[ids[valid]] = block_of[valid] // self._dist.nb_loc
         if self._win_layout is not None:
             self._setup_windowed_assembly()
 
@@ -221,10 +286,16 @@ class NavierStokesSolver:
             DirichletBC(tags=tuple(cfg.wall_tags)),
         ]
         self.dirichlet = build_dirichlet(self.dofs, specs)
-        self._bc_rows = torch.as_tensor(
-            np.asarray(self.dirichlet.rows, np.int64), device=self.device
-        )
-        self.solution = torch.zeros(self.dofs.n_total, dtype=self._dtype, device=self.device)
+        rows = np.asarray(self.dirichlet.rows, np.int64)
+        if self._dist is not None:
+            # this rank's rows, in its owned vector (the sentinel-padded
+            # table's real entries come first)
+            local, self._bc_dev, self._bc_slot = wspmd.localize_rows(rows, self._dist)
+            self._bc_m = local.shape[1]
+            rows = local[self._rank][local[self._rank] < self._dist.llen].astype(np.int64)
+        self._bc_rows = torch.as_tensor(rows, device=self.device)
+        self._n_state = self.dofs.n_total if self._dist is None else self._dist.llen
+        self.solution = torch.zeros(self._n_state, dtype=self._dtype, device=self.device)
         self.solution_old = self.solution
         self.solution_old2 = None
         self._is_setup = True
@@ -232,8 +303,11 @@ class NavierStokesSolver:
 
     def _setup_windowed_layout(self):
         """Blocked renumbering + windowed layout; falls back to the flat
-        path (and says so) when the halo stays too wide."""
+        path (and says so) when the halo stays too wide.  In a sharded run
+        the blocks come in a multiple of the rank count, the global layout
+        stays on the host and the rank's framed layout goes to its device."""
         k, log = self.cfg.krylov, self.log
+        n_dev = self.n_devices or 1
         base_dofs = self.dofs
         cpb = k.cells_per_block
         while -(-self.mesh.n_cells // cpb) > 16384:
@@ -245,23 +319,35 @@ class NavierStokesSolver:
             )
         for _ in range(4):
             try:
-                dofs_r, block_info = renumber_blocked(base_dofs, cells_per_block=cpb)
+                dofs_r, block_info = renumber_blocked(base_dofs, cells_per_block=cpb,
+                                                      nb_multiple=self.nb_multiple)
                 lay = build_windowed_layout(
                     dofs_r.cell_vdofs, dofs_r.cell_pdofs, dofs_r.n_vs, dofs_r.n_ps,
                     self.mesh.dim, block_info=block_info, Bc=k.chunk_cells,
-                    device=self.device,
+                    device=self.device if n_dev == 1 else "cpu",
                 )
-                self._win_layout, self.dofs = lay, dofs_r
+                if n_dev > 1:
+                    self._dist = wspmd.make_dist_layout(lay, n_dev)
+                self._lay_global = self._win_layout = lay
+                self.dofs = dofs_r
                 break
             except ValueError:
-                cpb *= 2  # halo too wide
+                cpb *= 2  # halo too wide (or too few blocks a rank)
         if self._win_layout is None:
             log.print("  (windowed layout infeasible for this mesh: flat path)")
             self._matvec = "flat"
-        else:
+            return
+        log.print(
+            f"  Windowed operator: {lay.nb} blocks "
+            f"(cells/block {cpb}), pad {lay.pad_factor:.2f}"
+            + (f", {self._dist.nb_loc} blocks/device" if self._dist else "")
+        )
+        if self._dist is not None:
+            self._rank = process_index()
+            self._win_layout = wspmd.local_layout(lay, self._dist, self._rank).to(self.device)
             log.print(
-                f"  Windowed operator: {self._win_layout.nb} blocks "
-                f"(cells/block {cpb}), pad {self._win_layout.pad_factor:.2f}"
+                f"  Domain decomposition: {n_dev} devices x {self._dist.nb_loc} blocks, "
+                f"halo {self._win_layout.frame}"
             )
 
     def _setup_windowed_assembly(self):
@@ -280,10 +366,7 @@ class NavierStokesSolver:
                 "outer operator"
             )
         store = torch.bfloat16 if (k.tangent_store_dtype == "bfloat16" and f32) else None
-        self._wassembly = build_windowed_assembly(
-            self.ctx,
-            self._win_layout,
-            self.dofs,
+        self._wassembly = self._build_wa(
             dt=self._dt_tangent,
             nu=cfg.nu,
             rho=cfg.rho,
@@ -300,6 +383,23 @@ class NavierStokesSolver:
             kp_deflate=k.kp_deflate,
             kp_deflate_min_amp=k.kp_deflate_min_amp,
         )
+
+    def _build_wa(self, **kw):
+        """``build_windowed_assembly`` on the global layout; in a sharded run
+        the rank's shard of it on its device (``shard_wa``)."""
+        wa = build_windowed_assembly(self.ctx, self._lay_global, self.dofs, **kw)
+        if self._dist is None:
+            return wa
+        return wspmd.shard_wa(wa, self._dist, self._win_layout, self._rank, self.device)
+
+    def _bc_values(self, t: float) -> torch.Tensor:
+        """The Dirichlet values at time t of this rank's rows (``_bc_rows``),
+        in the working dtype on the device."""
+        vals = np.asarray(self.dirichlet.values(t))
+        if self._dist is not None:
+            vals = wspmd.localize_values(vals, self._bc_dev, self._bc_slot, self._dist.n_dev,
+                                         self._bc_m)[self._rank][: len(self._bc_rows)]
+        return torch.as_tensor(vals, device=self.device).to(self._dtype)
 
     # ------------------------------------------------------------------
     def _make_preconditioner(self, op: ops.ElementOperator, cell_pmass):
@@ -342,15 +442,18 @@ class NavierStokesSolver:
         fixed-length coarse-corrected Jacobi-CG sweeps on A00 and on the
         pressure Laplacian Kp through the block kernel (K2).  mass_coef None
         is the time-stepping tangent's coefficient; the steady solve passes
-        0.0.  a00_solver None is ``krylov.a00_solver``."""
+        0.0.  a00_solver None is ``krylov.a00_solver``.  In a sharded run
+        every vector is the rank's owned chunk, bc_rows its local rows, and
+        the products and dots run over the process group."""
         cfg = self.cfg
         k = cfg.krylov
         kind = kind or self._precond
         a00_solver = a00_solver or k.a00_solver
         if kind == "identity":
             return identity()
-        n_u = lay.dim * lay.n_vs
-        n = n_u + lay.n_ps
+        g = self._group
+        n_u = lay.dim * lay.nvs_own
+        n = n_u + lay.nps_own
         inv_mp = wa.inv_mp
         has_bc = bc_rows.shape[0] > 0
 
@@ -364,7 +467,7 @@ class NavierStokesSolver:
         if wa.coarse_inv_v is not None:
             jac_u = pA
             coarse_v = coarse_correction(
-                wa.agg_v, wa.coarse_inv_v, wa.coarse_agg_size_v, ncomp=lay.dim
+                wa.agg_v, wa.coarse_inv_v, wa.coarse_agg_size_v, ncomp=lay.dim, group=g
             )
             pA = lambda r: jac_u(r) + coarse_v(r)
 
@@ -377,7 +480,7 @@ class NavierStokesSolver:
             x[:n_u] = xu
             if zero_bc and has_bc:
                 x[bc_rows] = 0.0
-            return windowed_matvec(lay, A_t, x)
+            return windowed_matvec(lay, A_t, x, g)
 
         def A00_mv(v):  # SPD-consistent (symmetric BC elimination)
             y = apply_full(v, zero_bc=True)[:n_u]
@@ -389,13 +492,13 @@ class NavierStokesSolver:
         if a00_solver == "gmres":
             def a00_solve(vu):
                 return fgmres(
-                    A00_mv, vu, atol=k.inner_tol * _norm(vu),
-                    restart=min(inner_maxiter, 30), maxiter=inner_maxiter, precond=pA,
+                    A00_mv, vu, atol=k.inner_tol * _norm(vu, g),
+                    restart=min(inner_maxiter, 30), maxiter=inner_maxiter, precond=pA, group=g,
                 ).x
         else:  # "cg": reference parity (hpp:598)
 
             def a00_solve(vu):
-                return inner_cg(A00_mv, vu, k.inner_tol * _norm(vu), inner_maxiter, pA)
+                return inner_cg(A00_mv, vu, k.inner_tol * _norm(vu, g), inner_maxiter, pA, g)
 
         def apply(v):
             vu, vp = v[:n_u], v[n_u:]
@@ -413,7 +516,8 @@ class NavierStokesSolver:
                          mass_coef, a00_solver):
         cfg = self.cfg
         k = cfg.krylov
-        n_u = lay.dim * lay.n_vs
+        g = self._group
+        n_u = lay.dim * lay.nvs_own
         has_bc = bc_rows.shape[0] > 0
         # preconditioner blocks are stored narrower (precond_block_dtype) and
         # widened on read; the outer operator keeps its own storage
@@ -431,7 +535,7 @@ class NavierStokesSolver:
             if has_bc:
                 v = v.clone()
                 v[bc_rows] = 0.0  # BC columns
-            return windowed_matvec_block(lay, A00_blk, v, in_spaces="v", out_spaces="v")
+            return windowed_matvec_block(lay, A00_blk, v, in_spaces="v", out_spaces="v", group=g)
 
         def A00_bc(v):  # SPD-consistent (symmetric BC elimination)
             y = A00_mv(v)
@@ -440,7 +544,7 @@ class NavierStokesSolver:
             return y
 
         def Kp_mv(p):
-            return windowed_matvec_block(lay, Kp_blk, p, in_spaces="p", out_spaces="p")
+            return windowed_matvec_block(lay, Kp_blk, p, in_spaces="p", out_spaces="p", group=g)
 
         if coarse_v is not None and k.cc_cycle_a00 == "vcycle":
             pA = two_level_vcycle(A00_bc, diag_u, coarse_v, omega=k.cc_vcycle_omega)
@@ -448,7 +552,7 @@ class NavierStokesSolver:
         pKp = jacobi(wa.diag_kp)
         if wa.coarse_inv is not None:
             jac_kp = pKp
-            coarse_p = coarse_correction(wa.agg_p, wa.coarse_inv, wa.coarse_agg_size)
+            coarse_p = coarse_correction(wa.agg_p, wa.coarse_inv, wa.coarse_agg_size, group=g)
             pKp = lambda r: jac_kp(r) + coarse_p(r)
             if k.cc_cycle_ap == "vcycle":
                 pKp = two_level_vcycle(Kp_mv, wa.diag_kp, coarse_p, omega=k.cc_vcycle_omega)
@@ -462,21 +566,21 @@ class NavierStokesSolver:
             def a00_sweep(vu):
                 return fgmres(
                     A00_bc, vu, atol=0.0, restart=k.cc_iters_a00,
-                    maxiter=k.cc_iters_a00, precond=pA,
+                    maxiter=k.cc_iters_a00, precond=pA, group=g,
                 ).x
         else:  # "cg": mass-dominated tangents (small dt)
 
             def a00_sweep(vu):
-                return cg(A00_bc, vu, atol=0.0, maxiter=k.cc_iters_a00, precond=pA).x
+                return cg(A00_bc, vu, atol=0.0, maxiter=k.cc_iters_a00, precond=pA, group=g).x
 
         def apply(v):
             vu, vp = v[:n_u], v[n_u:]
             du = a00_sweep(vu)
-            B_du = windowed_matvec_block(lay, B_blk, du, in_spaces="v", out_spaces="p")
+            B_du = windowed_matvec_block(lay, B_blk, du, in_spaces="v", out_spaces="p", group=g)
             rp = vp - B_du
             dp = cfg.rho * inv_mp * rp
             if mass_coef:
-                dp_lap = cg(Kp_mv, rp, atol=0.0, maxiter=k.cc_iters_ap, precond=pKp).x
+                dp_lap = cg(Kp_mv, rp, atol=0.0, maxiter=k.cc_iters_ap, precond=pKp, group=g).x
                 dp = dp + mass_coef * dp_lap
             return torch.cat([du, dp])
 
@@ -488,13 +592,13 @@ class NavierStokesSolver:
         Returns (u_new, res_norm, gmres_iters, converged, gmres_residual)."""
         cfg = self.cfg
         k = cfg.krylov
-        lay, wa, bc_rows = self._win_layout, self._wassembly, self._bc_rows
+        lay, wa, bc_rows, g = self._win_layout, self._wassembly, self._bc_rows, self._group
         has_bc = bc_rows.shape[0] > 0
         if lay is not None:
             A_t, residual, diag0 = assemble_windowed(
                 wa, lay, u, u_old, dt=dt_res, nu=cfg.nu, rho=cfg.rho,
                 convection_form=cfg.convection_form,
-                include_continuity_residual=cfg.include_continuity_residual,
+                include_continuity_residual=cfg.include_continuity_residual, group=g,
             )
         else:
             ctx = self.ctx
@@ -511,7 +615,7 @@ class NavierStokesSolver:
         else:  # "reference": delta = g verbatim
             bc_target = bc_vals
         residual[bc_rows] = bc_diag * bc_target
-        res_norm = _norm(residual)  # host read
+        res_norm = _norm(residual, g)  # host read
         if not (force_solve or res_norm > cfg.newton.tol):
             return u, res_norm, 0, True, 0.0
 
@@ -525,7 +629,7 @@ class NavierStokesSolver:
                     if (od == "bfloat16" and A_t.dtype == torch.float32) else A_t)
 
             def apply_op(v):
-                y = windowed_matvec(lay, A_op, v)
+                y = windowed_matvec(lay, A_op, v, g)
                 if has_bc:
                     y[bc_rows] = bc_diag * v[bc_rows]
                 return y
@@ -544,7 +648,7 @@ class NavierStokesSolver:
         f = np.float64 if u.dtype == torch.float64 else np.float32
         sol = fgmres(
             apply_op, residual, atol=f(k.rel_tol) * f(res_norm),
-            restart=k.restart, maxiter=k.max_iters, precond=precond,
+            restart=k.restart, maxiter=k.max_iters, precond=precond, group=g,
         )
         return u + cfg.newton.damping * sol.x, res_norm, sol.iters, sol.converged, sol.residual
 
@@ -571,9 +675,8 @@ class NavierStokesSolver:
             self._log_stokes(st.result)
             return x.to(self._dtype)
 
-        lay = self._win_layout
-        wa = build_windowed_assembly(
-            self.ctx, lay, self.dofs,
+        lay, g = self._win_layout, self._group
+        wa = self._build_wa(
             dt=1.0, nu=cfg.nu, rho=cfg.rho, p_out=cfg.p_out, terms="stokes",
             pin_pdofs=self.dofs.boundary_scalar_pdofs(cfg.neumann_tags),
             kp_deflate=cfg.krylov.kp_deflate,
@@ -581,21 +684,19 @@ class NavierStokesSolver:
         )
         bc_rows = self._bc_rows
         has_bc = bc_rows.shape[0] > 0
-        bc_vals = torch.as_tensor(
-            np.asarray(self.dirichlet.values(t)), device=self.device
-        ).to(self._dtype)
+        bc_vals = self._bc_values(t)
         A_t = wa.A_const  # the Stokes operator is u-independent
         nl = lay.nl
         ar = torch.arange(nl, device=A_t.device)
         Dv = A_t.new_zeros((lay.nli, lay.ncd))
         Dv[:nl] = A_t[ar, ar, :]
-        diag0 = windowed_scatter(lay, Dv)  # K4
+        diag0 = windowed_scatter(lay, Dv, g)  # K4
         bc_diag = diag0[bc_rows]
         rhs = wa.r_const.clone()
         rhs[bc_rows] = bc_diag * bc_vals
 
         def apply_op(v):
-            y = windowed_matvec(lay, A_t, v)  # K1
+            y = windowed_matvec(lay, A_t, v, g)  # K1
             if has_bc:
                 y[bc_rows] = bc_diag * v[bc_rows]
             return y
@@ -612,8 +713,8 @@ class NavierStokesSolver:
         x0[bc_rows] = bc_vals
         sol = fgmres(
             apply_op, rhs, x0=x0,
-            atol=cfg.krylov.stokes_rel_tol * _norm(rhs),  # cpp:538
-            restart=cfg.krylov.restart, maxiter=cfg.krylov.max_iters, precond=precond,
+            atol=cfg.krylov.stokes_rel_tol * _norm(rhs, g),  # cpp:538
+            restart=cfg.krylov.restart, maxiter=cfg.krylov.max_iters, precond=precond, group=g,
         )
         self._log_stokes(sol)
         return sol.x
@@ -667,10 +768,11 @@ class NavierStokesSolver:
             raise ValueError(f"unknown tangent_solver {tangent_solver!r}")
         if initial_guess not in ("stokes", "current"):
             raise ValueError(f"unknown initial_guess {initial_guess!r}")
+        if tangent_solver == "lu" and self._dist is not None:
+            raise NotImplementedError("tangent_solver='lu' is single-device")
         k = cfg.krylov
-        lay = self._win_layout
-        wa = build_windowed_assembly(
-            self.ctx, lay, self.dofs,
+        lay, g = self._win_layout, self._group
+        wa = self._build_wa(
             dt=1.0, nu=cfg.nu, rho=cfg.rho, p_out=cfg.p_out,
             terms="stokes",  # constant tangent part without the mass block
             pin_pdofs=self.dofs.boundary_scalar_pdofs(cfg.neumann_tags),
@@ -685,22 +787,20 @@ class NavierStokesSolver:
         )
         bc_rows = self._bc_rows
         has_bc = bc_rows.shape[0] > 0
-        bc_vals = torch.as_tensor(
-            np.asarray(self.dirichlet.values(self.time)), device=self.device
-        ).to(self._dtype)
+        bc_vals = self._bc_values(self.time)
         form = dict(dt=1.0, nu=cfg.nu, rho=cfg.rho, convection_form=cfg.convection_form,
                     include_continuity_residual=cfg.include_continuity_residual,
-                    include_time_term=False)
+                    include_time_term=False, group=g)
         f = np.float64 if self._dtype == torch.float64 else np.float32
 
         def fgmres_iteration(u):
             A_t, residual, diag0 = assemble_windowed(wa, lay, u, u, **form)
             bc_diag = diag0[bc_rows]
             residual[bc_rows] = bc_diag * (bc_vals - u[bc_rows])
-            res_norm = _norm(residual)
+            res_norm = _norm(residual, g)
 
             def apply_op(v):
-                y = windowed_matvec(lay, A_t, v)
+                y = windowed_matvec(lay, A_t, v, g)
                 if has_bc:
                     y[bc_rows] = bc_diag * v[bc_rows]
                 return y
@@ -710,7 +810,7 @@ class NavierStokesSolver:
             )
             sol = fgmres(
                 apply_op, residual, atol=f(k.rel_tol) * f(res_norm),
-                restart=k.restart, maxiter=k.max_iters, precond=precond,
+                restart=k.restart, maxiter=k.max_iters, precond=precond, group=g,
             )
             return sol.x, bc_diag, res_norm, sol.iters, sol.converged, sol.residual
 
@@ -724,7 +824,7 @@ class NavierStokesSolver:
                 ut = u + (a * damping) * delta
                 _, r, _ = assemble_windowed(wa, lay, ut, ut, residual_only=True, **form)
                 r[bc_rows] = bc_diag * (bc_vals - ut[bc_rows])
-                norms.append(_norm(r))
+                norms.append(_norm(r, g))
             return np.asarray(norms)
 
         do_iter = fgmres_iteration
@@ -760,7 +860,9 @@ class NavierStokesSolver:
                 pick = int(np.argmax(ok)) if ok.any() else int(np.argmin(norms))
                 alpha = _ALPHAS[pick] * damping
             u = u + alpha * delta
-            upd = float(alpha) * _norm(delta) / n_scale
+            # the distributed layout is a permutation of the planar vector,
+            # so one norm covers both
+            upd = float(alpha) * _norm(delta, g) / n_scale
             it += 1
             log.print(f"Residual = {upd:.6f}")  # cpp:829 legacy format
             log.records.append({
@@ -841,7 +943,7 @@ class NavierStokesSolver:
         """Layout identifiers stored in checkpoints: a checkpoint written
         under one DoF numbering (flat vs windowed, another block size) must
         not restore into another with a coincidentally equal length."""
-        lay = self._win_layout
+        lay = self._lay_global
         return {
             "n_total": int(self.dofs.n_total),
             "n_vs": int(self.dofs.n_vs),
@@ -851,18 +953,28 @@ class NavierStokesSolver:
             "mesh_cells": int(self.mesh.n_cells),
         }
 
+    def _planar_tensor(self, x: torch.Tensor) -> torch.Tensor:
+        """A state vector in the planar layout, on its device: in a sharded
+        run every rank's owned chunk gathered (a collective: every rank
+        calls it); on one device the vector itself."""
+        if self._dist is None:
+            return x
+        return wspmd.gather_planar(x, self._dist, self._group)
+
     def _planar(self, x) -> np.ndarray:
-        """A state vector in the planar layout on the host (one device: the
-        state is already planar)."""
-        return x.detach().cpu().numpy()
+        """A state vector in the planar layout on the host (a collective in
+        a sharded run, as ``_planar_tensor``)."""
+        return self._planar_tensor(x).detach().cpu().numpy()
 
     def save_checkpoint(self, path, step: int | None = None):
         """Full restart state (solution, previous steps, time, step) in an
-        HDF5 file (io/checkpoint.py; needs h5py)."""
+        HDF5 file (io/checkpoint.py; needs h5py).  In a sharded run every
+        rank calls it (the state is gathered), rank 0 writes, and no rank
+        returns before the file is written."""
         from ..io.checkpoint import save_checkpoint
 
         old2 = self.solution_old2
-        return save_checkpoint(
+        out = save_checkpoint(
             path,
             solution=np.asarray(self._planar(self.solution), np.float64),
             solution_old=np.asarray(self._planar(self.solution_old), np.float64),
@@ -873,10 +985,14 @@ class NavierStokesSolver:
             step=step if step is not None else self._step,
             config={"solver": self.cfg.to_dict(), "layout": self._layout_meta()},
         )
+        if self._group is not None:
+            torch.distributed.barrier(group=self._group)
+        return out
 
     def restore_checkpoint(self, path):
         """Restore what ``save_checkpoint`` wrote; a checkpoint of another
-        DoF layout raises ValueError."""
+        DoF layout raises ValueError.  In a sharded run every rank reads the
+        file and keeps its owned chunk."""
         from ..io.checkpoint import load_checkpoint
 
         if not self._is_setup:
@@ -897,6 +1013,8 @@ class NavierStokesSolver:
             )
 
         def as_state(a):
+            if self._dist is not None:
+                a = wspmd.to_dist(a, self._dist)[self._rank * self._n_state :][: self._n_state]
             return torch.as_tensor(a, device=self.device).to(self._dtype)
 
         self.solution = as_state(d["solution"])
@@ -919,9 +1037,7 @@ class NavierStokesSolver:
         if cfg.time_scheme == "bdf2" and getattr(self, "solution_old2", None) is not None:
             u_old_arg = (4.0 * self.solution_old - self.solution_old2) / 3.0
             dt_res = cfg.dt / 1.5
-        bc_vals = torch.as_tensor(
-            np.asarray(self.dirichlet.values(self.time)), device=self.device
-        ).to(self._dtype)
+        bc_vals = self._bc_values(self.time)
         n_iter, res_norm = 0, cfg.newton.tol + 1
         while n_iter < cfg.newton.max_iters and (
             res_norm > cfg.newton.tol or n_iter < cfg.newton.min_iters
@@ -970,7 +1086,7 @@ class NavierStokesSolver:
             else:
                 log.print("Applying the initial condition")
                 self.solution = torch.zeros(
-                    self.dofs.n_total, dtype=self._dtype, device=self.device
+                    self._n_state, dtype=self._dtype, device=self.device
                 )
             self._output(0, 0.0)
             log.rule()
@@ -1028,12 +1144,18 @@ class NavierStokesSolver:
         Returns {"functional": [n_steps, ...] or None, "reaction": [n_steps,
         dim] or None, "residual": [n_steps] (the last sweep's entry
         residual), "gmres_iters": [n_steps]}, numpy arrays.  Static forcing
-        only; no per-step output hooks."""
+        only; no per-step output hooks.  In a sharded run the functional
+        sees the gathered planar vectors (an all-gather a step, only with a
+        functional); reaction_tags raise there, as in the original."""
         if not self._is_setup:
             self.setup()
         cfg, log = self.cfg, self.log
         if self._forcing_time_dep:
             raise NotImplementedError("solve_scanned needs static forcing")
+        if reaction_tags is not None and self._dist is not None:
+            raise NotImplementedError(
+                "reaction_tags in a sharded run: evaluate the boundary reaction on "
+                "checkpointed states instead")
         if not resume:
             self.time = 0.0
             self._step = 0
@@ -1041,21 +1163,18 @@ class NavierStokesSolver:
                 self.solution = self.stokes_initial_guess(0.0).to(self._dtype)
             else:
                 self.solution = torch.zeros(
-                    self.dofs.n_total, dtype=self._dtype, device=self.device
+                    self._n_state, dtype=self._dtype, device=self.device
                 )
             self.solution_old = self.solution.clone()
             self.solution_old2 = None
 
         n_steps = int(round((cfg.T - self.time) / cfg.dt))
         t0 = self.time
-        # the Dirichlet schedule [n_steps, n_bc], made on the host once
-        bc_sched = torch.as_tensor(
-            np.asarray([self.dirichlet.values(t0 + (k + 1) * cfg.dt) for k in range(n_steps)],
-                       np.float64).reshape(n_steps, self.dirichlet.n),
-            device=self.device,
-        ).to(self._dtype)
+        # the Dirichlet schedule of this rank's rows, made on the host once
+        bc_sched = [self._bc_values(t0 + (k + 1) * cfg.dt) for k in range(n_steps)]
         bdf2 = cfg.time_scheme == "bdf2"
         K = int(newton_iters)
+        planar = self._planar_tensor
 
         rx_idx = rx_kw = None
         if reaction_tags is not None:
@@ -1086,9 +1205,9 @@ class NavierStokesSolver:
             elif functional_args == "u_uold_dt":
                 # the history the Newton residual used: under BDF2,
                 # (3u - 4uo + uo2)/(2 dt) == (u - u_old_eff)/dt_res
-                f = functional(uu, u_old_eff, dt_res)
+                f = functional(planar(uu), planar(u_old_eff), dt_res)
             else:
-                f = functional(uu)
+                f = functional(planar(uu))
             if rx_idx is not None:
                 if self._win_layout is not None:  # the residual alone, no tangent
                     _, r_unc, _ = assemble_windowed(
@@ -1177,7 +1296,8 @@ class NavierStokesSolver:
         for the flat path and, on the windowed path, wa.r_const (the
         forcing's residual, recomputed on the host by compute_r_const).
         The reference's equivalent is ForcingTerm::set_time (never
-        exercised there: its forcing is constant, hpp:414-439)."""
+        exercised there: its forcing is constant, hpp:414-439).  In a
+        sharded run the rank keeps its chunk of the new r_const."""
         if self._f_qpts is None:
             deg = self.cfg.quadrature_degree or (
                 2 * (self.dofs.element.velocity.degree + 1) - 1
@@ -1187,25 +1307,33 @@ class NavierStokesSolver:
         nc, nq, dim = self._f_qpts.shape
         f_q = np.asarray(self.forcing(self._f_qpts.reshape(-1, dim), t)).reshape(nc, nq, dim)
         self.ctx = dataclasses.replace(
-            self.ctx, f_q=torch.as_tensor(f_q, device=self.device).to(self._dtype)
+            self.ctx, f_q=torch.as_tensor(f_q, device=self.ctx.f_q.device).to(self._dtype)
         )
         if self._wassembly is not None:
             r = compute_r_const(self.ctx, self.cfg.p_out)
+            if self._dist is not None:
+                r = wspmd.to_dist(r, self._dist)[self._rank * self._n_state :][: self._n_state]
             self._wassembly = dataclasses.replace(
                 self._wassembly,
                 r_const=torch.as_tensor(r, device=self.device).to(self._dtype),
             )
 
     def _output(self, step: int, t: float):
+        """Call the output hooks with the planar state (in a sharded run
+        gathered: every rank must have the same hooks)."""
+        if not self.output_hooks:
+            return
+        sol = self._planar_tensor(self.solution)
         for hook in self.output_hooks:
-            hook(step, t, self.solution)
+            hook(step, t, sol)
 
     # ------------------------------------------------------------------
     # convenience views
     def velocity(self, solution=None, real_only: bool = False) -> np.ndarray:
         """[n_vs, dim] nodal velocity (P2 scalar nodes); real_only drops the
-        padding hole dofs of the blocked renumbering."""
-        s = (self.solution if solution is None else solution).detach().cpu().numpy()
+        padding hole dofs of the blocked renumbering.  In a sharded run a
+        collective: the state is gathered."""
+        s = self._planar(self.solution if solution is None else solution)
         v = s[: self.dofs.n_u].reshape(self.dofs.dim, self.dofs.n_vs).T
         if real_only and self.dofs.v_mask is not None:
             v = v[self.dofs.v_mask]
@@ -1218,7 +1346,7 @@ class NavierStokesSolver:
         return c
 
     def pressure(self, solution=None, real_only: bool = False) -> np.ndarray:
-        s = (self.solution if solution is None else solution).detach().cpu().numpy()
+        s = self._planar(self.solution if solution is None else solution)
         p = s[self.dofs.n_u :]
         if real_only and self.dofs.p_mask is not None:
             p = p[self.dofs.p_mask]

@@ -9,6 +9,11 @@ through ``NavierStokesSolver.stokes_initial_guess`` on the windowed kernels.
 
 Default boundary ids follow the reference's Stokes path (mesh-square tag set):
 0 = inlet Dirichlet, 1 = outlet Neumann, 2/3 = walls (cpp:472,511,518-526).
+
+``n_devices`` > 1 runs the windowed path sharded over the ranks of the
+joined process group, as NavierStokesSolver does; ``solution`` is then the
+rank's owned chunk, and ``velocity()`` / ``pressure()`` gather the planar
+state (every rank calls them).
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from ..la.gmres import fgmres
 from ..la.preconditioners import block_diagonal, block_triangular, identity
 from ..mesh.mesh import Mesh
 from ..mesh.msh_io import read_msh
+from ..parallel.bootstrap import local_device
 from ..utils.logging import RunLog
 
 __all__ = ["StokesSolver"]
@@ -46,21 +52,23 @@ class StokesSolver:
         n_devices: int | None = None,
         device="cuda",
     ):
-        if n_devices is not None and n_devices > 1:
-            raise NotImplementedError("multi-device solves are not ported")
+        from .navier_stokes import _check_devices
+
         if config is None:
             # reference Stokes-path defaults: mesh-square tags, tol 1e-6,
             # block-triangular preconditioner (cpp:472,511,538,546)
             config = SolverConfig(inlet_tags=(0,), neumann_tags=(1,), wall_tags=(2, 3))
             config.krylov.preconditioner = "block_triangular"
+        self.mesh = read_msh(mesh) if isinstance(mesh, str) else mesh
+        _check_devices(n_devices, config, self.mesh.dim)
+        self.n_devices = n_devices
         self.cfg = cfg = config
         self.log = log or RunLog()
-        self.mesh = read_msh(mesh) if isinstance(mesh, str) else mesh
         self.forcing = forcing or ZeroForcing()
         self.inlet = inlet or InletVelocity(
             u_m=cfg.inlet.u_m, H=cfg.inlet.H, freeze_time=cfg.inlet.freeze_time
         )
-        self.device = torch.device(device)
+        self.device = local_device(device) if (n_devices or 1) > 1 else torch.device(device)
         self._is_setup = False
 
     def setup(self):
@@ -72,8 +80,8 @@ class StokesSolver:
             # windowed Stokes rides the NavierStokesSolver's machinery:
             # blocked renumbering, windowed Stokes operator
             ns = NavierStokesSolver(
-                self.mesh, cfg, log=RunLog(verbose=False),
-                forcing=self.forcing, inlet=self.inlet, device=self.device,
+                self.mesh, cfg, log=RunLog(verbose=False), forcing=self.forcing,
+                inlet=self.inlet, n_devices=self.n_devices, device=self.device,
             )
             ns.setup()
             if ns._win_layout is not None:
@@ -190,15 +198,20 @@ class StokesSolver:
                                     system="stokes")
         return self.solution
 
+    def _planar(self) -> np.ndarray:
+        if self._ns is not None:
+            return self._ns._planar(self.solution)
+        return self.solution.detach().cpu().numpy()
+
     def velocity(self, real_only: bool = False) -> np.ndarray:
-        s = self.solution.detach().cpu().numpy()
+        s = self._planar()
         v = s[: self.dofs.n_u].reshape(self.dofs.dim, self.dofs.n_vs).T
         if real_only and self.dofs.v_mask is not None:
             v = v[self.dofs.v_mask]
         return v
 
     def pressure(self, real_only: bool = False) -> np.ndarray:
-        p = self.solution.detach().cpu().numpy()[self.dofs.n_u :]
+        p = self._planar()[self.dofs.n_u :]
         if real_only and self.dofs.p_mask is not None:
             p = p[self.dofs.p_mask]
         return p

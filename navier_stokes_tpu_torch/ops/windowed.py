@@ -39,6 +39,13 @@ K1, K2 and K4 sum each chunk's slots at the distinct positions they touch
 instead, and merge through a list of each row's sums (``compact_tables``;
 plain versions of that order: ``_compact_matvec_reference`` and
 ``_compact_scatter_reference``).
+
+In a sharded run (``group``, parallel/windowed_spmd.py) a rank's layout is
+a ``FramedLayout``: its owned blocks between empty ones.  Every wrapper and
+plain version then takes the rank's owned vectors, copies them into the
+frame with the ring neighbours' edge blocks (``_frame``: ``_halo_edges``),
+runs as above on the framed layout, and folds the frame's sums back to the
+neighbours (``_unframe``: ``_combine_edges``).
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ import torch
 
 __all__ = [
     "WindowedLayout",
+    "FramedLayout",
     "build_windowed_layout",
     "build_windows",
     "to_block_form",
@@ -79,6 +87,7 @@ __all__ = [
     "unpack_positions",
     "CompactSpace",
     "compact_tables",
+    "exchange_floats",
 ]
 
 _ALIGN_ROWS = 8  # subwindow offsets in whole 8-row groups (layout compatibility)
@@ -115,9 +124,23 @@ class WindowedLayout:
     n_ps: int
     pad_factor: float  # ncd / n_cells
 
+    # the empty blocks framing the owned ones on each side: 0 here, set by
+    # a rank's local layout (``FramedLayout``)
+    frame = 0
+
     @property
     def n_u(self) -> int:
         return self.dim * self.n_vs
+
+    @property
+    def nvs_own(self) -> int:
+        """Length of one velocity component of the vectors the solver holds:
+        the owned blocks' (n_vs less the frame's; n_vs on one device)."""
+        return self.n_vs - 2 * self.frame * self.OWv
+
+    @property
+    def nps_own(self) -> int:
+        return self.n_ps - 2 * self.frame * self.OWp
 
     @property
     def nl(self) -> int:
@@ -148,6 +171,16 @@ class WindowedLayout:
     def _packed(self) -> "_Packed":
         """The kernels' tables and argument pack, derived at first use."""
         return _Packed(self)
+
+
+@dataclass(frozen=True)
+class FramedLayout(WindowedLayout):
+    """A rank's local layout in a sharded run (built by
+    ``parallel/windowed_spmd.local_layout``): a WindowedLayout whose nb
+    blocks are the rank's owned ones between ``frame`` empty blocks on each
+    side, and whose spaces are the framed ones (n_vs = nb * OWv)."""
+
+    frame: int = 0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -386,6 +419,140 @@ def _all_windows(lay: WindowedLayout, x: torch.Tensor):
             w = wp
         out.append(w)
     return out
+
+
+# ---------------------------------------------------------------------------
+# sharded runs: the edge blocks a rank trades with its ring neighbours
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=16)
+def _pinned(numel: int, dtype: torch.dtype) -> torch.Tensor:
+    """A page-locked host buffer of ``numel`` entries, reused by every
+    exchange of that size: an exchange waits for its stream before the
+    network touches the buffer, which orders it after the previous
+    exchange's copies out of it."""
+    return torch.empty(numel, dtype=dtype, pin_memory=True)
+
+
+def _exchange(sends, group):
+    """One ``batch_isend_irecv`` with ranks r-1 and r+1 of ``group``: each
+    pair (to_left, to_right) of flat tensors in ``sends`` goes to the left
+    and right neighbour, and the pairs (from_left, from_right) received come
+    back in the same order, zeros where rank r is at an end of the line.
+    Under gloo, CUDA tensors travel through one pinned host buffer; under
+    NCCL, device to device.  ``exchange_floats`` counts the floats sent."""
+    import torch.distributed as dist
+
+    rank, size = dist.get_rank(group), dist.get_world_size(group)
+    left = dist.get_global_rank(group, rank - 1) if rank > 0 else None
+    right = dist.get_global_rank(group, rank + 1) if rank + 1 < size else None
+    recvs = [(torch.zeros_like(tr), torch.zeros_like(tl)) for tl, tr in sends]
+    wire_s, wire_r = sends, recvs
+    stage = sends[0][0].is_cuda and dist.get_backend(group) == "gloo"
+    if stage:
+        flat = [t for pair in sends + recvs for t in pair]
+        host = _pinned(sum(t.numel() for t in flat), flat[0].dtype)
+        views = iter(host.split([t.numel() for t in flat]))
+        wire_s = [(next(views), next(views)) for _ in sends]
+        wire_r = [(next(views), next(views)) for _ in recvs]
+        for (hl, hr), (tl, tr) in zip(wire_s, sends):
+            hl.copy_(tl, non_blocking=True)
+            hr.copy_(tr, non_blocking=True)
+        torch.cuda.current_stream(sends[0][0].device).synchronize()
+    ops = []
+    for i, ((tl, tr), (fl, fr)) in enumerate(zip(wire_s, wire_r)):
+        # tag 2i: sent leftwards; 2i + 1: sent rightwards
+        if left is not None:
+            ops += [dist.P2POp(dist.isend, tl, left, group, 2 * i),
+                    dist.P2POp(dist.irecv, fl, left, group, 2 * i + 1)]
+            _exchange.floats += tl.numel()
+        if right is not None:
+            ops += [dist.P2POp(dist.isend, tr, right, group, 2 * i + 1),
+                    dist.P2POp(dist.irecv, fr, right, group, 2 * i)]
+            _exchange.floats += tr.numel()
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    if stage:
+        for (hl, hr), (fl, fr) in zip(wire_r, recvs):
+            if left is not None:
+                fl.copy_(hl, non_blocking=True)
+            if right is not None:
+                fr.copy_(hr, non_blocking=True)
+    return recvs
+
+
+def exchange_floats() -> int:
+    """Floats this rank has sent to its neighbours since the last
+    ``reset_launch_counts``."""
+    return _exchange.floats
+
+
+def _halo_edges(rs, hs, group):
+    """Owned blocks [nb, OW] of each space -> [nb + 2h, OW]: the left
+    neighbour's last h blocks, the owned ones, the right neighbour's first
+    h blocks (zeros at the ends of the line), all spaces in one exchange.
+    The ghost import of the reference's Epetra SpMV (cpp:345-347): O(h*OW)
+    floats a space, not O(n)."""
+    got = _exchange([(r[:h].reshape(-1), r[len(r) - h :].reshape(-1)) for r, h in zip(rs, hs)],
+                    group)
+    return [torch.cat([fl.view(h, r.shape[1]), r, fr.view(h, r.shape[1])])
+            for r, h, (fl, fr) in zip(rs, hs, got)]
+
+
+def _combine_edges(accs, hs, group):
+    """Sums [nb + 2h, OW] over a rank's owned blocks and h blocks on each
+    side of them -> the owned blocks' sums [nb, OW]: the first h rows are
+    sums into the left neighbour's last blocks and go there, the last h
+    into the right neighbour's first blocks; what the neighbours send back
+    is added to the owned edge blocks (left's first, then right's).  The
+    exchange half of the original's ``_combine_windows``, all spaces in
+    one exchange (the reference's ``compress(add)``)."""
+    got = _exchange([(a[:h].reshape(-1), a[len(a) - h :].reshape(-1)) for a, h in zip(accs, hs)],
+                    group)
+    out = []
+    for a, h, (fl, fr) in zip(accs, hs, got):
+        nb = len(a) - 2 * h
+        mid = a[h : h + nb].clone()
+        mid[:h] += fl.view(h, a.shape[1])
+        mid[nb - h :] += fr.view(h, a.shape[1])
+        out.append(mid)
+    return out
+
+
+def _space_list(lay: WindowedLayout, spaces: str):
+    """(OW, h) of each scalar space of ``spaces``, velocity components first."""
+    return ([(lay.OWv, lay.hv)] * lay.dim if "v" in spaces else []) + (
+        [(lay.OWp, lay.hp)] if "p" in spaces else [])
+
+
+def _frame(lay: WindowedLayout, spaces: str, group, *xs):
+    """A rank's owned vectors (the ``spaces`` segments: [dim*nvs_own +
+    nps_own] for "vp") -> its framed layout's vectors: each space's owned
+    blocks between the neighbours' h edge blocks, then zeros to the frame's
+    edge.  Every vector in one exchange."""
+    sp = _space_list(lay, spaces)
+    nb = lay.nb - 2 * lay.frame
+    rs = [r for x in xs for r in x.split([nb * OW for OW, _ in sp])]
+    hs = [h for _ in xs for _, h in sp]
+    ext = _halo_edges([r.view(nb, -1) for r in rs], hs, group)
+    pads = [torch.nn.functional.pad(e, (0, 0, lay.frame - h, lay.frame - h))
+            for e, h in zip(ext, hs)]
+    k = len(sp)
+    return [torch.cat([e.reshape(-1) for e in pads[i * k : (i + 1) * k]])
+            for i in range(len(xs))]
+
+
+def _unframe(lay: WindowedLayout, y: torch.Tensor, spaces: str, group):
+    """A framed layout's result (the ``spaces`` segments) -> the rank's owned
+    vector: each space's sums over its owned blocks and the h blocks either
+    side, merged with the neighbours' (``_combine_edges``)."""
+    sp = _space_list(lay, spaces)
+    F, nb = lay.frame, lay.nb - 2 * lay.frame
+    accs = [seg.view(lay.nb, -1)[F - h : F + nb + h]
+            for seg, (OW, h) in zip(y.split([lay.nb * OW for OW, _ in sp]), sp)]
+    return torch.cat([m.reshape(-1) for m in _combine_edges(accs, [h for _, h in sp], group)])
 
 
 def to_block_form(lay: WindowedLayout, cell_mat: torch.Tensor) -> torch.Tensor:
@@ -659,7 +826,11 @@ def compact_tables(lay: WindowedLayout) -> dict:
     return {key: t.to(lay.device) for key, t in tabs.items()}
 
 
-def _gather_reference(lay: WindowedLayout, x: torch.Tensor) -> torch.Tensor:
+def _gather_reference(lay: WindowedLayout, x: torch.Tensor, group=None) -> torch.Tensor:
+    """X[l, s] = x[dof_l of slot s] through real gathers.  With ``group``,
+    x is the rank's owned vector and lay its framed layout (``_frame``)."""
+    if group is not None:
+        (x,) = _frame(lay, "vp", group, x)
     xw = _all_windows(lay, x)
     lv, lp = _locs(lay)
 
@@ -675,7 +846,10 @@ def _gather_reference(lay: WindowedLayout, x: torch.Tensor) -> torch.Tensor:
     return Xp
 
 
-def _scatter_reference(lay: WindowedLayout, R: torch.Tensor) -> torch.Tensor:
+def _scatter_reference(lay: WindowedLayout, R: torch.Tensor, group=None) -> torch.Tensor:
+    """y = sum_cells P_c^T R_c through per-block windows and their merge.
+    With ``group``, lay is the rank's framed layout and y its owned vector
+    (``_unframe``)."""
     lv, lp = _locs(lay)
     Rn = R[: lay.nl].T.reshape(lay.nb, lay.Bmax, lay.nl)
 
@@ -700,7 +874,8 @@ def _scatter_reference(lay: WindowedLayout, R: torch.Tensor) -> torch.Tensor:
     yp = scatter_space(
         lp, Rn[:, :, lay.dim * lay.k_v :], lay.OWp, lay.hp, lay.n_ps, lay.RWp
     )
-    return torch.cat(ys + [yp])
+    y = torch.cat(ys + [yp])
+    return y if group is None else _unframe(lay, y, "vp", group)
 
 
 def _merge_reference(sub, offs, cnt, Bc, nb, OW, h, n):
@@ -835,38 +1010,42 @@ def _compact_scatter_reference(lay: WindowedLayout, R: torch.Tensor, tables=None
 
 
 def windowed_matvec_reference(
-    lay: WindowedLayout, A_t: torch.Tensor, x: torch.Tensor
+    lay: WindowedLayout, A_t: torch.Tensor, x: torch.Tensor, group=None
 ) -> torch.Tensor:
     """Plain same-math version of the windowed matvec (real gathers)."""
-    X = _gather_reference(lay, x)  # [nli, ncd]
+    X = _gather_reference(lay, x, group)  # [nli, ncd]
     # A_t may be stored narrower than x (bf16 operator): widen like the kernel
     yl = torch.einsum("jis,js->is", A_t[:, : lay.nl, :].to(x.dtype), X[: lay.nl])
-    return _scatter_reference(lay, yl)
+    return _scatter_reference(lay, yl, group)
 
 
-def _block_reference(lay, A_sub, x, in_spaces, out_spaces):
-    """Plain same-math version of the block matvec."""
-    n_loc = lay.dim * lay.n_vs + lay.n_ps
+def _block_reference(lay, A_sub, x, in_spaces, out_spaces, group=None):
+    """Plain same-math version of the block matvec (x and the result: the
+    in- and out-spaces' segments of the layout's vector, or with ``group``
+    of the rank's owned vector)."""
+    own = group is not None
+    n_u = lay.dim * (lay.nvs_own if own else lay.n_vs)
+    n_loc = n_u + (lay.nps_own if own else lay.n_ps)
     if in_spaces == "v":
         xf = x.new_zeros(n_loc)
-        xf[: lay.dim * lay.n_vs] = x
+        xf[:n_u] = x
     elif in_spaces == "p":
         xf = x.new_zeros(n_loc)
-        xf[lay.dim * lay.n_vs :] = x
+        xf[n_u:] = x
     else:
         xf = x
-    X = _gather_reference(lay, xf)  # [nli, ncd]
+    X = _gather_reference(lay, xf, group)  # [nli, ncd]
     jsl = _space_slices(lay)
     # A_sub may be stored narrower than x (bf16 precond blocks): widen
     yl = torch.einsum("jis,js->is", A_sub.to(x.dtype), X[jsl[in_spaces]])
     R = yl.new_zeros((lay.nli, lay.ncd))
     osl = jsl[out_spaces]
     R[osl] = yl[: osl.stop - osl.start]
-    yf = _scatter_reference(lay, R)
+    yf = _scatter_reference(lay, R, group)
     if out_spaces == "v":
-        return yf[: lay.dim * lay.n_vs]
+        return yf[:n_u]
     if out_spaces == "p":
-        return yf[lay.dim * lay.n_vs :]
+        return yf[n_u:]
     return yf
 
 
@@ -1081,12 +1260,20 @@ def _plain_or_raise(t: torch.Tensor) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def windowed_matvec(lay: WindowedLayout, A_t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def windowed_matvec(lay: WindowedLayout, A_t: torch.Tensor, x: torch.Tensor,
+                    group=None) -> torch.Tensor:
     """y = A x over the whole system (no Dirichlet handling here).
 
     A_t: [nl, nli, nb*Bmax] cells-last block-ordered matrices (float32 or
     bfloat16 storage; the kernel widens on read and accumulates in float32).
+    group: a process group of a sharded run, lay the rank's framed layout
+    and x, y its owned vectors; the neighbours' edge blocks fill the frame
+    (``_frame``), the call runs on the framed vector, and the frame's sums
+    go back to them (``_unframe``).  Every wrapper takes ``group`` alike.
     """
+    if group is not None:
+        (xf,) = _frame(lay, "vp", group, x)
+        return _unframe(lay, windowed_matvec(lay, A_t, xf), "vp", group)
     if _plain_or_raise(x):
         return windowed_matvec_reference(lay, A_t, x)
     y = _launch_matvec(lay, A_t, x, "vp", "vp", lay.nli)
@@ -1113,19 +1300,24 @@ def _launch_gather(lay: WindowedLayout, *xs: torch.Tensor) -> torch.Tensor:
     return X
 
 
-def windowed_gather(lay: WindowedLayout, x: torch.Tensor) -> torch.Tensor:
+def windowed_gather(lay: WindowedLayout, x: torch.Tensor, group=None) -> torch.Tensor:
     """X[l, s] = x[dof_l of cell s] — [nli, nb*Bmax]; rows l >= nl are zero."""
+    if group is not None:
+        (x,) = _frame(lay, "vp", group, x)
     if _plain_or_raise(x):
         return _gather_reference(lay, x)
     return _launch_gather(lay, x)
 
 
 def windowed_gather_pair(
-    lay: WindowedLayout, u: torch.Tensor, u_old: torch.Tensor
+    lay: WindowedLayout, u: torch.Tensor, u_old: torch.Tensor, group=None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(windowed_gather(lay, u), windowed_gather(lay, u_old)); on the card
     one K3 launch that reads the tables once (u and u_old may be one
-    tensor).  The two results are views of one [2, nli, nb*Bmax] tensor."""
+    tensor).  The two results are views of one [2, nli, nb*Bmax] tensor.
+    With ``group`` both vectors are framed in one exchange."""
+    if group is not None:
+        u, u_old = _frame(lay, "vp", group, u, u_old)
     plain = _plain_or_raise(u)
     if _plain_or_raise(u_old) != plain:
         raise ValueError(f"u on {u.device}, u_old on {u_old.device}")
@@ -1134,13 +1326,15 @@ def windowed_gather_pair(
     return _launch_gather(lay, u, u_old).unbind(0)
 
 
-def windowed_scatter(lay: WindowedLayout, R: torch.Tensor) -> torch.Tensor:
+def windowed_scatter(lay: WindowedLayout, R: torch.Tensor, group=None) -> torch.Tensor:
     """y = sum_cells P_c^T R_c for per-cell row values R [>=nl, nb*Bmax]:
     per-block window accumulation, then the overlaps merge.  On the card,
     in one C call: per-chunk subwindow accumulation, then the merge, in 2D
     (in the order of ``_scatter_chunked_reference``); per-chunk sums at the
     chunk's entries, then the row-list merge, in 3D (in the order of
     ``_compact_scatter_reference``)."""
+    if group is not None:
+        return _unframe(lay, windowed_scatter(lay, R), "vp", group)
     if _plain_or_raise(R):
         return _scatter_reference(lay, R)
     _check_cuda(lay, R)
@@ -1164,6 +1358,7 @@ def windowed_matvec_block(
     *,
     in_spaces: str = "vp",
     out_spaces: str = "vp",
+    group=None,
 ) -> torch.Tensor:
     """y = A_sub x for a sub-block operator at proportional cost.
 
@@ -1177,7 +1372,11 @@ def windowed_matvec_block(
     if in_spaces == "vp" and out_spaces == "vp":
         if A_sub.dtype != x.dtype:
             raise TypeError("full-system matvec needs matching dtypes")
-        return windowed_matvec(lay, A_sub, x)
+        return windowed_matvec(lay, A_sub, x, group)
+    if group is not None:
+        (xf,) = _frame(lay, in_spaces, group, x)
+        y = windowed_matvec_block(lay, A_sub, xf, in_spaces=in_spaces, out_spaces=out_spaces)
+        return _unframe(lay, y, out_spaces, group)
     if _plain_or_raise(x):
         return _block_reference(lay, A_sub, x, in_spaces, out_spaces)
     if (in_spaces, out_spaces) not in (("v", "v"), ("v", "p"), ("p", "p")):
@@ -1199,8 +1398,10 @@ _WRAPPERS = {
 
 
 def reset_launch_counts():
+    """Zero every wrapper's launch count and ``exchange_floats``."""
     for fn in _WRAPPERS.values():
         fn.launches = 0
+    _exchange.floats = 0
 
 
 def launch_counts() -> dict:

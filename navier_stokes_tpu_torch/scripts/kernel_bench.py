@@ -236,19 +236,23 @@ def device_time_by_kernel(fn, reps=30, evict=None):
 def wrapper_operands(solver, seed=1):
     """Seeded operands of every wrapper at solver's layout: {name: (call,
     plain call)} for K1 (float32 and bf16 A), K2 (bf16 A), K3, the K3 pair,
-    K4."""
+    K4.  In a sharded run (every rank calls this: the assembly exchanges)
+    the layout is the rank's framed one and the operands are of its size;
+    the tangent is assembled at the owned part of the seeded state."""
     from ..fem.windowed_assembly import assemble_windowed
 
     lay, wa = solver._win_layout, solver._wassembly
     dev = lay.device
     rng = np.random.default_rng(seed)
-    n = solver.dofs.n_total
+    n = lay.n_u + lay.n_ps
 
     def vec():
         return torch.as_tensor(rng.standard_normal(n), dtype=torch.float32, device=dev)
 
     x, u, xo = vec(), 0.05 * vec(), vec()
-    A_t, _, _ = assemble_windowed(wa, lay, u, torch.zeros_like(u), dt=0.05, nu=1e-3, rho=1.0)
+    u_own = u[: lay.dim * lay.nvs_own + lay.nps_own]
+    A_t, _, _ = assemble_windowed(wa, lay, u_own, torch.zeros_like(u_own), dt=0.05, nu=1e-3,
+                                  rho=1.0, group=getattr(solver, "_group", None))
     A_t = A_t.float()  # the tangent's store may be bf16 (the box's is)
     R = torch.as_tensor(rng.standard_normal((lay.nli, lay.ncd)), dtype=torch.float32,
                         device=dev)

@@ -1,7 +1,8 @@
 """Structured run logging reproducing the reference's rank-0 pcout output.
 
-Copy of ``navier_stokes_tpu/utils/logging.py``: numpy only, so the port runs without JAX;
-``tests/test_torch_host.py`` holds it equal to the original.
+Copy of ``navier_stokes_tpu/utils/logging.py``: numpy only, so the port runs
+without JAX.  ``coordinator_log`` is the reference's rank-0 condition on
+``pcout`` (``hpp:648``) for multi-rank runs.
 
 The reference's only observability is ``ConditionalOStream pcout`` printing
 mesh stats, DoF counts, Newton residuals, and GMRES iteration counts
@@ -16,7 +17,7 @@ import json
 import sys
 from dataclasses import dataclass, field
 
-__all__ = ["RunLog"]
+__all__ = ["RunLog", "coordinator_log"]
 
 RULE = "-----------------------------------------------"
 BANNER = "==============================================="
@@ -87,3 +88,11 @@ class RunLog:
     def dump_json(self, path: str):
         with open(path, "w") as f:
             json.dump(self.records, f, indent=1)
+
+
+def coordinator_log(**kw) -> RunLog:
+    """A RunLog that prints on rank 0 only and records on every rank (the
+    reference's ``ConditionalOStream pcout``, hpp:648,698)."""
+    from ..parallel.bootstrap import is_coordinator
+
+    return RunLog(verbose=is_coordinator(), **kw)

@@ -8,8 +8,12 @@ against the JAX package's, in float64.
   relative, counts exactly).
 * ``BoundaryForce``, ``BoundaryReaction``, ``divergence_l2`` and
   ``strouhal_number`` at a seeded state.
-* What the command line refuses: ``--output-dir`` (h5py), ``--devices 2``,
-  ``--distributed``, and ``--device cuda`` without a card.
+* What the command line refuses: ``--output-dir`` (h5py), ``--devices 2``
+  in a process alone, ``--devices 2`` with the flat operator, and
+  ``--device cuda`` without a card.
+* ``run --devices 2 --distributed`` on 2 spawned ranks (no torchrun: each
+  joins a gloo group through a ``file://`` store first) against
+  ``--devices 1``, record for record.
 * The solver surface: a mesh given as a path, output hooks, ``solve(resume=
   True)`` and ``velocity_coords``.
 """
@@ -37,6 +41,7 @@ from navier_stokes_tpu_torch.mesh.generate import unit_square
 from navier_stokes_tpu_torch.models import functionals as tf
 from navier_stokes_tpu_torch.models.navier_stokes import NavierStokesSolver
 from navier_stokes_tpu_torch.utils.logging import RunLog
+import torch_spmd_ranks as ranks
 
 MESH_FIELDS = ("coords", "cells", "boundary_facets", "boundary_tags", "cell_tags")
 
@@ -226,8 +231,8 @@ def test_cli_output_dir_names_h5py_when_missing(cmd, tmp_path, monkeypatch):
 @pytest.mark.parametrize(
     "flags, exc, match",
     [
-        (["--devices", "2"], NotImplementedError, "multi-GPU"),
-        (["--distributed"], NotImplementedError, "multi-GPU"),
+        (["--devices", "2", "--matvec", "windowed"], ValueError, "process group has 1 rank"),
+        (["--devices", "2"], NotImplementedError, "ROADMAP.md"),  # the default: flat
         (["--device", "cuda"], RuntimeError, "no CUDA device"),
     ],
 )
@@ -239,6 +244,22 @@ def test_cli_refuses_what_is_not_ported(flags, exc, match, tmp_path):
     for cmd in ("run", "stokes"):
         with pytest.raises(exc, match=match):
             t_main([cmd, "--mesh", mesh, *flags, *device])
+
+
+def test_cli_two_ranks_match_one(tmp_path):
+    """``--devices 2 --distributed`` on 2 ranks, the windowed operator
+    sharded, against ``--devices 1``: the same records (residuals to 1e-10
+    relative, counts exactly); rank 0 alone writes the log."""
+    mesh = _write(tmp_path, "sq.msh", _msh_v2(j_unit_square(4)))
+    argv = ["run", "--mesh", mesh, "--config", _run_config(tmp_path), "--matvec", "windowed",
+            "--preconditioner", "cahouet_chabard", "--device", "cpu"]
+    want = _cli_records(t_main, [*argv, "--devices", "1"], str(tmp_path / "one.json"))
+    two = tmp_path / "two.json"
+    ranks.spawn(ranks.cli, 2, f"file://{tmp_path}/store",
+                [*argv, "--devices", "2", "--distributed", "--log-json", str(two)])
+    got = json.loads(two.read_text())
+    assert sum(r.get("event") == "gmres" for r in got) >= 2
+    _same_records(got, want)
 
 
 def _flat_config(cls, T):

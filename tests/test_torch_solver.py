@@ -18,8 +18,10 @@ from navier_stokes_tpu.mesh.generate import unit_square as j_unit_square
 from navier_stokes_tpu.models.navier_stokes import NavierStokesSolver as JSolver
 from navier_stokes_tpu.utils.logging import RunLog as JLog
 from navier_stokes_tpu_torch.config import SolverConfig
-from navier_stokes_tpu_torch.mesh.generate import unit_square
+from navier_stokes_tpu_torch.fem.dofs import make_dofs, renumber_blocked
+from navier_stokes_tpu_torch.mesh.generate import box, unit_square
 from navier_stokes_tpu_torch.models.navier_stokes import NavierStokesSolver
+from navier_stokes_tpu_torch.models.stokes import StokesSolver
 from navier_stokes_tpu_torch.utils.logging import RunLog
 
 
@@ -151,12 +153,54 @@ def test_time_dependent_forcing_matches_jax_f64(matvec):
 @pytest.mark.parametrize(
     "change, solver_kw, match",
     [
-        ({}, dict(n_devices=2), "multi-device"),
+        (dict(matvec="flat"), dict(n_devices=2), "ROADMAP.md"),
         (dict(kp_deflate=2), {}, "kp_deflate"),
     ],
 )
 def test_unported_options_raise(change, solver_kw, match):
+    """Multi-device with the flat operator (its replicated design is the next
+    slice) and FGMRES deflation raise NotImplementedError."""
     cfg = _config(SolverConfig, "bdf1", **change)
     with pytest.raises(NotImplementedError, match=match):
         NavierStokesSolver(unit_square(3), cfg, log=RunLog(verbose=False), device="cpu",
                            **solver_kw).setup()
+
+
+def test_n_devices_must_equal_the_world_size():
+    """A process alone is a world of one: n_devices 2 or 4 raise, and
+    n_devices 1 runs as one device does."""
+    cfg = _config(SolverConfig, "bdf1")
+    for n in (2, 4):
+        with pytest.raises(ValueError, match="process group has 1 rank"):
+            NavierStokesSolver(unit_square(3), cfg, log=RunLog(verbose=False), device="cpu",
+                               n_devices=n)
+    s = NavierStokesSolver(unit_square(3), cfg, log=RunLog(verbose=False), device="cpu",
+                           n_devices=1).setup()
+    assert s._dist is None and s._group is None
+
+
+@pytest.mark.parametrize("cls", [NavierStokesSolver, StokesSolver])
+def test_sharded_3d_raises(cls):
+    """More than one device on tetrahedra raises NotImplementedError naming
+    ROADMAP.md (the sharded 3D path is not ported), before the world size
+    is looked at."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        cls(box(1, 1, 1), _config(SolverConfig, "bdf1"), log=RunLog(verbose=False),
+            device="cpu", n_devices=2)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_nb_multiple_gives_one_device_the_ranks_numbering(n):
+    """nb_multiple=n on one device takes an n-rank run's numbering: the
+    block count rounded up to a multiple of n (unit_square(6) at 16 cells a
+    block has 5 blocks alone), the dofs of renumber_blocked(nb_multiple=n);
+    the state stays whole (no process group)."""
+    cfg = _config(SolverConfig, "bdf1")
+    mesh = unit_square(6)
+    s = NavierStokesSolver(mesh, cfg, log=RunLog(verbose=False), device="cpu",
+                           nb_multiple=n).setup()
+    want, _ = renumber_blocked(make_dofs(mesh), cells_per_block=16, nb_multiple=n)
+    assert s._win_layout.nb == -(-5 // n) * n and s._dist is None
+    np.testing.assert_array_equal(s.dofs.cell_vdofs, want.cell_vdofs)
+    np.testing.assert_array_equal(s.dofs.cell_pdofs, want.cell_pdofs)
+    assert s._n_state == s.dofs.n_total == want.n_total
