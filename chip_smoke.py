@@ -62,7 +62,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 forced Newton steps at a seeded state, as phase 5;
                 (d) refine_uniform(box(4, 4, 4), 1): float32 on the GPU
                 against float64 on the CPU over 2 steps, with the tangent
-                stored in float32 and in bf16
+                stored in float32 and in bf16; (e) phase 15's one-device
+                runs of the box: a forced step at (c)'s state and the 2
+                steps, at the 2-rank numbering and at another (nb_multiple
+                3, the control)
  15. multi-rank the channel of phases 3-6 on 2 and then 4 ranks of the one
                 card, each rank a process (spawned, joined through
                 initialize_distributed) in a gloo group (NCCL refuses two
@@ -81,7 +84,19 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 step 1's first two residuals within MULTI_FIRST_TOL, the
                 velocity node by node within MULTI_VEL_TOL of max |u|: see
                 their comment, each bound with a control it must fail); the
-                forced step's wall time at 1, 2 and 4 ranks
+                forced step's wall time at 1, 2 and 4 ranks.  The tight
+                leg: phase 11's channel on 2 ranks against one device at
+                their numbering, 2 BDF1 steps with every solve tightened
+                (TIGHT_REL_TOL, TIGHT_NEWTON_TOL), the velocity node by node within
+                TIGHT_VEL_TOL, a control with the inflow scaled by 1 +
+                TIGHT_INLET_CONTROL failing it.  The box of phase 14 on 2
+                and 4 ranks: per rank its framed layout's compact tables,
+                (a) as above, and at 2 ranks (b) and (c) against phase
+                14(e)'s runs (the BOX_* bounds, each with the control at
+                another numbering failing it); launches, floats a K1
+                product, the frame's share of slot columns and the peak
+                device memory per rank; the forced step's wall time at 1
+                and 2 ranks
 
 Each phase prints its wall time.
 Files the phases write (.msh, configs, run logs) go to build/chip_smoke/.
@@ -102,11 +117,11 @@ which call: for K5 one torch.mm of the products laid side by side along K
 with a float32 output, and ``library_graph_ms`` the products as bf16
 torch.matmul calls replayed from a CUDA graph; K5's ``grid`` is the launch's
 tiles and groups of iterations).  K3's ``also`` holds the pair's record.
-The channel's K1-K4 entries also carry phase 15's 2-rank run:
-``sharded_launches`` (each rank's launches in its 2 BDF1 steps) and
-``sharded_max_abs_err`` (the largest error at the ranks' framed layouts,
-alone and sharded, against the plain versions and one device's); null for
-the box and K5.
+The K1-K4 entries, at the channel and at the box, also carry phase 15's
+2-rank run: ``sharded_launches`` (each rank's launches in its 2 BDF1 steps)
+and ``sharded_max_abs_err`` (the largest error at the ranks' framed
+layouts, alone and sharded, against the plain versions and one device's);
+null for K5.
 """
 
 import contextlib
@@ -203,13 +218,15 @@ PEAK_BYTES_PER_S, PEAK_BF16_FLOPS = 3.35e12, 989e12
 
 class Phases:
     """Prints each phase's title and, when the next one starts (or at
-    ``end()``), its wall time."""
+    ``end()``), its wall time; ``end()`` also the time since the first."""
 
     def __init__(self):
-        self.name, self.t0 = None, 0.0
+        self.name, self.t0, self.start = None, 0.0, None
 
     def __call__(self, name):
         self.end()
+        if self.start is None:
+            self.start = time.perf_counter()
         print(f"\n== {name}", flush=True)
         self.name, self.t0 = name, time.perf_counter()
 
@@ -218,6 +235,10 @@ class Phases:
             print(f"  [phase {self.name.split()[0]}: {time.perf_counter() - self.t0:.1f} s]",
                   flush=True)
         self.name = None
+
+    def total(self):
+        self.end()
+        print(f"  [all phases: {time.perf_counter() - self.start:.1f} s]", flush=True)
 
 
 phase = Phases()
@@ -815,8 +836,9 @@ def box_phase():
     """Phase 14: the 3D path (P2/P1 tetrahedra) on the 196,608-tet box:
     (a) the kernels against their plain versions at its layout, (b) two
     BDF1 steps from rest with the ramped inlet, (c) a forced Newton step,
-    (d) small-mesh parity.  Returns (a)'s records, (b)'s launches and (c)'s
-    launches in one step."""
+    (d) small-mesh parity; (e) phase 15's one-device references
+    (``box_references``).  Returns (a)'s records, (b)'s launches, (c)'s
+    launches in one step and (e)."""
     phase("14 3D: P2/P1 tetrahedra, refine_uniform(box(8, 8, 8), 2), windowed + "
           "Cahouet-Chabard, float32")
     mesh = kb.box_mesh()
@@ -876,15 +898,21 @@ def box_phase():
         raise RuntimeError(f"a kernel of the 3D path was never launched: {launches}")
 
     print("  (c) forced Newton step at a seeded state", flush=True)
-    step_launches, _ = forced_step(solver)
+    step_launches, forced = forced_step(solver)
     if min(step_launches.values()) == 0:
         raise RuntimeError(f"a kernel was not launched by the 3D Newton step: {step_launches}")
+    t0 = time.perf_counter()
+    box_ref = box_references(solver, forced["state"])
+    print(f"  (e) phase 15's one-device runs of the box: at the {BOX_RANKS}-rank numbering (nb "
+          f"{box_ref['same']['nb']}; phase 14's nb {lay.nb} = {BOX_RANKS} x "
+          f"{lay.nb / BOX_RANKS:g}) and, the control, at nb {box_ref['control']['nb']}: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     del solver
 
     print("  (d) small-mesh parity: float32 GPU kernels vs float64 CPU plain versions",
           flush=True)
     box_parity()
-    return recs, launches, step_launches
+    return recs, launches, step_launches, box_ref
 
 
 # ---- phase 15: the windowed path on 2 and 4 ranks ---------------------------
@@ -912,12 +940,14 @@ MULTI_UPDATE_TOL = 1e-4
 MULTI_FIRST_TOL = 1e-4
 # The velocity after each BDF1 step, node by node, as a share of max |u|:
 # 1.45e-1 and 1.07e-1 / 1.37e-1 and 8.5e-2 (steps 1 and 2), about twice
-# the widest.  Rounding alone spreads it that far: step 1's second tangent
-# solve (rel_tol 1e-2, 350-511 FGMRES iterations) is steered by it, and
-# the Newton loop stops anywhere below an absolute ||r|| of 1e-2; the
-# other numbering sits inside the spread (4.5e-2 / 9.8e-2).  So this bound
-# is a backstop; the two above hold the sharded path.  Its control: the
-# flow's own change over step 2 (1.69 / 1.71) must exceed it.
+# the widest.  The loose tolerances let rounding spread it that far: step
+# 1's second tangent solve (rel_tol 1e-2, 350-511 FGMRES iterations) is
+# steered by it, and the Newton loop stops anywhere below an absolute ||r||
+# of 1e-2; the other numbering sits inside the spread (4.5e-2 / 9.8e-2).
+# The tight leg below shows it: with every solve tightened to 1e-4 the 2
+# ranks come within 5e-4 of one device, held to TIGHT_VEL_TOL.  So this
+# bound is a backstop on the loose leg only.  Its control: the flow's own
+# change over step 2 (1.69 / 1.71) must exceed it.
 MULTI_VEL_TOL = 0.3
 MULTI_TIMEOUT_S = 600  # a group of ranks that takes longer has hung
 
@@ -951,13 +981,14 @@ def node_gap(a, b):
     return float(np.abs(a - b).max() / np.abs(b).max())
 
 
-def channel_run(s, state, rank=0):
-    """Solver s (2 BDF1 steps, not yet set up) on phase 15's work: a forced
-    Newton step at phase 5's natural-order state, then the 2 steps from
-    rest.  Every rank calls it.  Returns the natural-order update and
-    velocities, the entry ||r||, the FGMRES count, the Newton residuals and
-    the forced step's wall times (it is taken twice: bit-equal)."""
-    s.setup()
+def forced_then_steps(s, state, rank=0):
+    """Solver s (set up here if it is not) on phase 15's work: a forced
+    Newton step at a natural-order state (taken twice: bit-equal), then its
+    BDF1 steps from rest.  Every rank calls it.  Returns the natural-order
+    update and velocities, the entry ||r||, the FGMRES count, the Newton
+    residuals and the forced step's wall times."""
+    if not s._is_setup:
+        s.setup()
     y = from_natural(s, *state)
     if s._dist is not None:
         y = wspmd.to_dist(y, s._dist)[rank * s._n_state:][: s._n_state]
@@ -978,14 +1009,19 @@ def channel_run(s, state, rank=0):
         raise RuntimeError(f"rank {rank}: two forced steps from one state differ "
                            f"({it1} and {it2} FGMRES iterations, converged {ok1})")
     vel = {}
-    s.output_hooks.append(
-        lambda step, t, sol: vel.__setitem__(step, natural(s, sol.cpu())[0]))
+
+    def keep(step, t, sol):
+        vel[step] = natural(s, sol.cpu())[0]
+
+    s.output_hooks.append(keep)
+    n_rec = len(s.log.records)
     W.reset_launch_counts()
     t0 = time.perf_counter()
     s.solve()
     torch.cuda.synchronize()
+    s.output_hooks.remove(keep)
     return dict(update=natural(s, s._planar(u1 - x)), entry=r1, iters=it1, velocity=vel,
-                steps=trajectory(s.log.records), step_ms=[t * 1e3 for t in times],
+                steps=trajectory(s.log.records[n_rec:]), step_ms=[t * 1e3 for t in times],
                 solve_s=time.perf_counter() - t0, step_launches=step_launches,
                 step_exchange_floats=step_floats,
                 launches={k.split()[0]: c for k, c in W.launch_counts().items()})
@@ -1049,33 +1085,14 @@ def sharded_vs_plain(s, ops_, rank):
     return errs
 
 
-def multi_rank(rank, n, init, ref_path):
-    """One rank of phase 15 (spawned; joins a gloo group on the one card
-    through ``initialize_distributed``): (a) K1-K4 against their plain
-    versions at the rank's framed layout, the sharded wrappers against
-    theirs with the group and against one device's, and the floats one K1
-    product sends; (b) ``channel_run``.  Each rank writes its numbers to
-    OUT, rank 0 also the natural-order results (the parent compares)."""
-    from navier_stokes_tpu_torch.parallel.bootstrap import (initialize_distributed,
-                                                            shutdown_distributed)
-
-    torch.cuda.set_device(DEV)
-    if not initialize_distributed(backend="gloo", init_method=init, world_size=n, rank=rank):
-        raise RuntimeError(f"rank {rank}: no process group joined")
-    ref = torch.load(ref_path, weights_only=False)
-    cfg = config()
-    cfg.T = 0.1  # 2 BDF1 steps
-    s = nt.NavierStokesSolver(channel_mesh(), cfg, log=nt.RunLog(verbose=False), n_devices=n,
-                              device=DEV)
-    t0 = time.perf_counter()
-    s.setup()
-    torch.cuda.synchronize()
+def rank_kernels(s, rank):
+    """Phase 15(a) on one rank of solver s (set up, sharded): K1-K4 against
+    their plain versions at its framed layout alone, the sharded wrappers
+    against theirs with the group and against one device's
+    (``sharded_vs_plain``), the floats one K1 product sends, and a sharded
+    K1 product's time against K1's alone at the framed layout."""
     lay = s._win_layout
-    res = dict(rank=rank, errs={}, setup_s=time.perf_counter() - t0, nb=s._dist.nb,
-               nb_loc=s._dist.nb_loc, frame=lay.frame, nb_framed=lay.nb, ncd=lay.ncd,
-               frame_cols=2 * lay.frame * lay.Bmax)
-
-    # (a) the kernels at the framed layout alone, then sharded
+    res = dict(errs={})
     calls, ops_ = kb.wrapper_operands(s)
     for key, (kernel, plain) in calls.items():
         got, want = stacked(kernel()), stacked(plain())
@@ -1097,27 +1114,360 @@ def multi_rank(rank, n, init, ref_path):
     res["k1_framed_ms"] = kb.cuda_ms(lambda: W.windowed_matvec(lay, ops_["A_bf"], ops_["x"]))
     res["k1_sharded_ms"] = kb.cuda_ms(
         lambda: W.windowed_matvec(lay, ops_["A_bf"], x_own, s._group))
-    del calls, ops_
+    return res
 
-    # (b) the forced step and the 2 steps
-    run = channel_run(s, ref["state"], rank)
+
+def framing(s):
+    """The numbers of a rank's framed layout."""
+    lay = s._win_layout
+    return dict(nb=s._dist.nb, nb_loc=s._dist.nb_loc, frame=lay.frame, nb_framed=lay.nb,
+                ncd=lay.ncd, frame_cols=2 * lay.frame * lay.Bmax, OWv=lay.OWv, OWp=lay.OWp,
+                hv=lay.hv, hp=lay.hp)
+
+
+def channel_rank(rank, n, ref):
+    """The channel of phases 3-6 on this rank: (a) ``rank_kernels``; (b)
+    ``forced_then_steps`` at phase 5's state, 2 BDF1 steps.  Rank 0 saves
+    the natural-order results (the parent compares)."""
+    cfg = config()
+    cfg.T = 0.1  # 2 BDF1 steps
+    s = nt.NavierStokesSolver(channel_mesh(), cfg, log=nt.RunLog(verbose=False), n_devices=n,
+                              device=DEV)
+    t0 = time.perf_counter()
+    s.setup()
+    torch.cuda.synchronize()
+    res = dict(rank=rank, setup_s=time.perf_counter() - t0, **framing(s))
+    res.update(rank_kernels(s, rank))
+    run = forced_then_steps(s, ref["state"], rank)
     if min(run["launches"].values()) == 0:
         raise RuntimeError(f"rank {rank}: a kernel was never launched: {run['launches']}")
     if rank == 0:
         torch.save(run, OUT / f"multi_rank_{n}.pt")
     res.update({k: run[k] for k in ("step_ms", "solve_s", "step_launches",
                                     "step_exchange_floats", "launches")})
+    return res
+
+
+def box_rank(rank, n, ref):
+    """The 196,608-tet box of phase 14 on this rank: its framed layout's
+    compact tables (the 16-bit and shared-memory limits hold per chunk, or
+    ``compact_tables`` raises), (a) ``rank_kernels``; at BOX_RANKS ranks
+    (b) ``forced_then_steps`` at phase 14's seeded state, phase 14's 2
+    BDF1 steps; the peak device memory.  Rank 0 saves (b)'s natural-order
+    results."""
+    s = nt.NavierStokesSolver(kb.box_mesh(), kb.box_config(), log=nt.RunLog(verbose=False),
+                              inlet=kb.box_inlet, n_devices=n, device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    s.setup()
+    torch.cuda.synchronize()
+    lay = s._win_layout
+    if lay.dim != 3 or not lay.frame:
+        raise RuntimeError(f"rank {rank}: the box did not take the sharded 3D path")
+    res = dict(rank=rank, setup_s=time.perf_counter() - t0, **framing(s))
+    pk = lay._packed
+    pk.compact_args  # the rank's compact tables, built on its device at first use
+    tabs = pk.compact
+    res["compact"] = dict(E_v=tabs["v"].E, E_p=tabs["p"].E,
+                          max_entries=[tabs["v"].max_entries, tabs["p"].max_entries],
+                          max_pairs=[tabs["v"].max_pairs, tabs["p"].max_pairs],
+                          smem=W.compact_smem_bytes(lay, tabs), smem_limit=W._MAX_SMEM_BYTES)
+    res.update(rank_kernels(s, rank))
+    if n == BOX_RANKS:
+        run = forced_then_steps(s, ref["box"]["state"], rank)
+        if min(run["launches"].values()) == 0 or min(run["step_launches"].values()) == 0:
+            raise RuntimeError(f"rank {rank}: a kernel of the 3D path was never launched: "
+                               f"{run['launches']}, {run['step_launches']}")
+        if rank == 0:
+            torch.save(run, OUT / "box_multi.pt")
+        res.update({k: run[k] for k in ("step_ms", "solve_s", "step_launches",
+                                        "step_exchange_floats", "launches")})
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return res
+
+
+def multi_rank(rank, n, init, ref_path):
+    """One rank of phase 15 (spawned; joins a gloo group on the one card
+    through ``initialize_distributed``): the legs of ``ref["legs"]`` in
+    turn, "channel" (``channel_rank``), "tight" at TIGHT_RANKS ranks
+    (``tight_rank``) and "box" (``box_rank``).  Each rank writes its
+    numbers to OUT (the parent compares)."""
+    from navier_stokes_tpu_torch.parallel.bootstrap import (initialize_distributed,
+                                                            shutdown_distributed)
+
+    torch.cuda.set_device(DEV)
+    if not initialize_distributed(backend="gloo", init_method=init, world_size=n, rank=rank):
+        raise RuntimeError(f"rank {rank}: no process group joined")
+    ref = torch.load(ref_path, weights_only=False)
+    res = dict(rank=rank)
+    if "channel" in ref["legs"]:
+        res.update(channel_rank(rank, n, ref))
+    torch.cuda.empty_cache()
+    if "tight" in ref["legs"] and n == TIGHT_RANKS:
+        res["tight"] = tight_rank(rank, n)
+    torch.cuda.empty_cache()
+    if "box" in ref["legs"]:
+        res["box"] = box_rank(rank, n, ref)
     (OUT / f"multi_rank_{n}_{rank}.json").write_text(json.dumps(res))
     shutdown_distributed()
 
 
+# ---- phase 15, the tight leg: the loose leg's velocity gap, settled ----------
+#
+# The loose leg's velocities (rel_tol 1e-2, Newton to an absolute 1e-2)
+# spread by ~0.15 of max |u| between runs that differ only in the order of
+# float32 sums.  Here the same 2 BDF1 steps and inlet on phase 11's
+# 25,600-cell channel, 2 ranks against one device at their numbering, with
+# every tangent solved to 1e-4 and the Newton loop run to an absolute 1e-4:
+# the tightest pair that every float32 solve of both runs meets (at 1e-5 some
+# tangent solves stall and Newton's residual stays near its float32 floor,
+# ~1e-5).  Readings on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): the
+# ranks' velocity within 5.0e-4 (step 1) and 2.8e-4 (step 2) of max |u|;
+# one device started from rest nudged by 1e-7 a dof 5.4e-4 and 2.8e-4 (so
+# the ranks spread as a rounding-sized nudge does); the control, one device
+# with the inflow 0.1 % stronger, 1.3e-3 and 1.2e-3.  The bound sits between
+# the ranks' reading and the control's, 1.6x from each.
+
+TIGHT_RANKS = 2
+TIGHT_REL_TOL = 1e-4  # every tangent solve's rel_tol
+TIGHT_NEWTON_TOL = 1e-4  # Newton's absolute tolerance
+TIGHT_VEL_TOL = 8e-4
+TIGHT_INLET_CONTROL = 1e-3  # the control's inflow, u_m scaled by 1 + this
+TIGHT_NUDGE = 1e-7  # a reading beside it: the start nudged by this times N(0, 1) a dof
+
+
+def tight_mesh():
+    """Phase 11's 25,600-cell channel."""
+    return nt.refine_uniform(nt.rectangle(80, 40, 0, 7, 0, 4), 1)
+
+
+def tight_config(inlet_scale=1.0):
+    cfg = config(rel_tol=TIGHT_REL_TOL)
+    cfg.T = 0.1  # 2 BDF1 steps, as the loose leg
+    cfg.newton.tol = TIGHT_NEWTON_TOL
+    cfg.inlet.u_m *= inlet_scale
+    return cfg
+
+
+def tight_run(s, nudge=0.0):
+    """Solver s (not set up) through its BDF1 steps from rest (with nudge,
+    from nudge times a seeded N(0, 1) on every real dof; one device).
+    Returns the natural-order velocity after each step, the trajectory and
+    the run's time."""
+    s.setup()
+    if nudge:
+        rng = np.random.default_rng(5)
+        v, p = natural(s, np.zeros(s.dofs.n_total))
+        y = from_natural(s, *(nudge * rng.standard_normal(a.shape) for a in (v, p)))
+        s.solution = torch.as_tensor(y, dtype=torch.float32, device=DEV)
+    vel = {}
+    s.output_hooks.append(lambda step, t, sol: vel.__setitem__(step, natural(s, sol.cpu())[0]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.solve(resume=bool(nudge))
+    torch.cuda.synchronize()
+    return dict(velocity=vel, steps=trajectory(s.log.records), solve_s=time.perf_counter() - t0)
+
+
+def tight_rank(rank, n):
+    """The tight leg on this rank; rank 0 saves the natural-order results."""
+    run = tight_run(nt.NavierStokesSolver(tight_mesh(), tight_config(),
+                                          log=nt.RunLog(verbose=False), n_devices=n, device=DEV))
+    if rank == 0:
+        torch.save(run, OUT / f"tight_{n}.pt")
+    return dict(solve_s=run["solve_s"])
+
+
+def tight_one_device(nudge=0.0, inlet_scale=1.0):
+    """The tight leg on one device at the ranks' numbering."""
+    s = nt.NavierStokesSolver(tight_mesh(), tight_config(inlet_scale),
+                              log=nt.RunLog(verbose=False), device=DEV, nb_multiple=TIGHT_RANKS)
+    return tight_run(s, nudge)
+
+
+def steps_met(run, tol):
+    """Whether every Newton loop of a run met tol and every tangent solve its
+    rel_tol (no krylov_failure record)."""
+    return all(res and res[-1] <= tol and not fails for _, res, _, fails in run["steps"])
+
+
+def tight_references():
+    """The tight leg's one-device runs at the ranks' numbering: as the
+    ranks, the control with the inflow scaled by 1 + TIGHT_INLET_CONTROL,
+    and, a reading, a start nudged by TIGHT_NUDGE a dof."""
+    return dict(same=tight_one_device(),
+                inlet=tight_one_device(inlet_scale=1 + TIGHT_INLET_CONTROL),
+                nudged=tight_one_device(nudge=TIGHT_NUDGE))
+
+
+def tight_report(got, ref):
+    """Print the tight leg's gaps and return them: every run's Newton and
+    FGMRES counts, whether each met its tolerances, and the velocity node
+    by node after each step as a share of max |u| (the ranks', the
+    control's and the nudged run's, against one device at the ranks'
+    numbering), with the bound."""
+    row = dict(met={}, gaps={})
+    for name, run in (("ranks", got), *ref.items()):
+        row["met"][name] = steps_met(run, TIGHT_NEWTON_TOL)
+        row["gaps"][name] = [node_gap(run["velocity"][k], ref["same"]["velocity"][k])
+                             for k in (1, 2)]
+        print(f"  tight leg (rel_tol {TIGHT_REL_TOL:g}, Newton {TIGHT_NEWTON_TOL:g}): {name}: "
+              f"Newton residuals {[['%.3e' % x for x in r] for _, r, _, _ in run['steps']]}, "
+              f"FGMRES {[i for _, _, i, _ in run['steps']]}, met {row['met'][name]}, "
+              f"{run['solve_s']:.1f} s; velocity gap to one device at the ranks' numbering "
+              f"{row['gaps'][name][0]:.2e} (step 1), {row['gaps'][name][1]:.2e} (step 2) "
+              f"(tol {TIGHT_VEL_TOL:g})", flush=True)
+    return row
+
+
+def channel_checks(n, g):
+    """Raise unless the channel's n-rank run meets the MULTI_* bounds and
+    each control fails its bound."""
+    if g["entry"] > MULTI_ENTRY_REL_TOL or abs(g["iters"][0] - g["iters"][1]) > MULTI_ITERS_SLACK:
+        raise RuntimeError(f"{n} ranks: the forced step departs from phase 5's")
+    if g["update"] > MULTI_UPDATE_TOL or g["update_ctrl"] <= MULTI_UPDATE_TOL:
+        raise RuntimeError(f"{n} ranks: the update bound fails or cannot tell another "
+                           "numbering apart")
+    newton, phase4, one = g["newton"]
+    if newton != phase4 or newton != one:
+        raise RuntimeError(f"{n} ranks: the Newton counts depart from one device's")
+    if max(g["first"][0][:2]) > MULTI_FIRST_TOL or max(g["first_ctrl"][0][:2]) <= MULTI_FIRST_TOL:
+        raise RuntimeError(f"{n} ranks: the first Newton update's residual bound fails "
+                           "or cannot tell another numbering apart")
+    if max(g["vel"]) > MULTI_VEL_TOL or g["step_change"] <= MULTI_VEL_TOL:
+        raise RuntimeError(f"{n} ranks: the velocity departs from one device's, or its "
+                           "bound cannot see a time step's change")
+
+
+def tight_checks(row):
+    """Raise unless each run met its tolerances, the ranks' velocity is
+    within TIGHT_VEL_TOL of one device's at their numbering, and the
+    control (the inflow scaled by 1 + TIGHT_INLET_CONTROL) is not."""
+    if not all(row["met"].values()):
+        raise RuntimeError(f"tight leg: a run missed its tolerances: {row['met']}")
+    if max(row["gaps"]["ranks"]) > TIGHT_VEL_TOL or max(row["gaps"]["inlet"]) <= TIGHT_VEL_TOL:
+        raise RuntimeError(f"tight leg: the velocity bound fails or cannot see the control "
+                           f"({row['gaps']})")
+
+
+# ---- phase 15, the box: the sharded 3D path ----------------------------------
+
+BOX_RANKS = 2  # the box's solves; its kernels run at every MULTI_RANKS count
+# Bounds of the box's 2-rank run against one device at its numbering (nb
+# 220 = 2 x 110, phase 14's own), in the style of the MULTI_* ones; the
+# control is one device at another numbering (nb_multiple 3: nb 222, other
+# blocks and Cahouet-Chabard aggregates).  Readings on an NVIDIA H100 80GB
+# HBM3 at 700 W (PERF.md), ranks / control:
+#
+# the forced step's entry ||r||: the same state in the same numbering
+# (0 / 0: the bound holds the sharded residual, no control can tell it)
+BOX_ENTRY_REL_TOL = 1e-6
+# its FGMRES count (30 / 30)
+BOX_ITERS_SLACK = 2
+# its update node by node, as a share of its max (3.5e-6 / 1.3e-3)
+BOX_UPDATE_TOL = 1e-4
+# step 1's first two residuals, relative (2.6e-6 / 1.0e-2)
+BOX_FIRST_TOL = 1e-4
+# the velocity after each BDF1 step node by node, as a share of max |u|:
+# 2.3e-5 and 9.8e-4 / 1.02 and 0.18.  Tangents at rel_tol 1e-2 as on phase
+# 14's path; the tight leg shows what that tolerance spreads.
+BOX_VEL_TOL = 1e-2
+
+
+def box_references(solver, state):
+    """Phase 15's one-device runs of the box (``forced_then_steps`` at
+    phase 14's seeded state): at the BOX_RANKS-rank numbering, which is
+    phase 14's solver itself when its block count is a multiple of
+    BOX_RANKS (nb_multiple then changes nothing), and the control at
+    another numbering (nb_multiple 3)."""
+    nat = natural(solver, state.cpu())
+    same = solver if solver._win_layout.nb % BOX_RANKS == 0 else nt.NavierStokesSolver(
+        kb.box_mesh(), kb.box_config(), log=nt.RunLog(verbose=False), inlet=kb.box_inlet,
+        device=DEV, nb_multiple=BOX_RANKS)
+    ref = dict(state=nat, phase14_nb=solver._win_layout.nb, same=forced_then_steps(same, nat))
+    ref["same"]["nb"] = same._win_layout.nb
+    del same
+    ctrl = nt.NavierStokesSolver(kb.box_mesh(), kb.box_config(), log=nt.RunLog(verbose=False),
+                                 inlet=kb.box_inlet, device=DEV, nb_multiple=3)
+    ref["control"] = forced_then_steps(ctrl, nat)
+    ref["control"]["nb"] = ctrl._win_layout.nb
+    return ref
+
+
+def box_compare(got, ref):
+    """The box's 2-rank run against one device at its numbering, and the
+    control against the same: printed, and returned as a dict of gaps."""
+    one, ctrl = ref["same"], ref["control"]
+    g = dict(
+        entry=abs(got["entry"] - one["entry"]) / one["entry"],
+        entry_ctrl=abs(ctrl["entry"] - one["entry"]) / one["entry"],
+        iters=(got["iters"], one["iters"], ctrl["iters"]),
+        update=node_gap(got["update"], one["update"]),
+        update_ctrl=node_gap(ctrl["update"], one["update"]),
+        first=residual_gaps(got["steps"], one["steps"]),
+        first_ctrl=residual_gaps(ctrl["steps"], one["steps"]),
+        vel=[node_gap(got["velocity"][k], one["velocity"][k]) for k in (1, 2)],
+        vel_ctrl=[node_gap(ctrl["velocity"][k], one["velocity"][k]) for k in (1, 2)],
+        newton=[[len(r) for _, r, _, _ in run["steps"]] for run in (got, one, ctrl)],
+        fgmres=[[i for _, _, i, _ in run["steps"]] for run in (got, one, ctrl)])
+    print(f"  box, {BOX_RANKS} ranks against one device at nb {one['nb']} (phase 14's nb "
+          f"{ref['phase14_nb']}; control at nb {ctrl['nb']}): forced step entry ||r|| "
+          f"{got['entry']:.6e} / {one['entry']:.6e} (gap {g['entry']:.2e}, tol "
+          f"{BOX_ENTRY_REL_TOL:g}; control {g['entry_ctrl']:.2e}); FGMRES {g['iters']} (ranks, "
+          f"one device, control; slack {BOX_ITERS_SLACK}); update node by node within "
+          f"{g['update']:.2e} of its max (tol {BOX_UPDATE_TOL:g}; control {g['update_ctrl']:.2e})"
+          f"\n  2 BDF1 steps: Newton counts {g['newton']}, FGMRES {g['fgmres']} (ranks, one "
+          f"device, control); residuals' relative gaps "
+          f"{[['%.1e' % x for x in r] for r in g['first']]} (tol {BOX_FIRST_TOL:g} on step 1's "
+          f"first two; control {[['%.1e' % x for x in r] for r in g['first_ctrl']]}); velocity "
+          f"within {g['vel'][0]:.2e} (step 1), {g['vel'][1]:.2e} (step 2) of max |u| (tol "
+          f"{BOX_VEL_TOL:g}; control {g['vel_ctrl'][0]:.2e}, {g['vel_ctrl'][1]:.2e})", flush=True)
+    return g
+
+
+def box_checks(g):
+    """Raise unless the box's 2-rank run meets every bound and each control
+    fails its bound."""
+    if g["entry"] > BOX_ENTRY_REL_TOL or abs(g["iters"][0] - g["iters"][1]) > BOX_ITERS_SLACK:
+        raise RuntimeError("box: the forced step departs from one device's")
+    if g["update"] > BOX_UPDATE_TOL or g["update_ctrl"] <= BOX_UPDATE_TOL:
+        raise RuntimeError("box: the update bound fails or cannot tell another numbering apart")
+    if g["newton"][0] != g["newton"][1]:
+        raise RuntimeError("box: the Newton counts depart from one device's")
+    if max(g["first"][0][:2]) > BOX_FIRST_TOL or max(g["first_ctrl"][0][:2]) <= BOX_FIRST_TOL:
+        raise RuntimeError("box: the first residuals' bound fails or cannot tell another "
+                           "numbering apart")
+    if max(g["vel"]) > BOX_VEL_TOL or max(g["vel_ctrl"]) <= BOX_VEL_TOL:
+        raise RuntimeError("box: the velocity bound fails or cannot tell another numbering "
+                           "apart")
+
+
+def run_ranks(n, ref, ref_path):
+    """Phase 15's ranks: n spawned processes on ``multi_rank``; returns each
+    rank's numbers."""
+    import torch.multiprocessing as mp
+
+    torch.save(ref, ref_path)
+    store = OUT / f"multi_rank_store_{n}"
+    store.unlink(missing_ok=True)
+    ctx = mp.start_processes(multi_rank, args=(n, f"file://{store}", str(ref_path)),
+                             nprocs=n, join=False, start_method="spawn")
+    deadline = time.monotonic() + MULTI_TIMEOUT_S
+    while not ctx.join(timeout=10):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            raise RuntimeError(f"{n} ranks outlasted {MULTI_TIMEOUT_S} s")
+    return [json.loads((OUT / f"multi_rank_{n}_{r}.json").read_text()) for r in range(n)]
+
+
 def one_device_at(ref, n):
-    """``channel_run`` on one device at the n-rank run's numbering."""
+    """``forced_then_steps`` on one device at the n-rank run's numbering."""
     cfg = config()
     cfg.T = 0.1
     s = nt.NavierStokesSolver(channel_mesh(), cfg, log=nt.RunLog(verbose=False), device=DEV,
                               nb_multiple=n)
-    run = channel_run(s, ref["state"])
+    run = forced_then_steps(s, ref["state"])
     run["nb"] = s._win_layout.nb
     return run
 
@@ -1128,36 +1478,31 @@ def residual_gaps(a, b):
             for (_, ra, _, _), (_, rb, _, _) in zip(a, b)]
 
 
-def multi_rank_phase(ref, smi):
+def multi_rank_phase(ref, smi, box_ref):
     """Phase 15: the owned-range domain decomposition on 2 and 4 ranks of
     the one card (gloo, edge blocks through pinned host buffers; NCCL
-    refuses two ranks on one device), each rank a process, against one
-    device at the same numbering (the bounds above) and phase 4-5's run
-    (entry ||r||, FGMRES and Newton counts).  Phase 4-5's run is also the
-    control: another numbering, which the update bound must tell apart.
-    Returns the 2-rank run's per-rank numbers."""
-    import torch.multiprocessing as mp
-
-    phase("15 multi-rank: the channel on 2 and 4 ranks of the card (gloo), against one "
-          "device at the ranks' numbering and phase 4-5")
+    refuses two ranks on one device), each rank a process.  The channel
+    against one device at the same numbering (the bounds above) and phase
+    4-5's run (entry ||r||, FGMRES and Newton counts; phase 4-5's run is
+    also the control: another numbering, which the update bound must tell
+    apart); the tight leg at TIGHT_RANKS ranks (its bound and control
+    above); the box's kernels at every rank count and its solves at
+    BOX_RANKS against phase 14's (``box_references``).  Returns the 2-rank
+    run's per-rank numbers of the channel and of the box."""
+    phase("15 multi-rank: the channel, the tight leg and the box on 2 and 4 ranks of the card "
+          "(gloo), against one device at the ranks' numbering")
     ref_path = OUT / "multi_rank_ref.pt"
-    torch.save(ref, ref_path)
+    t0 = time.perf_counter()
+    tight_one = tight_references()
+    print(f"  tight leg, one device: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    rank_ref = dict(ref, legs=("channel", "tight", "box"), box=dict(state=box_ref["state"]))
     out = {}
     for n in MULTI_RANKS:
         one = one_device_at(ref, n)
         torch.cuda.empty_cache()
-        store = OUT / f"multi_rank_store_{n}"
-        store.unlink(missing_ok=True)
         t0 = time.perf_counter()
-        ctx = mp.start_processes(multi_rank, args=(n, f"file://{store}", str(ref_path)),
-                                 nprocs=n, join=False, start_method="spawn")
-        deadline = time.monotonic() + MULTI_TIMEOUT_S
-        while not ctx.join(timeout=10):
-            if time.monotonic() > deadline:
-                for proc in ctx.processes:
-                    proc.kill()
-                raise RuntimeError(f"{n} ranks outlasted {MULTI_TIMEOUT_S} s")
-        out[n] = [json.loads((OUT / f"multi_rank_{n}_{r}.json").read_text()) for r in range(n)]
+        out[n] = run_ranks(n, rank_ref, ref_path)
         got = torch.load(OUT / f"multi_rank_{n}.pt", weights_only=False)
         r0 = out[n][0]
         print(f"  {n} ranks: nb {r0['nb']} = {n} x {r0['nb_loc']}, frame {r0['frame']} blocks a "
@@ -1188,20 +1533,19 @@ def multi_rank_phase(ref, smi):
               f"{vel[0]:.2e} (step 1), {vel[1]:.2e} (step 2) of max |u| (tol {MULTI_VEL_TOL:g}; "
               f"controls: phase 4's at step 2 {vel_ctrl:.2e}, the flow's change over step 2 "
               f"{step_change:.2e}); {got['solve_s']:.1f} s (one device {one['solve_s']:.1f} s)"
-              f"\n  [{n} ranks: {time.perf_counter() - t0:.1f} s with process start]", flush=True)
-        if entry > MULTI_ENTRY_REL_TOL or abs(got["iters"] - ref["iters"]) > MULTI_ITERS_SLACK:
-            raise RuntimeError(f"{n} ranks: the forced step departs from phase 5's")
-        if upd > MULTI_UPDATE_TOL or upd_ctrl <= MULTI_UPDATE_TOL:
-            raise RuntimeError(f"{n} ranks: the update bound fails or cannot tell another "
-                               "numbering apart")
-        if newton != ref["newton"] or newton != [len(r) for _, r, _, _ in one["steps"]]:
-            raise RuntimeError(f"{n} ranks: the Newton counts depart from one device's")
-        if max(res[0][:2]) > MULTI_FIRST_TOL or max(res_ctrl[0][:2]) <= MULTI_FIRST_TOL:
-            raise RuntimeError(f"{n} ranks: the first Newton update's residual bound fails "
-                               "or cannot tell another numbering apart")
-        if max(vel) > MULTI_VEL_TOL or step_change <= MULTI_VEL_TOL:
-            raise RuntimeError(f"{n} ranks: the velocity departs from one device's, or its "
-                               "bound cannot see a time step's change")
+              f"\n  [{n} ranks, every leg: {time.perf_counter() - t0:.1f} s with process start]",
+              flush=True)
+        channel_checks(n, dict(entry=entry, iters=(got["iters"], ref["iters"]), update=upd,
+                               update_ctrl=upd_ctrl, first=res, first_ctrl=res_ctrl, vel=vel,
+                               step_change=step_change,
+                               newton=(newton, ref["newton"],
+                                       [len(r) for _, r, _, _ in one["steps"]])))
+        if n == TIGHT_RANKS:
+            tight_checks(tight_report(torch.load(OUT / f"tight_{n}.pt", weights_only=False),
+                                      tight_one))
+        if n == BOX_RANKS:
+            box_checks(box_compare(torch.load(OUT / "box_multi.pt", weights_only=False),
+                                   box_ref))
     for n, rs in out.items():
         for r in rs:
             print(f"  {n} ranks, rank {r['rank']}: one K1 product sends {r['floats_per_matvec']} "
@@ -1217,7 +1561,29 @@ def multi_rank_phase(ref, smi):
     print(f"  forced step wall time ({smi}): 1 rank {ref['ms']:.1f} ms (phase 5's median), "
           + ", ".join(f"{n} ranks {min(out[n][0]['step_ms']):.1f} ms" for n in MULTI_RANKS),
           flush=True)
-    return out[2]
+    for n, rs in out.items():
+        for r in (r["box"] for r in rs):
+            c = r["compact"]
+            print(f"  box, {n} ranks, rank {r['rank']}: nb {r['nb']} = {n} x {r['nb_loc']}, frame "
+                  f"{r['frame']} blocks a side (hv/hp {r['hv']}/{r['hp']}, OWv/OWp "
+                  f"{r['OWv']}/{r['OWp']}): K1-K4 launch on {r['nb_framed']} blocks, "
+                  f"{r['frame_cols']} of {r['ncd']} slot columns frame padding "
+                  f"({r['frame_cols'] / r['ncd']:.4f}); compact tables E_v/E_p {c['E_v']}/"
+                  f"{c['E_p']}, at most {c['max_entries']} entries and {c['max_pairs']} pairs a "
+                  f"chunk, {c['smem']} of {c['smem_limit']} bytes of shared memory; setup "
+                  f"{r['setup_s']:.1f} s; one K1 product sends {r['floats_per_matvec']} floats, "
+                  f"{r['floats_per_matvec'] / r['llen']:.4f} of its vector ({r['llen']}), "
+                  f"{r['k1_sharded_ms']:.4f} ms a product against {r['k1_framed_ms']:.4f} for K1 "
+                  f"alone at the framed layout (warm); peak device memory {r['peak_gb']:.2f} GB"
+                  + (f"; launches: forced step {r['step_launches']}, 2 steps {r['launches']}; "
+                     f"forced step sends {r['step_exchange_floats']}" if "launches" in r else ""),
+                  flush=True)
+        print(f"  box, {n} ranks, largest error a check: "
+              + ", ".join(f"{k} {max(r['box']['errs'][k] for r in rs):.2e}"
+                          for k in rs[0]["box"]["errs"]), flush=True)
+    print(f"  box forced step wall time ({smi}): 1 rank {min(box_ref['same']['step_ms']):.1f} ms, "
+          f"{BOX_RANKS} ranks {min(out[BOX_RANKS][0]['box']['step_ms']):.1f} ms", flush=True)
+    return out[2], [r["box"] for r in out[2]]
 
 
 MEASURED = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
@@ -1526,12 +1892,12 @@ def main():
 
     steady_phase()
     scanned_phase()
-    recs3, launches3, step_launches3 = box_phase()
-    sharded = multi_rank_phase(multi_ref, smi)
-    phase.end()
+    recs3, launches3, step_launches3, box_ref = box_phase()
+    sharded, sharded3 = multi_rank_phase(multi_ref, smi, box_ref)
+    phase.total()
 
     kernels = (kernel_entries(recs, launches, step_launches, "", sharded)
-               + kernel_entries(recs3, launches3, step_launches3, ", 3D"))
+               + kernel_entries(recs3, launches3, step_launches3, ", 3D", sharded3))
     kernels.append(dict(
         name="K5 mxu_probe", route="cuda", source=PROBE_SOURCE, replaces=REPLACES["K5"],
         launches=probe_launches, launches_per_newton_step=0,

@@ -117,10 +117,10 @@ def _norm(v: torch.Tensor, group=None) -> float:
     return float(vnorm(v, group))
 
 
-def _check_devices(n_devices, cfg, dim):
+def _check_devices(n_devices, cfg):
     """Raise unless n_devices is one this port runs: None, or the size of
-    the joined process group, with the windowed operator on triangles above
-    one."""
+    the joined process group, with the windowed operator above one (on
+    triangles and tetrahedra alike)."""
     if n_devices is None:
         return
     if n_devices > 1 and cfg.krylov.matvec != "windowed":
@@ -128,11 +128,6 @@ def _check_devices(n_devices, cfg, dim):
             "multi-device solves run the windowed operator only: the flat "
             "operator's replicated design (the original's parallel/spmd.py) "
             "is not ported yet (ROADMAP.md, Queue 1)")
-    if n_devices > 1 and dim != 2:
-        raise NotImplementedError(
-            "multi-device solves run 2D meshes only: the sharded 3D path "
-            "(framed tetrahedral layouts and their compact tables) is not "
-            "ported yet (ROADMAP.md, Queue 1)")
     world = process_count()
     if n_devices != world:
         raise ValueError(
@@ -173,7 +168,7 @@ class NavierStokesSolver:
         the two runs share blocks and coarse aggregates."""
         self.cfg = config or SolverConfig()
         self.mesh = read_msh(mesh) if isinstance(mesh, str) else mesh
-        _check_devices(n_devices, self.cfg, self.mesh.dim)
+        _check_devices(n_devices, self.cfg)
         self.n_devices = n_devices
         self.nb_multiple = nb_multiple or n_devices or 1
         if self.nb_multiple % (n_devices or 1):

@@ -60,7 +60,7 @@ class StokesSolver:
             config = SolverConfig(inlet_tags=(0,), neumann_tags=(1,), wall_tags=(2, 3))
             config.krylov.preconditioner = "block_triangular"
         self.mesh = read_msh(mesh) if isinstance(mesh, str) else mesh
-        _check_devices(n_devices, config, self.mesh.dim)
+        _check_devices(n_devices, config)
         self.n_devices = n_devices
         self.cfg = cfg = config
         self.log = log or RunLog()

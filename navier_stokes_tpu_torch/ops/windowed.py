@@ -973,7 +973,7 @@ def _compact_matvec_reference(lay: WindowedLayout, A_sub: torch.Tensor, x: torch
     X = torch.cat(cols)
     outs = [s for s in "vp" if s in out_spaces]
     n_out = sum(ncomp[s] * k[s] for s in outs)
-    Y = torch.einsum("jis,js->is", A_sub[:, :n_out].to(x.dtype), X)  # [n_out, ncd]
+    Y = _contract(A_sub[:, :n_out], X)  # [n_out, ncd]
     return _compact_scatter_reference(lay, Y, tabs, out_spaces)
 
 
@@ -1009,13 +1009,23 @@ def _compact_scatter_reference(lay: WindowedLayout, R: torch.Tensor, tables=None
     return torch.cat(ys)
 
 
+def _contract(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """y[i, s] = sum_j A[j, i, s] X[j, s], j in order, A widened to X's
+    dtype on read (a bf16 operator).  One multiply-add a j: torch.einsum's
+    batched products of one slot each are ten times slower on the CPU."""
+    y = A[0].to(X.dtype) * X[0]
+    for j in range(1, A.shape[0]):
+        y = y.addcmul(A[j].to(X.dtype), X[j])
+    return y
+
+
 def windowed_matvec_reference(
     lay: WindowedLayout, A_t: torch.Tensor, x: torch.Tensor, group=None
 ) -> torch.Tensor:
     """Plain same-math version of the windowed matvec (real gathers)."""
     X = _gather_reference(lay, x, group)  # [nli, ncd]
     # A_t may be stored narrower than x (bf16 operator): widen like the kernel
-    yl = torch.einsum("jis,js->is", A_t[:, : lay.nl, :].to(x.dtype), X[: lay.nl])
+    yl = _contract(A_t[:, : lay.nl, :], X[: lay.nl])
     return _scatter_reference(lay, yl, group)
 
 
@@ -1036,8 +1046,7 @@ def _block_reference(lay, A_sub, x, in_spaces, out_spaces, group=None):
         xf = x
     X = _gather_reference(lay, xf, group)  # [nli, ncd]
     jsl = _space_slices(lay)
-    # A_sub may be stored narrower than x (bf16 precond blocks): widen
-    yl = torch.einsum("jis,js->is", A_sub.to(x.dtype), X[jsl[in_spaces]])
+    yl = _contract(A_sub, X[jsl[in_spaces]])
     R = yl.new_zeros((lay.nli, lay.ncd))
     osl = jsl[out_spaces]
     R[osl] = yl[: osl.stop - osl.start]

@@ -22,9 +22,15 @@ and merge each row's places in order (``ops/windowed.py``
   package's ``windowed_scatter`` (its plain path on the CPU).
 
 Layouts: the card tests' three tetrahedral ones (tests/test_torch_kernels.py
-``TETS``: one chunk at halo 1; 3 chunks of 256; halo 2) and box(2, 2, 2) on
-the default (unblocked) layout, one block with no halo.  The kernels on the
-card: tests/test_torch_kernels.py.
+``TETS``: one chunk at halo 1; 3 chunks of 256; halo 2), box(2, 2, 2) on
+the default (unblocked) layout, one block with no halo, and three ranks'
+framed layouts of a sharded run (parallel/windowed_spmd.py ``local_layout``)
+of box(4, 4, 4) at 16 cells a block, halo 4: rank 0 and rank 1 of 2 (the
+ends of the line) and rank 1 of 4 (an inner rank).  A framed layout's rows
+run over its framed spaces, so the frame's rows receive the owned blocks'
+sums (which the sharded wrappers then send to the neighbours).  Of the
+generated boxes tried, none gives hv != hp.  The kernels on the card:
+tests/test_torch_kernels.py.
 """
 
 import functools
@@ -40,12 +46,17 @@ from navier_stokes_tpu_torch.fem.dofs import make_dofs, renumber_blocked
 from navier_stokes_tpu_torch.mesh.generate import box
 from navier_stokes_tpu_torch.mesh.mesh import refine_uniform
 from navier_stokes_tpu_torch.ops import windowed as tw
+from navier_stokes_tpu_torch.parallel import windowed_spmd as ws
 
 LAYOUTS = {
     "box-h1": dict(box=2, cpb=16, Bc=128),
     "box-refined-Bc256": dict(box=4, refine=1, cpb=448, Bc=256),
     "box-refined-h2": dict(box=8, refine=1, cpb=448, Bc=256),
     "box2-unblocked": dict(box=2, target_ow=1024, Bc=128),
+    # framed layouts of a sharded run: (rank, ranks)
+    "box4-framed-r0of2": dict(box=4, cpb=16, Bc=128, rank=0, ranks=2),
+    "box4-framed-r1of2": dict(box=4, cpb=16, Bc=128, rank=1, ranks=2),
+    "box4-framed-r1of4": dict(box=4, cpb=16, Bc=128, rank=1, ranks=4),
 }
 PRODUCTS = [("vp", "vp"), ("v", "v"), ("v", "p"), ("p", "p")]
 
@@ -56,7 +67,8 @@ def _build(c):
         mesh = refine_uniform(mesh, c["refine"])
     dofs = make_dofs(mesh)
     if "cpb" in c:
-        dofs, bi = renumber_blocked(dofs, cells_per_block=c["cpb"])
+        dofs, bi = renumber_blocked(dofs, cells_per_block=c["cpb"],
+                                    nb_multiple=c.get("ranks", 1))
         kw = dict(block_info=bi, Bc=c["Bc"])
     else:
         kw = dict(target_ow=c["target_ow"], Bc=c["Bc"])
@@ -65,8 +77,12 @@ def _build(c):
 
 @functools.lru_cache(maxsize=None)
 def _layout(name):
-    args, kw = _build(LAYOUTS[name])
-    return tw.build_windowed_layout(*args, **kw)
+    c = LAYOUTS[name]
+    args, kw = _build(c)
+    lay = tw.build_windowed_layout(*args, **kw)
+    if "ranks" in c:
+        lay = ws.local_layout(lay, ws.make_dist_layout(lay, c["ranks"]), c["rank"])
+    return lay
 
 
 @functools.lru_cache(maxsize=None)
@@ -89,10 +105,14 @@ def _entry_chunks(lay, t):
 
 
 def test_layouts_cover_the_kernel_paths():
-    """One chunk and several, halos 0, 1 and 2."""
+    """One chunk and several, halos 0, 1, 2 and 4; framed layouts of both
+    ends of a line of ranks and of an inner rank, with frame = halo."""
     lays = [_layout(name) for name in LAYOUTS]
     assert {lay.nchunks > 1 for lay in lays} == {True, False}
-    assert {lay.hv for lay in lays} == {0, 1, 2}
+    assert {lay.hv for lay in lays} == {0, 1, 2, 4}
+    framed = [lay for lay in lays if lay.frame]
+    assert len(framed) == 3 and all(lay.frame == lay.hv == lay.hp == 4 for lay in framed)
+    assert [lay.nb for lay in framed] == [12 + 8, 12 + 8, 6 + 8]
 
 
 @pytest.mark.parametrize("name", sorted(LAYOUTS))

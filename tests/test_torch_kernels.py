@@ -27,6 +27,7 @@ from navier_stokes_tpu_torch.fem.dofs import make_dofs, renumber_blocked
 from navier_stokes_tpu_torch.mesh.generate import box, unit_square
 from navier_stokes_tpu_torch.mesh.mesh import refine_uniform
 from navier_stokes_tpu_torch.ops import windowed as tw
+from navier_stokes_tpu_torch.parallel import windowed_spmd as ws
 from navier_stokes_tpu_torch.scripts import mxu_probe as mxu
 
 LAYOUTS = {
@@ -44,6 +45,9 @@ LAYOUTS = {
     "box-h1": dict(box=2, cpb=16, Bc=128),
     "box-refined-Bc256": dict(box=4, refine=1, cpb=448, Bc=256),
     "box-refined-h2": dict(box=8, refine=1, cpb=448, Bc=256),
+    # a rank's framed layout of a sharded run (rank 1 of 2, halo 4): owned
+    # blocks between 4 empty ones a side, rows over the framed spaces
+    "box4-framed": dict(box=4, cpb=16, Bc=128, rank=1, ranks=2),
 }
 OPS = ["gather", "gather-pair", "scatter", "matvec", "matvec-bf16A", "v->v", "v->p", "p->p",
        "v->v-f32A", "v->p-f32A", "p->p-f32A"]
@@ -64,13 +68,17 @@ def _layout(name):
         mesh = refine_uniform(mesh, c["refine"])
     dofs = make_dofs(mesh)
     if "cpb" in c:
-        dofs, bi = renumber_blocked(dofs, cells_per_block=c["cpb"])
+        dofs, bi = renumber_blocked(dofs, cells_per_block=c["cpb"],
+                                    nb_multiple=c.get("ranks", 1))
         kw = dict(block_info=bi, Bc=c["Bc"])
     else:
         kw = dict(target_ow=c["target_ow"], Bc=c["Bc"])
-    return tw.build_windowed_layout(
+    lay = tw.build_windowed_layout(
         dofs.cell_vdofs, dofs.cell_pdofs, dofs.n_vs, dofs.n_ps, mesh.dim, **kw
     )
+    if "ranks" in c:
+        lay = ws.local_layout(lay, ws.make_dist_layout(lay, c["ranks"]), c["rank"])
+    return lay
 
 
 @pytest.mark.cuda
@@ -145,7 +153,7 @@ def test_layouts_cover_the_kernel_paths():
     assert any(lay.hv == 2 for lay in tets)
 
 
-TETS = ["box-h1", "box-refined-Bc256", "box-refined-h2"]
+TETS = ["box-h1", "box-refined-Bc256", "box-refined-h2", "box4-framed"]
 
 
 def _op_call(lay, op, rand):
@@ -248,7 +256,8 @@ def test_tet_merge_counts_every_window(name, cuda_device):
     exactly: every (slot, dof) pair reaches its row through the chunk sums
     and the row-list merge.  On the halo-2 layout some rows take entries
     from blocks 2 away from their own (the merge's outermost windows, j = 0
-    and 2h)."""
+    and 2h); on the framed layout (halo 4) the frame's rows take the owned
+    blocks' sums, and its frame blocks none of their own."""
     lay = _layout(name)
     pos_v, pos_p, _ = tw.pack_positions(lay)
     filled = ((tw.unpack_positions(pos_v) >= 0).any(dim=1)

@@ -19,9 +19,8 @@ from navier_stokes_tpu.models.navier_stokes import NavierStokesSolver as JSolver
 from navier_stokes_tpu.utils.logging import RunLog as JLog
 from navier_stokes_tpu_torch.config import SolverConfig
 from navier_stokes_tpu_torch.fem.dofs import make_dofs, renumber_blocked
-from navier_stokes_tpu_torch.mesh.generate import box, unit_square
+from navier_stokes_tpu_torch.mesh.generate import unit_square
 from navier_stokes_tpu_torch.models.navier_stokes import NavierStokesSolver
-from navier_stokes_tpu_torch.models.stokes import StokesSolver
 from navier_stokes_tpu_torch.utils.logging import RunLog
 
 
@@ -177,16 +176,6 @@ def test_n_devices_must_equal_the_world_size():
     s = NavierStokesSolver(unit_square(3), cfg, log=RunLog(verbose=False), device="cpu",
                            n_devices=1).setup()
     assert s._dist is None and s._group is None
-
-
-@pytest.mark.parametrize("cls", [NavierStokesSolver, StokesSolver])
-def test_sharded_3d_raises(cls):
-    """More than one device on tetrahedra raises NotImplementedError naming
-    ROADMAP.md (the sharded 3D path is not ported), before the world size
-    is looked at."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cls(box(1, 1, 1), _config(SolverConfig, "bdf1"), log=RunLog(verbose=False),
-            device="cpu", n_devices=2)
 
 
 @pytest.mark.parametrize("n", [2, 4])

@@ -1,7 +1,8 @@
 """The host side of the port's sharded runs against the JAX package's.
 
 On ``unit_square(6)`` with 16 cells a block (the JAX tests' ``_problem``,
-tests/test_windowed_spmd.py), exactly, in one process:
+tests/test_windowed_spmd.py), and on the tetrahedra of ``box(4, 4, 4)``
+with 16 cells a block (nb 24, halos hv = hp = 4), exactly, in one process:
 
 * ``renumber_blocked(nb_multiple=n)``: dof maps, permutations, masks,
   coordinates and ``block_info`` for n in 1, 2 and 4;
@@ -22,32 +23,40 @@ import torch
 
 from navier_stokes_tpu.fem.dofs import make_dofs as j_make_dofs
 from navier_stokes_tpu.fem.dofs import renumber_blocked as j_renumber
+from navier_stokes_tpu.mesh.generate import box as j_box
 from navier_stokes_tpu.mesh.generate import unit_square as j_unit_square
 from navier_stokes_tpu.ops.windowed import build_windowed_layout as j_build
 from navier_stokes_tpu.parallel import windowed_spmd as jws
 from navier_stokes_tpu_torch.fem.assembly import build_context
 from navier_stokes_tpu_torch.fem.dofs import make_dofs, renumber_blocked
 from navier_stokes_tpu_torch.fem.windowed_assembly import build_windowed_assembly
-from navier_stokes_tpu_torch.mesh.generate import unit_square
+from navier_stokes_tpu_torch.mesh.generate import box, unit_square
 from navier_stokes_tpu_torch.ops.windowed import build_windowed_layout
 from navier_stokes_tpu_torch.parallel import windowed_spmd as ws
 
-N_DEV = [1, 2, 4]
+# (mesh, ranks); the square's cases keep the ids of the ranks alone
+N_DEV = pytest.mark.parametrize("mesh, n_dev", [("square", n) for n in (1, 2, 4)]
+                                + [("box", n) for n in (1, 2, 4)],
+                                ids=["1", "2", "4", "box-1", "box-2", "box-4"])
+SHARDED = pytest.mark.parametrize("mesh, n_dev", [("square", 2), ("square", 4), ("box", 2),
+                                                  ("box", 4)],
+                                  ids=["2", "4", "box-2", "box-4"])
+MESHES = {"square": (unit_square, j_unit_square, (6,)), "box": (box, j_box, (4, 4, 4))}
 
 
 @functools.lru_cache(maxsize=None)
-def _problem(n_dev):
-    jd, jbi = j_renumber(j_make_dofs(j_unit_square(6)), cells_per_block=16, nb_multiple=n_dev)
-    td, tbi = renumber_blocked(make_dofs(unit_square(6)), cells_per_block=16,
-                               nb_multiple=n_dev)
-    args = (td.cell_vdofs, td.cell_pdofs, td.n_vs, td.n_ps, 2)
+def _problem(n_dev, mesh="square"):
+    make, j_make, args = MESHES[mesh]
+    jd, jbi = j_renumber(j_make_dofs(j_make(*args)), cells_per_block=16, nb_multiple=n_dev)
+    td, tbi = renumber_blocked(make_dofs(make(*args)), cells_per_block=16, nb_multiple=n_dev)
+    args = (td.cell_vdofs, td.cell_pdofs, td.n_vs, td.n_ps, td.dim)
     return jd, jbi, td, tbi, j_build(*args, block_info=tbi), build_windowed_layout(
         *args, block_info=tbi)
 
 
-@pytest.mark.parametrize("n_dev", N_DEV)
-def test_renumber_blocked_nb_multiple_equals_jax(n_dev):
-    jd, jbi, td, tbi, _, _ = _problem(n_dev)
+@N_DEV
+def test_renumber_blocked_nb_multiple_equals_jax(mesh, n_dev):
+    jd, jbi, td, tbi, _, _ = _problem(n_dev, mesh)
     assert tbi == jbi and tbi["nb"] % n_dev == 0
     for name in ("n_vs", "n_ps"):
         assert getattr(td, name) == getattr(jd, name)
@@ -56,9 +65,9 @@ def test_renumber_blocked_nb_multiple_equals_jax(n_dev):
         np.testing.assert_array_equal(getattr(td, name), np.asarray(getattr(jd, name)), name)
 
 
-@pytest.mark.parametrize("n_dev", [2, 4])
-def test_dist_layout_and_vector_maps_equal_jax(n_dev):
-    _, _, td, _, jlay, tlay = _problem(n_dev)
+@SHARDED
+def test_dist_layout_and_vector_maps_equal_jax(mesh, n_dev):
+    _, _, td, _, jlay, tlay = _problem(n_dev, mesh)
     dl, jdl = ws.make_dist_layout(tlay, n_dev), jws.make_dist_layout(jlay, n_dev)
     for f in ("n_dev", "dim", "nb", "nb_loc", "OWv", "OWp", "n_vs", "n_ps", "nvs_loc",
               "nps_loc", "llen", "n_total"):
@@ -73,9 +82,9 @@ def test_dist_layout_and_vector_maps_equal_jax(n_dev):
     np.testing.assert_array_equal(ws.from_dist(torch.as_tensor(xd), dl).numpy(), x)
 
 
-@pytest.mark.parametrize("n_dev", [2, 4])
-def test_localize_rows_and_values_equal_jax(n_dev):
-    _, _, td, _, jlay, tlay = _problem(n_dev)
+@SHARDED
+def test_localize_rows_and_values_equal_jax(mesh, n_dev):
+    _, _, td, _, jlay, tlay = _problem(n_dev, mesh)
     dl, jdl = ws.make_dist_layout(tlay, n_dev), jws.make_dist_layout(jlay, n_dev)
     rng = np.random.default_rng(11)
     rows = np.unique(rng.integers(0, td.n_total, size=60))
@@ -99,9 +108,9 @@ def test_localize_rows_and_values_equal_jax(n_dev):
     np.testing.assert_array_equal(ws.from_dist(xd.reshape(-1), dl), want)
 
 
-@pytest.mark.parametrize("n_dev", [2, 4])
-def test_local_layout_is_the_global_sliced_in_a_frame(n_dev):
-    _, _, _, _, _, lay = _problem(n_dev)
+@SHARDED
+def test_local_layout_is_the_global_sliced_in_a_frame(mesh, n_dev):
+    _, _, _, _, _, lay = _problem(n_dev, mesh)
     dl = ws.make_dist_layout(lay, n_dev)
     F = max(lay.hv, lay.hp)
     seen = 0
@@ -121,12 +130,12 @@ def test_local_layout_is_the_global_sliced_in_a_frame(n_dev):
             assert torch.equal(t[F : F + dl.nb_loc], g[own]), name
             assert (t[:F] == fill).all() and (t[F + dl.nb_loc :] == fill).all(), name
         seen += int((loc.loc_p_hi[:, 0, :] < lay.RVp).sum())
-    assert seen == 2 * 6 * 6  # every cell in exactly one rank's owned slots
+    assert seen == MESHES[mesh][0](*MESHES[mesh][2]).n_cells  # every cell once
 
 
-@pytest.mark.parametrize("n_dev", [2, 4])
-def test_shard_wa_slices_the_global_precompute(n_dev):
-    _, _, td, _, _, lay = _problem(n_dev)
+@SHARDED
+def test_shard_wa_slices_the_global_precompute(mesh, n_dev):
+    _, _, td, _, _, lay = _problem(n_dev, mesh)
     ctx = build_context(td, neumann_tags=(1,), dtype=torch.float64)
     wa = build_windowed_assembly(ctx, lay, td, dt=0.1, nu=0.01, rho=1.0, p_out=2.0,
                                  coarse_agg=128, coarse_agg_v=128)
@@ -144,8 +153,9 @@ def test_shard_wa_slices_the_global_precompute(n_dev):
         frame = torch.cat([torch.arange(F), torch.arange(loc.ncd - F, loc.ncd)])
         assert (sh.W_t[:, frame] == 0).all() and (sh.A_const[..., frame] == 0).all()
         assert (sh.Kp_t[..., frame] == 0).all()
+        d = td.dim
         assert torch.equal(sh.invJT_t[..., frame],
-                           torch.eye(2, dtype=torch.float64)[..., None].expand(2, 2, len(frame)))
+                           torch.eye(d, dtype=torch.float64)[..., None].expand(d, d, len(frame)))
         np.testing.assert_array_equal(
             sh.r_const.numpy(), ws.to_dist(wa.r_const.numpy(), dl)[r * dl.llen : (r + 1) * dl.llen])
         for name, n_loc in (("inv_mp", dl.nps_loc), ("diag_kp", dl.nps_loc),

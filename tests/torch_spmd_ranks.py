@@ -1,5 +1,6 @@
-"""What each rank of tests/test_torch_spmd.py runs (a module of its own, so
-that the spawned ranks import torch and the port but not JAX).
+"""What each rank of tests/test_torch_spmd.py, tests/test_torch_spmd_3d.py
+and tests/test_torch_capacity.py runs (a module of its own, so that the
+spawned ranks import torch and the port but not JAX).
 
 Every entry point is ``fn(rank, n_ranks, init_method, out_dir)``: it joins a
 gloo process group through ``initialize_distributed`` as a torchrun rank
@@ -21,7 +22,7 @@ import torch.multiprocessing as mp
 
 from navier_stokes_tpu_torch.config import SolverConfig
 from navier_stokes_tpu_torch.fem.dofs import make_dofs, renumber_blocked
-from navier_stokes_tpu_torch.mesh.generate import unit_square
+from navier_stokes_tpu_torch.mesh.generate import box, rectangle, unit_square
 from navier_stokes_tpu_torch.models.navier_stokes import NavierStokesSolver
 from navier_stokes_tpu_torch.models.stokes import StokesSolver
 from navier_stokes_tpu_torch.ops import windowed as W
@@ -33,18 +34,27 @@ BLOCKS = [("v", "v"), ("v", "p"), ("p", "p")]
 SPAWN_TIMEOUT_S = 300
 
 
-def spawn(fn, n, init, *args):
-    """Run fn(rank, n, init, *args) on n spawned ranks and wait: a rank's
-    exception fails the caller, and so does a group that outlasts
-    SPAWN_TIMEOUT_S (its ranks are killed)."""
-    ctx = mp.start_processes(fn, args=(n, init, *args), nprocs=n, join=False,
-                             start_method="spawn")
+def start(fn, n, init, *args):
+    """Start fn(rank, n, init, *args) on n spawned ranks; ``wait`` joins
+    them (the caller may work meanwhile)."""
+    return mp.start_processes(fn, args=(n, init, *args), nprocs=n, join=False,
+                              start_method="spawn")
+
+
+def wait(ctx, name="the ranks"):
+    """Join the ranks of ``start``: a rank's exception fails the caller, and
+    so does a group that outlasts SPAWN_TIMEOUT_S (its ranks are killed)."""
     deadline = time.monotonic() + SPAWN_TIMEOUT_S
     while not ctx.join(timeout=5):
         if time.monotonic() > deadline:
             for p in ctx.processes:
                 p.kill()
-            raise TimeoutError(f"{fn.__name__} on {n} ranks outlasted {SPAWN_TIMEOUT_S} s")
+            raise TimeoutError(f"{name} outlasted {SPAWN_TIMEOUT_S} s")
+
+
+def spawn(fn, n, init, *args):
+    """Run fn(rank, n, init, *args) on n spawned ranks and wait (``wait``)."""
+    wait(start(fn, n, init, *args), f"{fn.__name__} on {n} ranks")
 
 
 def join(rank, n, init):
@@ -59,12 +69,14 @@ def join(rank, n, init):
                 coordinator=bootstrap.is_coordinator(), backend=dist.get_backend())
 
 
-def kernel_problem(n_dev, refine=6):
+def kernel_problem(n_dev, refine=6, mesh="square"):
     """tests/test_windowed_spmd.py's ``_problem`` with the port's layout
-    and seeded inputs: (dofs, layout, A_t, x, R), numpy arrays."""
-    dofs, bi = renumber_blocked(make_dofs(unit_square(refine)), cells_per_block=16,
-                                nb_multiple=n_dev)
-    lay = W.build_windowed_layout(dofs.cell_vdofs, dofs.cell_pdofs, dofs.n_vs, dofs.n_ps, 2,
+    and seeded inputs: (dofs, layout, A_t, x, R), numpy arrays.  The mesh
+    is unit_square(refine), or for mesh "box" box(4, 4, 4), whose 384
+    tetrahedra at 16 cells a block give 24 blocks and halos hv = hp = 4."""
+    m = box(4, 4, 4) if mesh == "box" else unit_square(refine)
+    dofs, bi = renumber_blocked(make_dofs(m), cells_per_block=16, nb_multiple=n_dev)
+    lay = W.build_windowed_layout(dofs.cell_vdofs, dofs.cell_pdofs, dofs.n_vs, dofs.n_ps, m.dim,
                                   block_info=bi)
     rng = np.random.default_rng(3)
     A = rng.standard_normal((lay.nl, lay.nli, lay.ncd))
@@ -79,12 +91,13 @@ def segment(v, dl, spaces):
     return {"v": v[:n_u], "p": v[n_u:], "vp": v}[spaces]
 
 
-def kernels(rank, n, init, out):
-    """Every plain version at this rank's framed layout, on its shard of
-    the global inputs; and the exchange one product makes."""
+def kernels(rank, n, init, out, mesh="square"):
+    """Every plain version at this rank's framed layout of the ``mesh``
+    problem, on its shard of the global inputs; and the exchange one
+    product makes."""
     joined = join(rank, n, init)
     g = dist.group.WORLD
-    dofs, lay, A, x, R = kernel_problem(n)
+    dofs, lay, A, x, R = kernel_problem(n, mesh=mesh)
     dl = ws.make_dist_layout(lay, n)
     loc = ws.local_layout(lay, dl, rank)
     F, Bm = loc.frame * lay.Bmax, lay.Bmax
@@ -116,7 +129,9 @@ def kernels(rank, n, init, out):
         res[f"block {i}->{o}"] = W._block_reference(loc, framed_cols(sub), xi, i, o, g).numpy()
         res[f"block {i}->{o} wrapper"] = W.windowed_matvec_block(
             loc, framed_cols(sub), xi, in_spaces=i, out_spaces=o, group=g).numpy()
-    if n == 2:
+    if mesh == "box":
+        res["volume"] = exchange_of_one_matvec(rank, n, mesh=mesh)
+    elif n == 2:
         res["volume"] = {refine: exchange_of_one_matvec(rank, n, refine)
                          for refine in (6, 12)}
     bootstrap.shutdown_distributed()
@@ -124,11 +139,11 @@ def kernels(rank, n, init, out):
     torch.save(res, Path(out) / f"kernels{n}_{rank}.pt")
 
 
-def exchange_of_one_matvec(rank, n, refine):
-    """Floats sent, the largest single send and the all-reduces of one
-    sharded windowed_matvec on unit_square(refine), against the rank's
+def exchange_of_one_matvec(rank, n, refine=6, mesh="square"):
+    """Floats sent, each send's length and the all-reduces of one sharded
+    windowed_matvec on ``kernel_problem``'s mesh, against the rank's
     vector length and the layout's halo constants."""
-    dofs, lay, A, x, _ = kernel_problem(n, refine)
+    dofs, lay, A, x, _ = kernel_problem(n, refine, mesh)
     dl = ws.make_dist_layout(lay, n)
     loc = ws.local_layout(lay, dl, rank)
     Bm, F = lay.Bmax, loc.frame * lay.Bmax
@@ -154,7 +169,8 @@ def exchange_of_one_matvec(rank, n, refine):
         dist.batch_isend_irecv, dist.all_reduce = batch, all_reduce
     return dict(floats=W.exchange_floats(), sends=sends, all_reduces=len(reduces),
                 llen=dl.llen, n_total=dofs.n_total,
-                edge=max(lay.hv * lay.OWv, lay.hp * lay.OWp))
+                edge=max(lay.hv * lay.OWv, lay.hp * lay.OWp), dim=lay.dim, hv=lay.hv,
+                hp=lay.hp, OWv=lay.OWv, OWp=lay.OWp)
 
 
 # ---- whole solves (tests/test_windowed_spmd.py, tests/test_steady.py) ------
@@ -308,3 +324,157 @@ def cli(rank, n, init, argv):
     join(rank, n, init)
     if main(argv) != 0:
         raise RuntimeError("the command line failed")
+
+
+# ---- the sharded 3D path (tests/test_torch_spmd_3d.py) -----------------------
+
+BOX_REL_TOL = 1e-4  # the tangent solves' tolerance
+
+
+def box_inlet(x, t=0.0):
+    """tests/test_torch_3d.py's ``_convection_inlet``: kernel_bench.box_inlet's
+    profile (peak 1.5) ramped over t 0-0.4."""
+    v = np.zeros_like(x)
+    y, z = x[:, 1], x[:, 2]
+    v[:, 0] = 24.0 * y * (1.0 - y) * z * (1.0 - z) * min(1.0, t / 0.4)
+    return v
+
+
+def box_stokes_inlet(x, t=0.0):
+    """Plane Poiseuille flow u = (y(1 - y), 0, 0) on the box's inlet (tag 0)
+    and z faces (tags 4, 5); with no-slip walls at y = 0, 1 (tags 2, 3)
+    and p_out on the outlet it is the exact Stokes flow, in P2/P1 too."""
+    v = np.zeros_like(x)
+    v[:, 0] = x[:, 1] * (1.0 - x[:, 1])
+    return v
+
+
+def box_config(precond, cls=SolverConfig, **krylov):
+    """tests/test_torch_3d.py's convection-dominated box(4, 4, 4) (the box
+    configuration of kernel_bench.box_config at nu 4e-3, dt 0.2: 2 BDF1
+    steps, p_out 10, the corrected formulation, 6 FGMRES sweeps of A00)
+    with 16 cells a block (nb 24, hv = hp = 4) and tangents solved to
+    BOX_REL_TOL, in float64; ``cls`` is either package's SolverConfig."""
+    cfg = cls(inlet_tags=(0,), neumann_tags=(1,), wall_tags=(2, 3, 4, 5), nu=4e-3, rho=1.0,
+              p_out=10.0, dt=0.2, T=0.4)
+    if cls is SolverConfig:
+        cfg.dtype = "float64"
+    cfg.convection_form = "standard"
+    cfg.include_continuity_residual = True
+    cfg.jacobian_mass_rho = True
+    cfg.krylov.max_iters = 2000
+    cfg.krylov.matvec = "windowed"
+    cfg.krylov.cells_per_block = 16
+    cfg.krylov.preconditioner = precond
+    cfg.krylov.cc_iters_a00 = 6
+    cfg.krylov.a00_solver = "gmres"
+    cfg.krylov.rel_tol = BOX_REL_TOL
+    for k, v in krylov.items():
+        setattr(cfg.krylov, k, v)
+    return cfg
+
+
+def box_stokes_config(cls=SolverConfig):
+    """``box_config``'s windowed block_triangular Stokes solve with the
+    plane Poiseuille boundaries of ``box_stokes_inlet``, at nu 0.04.  (On
+    the duct of ``box_config``'s boundaries the solve's result moves by
+    1e-5 between any two orders of float64 sums, JAX's 1- and 2-device runs
+    alike: its Krylov iterates are that sensitive.)"""
+    cfg = box_config("block_triangular", cls)
+    cfg.inlet_tags, cfg.wall_tags, cfg.nu = (0, 4, 5), (2, 3), 0.04
+    return cfg
+
+
+BOX_CASES = {  # name: (preconditioner, krylov options)
+    "cc_coarse": ("cahouet_chabard", dict(cc_coarse_agg=128)),
+    "block_triangular": ("block_triangular", {}),
+    "stokes": ("block_triangular", {}),
+}
+
+
+def run_box_case(name, n_devices):
+    """One whole solve of the named box case; returns what the test
+    compares."""
+    log = RunLog(verbose=False)
+    precond, krylov = BOX_CASES[name]
+    kw = dict(log=log, n_devices=n_devices, device="cpu")
+    if name == "stokes":
+        s = StokesSolver(box(4, 4, 4), box_stokes_config(), inlet=box_stokes_inlet, **kw)
+        s.solve()
+        coords = s.dofs.v_coords[s.dofs.v_mask]
+        return dict(nodes={tuple(np.round(c, 10)): v
+                           for c, v in zip(coords, s.velocity(real_only=True))},
+                    log=trajectory(log), frame=s._ns._win_layout.frame)
+    s = NavierStokesSolver(box(4, 4, 4), box_config(precond, **krylov), inlet=box_inlet, **kw)
+    s.solve()
+    wa = s._wassembly
+    return dict(nodes=by_node(s), log=trajectory(log), frame=s._win_layout.frame,
+                coarse=(wa.coarse_inv is not None, wa.coarse_inv_v is not None))
+
+
+def solves3d(rank, n, init, out):
+    join(rank, n, init)
+    res = {name: run_box_case(name, n) for name in BOX_CASES}
+    if rank == 0:
+        torch.save(res, Path(out) / "solves3d.pt")
+    bootstrap.shutdown_distributed()
+
+
+# ---- capacity (tests/test_torch_capacity.py) -----------------------------------
+
+
+def capacity_solver(mesh, n_devices, nb_multiple=None):
+    """A set-up solver on the capacity meshes: "channel", rectangle(24, 8)
+    of 7 x 4 (tags 0/1 inlet/outlet, 2/3 walls), or "box", the box(4, 4, 4)
+    of ``box_config``; windowed + Cahouet-Chabard at 16 cells a block, in
+    float64 on the CPU."""
+    if mesh == "box":
+        m, cfg, inlet = box(4, 4, 4), box_config("cahouet_chabard"), box_inlet
+    else:
+        m, cfg, inlet = rectangle(24, 8, 0, 7, 0, 4), unsteady_config("cahouet_chabard"), None
+        cfg.inlet.freeze_time, cfg.inlet.H = False, 4.0
+    return NavierStokesSolver(m, cfg, log=RunLog(verbose=False), inlet=inlet,
+                              n_devices=n_devices, device="cpu", nb_multiple=nb_multiple).setup()
+
+
+def held_bytes(s):
+    """{buffer: bytes this rank holds} of the solve state's large buffers,
+    the replicated leaves' bytes, and (tetrahedra) the entries of the
+    rank's compact tables: their count and each chunk's first."""
+    wa, lay = s._wassembly, s._win_layout
+    big = {name: getattr(wa, name) for name in ("A_const", "invJT_t", "W_t", "Kp_t",
+                                                 "r_const", "inv_mp", "diag_kp")}
+    big.update({name: getattr(lay, name) for name in ("cell_ids", "loc_v_hi", "loc_v_lo",
+                                                      "loc_p_hi", "loc_p_lo")})
+    out = dict(big={k: t.numel() * t.element_size() for k, t in big.items()})
+    rep = [wa.N_v, wa.N_p, wa.NN, wa.G_v, wa.coarse_inv, wa.coarse_inv_v]
+    out["replicated"] = sum(t.numel() * t.element_size() for t in rep if t is not None)
+    if lay.dim == 3:
+        tabs = W.compact_tables(lay)
+        out["compact"] = {k: dict(E=t.E, off=t.off.numpy()) for k, t in tabs.items()}
+    return out
+
+
+def newton_step(s, seed=7):
+    """One sharded Newton step at the seeded state 0.05 * standard_normal of
+    the planar vector (this rank's chunk): (finite, FGMRES count,
+    converged, entry ||r||)."""
+    y = 0.05 * np.random.default_rng(seed).standard_normal(s.dofs.n_total)
+    if s._dist is not None:
+        y = ws.to_dist(y, s._dist)[s._rank * s._n_state:][: s._n_state]
+    u = torch.as_tensor(y)
+    u_new, res, iters, conv, _ = s._newton_iteration(u, s.solution_old, s._bc_values(s.cfg.dt),
+                                                     s.cfg.dt, True)
+    return dict(finite=bool(torch.isfinite(u_new).all()), iters=int(iters), converged=bool(conv),
+                entry=float(res))
+
+
+def capacity(rank, n, init, out):
+    join(rank, n, init)
+    res = {}
+    for mesh in ("channel", "box"):
+        s = capacity_solver(mesh, n)
+        res[mesh] = dict(held_bytes(s), step=newton_step(s), nb=s._dist.nb,
+                         nb_loc=s._dist.nb_loc, frame=s._win_layout.frame, n_state=s._n_state)
+    torch.save(res, Path(out) / f"capacity_{rank}.pt")
+    bootstrap.shutdown_distributed()
