@@ -46,7 +46,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 with FGMRES tangents must converge, its centrelines within
                 0.01 of Ghia et al.'s; K1-K4 must all launch.  At n = 32 the
                 float32 FGMRES solve against a float64 SuperLU one
- 13. scanned    the same cavity, BDF2, dt 0.05: 6 steps of solve_scanned
+ 13. scanned    the cavity at n = SCAN_N (128: 32,768 cells), BDF2, dt
+                0.05: 6 steps of solve_scanned
                 (chunks of 2, 2 Newton sweeps, a functional, a progress
                 callback, the lid's reaction) against the same 6 steps of
                 solve(); 4 steps in a second solver, its state handed to a
@@ -97,14 +98,31 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 product, the frame's share of slot columns and the peak
                 device memory per rank; the forced step's wall time at 1
                 and 2 ranks
+ 16. p3         Taylor-Hood P3/P2 (cubic velocity, quadratic pressure:
+                kernel_bench.channel_config / box_config with degree=3, no
+                preconditioner), float32: (a) phase 3's checks of every
+                kernel at the 102,400-cell channel's P3/P2 layout; (b) there,
+                three forced Newton steps at a seeded state (bit-equal, equal
+                FGMRES counts) and 2 BDF1 steps from rest (K1, K3 and K4
+                launched; a tangent solve may stop at its cap, printed with
+                its last ||r||/||b||); (c) three Cahouet-Chabard forced steps
+                capped at P3_CC_CAP FGMRES iterations (bit-equal; K2 launched
+                in each space pair); (d) unit_square(4): float32 on the GPU
+                against float64 on the CPU as phase 7; (e) (a) at the
+                196,608-tet box's P3/P2 layout (halo 6, int32 position
+                tables) on seeded operands, without the solver's ~200 s
+                set-up there, and (b)-(c) on the box refined once (24,576
+                tets), with the peak device memory
 
 Each phase prints its wall time.
 Files the phases write (.msh, configs, run logs) go to build/chip_smoke/.
 The next-to-last line is the kernels' JSON record, and the last line is
-{"ok": true, "device": {...}}.  The record has K1-K4 twice, at the
-channel (phases 3-5) and at the box (", 3D": phase 14), and K5.  Per
-kernel: ``launches`` on the main path (phase 4, 14(b); K5: its entry
-point), ``launches_per_newton_step`` (phase 5, 14(c)), ``max_abs_err``
+{"ok": true, "device": {...}}.  The record has K1-K4 four times, at the
+channel (phases 3-5) and at the box (", 3D": phase 14) at P2/P1, at both
+at P3/P2 (", P3" and ", 3D P3": phase 16), and K5.  Per
+kernel: ``launches`` on the main path (phase 4, 14(b); 16(b)'s steps, K2
+16(c)'s Cahouet-Chabard steps; K5: its entry
+point), ``launches_per_newton_step`` (phase 5, 14(c), 16(b) and (c)), ``max_abs_err``
 against the plain version, ``ms`` the wrapper's CUDA-event time with its
 inputs out of L2 (``cold_clean_ms`` the same with L2 left holding no dirty
 line, ``warm_ms`` in a loop on the same inputs, ``host_us`` the host's time
@@ -190,8 +208,9 @@ PARITY_TOL = 1e-4
 # 4.8e-3 of the entry row on the CPU, so it is held to 1e-2
 BOX_PARITY_REL_TOL = 1e-6
 BOX_BF16_PARITY_TOL = 1e-2
-# the lid-driven cavity (phases 12-13): n x n squares cut in two triangles
-CAVITY_N, CAVITY_SMALL_N = 256, 32
+# the lid-driven cavity (phases 12-13): n x n squares cut in two triangles;
+# phase 13's scanned run at SCAN_N, a quarter of the cells of phase 12's
+CAVITY_N, CAVITY_SMALL_N, SCAN_N = 256, 32, 128
 # Ghia et al.'s centreline values, largest gap of u and of v (their own grid
 # is 129 x 129; the n = 32 float32 run of examples/lid_cavity.py reached
 # 0.0054 / 0.0089 after time marching on the CPU)
@@ -549,15 +568,15 @@ TITLES = {"K3": "K3 gather", "K3 pair": "K3 gather, u and u_old in one launch",
           "K4": "K4 scatter", "K1 f32": "K1 matvec, f32 A", "K1": "K1 matvec, bf16 A (main path)"}
 
 
-def kernels_vs_plain(solver):
-    """Every wrapper call of ``kb.wrapper_operands`` at solver's layout
+def kernels_vs_plain(lay, operands):
+    """Every wrapper call of ``operands`` (``kb.wrapper_operands`` of a
+    solver, or ``kb.seeded_operands`` of a bare layout) at layout lay
     against its plain version (``compare``: errors, times, the bound and one
     PyTorch call of the same function, built outside the timing: K3, K4
     through the flat dof index, K1 and each K2 product a CSR product), then
     each called twice on the same inputs (equal bits) and replayed from a
     CUDA graph (equal bits to an eager call).  Returns the records by call."""
-    lay = solver._win_layout
-    calls, ops_ = kb.wrapper_operands(solver)
+    calls, ops_ = operands
     check_packed_tables(lay)
     bounds = kb.bound_bytes_of(lay, ops_)
     moved = kb.moved_bytes_3d(lay, ops_) if lay.dim == 3 else {}
@@ -601,7 +620,7 @@ def steady_phase():
     print(f"  cells {cmesh.n_cells}  n_total {cs.dofs.n_total}  nb {clay.nb}  Bmax {clay.Bmax}  "
           f"Bc {clay.Bc}  nchunks {clay.nchunks}  ncd {clay.ncd}  occupied chunks "
           f"{int((pk.cnt[:, None] > torch.arange(clay.nchunks, device=DEV) * clay.Bc).sum())}  "
-          f"slot colours {pk.ncolors}  setup {t_setup:.2f} s", flush=True)
+          f"slot colours {pk.ncolors} (2D sums' rounds)  setup {t_setup:.2f} s", flush=True)
     W.reset_launch_counts()
     t0 = time.perf_counter()
     iters, upd = cs.solve_steady(initial_guess="stokes", tangent_solver="fgmres", tol=STEADY_TOL)
@@ -676,10 +695,10 @@ def steady_phase():
 
 
 def scanned_phase():
-    """Phase 13: solve_scanned on the n = CAVITY_N cavity against solve(),
+    """Phase 13: solve_scanned on the n = SCAN_N cavity against solve(),
     and a run resumed in a new solver against the run without a break."""
-    cmesh = nt.rectangle(CAVITY_N, CAVITY_N)
-    phase(f"13 scanned: the cavity, n = {CAVITY_N}, BDF2, solve_scanned against solve(), "
+    cmesh = nt.rectangle(SCAN_N, SCAN_N)
+    phase(f"13 scanned: the cavity, n = {SCAN_N}, BDF2, solve_scanned against solve(), "
           "and a resume")
     scan_cfg = cavity.cavity_config(T=0.3)
     scan_cfg.newton.max_iters = 2  # solve() then takes the scanned loop's 2 sweeps a step
@@ -761,12 +780,14 @@ def scanned_phase():
         raise RuntimeError("the resumed cavity run differs from the run without a break")
 
 
-def forced_step(solver, seed=0, reps=3):
+def forced_step(solver, seed=0, reps=3, converge=True):
     """``reps`` forced Newton steps at the seeded state 0.05 *
     standard_normal (numpy seed): each one's wall time, output and kernel
-    launches; the steps must converge, take equal FGMRES counts and give
-    bit-equal updates.  Returns (one step's launches, {the state, its
-    entry ||r||, FGMRES count, median ms})."""
+    launches; the steps must take equal FGMRES counts and give bit-equal
+    updates, and (``converge``) their tangent solves must converge; a
+    solve that stops at its cap prints its last ||r||/||b||.  Returns (one
+    step's launches, {the state, its entry ||r||, FGMRES count, median ms,
+    whether the solve converged, its last ||r||/||b||})."""
     n = solver.dofs.n_total
     state = torch.as_tensor(0.05 * np.random.default_rng(seed).standard_normal(n),
                             dtype=torch.float32, device=DEV)
@@ -784,8 +805,9 @@ def forced_step(solver, seed=0, reps=3):
         outs.append(out)
         step_launches = {k.split()[0]: v for k, v in W.launch_counts().items()}
         print(f"  forced Newton step: {times[-1] * 1e3:.1f} ms, ||r|| {out[1]:.6e}, "
-              f"GMRES iterations {out[2]}, converged {out[3]}", flush=True)
-        if not out[3]:
+              f"GMRES iterations {out[2]}, converged {out[3]}, last ||r||/||b|| "
+              f"{out[4] / out[1]:.3e}", flush=True)
+        if converge and not out[3]:
             raise RuntimeError("forced Newton step: tangent solve did not converge")
     same_iters = len({o[2] for o in outs}) == 1
     same_update = all(torch.equal(o[0], outs[0][0]) for o in outs[1:])
@@ -795,7 +817,8 @@ def forced_step(solver, seed=0, reps=3):
     if not (same_iters and same_update):
         raise RuntimeError("forced Newton steps from one state differ from run to run")
     return step_launches, dict(state=state, u_new=outs[0][0], entry=outs[0][1],
-                               iters=outs[0][2], ms=float(np.median(times)) * 1e3)
+                               iters=outs[0][2], ms=float(np.median(times)) * 1e3,
+                               converged=outs[0][3], final_rel=outs[0][4] / outs[0][1])
 
 
 def box_parity():
@@ -855,12 +878,12 @@ def box_phase():
     print(f"  cells {mesh.n_cells}  n_total {solver.dofs.n_total}  nb {lay.nb}  Bmax {lay.Bmax}  "
           f"Bc {lay.Bc}  nchunks {lay.nchunks}  ncd {lay.ncd} (pad {lay.pad_factor:.2f})  "
           f"OWv/OWp {lay.OWv}/{lay.OWp}  hv/hp {lay.hv}/{lay.hp}  RVv/RVp {lay.RVv}/{lay.RVp}  "
-          f"nl/nli {lay.nl}/{lay.nli}  tables {pk.pos_v.dtype}  slot colours {pk.ncolors}  "
+          f"nl/nli {lay.nl}/{lay.nli}  tables {pk.pos_v.dtype}  no slot colours (3D)  "
           f"A_t {tuple(solver._wassembly.A_const.shape)} {solver._wassembly.A_const.dtype}  "
           f"setup {t_setup:.2f} s; device memory {torch.cuda.memory_allocated() / 1e9:.2f} GB",
           flush=True)
     print("  (a) kernels vs plain at the box's layout", flush=True)
-    recs = kernels_vs_plain(solver)
+    recs = kernels_vs_plain(solver._win_layout, kb.wrapper_operands(solver))
     tabs = pk.compact
     scratch = [buf.numel() * buf.element_size() for buf in pk._scratch.values()]
     print(f"  scratch: {len(scratch)} buffer(s) (one a stream) of {max(scratch) / 1e6:.1f} MB, "
@@ -1586,6 +1609,229 @@ def multi_rank_phase(ref, smi, box_ref):
     return out[2], [r["box"] for r in out[2]]
 
 
+# ---- phase 16: Taylor-Hood P3/P2 on the windowed kernels --------------------
+
+# P3/P2 runs without a preconditioner (kernel_bench.channel_config(degree=3)):
+# Cahouet-Chabard and the block preconditioners scale by the lumped pressure
+# mass, which both packages build by row sums, wrong for P2 pressure
+# (ROADMAP.md Queue 3).  An unpreconditioned tangent solve may stop at its
+# cap (krylov.max_iters); the run goes on as the solver does, and each
+# capped solve is printed with its last ||r||/||b||.  The Cahouet-Chabard
+# forced steps put K2 on the solver's path at P3/P2, capped at P3_CC_CAP
+# FGMRES iterations: on triangles they cannot converge.
+P3_CC_CAP = 60
+# (d): unit_square(P3_PARITY_N) at P3/P2 with the time-dependent forcing,
+# 3 BDF1 steps of P3_PARITY_DT, FGMRES(P3_PARITY_RESTART), tangents to 1e-9
+# (float64, CPU) and 1e-6 (float32, card), held to PARITY_TOL as phase 7.
+# Steps 2-3 start from entry rows some 50x below step 1's, where the float32
+# solves' 1e-6 shows most: on an NVIDIA H100 80GB HBM3 at 700 W the rows
+# read 7.7e-8, 5.5e-5 and 7.0e-5 of their step's entry row (PERF.md).  The
+# forcing keeps those entry rows up; the unforced flow's fall further
+P3_PARITY_N, P3_PARITY_DT, P3_PARITY_RESTART = 4, 0.1, 200
+
+
+def capped_solves(records):
+    """[(step, FGMRES iterations, last ||r||/||b||)] of each tangent solve
+    of a run that stopped at its cap (a krylov_failure after its Newton
+    iteration's entry residual, the solve's ||b||)."""
+    out, step, b = [], 0, None
+    for r in records:
+        ev = r.get("event")
+        if ev == "time_step":
+            step = r["step"]
+        elif ev == "newton":
+            b = r["residual"]
+        elif ev == "krylov_failure" and r.get("system") == "tangent":
+            out.append((step, r["iters"], r["residual"] / b))
+    return out
+
+
+def p3_steps(solver, log, need=("K1", "K3", "K4")):
+    """Phase 16: the solver's BDF1 steps from rest (cfg.T) with the launch
+    counts zeroed before and read after; each step's Newton residuals and
+    FGMRES counts, the capped solves, the peak device memory.  The steps
+    must be finite and launch ``need``.  Returns the launches."""
+    W.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    solver.solve()
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    launches = {k.split()[0]: v for k, v in W.launch_counts().items()}
+    steps = trajectory(log.records)
+    for step, res, its, _ in steps:
+        print(f"  step {step}: ||r|| = {', '.join(f'{x:.6e}' for x in res)}; "
+              f"GMRES iterations {its}", flush=True)
+    capped = capped_solves(log.records)
+    print(f"  {len(steps)} steps in {t_solve:.2f} s; capped at {solver.cfg.krylov.max_iters}: "
+          f"{len(capped)} {[(st, it, f'{rel:.3e}') for st, it, rel in capped]}; Newton "
+          f"converged in every step {all(r and r[-1] <= solver.cfg.newton.tol for _, r, _, _ in steps)}"
+          f"; peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+          f"{launches}", flush=True)
+    want = round(solver.cfg.T / solver.cfg.dt)
+    if len(steps) != want or not bool(torch.isfinite(solver.solution).all()):
+        raise RuntimeError(f"the P3/P2 run did not take {want} finite steps")
+    if min(launches[k] for k in need) == 0:
+        raise RuntimeError(f"a kernel of the P3/P2 path was never launched: {launches}")
+    return launches
+
+
+def p3_cc_forced(solver):
+    """Phase 16: three forced Newton steps of solver (set up) with
+    Cahouet-Chabard, FGMRES capped at P3_CC_CAP: bit-equal, K2 launched in
+    each of its space pairs.  The preconditioner is switched on the solver
+    for these steps and back after (set-up builds nothing that depends on
+    it: the coarse spaces follow krylov.cc_coarse_agg*).  Returns one
+    step's launches."""
+    k = solver.cfg.krylov
+    was = solver._precond, k.max_iters
+    solver._precond, k.max_iters = "cahouet_chabard", P3_CC_CAP
+    try:
+        step_launches, forced = forced_step(solver, converge=False)
+    finally:
+        solver._precond, k.max_iters = was
+    pairs = dict(W.windowed_matvec_block.pairs)
+    print(f"  Cahouet-Chabard, FGMRES capped at {P3_CC_CAP}: converged {forced['converged']}, "
+          f"last ||r||/||b|| {forced['final_rel']:.3e}; K2 launches by space pair {pairs}",
+          flush=True)
+    if min(pairs.values()) == 0 or min(step_launches.values()) == 0:
+        raise RuntimeError(f"a kernel was not launched by the P3/P2 CC step: {step_launches}, "
+                           f"{pairs}")
+    return step_launches
+
+
+def p3_layout_line(solver, mesh, t_setup):
+    lay = solver._win_layout
+    pk = lay._packed
+    line = (f"  cells {mesh.n_cells}  n_total {solver.dofs.n_total}  nb {lay.nb}  Bmax "
+            f"{lay.Bmax}  Bc {lay.Bc}  nchunks {lay.nchunks}  ncd {lay.ncd}  OWv/OWp "
+            f"{lay.OWv}/{lay.OWp}  hv/hp {lay.hv}/{lay.hp}  RVv/RVp {lay.RVv}/{lay.RVp}  nl/nli "
+            f"{lay.nl}/{lay.nli}  tables {pk.pos_v.dtype}  "
+            + (f"slot colours {pk.ncolors}" if lay.dim == 2 else "no slot colours (3D)")
+            + f"  setup {t_setup:.2f} s; device memory {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    if (lay.k_v, lay.k_p) != ((10, 6) if lay.dim == 2 else (20, 10)):
+        raise RuntimeError(f"not a P3/P2 layout: {line}")
+    print(line, flush=True)
+
+
+def p3_parity():
+    """Phase 16(d): unit_square(P3_PARITY_N) at P3/P2, float32 on the card
+    against float64 on the CPU, Newton rows per step within PARITY_TOL of
+    the step's entry row, every solve converged."""
+    runs = {}
+    for dtype, device, rel in (("float64", "cpu", 1e-9), ("float32", DEV, 1e-6)):
+        cfg = config(dtype, rel, cells_per_block=16, degree=3)
+        cfg.dt, cfg.T, cfg.krylov.restart = P3_PARITY_DT, 3 * P3_PARITY_DT, P3_PARITY_RESTART
+        plog = nt.RunLog(verbose=False)
+        s = nt.NavierStokesSolver(nt.unit_square(P3_PARITY_N), cfg, log=plog, forcing=forcing_xt,
+                                  device=device)
+        t0 = time.perf_counter()
+        s.solve()
+        runs[dtype] = trajectory(plog.records)
+        print(f"  {dtype} on {device}: n_total {s.dofs.n_total}, {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    for (step, r64, i64, f64), (_, r32, i32, f32) in zip(runs["float64"], runs["float32"]):
+        worst = max(abs(a - b) for a, b in zip(r64, r32)) / r64[0]
+        print(f"  step {step}: f64 {['%.6e' % v for v in r64]} GMRES {i64}\n"
+              f"          f32 {['%.6e' % v for v in r32]} GMRES {i32}  worst |diff|/entry "
+              f"{worst:.2e} (tol {PARITY_TOL:g})", flush=True)
+        if len(r64) != len(r32) or worst > PARITY_TOL or f64 or f32:
+            raise RuntimeError(f"step {step}: P3/P2 float32 GPU run departs from float64 CPU run")
+    if len(runs["float64"]) != 3 or len(runs["float32"]) != 3:
+        raise RuntimeError("P3/P2 parity runs did not take 3 steps")
+
+
+def p3_box_layout(mesh, cfg):
+    """The windowed layout that NavierStokesSolver.setup builds for mesh at
+    cfg's degrees (the blocked renumbering, cells_per_block doubled while
+    the halo is too wide), without the assembly's host precompute."""
+    from navier_stokes_tpu_torch.fem.dofs import make_dofs, renumber_blocked
+
+    dofs, cpb = make_dofs(mesh, cfg.degree_velocity, cfg.degree_pressure), cfg.krylov.cells_per_block
+    for _ in range(4):
+        try:
+            d, bi = renumber_blocked(dofs, cells_per_block=cpb)
+            return W.build_windowed_layout(d.cell_vdofs, d.cell_pdofs, d.n_vs, d.n_ps, mesh.dim,
+                                           block_info=bi, Bc=cfg.krylov.chunk_cells, device=DEV), d
+        except ValueError:
+            cpb *= 2
+    raise RuntimeError("no windowed layout fits the box at P3/P2")
+
+
+def p3_run(solver, log, name):
+    """Phase 16 (b)-(c) on a set-up P3/P2 solver: three forced Newton steps
+    without a preconditioner, its cfg.T of BDF1 steps from rest, three
+    capped Cahouet-Chabard forced steps.  Returns the steps' launches (K2:
+    the Cahouet-Chabard step's) and one forced step's (K2 likewise)."""
+    print(f"  the {name}, no preconditioner: three forced Newton steps", flush=True)
+    step_launches, _ = forced_step(solver, converge=False)
+    print(f"  the {name}, no preconditioner: {round(solver.cfg.T / solver.cfg.dt)} BDF1 steps "
+          "from rest", flush=True)
+    launches = p3_steps(solver, log)
+    print(f"  the {name}: Cahouet-Chabard forced steps", flush=True)
+    cc = p3_cc_forced(solver)
+    launches["K2"] = step_launches["K2"] = cc["K2"]
+    return launches, step_launches
+
+
+def p3_phase():
+    """Phase 16: Taylor-Hood P3/P2 through NavierStokesSolver on the
+    windowed kernels.  (a) every kernel against its plain version at the
+    102,400-cell channel's P3/P2 layout (phase 3's checks); (b) there,
+    without a preconditioner, three forced Newton steps (bit-equal) and 2
+    BDF1 steps from rest; (c) three Cahouet-Chabard forced steps, capped;
+    (d) float32 on the card against float64 on the CPU on a small mesh;
+    (e) at the 196,608-tet box's P3/P2 layout (halo 6), (a)'s checks on
+    seeded operands (the layout alone: the solver's set-up there takes some
+    200 s of host precompute, kernel_bench --case box --degree 3 times its
+    solves), and (b)-(c) on the box refined once (24,576 tets).  Returns
+    {"channel": ..., "box": ...}: (a)'s records (the box's: (e)'s), the
+    launches of the steps and one forced step's ((b)'s, K2 from (c))."""
+    phase("16 p3: Taylor-Hood P3/P2 (cubic velocity) on the windowed kernels, float32")
+    print("  (a) the channel at P3/P2: kernels vs plain", flush=True)
+    mesh = channel_mesh()
+    cfg = config(degree=3)
+    cfg.T = 2 * cfg.dt
+    log = nt.RunLog(verbose=False)
+    t0 = time.perf_counter()
+    solver = nt.NavierStokesSolver(mesh, cfg, log=log, device=DEV).setup()
+    torch.cuda.synchronize()
+    p3_layout_line(solver, mesh, time.perf_counter() - t0)
+    recs = kernels_vs_plain(solver._win_layout, kb.wrapper_operands(solver))
+    out = dict(channel=(recs, *p3_run(solver, log, "channel")))
+    del solver
+    print("  (d) small-mesh parity at P3/P2: float32 GPU kernels vs float64 CPU plain versions",
+          flush=True)
+    p3_parity()
+
+    print("  (e) the box at P3/P2: kernels vs plain at its layout, on seeded operands", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = kb.box_mesh()
+    cfg = kb.box_config(degree=3)
+    cfg.T = 2 * cfg.dt
+    t0 = time.perf_counter()
+    lay, dofs = p3_box_layout(mesh, cfg)
+    print(f"  cells {mesh.n_cells}  n_total {dofs.n_total}  nb {lay.nb}  Bmax {lay.Bmax}  Bc "
+          f"{lay.Bc}  nchunks {lay.nchunks}  ncd {lay.ncd}  OWv/OWp {lay.OWv}/{lay.OWp}  hv/hp "
+          f"{lay.hv}/{lay.hp}  RVv/RVp {lay.RVv}/{lay.RVp}  nl/nli {lay.nl}/{lay.nli}  tables "
+          f"{lay._packed.pos_v.dtype}; layout {time.perf_counter() - t0:.2f} s", flush=True)
+    recs = kernels_vs_plain(lay, kb.seeded_operands(lay))
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB (the CSR "
+          "yardsticks' build)", flush=True)
+    del lay
+    torch.cuda.empty_cache()
+    print("  (e) the box refined once at P3/P2: the solver's runs", flush=True)
+    mesh = nt.refine_uniform(nt.box(8, 8, 8), 1)
+    log = nt.RunLog(verbose=False)
+    t0 = time.perf_counter()
+    solver = nt.NavierStokesSolver(mesh, cfg, log=log, inlet=kb.box_inlet, device=DEV).setup()
+    torch.cuda.synchronize()
+    p3_layout_line(solver, mesh, time.perf_counter() - t0)
+    out["box"] = (recs, *p3_run(solver, log, "box refined once"))
+    return out
+
+
 MEASURED = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
             "cold_clean_ms", "warm_ms", "host_us")
 
@@ -1655,7 +1901,7 @@ def main():
           f"{lay.OWp}  hv/hp {lay.hv}/{lay.hp}  nl/nli {lay.nl}/{lay.nli}  "
           f"setup {t_setup:.2f} s", flush=True)
     n = solver.dofs.n_total
-    recs = kernels_vs_plain(solver)
+    recs = kernels_vs_plain(solver._win_layout, kb.wrapper_operands(solver))
 
     phase("4 slice: 3 BDF1 steps, float32, windowed + Cahouet-Chabard")
     kept = {}  # step 2's state, for phase 15
@@ -1894,10 +2140,13 @@ def main():
     scanned_phase()
     recs3, launches3, step_launches3, box_ref = box_phase()
     sharded, sharded3 = multi_rank_phase(multi_ref, smi, box_ref)
+    p3 = p3_phase()
     phase.total()
 
     kernels = (kernel_entries(recs, launches, step_launches, "", sharded)
-               + kernel_entries(recs3, launches3, step_launches3, ", 3D", sharded3))
+               + kernel_entries(recs3, launches3, step_launches3, ", 3D", sharded3)
+               + kernel_entries(*p3["channel"], ", P3")
+               + kernel_entries(*p3["box"], ", 3D P3"))
     kernels.append(dict(
         name="K5 mxu_probe", route="cuda", source=PROBE_SOURCE, replaces=REPLACES["K5"],
         launches=probe_launches, launches_per_newton_step=0,

@@ -151,6 +151,21 @@
 // row offsets, ~22 MB), and write and read the compact scratch (8.1 MB each
 // way): 506 MB in all for K1 with bf16 A; K4 reads no entry index and no x
 // (scripts/kernel_bench.py moved_bytes_3d).
+//
+// P3/P2 (cubic velocity, quadratic pressure): the same kernels, instantiated
+// for 10 velocity and 6 pressure dofs a triangle (nl 26, nli 32) and 20 and
+// 10 a tetrahedron (nl 70, nli 72); each launcher picks the element's
+// template from the layout (with_element).  What changes is the room a
+// thread and a block need, so the element sets the most threads a block has
+// (chunk_threads: 512 on P3/P2 triangles, 256 on P3/P2 tetrahedra, so that a
+// thread's 26 or 70 sums stay in registers) and the launchers size shared
+// memory from its widths.  At the 102,400-cell channel at P3/P2 (RVv/RVp
+// 48/24) 2D K1 takes 114,688 bytes with float32 A; at the 196,608-tet box
+// (nb 220, Bmax 1280, hv = hp = 6, at most 3,279 velocity and 1,443
+// pressure entries a chunk) a column of A is 70 rows, and with float32 A
+// only the 2-stage whole-column ring and the split rings fit a block.  The
+// box's windows are wider than 16 bits can index (13 x 5,248 positions), so
+// its packed position tables are int32 (Geo.idx32), which K3 reads.
 // Everything computes in float32.
 
 #include <cuda_runtime.h>
@@ -162,8 +177,6 @@
 namespace {
 
 constexpr int kThreads = 256;          // the merge
-constexpr int kMaxChunkThreads = 1024; // K1-K4: one thread per slot of a chunk
-constexpr int kMax3dThreads = 512;     // the same in 3D: up to 128 registers a thread
 constexpr int kMetaLen = 18;
 constexpr int kBaseStages = 2;         // ring stages of A with shared memory of their own
 constexpr int kMaxSmemBytes = 232448;  // 227 KB: a block's limit on Hopper
@@ -190,6 +203,34 @@ struct Tables {
   const int* __restrict__ cnt;     // [nb] one past the last occupied slot
   const uint8_t* __restrict__ colour;  // [nb, Bmax] the round of an occupied slot's sums
 };
+
+// The elements the kernels are instantiated for: Taylor-Hood P2/P1 and P3/P2
+// on triangles and on tetrahedra.  A launcher takes one as a template
+// argument; with_element calls f(Element<...>{}) for a layout's element, and
+// returns kErrLayout for an element not built here.
+template <int DIM_, int KV_, int KP_>
+struct Element {
+  static constexpr int DIM = DIM_, KV = KV_, KP = KP_;
+};
+
+template <typename F>
+int with_element(const Geo& g, F&& f) {
+  if (g.dim == 2 && g.k_v == 6 && g.k_p == 3) return f(Element<2, 6, 3>{});
+  if (g.dim == 2 && g.k_v == 10 && g.k_p == 6) return f(Element<2, 10, 6>{});
+  if (g.dim == 3 && g.k_v == 10 && g.k_p == 4) return f(Element<3, 10, 4>{});
+  if (g.dim == 3 && g.k_v == 20 && g.k_p == 10) return f(Element<3, 20, 10>{});
+  return kErrLayout;
+}
+
+// The most threads a block of an element's K1-K4 may have (one thread a slot,
+// so the widest chunk, Bc).  A thread keeps its slot's KV + KP positions, and
+// up to dim*KV + KP inputs and as many sums, in registers; a narrower block
+// leaves it more of them (65,536 an SM): 64 registers a thread for P2/P1
+// triangles, 128 for P3/P2 triangles and P2/P1 tetrahedra, 255 for P3/P2
+// tetrahedra (70 sums, 30 entry indices and the gather's 2 x 70 values).
+__host__ __device__ constexpr int chunk_threads(int dim, int kv) {
+  return dim == 2 ? (kv <= 6 ? 1024 : 512) : (kv <= 10 ? 512 : 256);
+}
 
 // window position of local dof l of slot (b, j), -1 for a sentinel
 __device__ __forceinline__ int win_pos(const void* __restrict__ table, int k,
@@ -223,7 +264,7 @@ __device__ __forceinline__ int vec_index(int pos, int b, int h, int OW, int n) {
 // through the read-only path, then its stores.  Threads at or past cnt[b]
 // read nothing and write zeros.
 template <int DIM, int KV, int KP, int NVEC>
-__global__ void __launch_bounds__(DIM == 2 ? kMaxChunkThreads : kMax3dThreads)
+__global__ void __launch_bounds__(chunk_threads(DIM, KV))
 gather_kernel(Geo g, Tables t, const float* __restrict__ x0, const float* __restrict__ x1,
               float* __restrict__ X, int nli) {
   constexpr int NV = DIM * KV, NL = NV + KP;
@@ -351,7 +392,7 @@ __device__ __forceinline__ void stage_async(float* dst, const float* __restrict_
 // it.
 template <int DIM, int KV, int KP, bool IN_V, bool IN_P, bool OUT_V, bool OUT_P,
           typename TA, int STAGES>
-__global__ void __launch_bounds__(kMaxChunkThreads)
+__global__ void __launch_bounds__(chunk_threads(DIM, KV))
 matvec_kernel(Geo g, Tables t, const TA* __restrict__ A, int n_out_pad,
               const float* __restrict__ x, float* __restrict__ sub_v,
               float* __restrict__ sub_p) {
@@ -519,7 +560,7 @@ matvec_kernel(Geo g, Tables t, const TA* __restrict__ A, int n_out_pad,
 // of scratch; span_v / span_p [nb, nchunks, 2] get the window positions
 // [start, end) it holds, and the merge reads those in place of offs.
 template <int DIM, int KV, int KP>
-__global__ void __launch_bounds__(kMaxChunkThreads)
+__global__ void __launch_bounds__(chunk_threads(DIM, KV))
 scatter_kernel(Geo g, Tables t, const float* __restrict__ R,
                float* __restrict__ sub_v, float* __restrict__ sub_p,
                int* __restrict__ span_v, int* __restrict__ span_p) {
@@ -682,7 +723,7 @@ __device__ __forceinline__ void chunk_sums(const int* __restrict__ dst, int ne,
 // then [cp.E] (OUT_P), in row order, for merge3_kernel.
 template <int DIM, int KV, int KP, bool IN_V, bool IN_P, bool OUT_V, bool OUT_P,
           typename TA, int STAGES, int SPLIT, int GROUP>
-__global__ void __launch_bounds__(kMax3dThreads)
+__global__ void __launch_bounds__(chunk_threads(DIM, KV))
 matvec3_kernel(Geo g, const int* __restrict__ cnt, Compact cv, Compact cp,
                const TA* __restrict__ A, int n_out_pad, const float* __restrict__ x,
                float* __restrict__ sub) {
@@ -862,7 +903,7 @@ merge3_kernel(RowMerge v, RowMerge p, float* __restrict__ y) {
 // 16-byte pieces (a chunk's row starts on one: ncd and the chunk's first slot
 // are multiples of 32).
 template <int DIM, int KV, int KP>
-__global__ void __launch_bounds__(kMax3dThreads)
+__global__ void __launch_bounds__(chunk_threads(DIM, KV))
 scatter3_kernel(Geo g, const int* __restrict__ cnt, Compact cv, Compact cp,
                 const float* __restrict__ R, float* __restrict__ sub) {
   constexpr int NV = DIM * KV, NL = NV + KP;
@@ -1044,9 +1085,7 @@ bool load_geo(const int* meta, Geo* g) {
   const int* m = meta + 1;
   *g = Geo{m[0], m[1], m[2],  m[3],  m[4],  m[5],  m[6],  m[7], m[8],
            m[9], m[10], m[11], m[12], m[13], m[14], m[15], m[16], m[17]};
-  // the instantiated elements: Taylor-Hood P2/P1 on triangles and on tetrahedra
-  return (g->dim == 2 && g->k_v == 6 && g->k_p == 3) ||
-         (g->dim == 3 && g->k_v == 10 && g->k_p == 4);
+  return with_element(*g, [](auto) { return 0; }) == 0;  // an element built here
 }
 
 Tables make_tables(const void* pos_v, const void* pos_p, const void* offs_v,
@@ -1088,17 +1127,18 @@ int* span_tables(const Geo& g, float* scratch) {
 // the ring depths the matvec kernel is compiled for
 constexpr int kStageChoices[] = {2, 4, 7};
 
-template <bool IN_V, bool IN_P, bool OUT_V, bool OUT_P, typename TA>
+// 2D: matvec_kernel on triangles of element (KV, KP), then the merge
+template <int KV, int KP, bool IN_V, bool IN_P, bool OUT_V, bool OUT_P, typename TA>
 int launch_matvec(const Geo& g, const Tables& t, const void* A, int n_out_pad,
                   const void* x, float* scratch, float* y, cudaStream_t stream) {
-  constexpr int N_OUT = (OUT_V ? 12 : 0) + (OUT_P ? 3 : 0);
+  constexpr int N_OUT = (OUT_V ? 2 * KV : 0) + (OUT_P ? KP : 0);
   using Kernel = void (*)(Geo, Tables, const TA*, int, const float*, float*, float*);
   const Kernel kernels[] = {
-      matvec_kernel<2, 6, 3, IN_V, IN_P, OUT_V, OUT_P, TA, kStageChoices[0]>,
-      matvec_kernel<2, 6, 3, IN_V, IN_P, OUT_V, OUT_P, TA, kStageChoices[1]>,
-      matvec_kernel<2, 6, 3, IN_V, IN_P, OUT_V, OUT_P, TA, kStageChoices[2]>};
+      matvec_kernel<2, KV, KP, IN_V, IN_P, OUT_V, OUT_P, TA, kStageChoices[0]>,
+      matvec_kernel<2, KV, KP, IN_V, IN_P, OUT_V, OUT_P, TA, kStageChoices[1]>,
+      matvec_kernel<2, KV, KP, IN_V, IN_P, OUT_V, OUT_P, TA, kStageChoices[2]>};
   // A is copied in 16-byte pieces: every chunk's row of A must start on one
-  if (g.Bc > kMaxChunkThreads || (g.Bc * sizeof(TA)) % 16 != 0) return kErrLayout;
+  if (g.Bc > chunk_threads(2, KV) || (g.Bc * sizeof(TA)) % 16 != 0) return kErrLayout;
   if ((uintptr_t)A % 16 != 0) return kErrAlign;
   const int Lv = g.RVv * 128, Lp = g.RVp * 128;
   const int in_len = (IN_V ? g.dim * Lv : 0) + (IN_P ? Lp : 0);
@@ -1140,8 +1180,11 @@ int launch_merge3(const Geo& g, const Compact& cv, const Compact& cp, bool out_v
 }
 
 // the rings the 3D matvec kernel is compiled for: (stages, split, group).
-// Products with wide columns (K1, K2 v->v: 30-34 rows) stream a column or
-// half of one a stage; narrow ones (4 rows) several columns a stage.
+// Products with wide columns (K1, K2 v->v: 30-34 rows at P2/P1, 60-70 at
+// P3/P2) stream a column or half of one a stage; narrow ones (4 rows at
+// P2/P1, 10 at P3/P2) several columns a stage.  A ring whose shared memory
+// exceeds a block's limit at a layout is not chosen (at P3/P2 with float32
+// A: the 3- and 4-stage whole-column rings).
 struct Ring3d {
   int stages, split, group;
 };
@@ -1151,22 +1194,22 @@ constexpr Ring3d kRings3dWide[kNumRings3d] = {{2, 1, 1}, {3, 1, 1}, {4, 1, 1},
 constexpr Ring3d kRings3dNarrow[kNumRings3d] = {{2, 1, 4}, {3, 1, 4}, {4, 1, 4},
                                                 {2, 1, 1}, {4, 1, 1}, {8, 1, 1}};
 
-// 3D: tetrahedra, Taylor-Hood P2/P1 (matvec3_kernel, then merge3_kernel).
+// 3D: tetrahedra of element (KV, KP) (matvec3_kernel, then merge3_kernel).
 // The ring, from the occupancy calculator's count of resident blocks (asked
 // once a device, chunk width and region size; measured in PERF.md): for wide
 // columns the ring that lets the most blocks reside on an SM, since more
 // blocks overlap more of one another's x copies and sums with the stream
-// of A; for narrow ones (2 KB a column) the one with the most bytes of A in
-// flight on an SM.  Ties go to the fewest barriers a chunk, then the
+// of A; for narrow ones (2-5 KB a column) the one with the most bytes of A
+// in flight on an SM.  Ties go to the fewest barriers a chunk, then the
 // shallowest ring.
-template <bool IN_V, bool IN_P, bool OUT_V, bool OUT_P, typename TA>
+template <int KV, int KP, bool IN_V, bool IN_P, bool OUT_V, bool OUT_P, typename TA>
 int launch_matvec_3d(const Geo& g, const int* cnt, const Compact& cv, const Compact& cp,
                      const void* A, int n_out_pad, const void* x, float* scratch, float* y,
                      cudaStream_t stream) {
-  constexpr int KV = 10, KP = 4;
   constexpr int N_IN = (IN_V ? 3 * KV : 0) + (IN_P ? KP : 0);
   constexpr int N_OUT = (OUT_V ? 3 * KV : 0) + (OUT_P ? KP : 0);
-  constexpr const Ring3d* rings = N_OUT > 8 ? kRings3dWide : kRings3dNarrow;
+  constexpr bool WIDE = N_OUT > 16;
+  constexpr const Ring3d* rings = WIDE ? kRings3dWide : kRings3dNarrow;
   using Kernel = void (*)(Geo, const int*, Compact, Compact, const TA*, int, const float*, float*);
 #define NS_MATVEC3(r) matvec3_kernel<3, KV, KP, IN_V, IN_P, OUT_V, OUT_P, TA, rings[r].stages, \
                                      rings[r].split, rings[r].group>
@@ -1174,7 +1217,8 @@ int launch_matvec_3d(const Geo& g, const int* cnt, const Compact& cv, const Comp
                                        NS_MATVEC3(3), NS_MATVEC3(4), NS_MATVEC3(5)};
 #undef NS_MATVEC3
   // A is copied in 16-byte pieces: every chunk's row of A must start on one
-  if (g.Bc > kMax3dThreads || g.Bc % 32 != 0 || (g.Bc * sizeof(TA)) % 16 != 0) return kErrLayout;
+  if (g.Bc > chunk_threads(3, KV) || g.Bc % 32 != 0 || (g.Bc * sizeof(TA)) % 16 != 0)
+    return kErrLayout;
   if ((uintptr_t)A % 16 != 0) return kErrAlign;
   // the region: x at the entries of the in-spaces, then the pairs and
   // offsets of the out-spaces
@@ -1212,9 +1256,9 @@ int launch_matvec_3d(const Geo& g, const int* cnt, const Compact& cv, const Comp
       ce = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernels[r], g.Bc, bytes);
       if (ce != cudaSuccess) return (int)ce;
       // wide: resident blocks; narrow: stages of A in flight on an SM
-      const long score = N_OUT > 8 ? blocks
-                                   : blocks * std::min(rings[r].stages - 1, barriers(r)) *
-                                         stage_bytes(r);
+      const long score = WIDE ? blocks
+                              : blocks * std::min(rings[r].stages - 1, barriers(r)) *
+                                    stage_bytes(r);
       if (best < 0 || score > best_score ||
           (score == best_score && (barriers(r) < barriers(best) ||
                                    (barriers(r) == barriers(best) &&
@@ -1244,67 +1288,68 @@ Compact unpack_compact(const int64_t* c) {
                  (int)c[9]};
 }
 
-template <bool IN_V, bool IN_P, bool OUT_V, bool OUT_P, typename TA>
+template <typename E, bool IN_V, bool IN_P, bool OUT_V, bool OUT_P, typename TA>
 int launch_matvec_any(const Geo& g, const Tables& t, const int64_t* compact, const void* A,
                       int n_out_pad, const void* x, float* scratch, float* y, cudaStream_t st) {
-  if (g.dim == 3) {
+  if constexpr (E::DIM == 3) {
     if (compact == nullptr) return kErrLayout;
-    return launch_matvec_3d<IN_V, IN_P, OUT_V, OUT_P, TA>(
+    return launch_matvec_3d<E::KV, E::KP, IN_V, IN_P, OUT_V, OUT_P, TA>(
         g, t.cnt, unpack_compact(compact), unpack_compact(compact + kCompactLen), A, n_out_pad, x,
         scratch, y, st);
+  } else {
+    return launch_matvec<E::KV, E::KP, IN_V, IN_P, OUT_V, OUT_P, TA>(g, t, A, n_out_pad, x,
+                                                                     scratch, y, st);
   }
-  return launch_matvec<IN_V, IN_P, OUT_V, OUT_P, TA>(g, t, A, n_out_pad, x, scratch, y, st);
 }
 
-template <typename TA>
+template <typename E, typename TA>
 int dispatch_spaces(int in_sp, int out_sp, const Geo& g, const Tables& t, const int64_t* compact,
                     const void* A, int n_out_pad, const void* x, float* scratch,
                     float* y, cudaStream_t st) {
   // spaces: 1 = velocity, 2 = pressure, 3 = both
   if (in_sp == 3 && out_sp == 3)
-    return launch_matvec_any<true, true, true, true, TA>(g, t, compact, A, n_out_pad, x, scratch,
-                                                         y, st);
+    return launch_matvec_any<E, true, true, true, true, TA>(g, t, compact, A, n_out_pad, x,
+                                                            scratch, y, st);
   if (in_sp == 1 && out_sp == 1)
-    return launch_matvec_any<true, false, true, false, TA>(g, t, compact, A, n_out_pad, x,
-                                                           scratch, y, st);
+    return launch_matvec_any<E, true, false, true, false, TA>(g, t, compact, A, n_out_pad, x,
+                                                              scratch, y, st);
   if (in_sp == 1 && out_sp == 2)
-    return launch_matvec_any<true, false, false, true, TA>(g, t, compact, A, n_out_pad, x,
-                                                           scratch, y, st);
+    return launch_matvec_any<E, true, false, false, true, TA>(g, t, compact, A, n_out_pad, x,
+                                                              scratch, y, st);
   if (in_sp == 2 && out_sp == 2)
-    return launch_matvec_any<false, true, false, true, TA>(g, t, compact, A, n_out_pad, x,
-                                                           scratch, y, st);
+    return launch_matvec_any<E, false, true, false, true, TA>(g, t, compact, A, n_out_pad, x,
+                                                              scratch, y, st);
   return (int)cudaErrorInvalidValue;
 }
 
-template <int NVEC>
+template <typename E, int NVEC>
 int launch_gather(const Geo& g, const Tables& t, const float* x0, const float* x1, float* X,
                   int nli, cudaStream_t stream) {
-  const int max_threads = g.dim == 2 ? kMaxChunkThreads : kMax3dThreads;
-  if (g.Bc > max_threads || g.Bc % 32 != 0 || nli < g.dim * g.k_v + g.k_p)
+  if (g.Bc > chunk_threads(E::DIM, E::KV) || g.Bc % 32 != 0 ||
+      nli < E::DIM * E::KV + E::KP)
     return kErrLayout;
   if ((uintptr_t)X % 16 != 0) return kErrAlign;
-  if (g.dim == 3)
-    gather_kernel<3, 10, 4, NVEC><<<g.nb * g.nchunks, g.Bc, 0, stream>>>(g, t, x0, x1, X, nli);
-  else
-    gather_kernel<2, 6, 3, NVEC><<<g.nb * g.nchunks, g.Bc, 0, stream>>>(g, t, x0, x1, X, nli);
+  gather_kernel<E::DIM, E::KV, E::KP, NVEC><<<g.nb * g.nchunks, g.Bc, 0, stream>>>(
+      g, t, x0, x1, X, nli);
   return (int)cudaGetLastError();
 }
 
 // 2D K4: scatter_kernel (all of a chunk's subwindows in shared memory), then
 // the merge of the spans it wrote
+template <int KV, int KP>
 int launch_scatter(const Geo& g, const Tables& t, const void* R, float* scratch,
                    float* y, cudaStream_t stream) {
-  if (g.Bc > kMaxChunkThreads || g.Bc % 32 != 0) return kErrLayout;
+  if (g.Bc > chunk_threads(2, KV) || g.Bc % 32 != 0) return kErrLayout;
   const int Lv = g.RVv * 128, Lp = g.RVp * 128;
   const int bytes = 4 * (g.dim * Lv + Lp);
   static int allowed[kMaxDevices] = {};
-  int e = set_smem(scatter_kernel<2, 6, 3>, bytes, allowed);
+  int e = set_smem(scatter_kernel<2, KV, KP>, bytes, allowed);
   if (e != 0) return e;
   float* sub_v = scratch;
   float* sub_p = scratch + subwindow_floats(g, true, false);
   int* span_v = span_tables(g, scratch);
   int* span_p = span_v + 2L * g.nb * g.nchunks;
-  scatter_kernel<2, 6, 3><<<g.nb * g.nchunks, (g.Bc + 31) / 32 * 32, bytes, stream>>>(
+  scatter_kernel<2, KV, KP><<<g.nb * g.nchunks, (g.Bc + 31) / 32 * 32, bytes, stream>>>(
       g, t, (const float*)R, sub_v, sub_p, span_v, span_p);
   cudaError_t ce = cudaGetLastError();
   if (ce != cudaSuccess) return (int)ce;
@@ -1319,10 +1364,11 @@ int launch_scatter(const Geo& g, const Tables& t, const void* R, float* scratch,
 // memory: R's nl rows of a chunk and the most (slot, dof) pairs and entry
 // offsets of a chunk of both spaces (within compact_smem_bytes, which
 // compact_tables holds to a block's limit).
+template <int KV, int KP>
 int launch_scatter_3d(const Geo& g, const int* cnt, const Compact& cv, const Compact& cp,
                       const void* R, float* scratch, float* y, cudaStream_t stream) {
-  constexpr int KV = 10, KP = 4, NL = 3 * KV + KP;
-  if (g.Bc > kMax3dThreads || g.Bc % 32 != 0) return kErrLayout;
+  constexpr int NL = 3 * KV + KP;
+  if (g.Bc > chunk_threads(3, KV) || g.Bc % 32 != 0) return kErrLayout;
   if ((uintptr_t)R % 16 != 0) return kErrAlign;
   const long bytes = 4L * NL * g.Bc +
                      2L * (cv.max_pairs + cv.max_e + 1 + cp.max_pairs + cp.max_e + 1);
@@ -1336,6 +1382,46 @@ int launch_scatter_3d(const Geo& g, const int* cnt, const Compact& cv, const Com
   return launch_merge3(g, cv, cp, true, true, scratch, y, stream);
 }
 
+// The entry points' bodies for the layout's element (with_element), here
+// rather than in the extern "C" functions, whose generic lambdas some host
+// compilers refuse as templates with C linkage.
+int gather_any(const Geo& g, const Tables& t, const float* x0, const float* x1, float* X,
+               int nvec, int nli, cudaStream_t st) {
+  return with_element(g, [&](auto e) {
+    using E = decltype(e);
+    if (nvec == 1) return launch_gather<E, 1>(g, t, x0, x0, X, nli, st);
+    if (nvec == 2) return launch_gather<E, 2>(g, t, x0, x1, X, nli, st);
+    return (int)cudaErrorInvalidValue;
+  });
+}
+
+int scatter_any(const Geo& g, const Tables& t, const int64_t* compact, const void* R,
+                float* scratch, float* y, cudaStream_t st) {
+  return with_element(g, [&](auto e) {
+    using E = decltype(e);
+    if constexpr (E::DIM == 3) {
+      if (compact == nullptr) return kErrLayout;
+      return launch_scatter_3d<E::KV, E::KP>(g, t.cnt, unpack_compact(compact),
+                                             unpack_compact(compact + kCompactLen), R, scratch,
+                                             y, st);
+    } else {
+      return launch_scatter<E::KV, E::KP>(g, t, R, scratch, y, st);
+    }
+  });
+}
+
+int matvec_any(const Geo& g, const Tables& t, const int64_t* compact, const void* A, int a_bf16,
+               int in_sp, int out_sp, int n_out_pad, const void* x, float* scratch, float* y,
+               cudaStream_t st) {
+  return with_element(g, [&](auto e) {
+    using E = decltype(e);
+    return a_bf16 ? dispatch_spaces<E, __nv_bfloat16>(in_sp, out_sp, g, t, compact, A,
+                                                      n_out_pad, x, scratch, y, st)
+                  : dispatch_spaces<E, float>(in_sp, out_sp, g, t, compact, A, n_out_pad, x,
+                                              scratch, y, st);
+  });
+}
+
 }  // namespace
 
 extern "C" {
@@ -1343,7 +1429,7 @@ extern "C" {
 // Every entry point returns 0, a cudaError_t value, or one of the negative
 // codes above.  The six table pointers are the packed position tables, the
 // subwindow offsets, the occupied-slot counts and the slot colours of the
-// layout.
+// layout (null in 3D: no 3D kernel reads them).
 
 // floats of scratch that ns_matvec and ns_scatter may use for this layout:
 // in 2D the chunk subwindows and K4's span tables; in 3D the row-ordered
@@ -1364,13 +1450,9 @@ int ns_gather(const int* meta, const void* pos_v, const void* pos_p,
               const void* x0, const void* x1, void* X, int nvec, int nli, void* stream) {
   Geo g;
   if (!load_geo(meta, &g)) return kErrLayout;
-  const Tables t = make_tables(pos_v, pos_p, offs_v, offs_p, cnt, colour);
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (nvec == 1)
-    return launch_gather<1>(g, t, (const float*)x0, (const float*)x0, (float*)X, nli, st);
-  if (nvec == 2)
-    return launch_gather<2>(g, t, (const float*)x0, (const float*)x1, (float*)X, nli, st);
-  return (int)cudaErrorInvalidValue;
+  return gather_any(g, make_tables(pos_v, pos_p, offs_v, offs_p, cnt, colour),
+                    (const float*)x0, (const float*)x1, (float*)X, nvec, nli,
+                    (cudaStream_t)stream);
 }
 
 // y [n_u + n_ps] = sum_cells P_c^T R_c: K4, then the merge.  compact: as
@@ -1380,15 +1462,8 @@ int ns_scatter(const int* meta, const void* pos_v, const void* pos_p,
                const int64_t* compact, const void* R, void* scratch, void* y, void* stream) {
   Geo g;
   if (!load_geo(meta, &g)) return kErrLayout;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (g.dim == 3) {
-    if (compact == nullptr) return kErrLayout;
-    return launch_scatter_3d(g, (const int*)cnt, unpack_compact(compact),
-                             unpack_compact(compact + kCompactLen), R, (float*)scratch, (float*)y,
-                             st);
-  }
-  return launch_scatter(g, make_tables(pos_v, pos_p, offs_v, offs_p, cnt, colour), R,
-                        (float*)scratch, (float*)y, st);
+  return scatter_any(g, make_tables(pos_v, pos_p, offs_v, offs_p, cnt, colour), compact, R,
+                     (float*)scratch, (float*)y, (cudaStream_t)stream);
 }
 
 // y [the out-spaces' planar segment] = A x: K1 / K2, then the merge.
@@ -1400,12 +1475,9 @@ int ns_matvec(const int* meta, const void* pos_v, const void* pos_p,
               int n_out_pad, const void* x, void* scratch, void* y, void* stream) {
   Geo g;
   if (!load_geo(meta, &g)) return kErrLayout;
-  const Tables t = make_tables(pos_v, pos_p, offs_v, offs_p, cnt, colour);
-  return a_bf16 ? dispatch_spaces<__nv_bfloat16>(in_spaces, out_spaces, g, t, compact, A,
-                                                 n_out_pad, x, (float*)scratch, (float*)y,
-                                                 (cudaStream_t)stream)
-                : dispatch_spaces<float>(in_spaces, out_spaces, g, t, compact, A, n_out_pad, x,
-                                         (float*)scratch, (float*)y, (cudaStream_t)stream);
+  return matvec_any(g, make_tables(pos_v, pos_p, offs_v, offs_p, cnt, colour), compact, A,
+                    a_bf16, in_spaces, out_spaces, n_out_pad, x, (float*)scratch, (float*)y,
+                    (cudaStream_t)stream);
 }
 
 }  // extern "C"

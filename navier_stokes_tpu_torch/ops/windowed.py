@@ -25,7 +25,9 @@ A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
 launches in ``<wrapper>.launches`` (``reset_launch_counts`` zeroes them);
 ``windowed_gather_pair`` gathers two vectors in one K3 launch and counts it
 in ``windowed_gather.launches``.
-The kernels compute in float32 and read A in float32 or bfloat16.
+The kernels compute in float32 and read A in float32 or bfloat16.  They
+are built for Taylor-Hood P2/P1 and P3/P2 on triangles and tetrahedra
+(``_ELEMENTS``); on the card any other layout raises NotImplementedError.
 
 The kernels read window positions from one packed table per space
 (``pack_positions``: absolute positions, 16 bits wide where the windows
@@ -1070,14 +1072,16 @@ _NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 _SPACE_CODE = {"v": 1, "p": 2, "vp": 3}
-# the elements the kernels are instantiated for: (dim, k_v, k_p) of P2/P1
-_ELEMENTS = ((2, 6, 3), (3, 10, 4))
+# the elements the kernels are instantiated for: (dim, k_v, k_p) of
+# Taylor-Hood P2/P1 and P3/P2 on triangles and on tetrahedra
+_ELEMENTS = ((2, 6, 3), (2, 10, 6), (3, 10, 4), (3, 20, 10))
 # what the entry points return besides 0 and cudaError_t values (windowed.cu)
 _KERNEL_ERRORS = {
-    -1: "the layout is not one the kernels are built for (P2/P1 on triangles or "
-        "tetrahedra, chunks of at most 1024 slots in 2D and 512 in 3D whose rows "
-        "of A are 16-byte multiples; the gather, the scatter and the 3D products "
-        "take whole warps: a multiple of 32 slots)",
+    -1: "the layout is not one the kernels are built for (P2/P1 or P3/P2 on "
+        "triangles or tetrahedra, chunks of at most 1024 slots for P2/P1 "
+        "triangles, 512 for P3/P2 triangles and P2/P1 tetrahedra and 256 for "
+        "P3/P2 tetrahedra, whose rows of A are 16-byte multiples; the gather, "
+        "the scatter and the 3D products take whole warps: a multiple of 32 slots)",
     -2: "a block would need more shared memory than it may use",
     -3: "the operand's storage (A, X, or R in 3D) is not 16-byte aligned",
 }
@@ -1146,7 +1150,9 @@ def _load(path: str):
 class _Packed:
     """What the CUDA entry points take of one layout, made once: the geometry
     record (struct Geo, windowed.cu), the packed tables of ``pack_positions``,
-    the slot colours of ``slot_colours``, the leading arguments of every
+    in 2D the slot colours of ``slot_colours`` (``colour`` None and
+    ``ncolors`` 0 in 3D, whose kernels sum in the order of
+    ``compact_tables``: a null table), the leading arguments of every
     call and, for the 3D K1, K2 and K4, the tables of ``compact_tables``
     (made at the first call of one of them).  Scratch is kept per stream
     (calls on one stream run in turn, so they can share it; CUDA graphs
@@ -1157,7 +1163,8 @@ class _Packed:
     def __init__(self, lay: WindowedLayout):
         self._lay = lay
         self.pos_v, self.pos_p, self.cnt = pack_positions(lay)
-        self.colour, self.ncolors = slot_colours(lay, self.pos_v, self.pos_p)
+        self.colour, self.ncolors = (slot_colours(lay, self.pos_v, self.pos_p)
+                                     if lay.dim == 2 else (None, 0))
         vals = [
             lay.nb, lay.Bmax, lay.Bc, lay.nchunks,
             lay.dim, lay.k_v, lay.k_p,
@@ -1169,7 +1176,7 @@ class _Packed:
         self.args = (
             self.meta, self.pos_v.data_ptr(), self.pos_p.data_ptr(),
             lay.offs_v.data_ptr(), lay.offs_p.data_ptr(), self.cnt.data_ptr(),
-            self.colour.data_ptr(),
+            None if self.colour is None else self.colour.data_ptr(),
         )
         self._device = lay.device
         self._scratch = {}
@@ -1211,8 +1218,8 @@ def _check_cuda(lay: WindowedLayout, *tensors):
         raise ValueError(f"layout on {lay.device}, tensors on {dev}")
     if (lay.dim, lay.k_v, lay.k_p) not in _ELEMENTS:
         raise NotImplementedError(
-            "the CUDA windowed kernels are built for Taylor-Hood P2/P1 on "
-            f"triangles and tetrahedra (dim, k_v, k_p) in {_ELEMENTS}; got "
+            "the CUDA windowed kernels are built for Taylor-Hood P2/P1 and P3/P2 "
+            f"on triangles and tetrahedra, (dim, k_v, k_p) in {_ELEMENTS}; got "
             f"{(lay.dim, lay.k_v, lay.k_p)}"
         )
     for t in tensors:
@@ -1395,6 +1402,7 @@ def windowed_matvec_block(
     n_out_pad = block_shape(lay, in_spaces, out_spaces)[1]
     y = _launch_matvec(lay, A_sub, x, in_spaces, out_spaces, n_out_pad)
     windowed_matvec_block.launches += 1
+    windowed_matvec_block.pairs[f"{in_spaces}->{out_spaces}"] += 1
     return y
 
 
@@ -1407,9 +1415,11 @@ _WRAPPERS = {
 
 
 def reset_launch_counts():
-    """Zero every wrapper's launch count and ``exchange_floats``."""
+    """Zero every wrapper's launch count (and K2's by space pair,
+    ``windowed_matvec_block.pairs``) and ``exchange_floats``."""
     for fn in _WRAPPERS.values():
         fn.launches = 0
+    windowed_matvec_block.pairs = dict.fromkeys(("v->v", "v->p", "p->p"), 0)
     _exchange.floats = 0
 
 

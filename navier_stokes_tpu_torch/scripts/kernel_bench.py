@@ -1,6 +1,11 @@
 """Time the windowed kernels' wrappers and the Newton step on one GPU.
 
     python -m navier_stokes_tpu_torch.scripts.kernel_bench [--label NAME] [--case box]
+        [--degree 3]
+
+It runs on the card only (no CUDA device: it exits): from the repository's
+root on a machine with one H100, e.g. ``python -m
+navier_stokes_tpu_torch.scripts.kernel_bench --case box --degree 3``.
 
 Run from a directory that holds the package (the repository root, or an
 unpacked copy of another commit: the script uses only the package's public
@@ -12,7 +17,10 @@ gathers of u and u_old of an assembly, one launch where the tree has
 ``windowed_gather_pair``, else two ``windowed_gather`` calls -- K4, and
 K5, the tensor-core probe, at M 256 over 64 products).  ``--case box``
 times the same wrapper calls (not K5) at the 3D layout of the 196,608-tet
-box (``box_mesh``, ``box_config``: chip_smoke.py phase 14):
+box (``box_mesh``, ``box_config``: chip_smoke.py phase 14).  ``--degree 3``
+takes either case at Taylor-Hood P3/P2 (cubic velocity, quadratic pressure:
+``channel_config`` / ``box_config`` with ``degree=3``, chip_smoke.py phase 16)
+in place of P2/P1:
 
   warm_ms        CUDA-event time of a call in a loop of calls on the same
                  inputs (what fits the 50 MB L2 stays there)
@@ -65,20 +73,31 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM device memory (the bound's rate)
 WINDOWED_KERNEL = re.compile(r"\b(matvec3?|gather|scatter3?|merge3?)_kernel\b")
 
 
-def channel_config(dtype="float32", rel_tol=1e-2, cells_per_block=448):
+def channel_config(dtype="float32", rel_tol=1e-2, cells_per_block=448, degree=2):
     """chip_smoke.py's solver configuration: 3 BDF1 steps, windowed matvec,
     Cahouet-Chabard, the corrected formulation (with the reference's quirks
     the tangent is not the residual's derivative, and the channel's Newton
-    loop diverges from step 2 on, in float64 with the plain versions too)."""
+    loop diverges from step 2 on, in float64 with the plain versions too).
+
+    ``degree=3``: Taylor-Hood P3/P2 and no preconditioner ("identity", the
+    configuration's default).  Cahouet-Chabard and the block preconditioners
+    scale by the lumped pressure mass ``inv_mp``, which both packages build
+    by row sums, wrong for P2 pressure (vertex entries near 0 on triangles,
+    negative on tetrahedra: ROADMAP.md Queue 3), so their P3/P2 tangent
+    solves do not converge."""
     from .. import SolverConfig
 
     cfg = SolverConfig()
     cfg.dtype = dtype
+    if degree == 3:
+        cfg.degree_velocity, cfg.degree_pressure = 3, 2
+    elif degree != 2:
+        raise ValueError(f"degree {degree}: the windowed kernels take P2/P1 and P3/P2")
     cfg.T = 0.15  # 3 BDF1 steps at dt = 0.05
     cfg.inlet_tags, cfg.neumann_tags, cfg.wall_tags = (0,), (1,), (2, 3)
     cfg.inlet.freeze_time, cfg.inlet.H = False, 4.0  # non-zero inflow
     cfg.krylov.matvec = "windowed"
-    cfg.krylov.preconditioner = "cahouet_chabard"
+    cfg.krylov.preconditioner = "cahouet_chabard" if degree == 2 else "identity"
     cfg.krylov.max_iters = 2000
     cfg.krylov.rel_tol = rel_tol
     cfg.krylov.cells_per_block = cells_per_block
@@ -93,7 +112,7 @@ BOX_RAMP_T = 0.1  # the box inlet's ramp time
 BOX_U_M = 1.5  # the box inlet's peak velocity
 
 
-def box_config(dtype="float32", rel_tol=1e-2):
+def box_config(dtype="float32", rel_tol=1e-2, degree=2):
     """The 3D case (chip_smoke.py phase 14): bench.py's tetrahedral leg on a
     unit cube -- P2/P1 tetrahedra, windowed + Cahouet-Chabard with 6 A00
     sweeps and the tangent stored in bf16 -- in channel_config's corrected
@@ -103,8 +122,9 @@ def box_config(dtype="float32", rel_tol=1e-2):
     rho/dt 20) and the CG-swept tangent solve stalls at 5e-2 of ||b||, with
     the tangent stored in float32 as in bf16 (``box_a00``); the JAX
     package's CG sweeps lose to convection alike (tests/test_torch_3d.py,
-    PERF.md §6)."""
-    cfg = channel_config(dtype, rel_tol)
+    PERF.md §6).  ``degree=3``: P3/P2 tetrahedra, no preconditioner
+    (``channel_config``)."""
+    cfg = channel_config(dtype, rel_tol, degree=degree)
     cfg.T = 0.1  # 2 BDF1 steps at dt = 0.05
     cfg.inlet_tags, cfg.neumann_tags, cfg.wall_tags = (0,), (1,), (2, 3, 4, 5)
     cfg.krylov.tangent_store_dtype = "bfloat16"
@@ -256,6 +276,26 @@ def wrapper_operands(solver, seed=1):
     A_t = A_t.float()  # the tangent's store may be bf16 (the box's is)
     R = torch.as_tensor(rng.standard_normal((lay.nli, lay.ncd)), dtype=torch.float32,
                         device=dev)
+    return _wrapper_calls(lay, x, xo, A_t, R, wa.Kp_t)
+
+
+def seeded_operands(lay, seed=1):
+    """``wrapper_operands`` at a bare layout, with no solver behind it: x,
+    x_old, A [nl, nli, ncd] and R [nli, ncd] standard normal from a torch
+    generator on the layout's device (made there: A holds 1.4 G values at
+    the 196,608-tet box at P3/P2), K2 p->p's operator cut from A."""
+    g = torch.Generator(device=lay.device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=lay.device)
+
+    n = lay.n_u + lay.n_ps
+    x, xo, A_t, R = randn(n), randn(n), randn(lay.nl, lay.nli, lay.ncd), randn(lay.nli, lay.ncd)
+    return _wrapper_calls(lay, x, xo, A_t, R, W.slice_block(lay, A_t, "p", "p"))
+
+
+def _wrapper_calls(lay, x, xo, A_t, R, Kp_t):
+    """{name: (call, plain call)} and the operands of ``wrapper_operands``."""
     A_bf = A_t.to(torch.bfloat16)
     n_u = lay.n_u
     # an older tree gathers u and u_old with two calls
@@ -274,7 +314,7 @@ def wrapper_operands(solver, seed=1):
     blocks = {
         "v->v": (W.slice_block(lay, A_t, "v", "v").to(torch.bfloat16), x[:n_u]),
         "v->p": (W.slice_block(lay, A_t, "v", "p").to(torch.bfloat16), x[:n_u]),
-        "p->p": (wa.Kp_t.to(torch.bfloat16), x[n_u:]),
+        "p->p": (Kp_t.to(torch.bfloat16), x[n_u:]),
     }
     for key, (A_sub, xs) in blocks.items():
         i, o = key.split("->")
@@ -292,11 +332,13 @@ def bound_bytes_of(lay, operands):
     once and every output written once: of A the used rows' values in the
     occupied slots; of the packed position tables the occupied slots'
     entries of the spaces the call touches, with their subwindow offsets and
-    the slot counts, and (K1, K2, K4) the occupied slots' colours; the
-    vectors.  K3 writes its whole [nli, ncd] output; the pair reads the
-    tables once for its two vectors and outputs."""
+    the slot counts, and in 2D (K1, K2, K4) the occupied slots' colours (3D
+    kernels read none); the vectors.  The widths (k_v, k_p, nl, nli) are
+    the layout's, P2/P1 or P3/P2.  K3 writes its whole [nli, ncd] output;
+    the pair reads the tables once for its two vectors and outputs."""
     pos_v, _, cnt = W.pack_positions(lay)
     n_occ, idx = int(cnt.sum()), pos_v.element_size()
+    colours = n_occ if lay.dim == 2 else 0
     tables = {"v": lay.k_v * n_occ * idx + lay.offs_v.numel() * 4,
               "p": lay.k_p * n_occ * idx + lay.offs_p.numel() * 4}
     size = {"v": lay.n_u, "p": lay.n_ps}
@@ -305,7 +347,7 @@ def bound_bytes_of(lay, operands):
     def matvec(ins, outs, elt):
         spaces = set(ins) | set(outs)
         return (sum(rows[a] for a in ins) * sum(rows[a] for a in outs) * n_occ * elt
-                + sum(tables[a] for a in spaces) + cnt.numel() * 4 + n_occ
+                + sum(tables[a] for a in spaces) + cnt.numel() * 4 + colours
                 + 4 * sum(size[a] for a in ins) + 4 * sum(size[a] for a in outs))
 
     n = lay.n_u + lay.n_ps
@@ -313,7 +355,7 @@ def bound_bytes_of(lay, operands):
     out = {
         "K3": 4 * n + both + 4 * lay.nli * lay.ncd,
         "K3 pair": 2 * (4 * n + 4 * lay.nli * lay.ncd) + both,
-        "K4": 4 * lay.nl * n_occ + both + n_occ + 4 * n,
+        "K4": 4 * lay.nl * n_occ + both + colours + 4 * n,
         "K1 f32": matvec("vp", "vp", 4),
         "K1": matvec("vp", "vp", 2),
     }
@@ -397,24 +439,39 @@ def flat_dof_index(lay):
     return torch.cat(rows).reshape(-1)
 
 
+CSR_PIECE_PAIRS = 100_000_000  # (slot, entry) pairs coalesced at a time
+
+
 def csr_yardstick(lay, A, x, ins, outs):
     """(call, what it is): y = A x as one CSR product with the assembled
     matrix of a windowed operator A [n_in, n_out_pad, ncd] (K1: A_t; K2: a
     slice_block), built here from the cells' dof indices over the in- and
     out-spaces' segments, with float32 values (torch's CSR product refuses
-    bf16 values with a float32 vector on the H100)."""
+    bf16 values with a float32 vector on the H100).  The cells' entries are
+    coalesced a range of slots at a time, then all together: at the
+    196,608-tet box at P3/P2, K1 has 70 x 70 entries a cell, whose int64
+    indices alone would take 15 GB at once."""
     n = lay.n_u + lay.n_ps
     D = flat_dof_index(lay).view(lay.nli, lay.ncd)
     nv = lay.dim * lay.k_v
     sl = {"v": slice(0, nv), "p": slice(nv, lay.nl), "vp": slice(0, lay.nl)}
     rows, cols = D[sl[outs]], D[sl[ins]]
     vals = A[:, : rows.shape[0], :]  # vals[j, i, s]: out row dof_i(s), in col dof_j(s)
-    R, C = rows[None].expand(vals.shape), cols[:, None].expand(vals.shape)
-    ok = (R < n) & (C < n)
     start = {"v": 0, "p": lay.n_u, "vp": 0}
     size = {"v": lay.n_u, "p": lay.n_ps, "vp": n}
-    idx = torch.stack([R[ok] - start[outs], C[ok] - start[ins]])
-    coo = torch.sparse_coo_tensor(idx, vals[ok].float(), (size[outs], size[ins]))
+    shape = (size[outs], size[ins])
+    step = max(1, CSR_PIECE_PAIRS // (vals.shape[0] * vals.shape[1]))
+    parts = []
+    for s0 in range(0, lay.ncd, step):
+        v = vals[:, :, s0 : s0 + step]
+        R = rows[None, :, s0 : s0 + step].expand(v.shape)
+        C = cols[:, None, s0 : s0 + step].expand(v.shape)
+        ok = (R < n) & (C < n)
+        idx = torch.stack([R[ok] - start[outs], C[ok] - start[ins]])
+        parts.append(torch.sparse_coo_tensor(idx, v[ok].float(), shape).coalesce())
+    coo = torch.sparse_coo_tensor(torch.cat([p.indices() for p in parts], dim=1),
+                                  torch.cat([p.values() for p in parts]), shape)
+    del parts
     csr = coo.coalesce().to_sparse_csr()
     return (lambda: csr @ x), f"CSR @ x, float32 values ({csr._nnz()} stored entries)"
 
@@ -461,7 +518,8 @@ def probe_call(M=256, iters=64, seed=5):
 
 def forced_newton_step(solver, reps=3, seed=0):
     """Host-clock seconds of ``reps`` forced Newton steps at a seeded state,
-    and the last step's (residual, FGMRES iterations, converged)."""
+    and the last step's (residual, FGMRES iterations, converged, the tangent
+    solve's final ||r||)."""
     n = solver.dofs.n_total
     dev = solver._win_layout.device
     state = torch.as_tensor(0.05 * np.random.default_rng(seed).standard_normal(n),
@@ -475,7 +533,7 @@ def forced_newton_step(solver, reps=3, seed=0):
         out = solver._newton_iteration(state, torch.zeros_like(state), bc, solver.cfg.dt, True)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    return times, out[1:4]
+    return times, out[1:5]
 
 
 def main(argv=None):
@@ -483,6 +541,8 @@ def main(argv=None):
     ap.add_argument("--label", default="", help="a name for this tree in the record")
     ap.add_argument("--case", choices=("channel", "box"), default="channel",
                     help="the 102,400-cell channel (2D) or the 196,608-tet box (3D)")
+    ap.add_argument("--degree", type=int, choices=(2, 3), default=2,
+                    help="Taylor-Hood P2/P1 or P3/P2 (cubic velocity)")
     ap.add_argument("--kernels-only", action="store_true",
                     help="skip the Newton step and the solve")
     ap.add_argument("--only", default="", help="comma-separated wrapper names to time")
@@ -500,25 +560,30 @@ def main(argv=None):
     dev = torch.device("cuda:0")
     if args.case == "box":
         mesh = box_mesh()
-        solver = nt.NavierStokesSolver(mesh, box_config(), log=nt.RunLog(verbose=False),
-                                       inlet=box_inlet, device=dev)
+        solver = nt.NavierStokesSolver(mesh, box_config(degree=args.degree),
+                                       log=nt.RunLog(verbose=False), inlet=box_inlet, device=dev)
     else:
         mesh = nt.refine_uniform(nt.rectangle(80, 40, 0, 7, 0, 4), 2)
-        solver = nt.NavierStokesSolver(mesh, channel_config(), log=nt.RunLog(verbose=False),
-                                       device=dev)
+        solver = nt.NavierStokesSolver(mesh, channel_config(degree=args.degree),
+                                       log=nt.RunLog(verbose=False), device=dev)
+    t0 = time.perf_counter()
     solver.setup()
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
     calls, operands = wrapper_operands(solver)
     lay = solver._win_layout
     bounds = bound_bytes_of(lay, operands)
     moved = moved_bytes_3d(lay, operands) if lay.dim == 3 and hasattr(W, "compact_tables") else {}
-    if args.case == "channel":
+    if args.case == "channel" and args.degree == 2:
         calls["K5"] = (probe_call(), None)
-    print(f"  layout: nb {lay.nb} Bmax {lay.Bmax} Bc {lay.Bc} nchunks {lay.nchunks} "
-          f"RVv/RVp {lay.RVv}/{lay.RVp} hv/hp {lay.hv}/{lay.hp}", flush=True)
+    print(f"  layout: P{args.degree}/P{args.degree - 1}, nb {lay.nb} Bmax {lay.Bmax} Bc "
+          f"{lay.Bc} nchunks {lay.nchunks} RVv/RVp {lay.RVv}/{lay.RVp} hv/hp {lay.hv}/{lay.hp} "
+          f"nl/nli {lay.nl}/{lay.nli} n_total {solver.dofs.n_total}; setup {t_setup:.2f} s",
+          flush=True)
     if moved:
         print(compact_stats(lay), flush=True)
-    rec = {"label": args.label, "card": smi, "case": args.case, "cells": mesh.n_cells,
-           "kernels": {}}
+    rec = {"label": args.label, "card": smi, "case": args.case, "degree": args.degree,
+           "cells": mesh.n_cells, "setup_s": t_setup, "kernels": {}}
     only = [k.strip() for k in args.only.split(",") if k.strip()]
     for name, (call, _) in calls.items():
         if only and not any(name == k or name.startswith(k + " ") for k in only):
@@ -555,10 +620,13 @@ def main(argv=None):
     if args.kernels_only:
         print(json.dumps(rec))
         return 0
-    times, (res, iters, ok) = forced_newton_step(solver, reps=5)
+    times, (res, iters, ok, kres) = forced_newton_step(solver, reps=5)
     rec["newton_step_ms"] = [t * 1e3 for t in times]
     rec["newton_step_median_ms"] = float(np.median(times) * 1e3)
-    rec["newton_step"] = dict(residual=float(res), fgmres_iters=int(iters), converged=bool(ok))
+    rec["newton_step"] = dict(residual=float(res), fgmres_iters=int(iters), converged=bool(ok),
+                              final_rel_residual=float(kres) / float(res))
+    print(f"  forced step: {rec['newton_step']}; median {rec['newton_step_median_ms']:.1f} ms",
+          flush=True)
     if args.profile:
         # one forced step's device time: the windowed kernels' and the rest's
         by_kernel = device_time_by_kernel(lambda: forced_newton_step(solver, reps=1), reps=1)

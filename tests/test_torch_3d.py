@@ -12,7 +12,9 @@ the port on the CPU (plain versions):
   convection-dominated box(4, 4, 4), the box configuration's 2 steps;
 * the P3 tetrahedron's dof map (a global cubic interpolated exactly) and its
   boundary dofs;
-* P3/P2 Stokes with a cubic manufactured solution.
+* P3/P2 Stokes with a cubic manufactured solution;
+* P3/P2 unsteady Navier-Stokes on a windowed layout (20 velocity and 10
+  pressure dofs a tetrahedron), 2 BDF1 steps without a preconditioner.
 
 Solutions agree to 1e-10 and every Newton residual to 1e-10 of the run's
 largest; Newton and FGMRES counts are equal.  One case's state is held
@@ -365,3 +367,43 @@ def test_stokes_p3_p2_3d_cubic_exact_matches_jax_f64():
     assert err < 1e-6, err
     dp = sol[d.n_u:] - np.sum(d.p_coords**2, axis=1)  # quadratic, up to a constant
     assert float(np.max(np.abs(dp - dp.mean()))) < 1e-5
+
+
+@functools.lru_cache(maxsize=None)
+def _p3_windowed_runs():
+    """Both packages' 2 BDF1 steps of tests/test_3d.py's unsteady case on
+    box(2, 2, 2) at P3/P2 through the windowed operator, no preconditioner
+    (the configuration's default), at dt 0.01.  At its dt 0.1 an
+    unpreconditioned P3/P2 tangent solve (~100 FGMRES iterations to 1e-2)
+    amplifies rounding along its Krylov path: JAX's own flat and windowed
+    runs of the forced step from rest end 1.2e-2 apart in a velocity
+    update of 0.12 (the port and JAX's windowed run 5e-4), and the Newton
+    residual after it moves in its fifth digit.  At dt 0.01 the mass term
+    dominates the velocity block, the solves take ~50 iterations, and the
+    runs agree to the file's tolerances."""
+    def config(cls):
+        cfg = _box_cfg(cls, matvec="windowed", cells_per_block=16)
+        cfg.degree_velocity, cfg.degree_pressure = 3, 2
+        cfg.dt, cfg.T = 0.01, 0.02
+        return cfg
+
+    jlog, tlog = JLog(verbose=False), RunLog(verbose=False)
+    js = JSolver(j_box(2, 2, 2), config(JConfig), log=jlog)
+    ts = NavierStokesSolver(box(2, 2, 2), config(SolverConfig), log=tlog, device="cpu")
+    js.solve()
+    ts.solve()
+    return js, ts, _trajectory(jlog), _trajectory(tlog)
+
+
+def test_p3_windowed_ns_3d_matches_jax_f64():
+    """P3/P2 tetrahedra on the windowed layout, unpreconditioned: the same
+    FGMRES counts and Newton residuals (TOL of the largest) as JAX's run,
+    and the same state within the identity case's 1e-5 (velocity) and 5e-5
+    (pressure) of test_unsteady_ns_3d_flat_matches_jax_f64 (see the
+    module's note; here it reads 1.0e-9 and 1.3e-8)."""
+    js, ts, jt, tt = _p3_windowed_runs()
+    lay = ts._win_layout
+    assert ts._matvec == "windowed" and (lay.dim, lay.k_v, lay.k_p) == (3, 20, 10)
+    assert sum(e == "gmres" for _, e, _ in tt) >= 2
+    _compare(jt, tt)
+    _same_solution(ts, js, 1e-5, 5e-5)

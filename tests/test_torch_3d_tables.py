@@ -21,8 +21,10 @@ and merge each row's places in order (``ops/windowed.py``
   in float64 to 1e-12 of ||y||_inf, and on one layout against the JAX
   package's ``windowed_scatter`` (its plain path on the CPU).
 
-Layouts: the card tests' three tetrahedral ones (tests/test_torch_kernels.py
-``TETS``: one chunk at halo 1; 3 chunks of 256; halo 2), box(2, 2, 2) on
+Layouts: the card tests' three P2/P1 tetrahedral ones
+(tests/test_torch_kernels.py ``TETS``: one chunk at halo 1; 3 chunks of
+256; halo 2) and two of its P3/P2 ones ("p3-": 20 velocity and 10 pressure
+dofs a tetrahedron; one chunk, and 3 chunks of 256), box(2, 2, 2) on
 the default (unblocked) layout, one block with no halo, and three ranks'
 framed layouts of a sharded run (parallel/windowed_spmd.py ``local_layout``)
 of box(4, 4, 4) at 16 cells a block, halo 4: rank 0 and rank 1 of 2 (the
@@ -57,6 +59,8 @@ LAYOUTS = {
     "box4-framed-r0of2": dict(box=4, cpb=16, Bc=128, rank=0, ranks=2),
     "box4-framed-r1of2": dict(box=4, cpb=16, Bc=128, rank=1, ranks=2),
     "box4-framed-r1of4": dict(box=4, cpb=16, Bc=128, rank=1, ranks=4),
+    "p3-box-h1": dict(box=2, cpb=16, Bc=128, deg=3),
+    "p3-box-refined-Bc256": dict(box=4, refine=1, cpb=448, Bc=256, deg=3),
 }
 PRODUCTS = [("vp", "vp"), ("v", "v"), ("v", "p"), ("p", "p")]
 
@@ -65,7 +69,7 @@ def _build(c):
     mesh = box(c["box"], c["box"], c["box"])
     if c.get("refine"):
         mesh = refine_uniform(mesh, c["refine"])
-    dofs = make_dofs(mesh)
+    dofs = make_dofs(mesh, c.get("deg", 2), c.get("deg", 2) - 1)
     if "cpb" in c:
         dofs, bi = renumber_blocked(dofs, cells_per_block=c["cpb"],
                                     nb_multiple=c.get("ranks", 1))
@@ -113,6 +117,25 @@ def test_layouts_cover_the_kernel_paths():
     framed = [lay for lay in lays if lay.frame]
     assert len(framed) == 3 and all(lay.frame == lay.hv == lay.hp == 4 for lay in framed)
     assert [lay.nb for lay in framed] == [12 + 8, 12 + 8, 6 + 8]
+    p3 = [lay for lay in lays if (lay.k_v, lay.k_p) == (20, 10)]
+    assert len(p3) == 2 and {lay.nchunks > 1 for lay in p3} == {True, False}
+
+
+@pytest.mark.parametrize("name", ["p3-box-h1", "p3-box-refined-Bc256"])
+def test_p3_chunk_limits(name):
+    """At P3/P2 a chunk's lists are longer (20 and 10 dofs a slot), and
+    still within what the kernels take: entry indices below 0xFFFF, (slot,
+    dof) codes below 20 x Bc, and the shared memory of the largest call and
+    of K4 (R's 70 rows of a chunk and both spaces' pairs) within a block's
+    limit."""
+    lay, tabs = _layout(name), _tables(name)
+    v, p = tabs["v"], tabs["p"]
+    assert lay.nl == 70 and lay.nli == 72
+    assert v.max_entries < 0xFFFF and p.max_entries < 0xFFFF
+    assert v.max_pairs <= lay.k_v * lay.Bc and p.max_pairs <= lay.k_p * lay.Bc
+    k4 = 4 * lay.nl * lay.Bc + 2 * (v.max_pairs + v.max_entries + 1
+                                    + p.max_pairs + p.max_entries + 1)
+    assert k4 <= tw.compact_smem_bytes(lay, tabs) <= tw._MAX_SMEM_BYTES
 
 
 @pytest.mark.parametrize("name", sorted(LAYOUTS))
@@ -257,7 +280,17 @@ def test_compact_model_matches_jax_f64(ins, outs):
     """On box-refined-Bc256 the model, on the port's copy of the JAX
     package's layout (``convert``), equals the JAX package's plain
     windowed_matvec_reference / _block_reference in float64."""
-    args, kw = _build(LAYOUTS["box-refined-Bc256"])
+    _model_matches_jax("box-refined-Bc256", ins, outs)
+
+
+@pytest.mark.parametrize("ins, outs", PRODUCTS)
+def test_compact_model_matches_jax_f64_p3(ins, outs):
+    """The same at P3/P2, on p3-box-h1."""
+    _model_matches_jax("p3-box-h1", ins, outs)
+
+
+def _model_matches_jax(name, ins, outs):
+    args, kw = _build(LAYOUTS[name])
     jlay = jw.build_windowed_layout(*args, **kw)
     lay = convert.layout_from_arrays(convert.arrays_of(jlay))
     A, x = _operands(lay, ins, outs, 4)
@@ -288,7 +321,16 @@ def test_compact_scatter_model_matches_jax_f64():
     """On box-refined-Bc256 K4's model, on the port's copy of the JAX
     package's layout (``convert``), equals the JAX package's
     windowed_scatter (its plain path on the CPU) in float64."""
-    args, kw = _build(LAYOUTS["box-refined-Bc256"])
+    _scatter_model_matches_jax("box-refined-Bc256")
+
+
+def test_compact_scatter_model_matches_jax_f64_p3():
+    """The same at P3/P2, on p3-box-h1."""
+    _scatter_model_matches_jax("p3-box-h1")
+
+
+def _scatter_model_matches_jax(name):
+    args, kw = _build(LAYOUTS[name])
     jlay = jw.build_windowed_layout(*args, **kw)
     lay = convert.layout_from_arrays(convert.arrays_of(jlay))
     R = _rows(lay, 6)

@@ -5,9 +5,10 @@ This file imports no JAX, so it runs on a machine with a GPU and no JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 Without a visible GPU every test skips but the slot colouring's, which
-checks a host table.  The layouts are P2/P1 on triangles (2D) and on
-tetrahedra (3D, the kernels' other design: K1, K2 and K4 sum each chunk at
-the distinct positions it touches and merge through per-row lists).
+checks a host table.  The layouts are Taylor-Hood P2/P1 and P3/P2 on
+triangles (2D) and on tetrahedra (3D, the kernels' other design: K1, K2 and
+K4 sum each chunk at the distinct positions it touches and merge through
+per-row lists); an element the kernels are not built for raises.
 Tolerances: K3 (gather, one vector or the pair u, u_old in one launch) is a
 copy and must be bit-equal; the others agree to 1e-5 of ||y||_inf (float32
 sums in another order: the 2D kernels sum a chunk's slots in colour order,
@@ -49,6 +50,16 @@ LAYOUTS = {
     # blocks between 4 empty ones a side, rows over the framed spaces
     "box4-framed": dict(box=4, cpb=16, Bc=128, rank=1, ranks=2),
 }
+# P3/P2 (cubic velocity): 2D halos 1 and 2 and 2 chunks a block; tetrahedra
+# with one chunk, 3 chunks of 256 and a halo of 2
+P3_LAYOUTS = {
+    "p3-blocked-h1": dict(n=6, cpb=16, Bc=128, deg=3),
+    "p3-blocked-h2": dict(n=8, cpb=8, Bc=128, deg=3),
+    "p3-refined-Bc256": dict(n=12, refine=1, cpb=448, Bc=256, deg=3),
+    "p3-box-h1": dict(box=2, cpb=16, Bc=128, deg=3),
+    "p3-box-refined-Bc256": dict(box=4, refine=1, cpb=448, Bc=256, deg=3),
+    "p3-box-h2": dict(box=4, cpb=64, Bc=128, deg=3),
+}
 OPS = ["gather", "gather-pair", "scatter", "matvec", "matvec-bf16A", "v->v", "v->p", "p->p",
        "v->v-f32A", "v->p-f32A", "p->p-f32A"]
 
@@ -62,11 +73,11 @@ def cuda_device():
 
 @functools.lru_cache(maxsize=None)
 def _layout(name):
-    c = LAYOUTS[name]
+    c = {**LAYOUTS, **P3_LAYOUTS}[name]
     mesh = box(c["box"], c["box"], c["box"]) if "box" in c else unit_square(c["n"])
     if c.get("refine"):
         mesh = refine_uniform(mesh, c["refine"])
-    dofs = make_dofs(mesh)
+    dofs = make_dofs(mesh, c.get("deg", 2), c.get("deg", 2) - 1)
     if "cpb" in c:
         dofs, bi = renumber_blocked(dofs, cells_per_block=c["cpb"],
                                     nb_multiple=c.get("ranks", 1))
@@ -82,7 +93,7 @@ def _layout(name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(LAYOUTS))
+@pytest.mark.parametrize("name", sorted(LAYOUTS) + sorted(P3_LAYOUTS))
 @pytest.mark.parametrize("op", OPS)
 def test_kernel_matches_plain(name, op, cuda_device):
     lay = _layout(name).to(cuda_device)
@@ -151,9 +162,17 @@ def test_layouts_cover_the_kernel_paths():
     tets = [lay for lay in lays if lay.dim == 3]
     assert {lay.nchunks == 1 for lay in tets} == {True, False}
     assert any(lay.hv == 2 for lay in tets)
+    p3 = [_layout(name) for name in P3_LAYOUTS]
+    elements = {(lay.dim, lay.k_v, lay.k_p) for lay in lays + p3}
+    assert elements == set(tw._ELEMENTS)
+    for dim in (2, 3):
+        mine = [lay for lay in p3 if lay.dim == dim]
+        assert {lay.nchunks == 1 for lay in mine} == {True, False}
+        assert {lay.hv for lay in mine} == {1, 2}
 
 
-TETS = ["box-h1", "box-refined-Bc256", "box-refined-h2", "box4-framed"]
+TETS = ["box-h1", "box-refined-Bc256", "box-refined-h2", "box4-framed",
+        "p3-box-h1", "p3-box-refined-Bc256", "p3-box-h2"]
 
 
 def _op_call(lay, op, rand):
@@ -194,7 +213,7 @@ def _rand_on(device, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "name, op",
-    [(name, op) for name in ["refined-Bc256", "legacy-3chunks"]
+    [(name, op) for name in ["refined-Bc256", "legacy-3chunks", "p3-refined-Bc256"]
      for op in ["matvec-bf16A", "v->v", "scatter", "gather", "gather-pair"]]
     + [(name, op) for name in TETS for op in OPS])
 def test_graph_replay_matches_eager(name, op, cuda_device):
@@ -233,7 +252,8 @@ def _assert_replay_matches_eager(call, x, fresh, exact=False):
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "name, op",
-    [(name, op) for name in ["refined-Bc256", "legacy-3chunks", "blocked-h2"]
+    [(name, op) for name in ["refined-Bc256", "legacy-3chunks", "blocked-h2",
+                             "p3-refined-Bc256", "p3-blocked-h2"]
      for op in ["matvec-bf16A", "matvec", "v->v", "v->p", "p->p", "scatter"]]
     + [(name, op) for name in TETS for op in OPS])
 def test_repeat_calls_are_bit_equal(name, op, cuda_device):
@@ -463,14 +483,16 @@ def test_tet_chunk_of_partial_warps_raises(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dim", [2, 3])
-def test_p3_layout_raises(dim, cuda_device):
-    """The kernels are built for P2/P1 on triangles and tetrahedra: on the
-    card a P3/P2 layout raises NotImplementedError from every wrapper and
-    launches nothing (no fall-back to the plain versions)."""
+def test_unbuilt_element_raises(dim, cuda_device):
+    """The kernels are built for Taylor-Hood P2/P1 and P3/P2 on triangles and
+    tetrahedra: on the card a layout of another element, equal-order P2/P2
+    (k_v = k_p), raises NotImplementedError from every wrapper and launches
+    nothing (no fall-back to the plain versions)."""
     mesh = box(2, 2, 2) if dim == 3 else unit_square(4)
-    dofs, bi = renumber_blocked(make_dofs(mesh, 3, 2), cells_per_block=16)
+    dofs, bi = renumber_blocked(make_dofs(mesh, 2, 2), cells_per_block=16)
     lay = tw.build_windowed_layout(dofs.cell_vdofs, dofs.cell_pdofs, dofs.n_vs, dofs.n_ps,
                                    dim, block_info=bi, Bc=128).to(cuda_device)
+    assert lay.k_v == lay.k_p and (lay.dim, lay.k_v, lay.k_p) not in tw._ELEMENTS
     rand = _rand_on(cuda_device, 14)
     x, R, A = rand(lay.n_u + lay.n_ps), rand(lay.nli, lay.ncd), rand(lay.nl, lay.nli, lay.ncd)
     A_vv = tw.slice_block(lay, A, "v", "v")
@@ -479,6 +501,6 @@ def test_p3_layout_raises(dim, cuda_device):
                  lambda: tw.windowed_scatter(lay, R), lambda: tw.windowed_matvec(lay, A, x),
                  lambda: tw.windowed_matvec_block(lay, A_vv, x[: lay.n_u], in_spaces="v",
                                                   out_spaces="v")):
-        with pytest.raises(NotImplementedError, match="P2/P1"):
+        with pytest.raises(NotImplementedError, match="P2/P1 and P3/P2"):
             call()
     assert all(v == 0 for v in tw.launch_counts().values())

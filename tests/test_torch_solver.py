@@ -3,7 +3,9 @@
 Same mesh, same config (windowed operator, Cahouet-Chabard preconditioner,
 a non-zero inflow), plain versions on the CPU.  Per-step Newton residuals
 agree to 1e-10 relative and every tangent solve takes the same number of
-FGMRES iterations; so does a forced Newton step at a seeded state.
+FGMRES iterations; so does a forced Newton step at a seeded state.  The
+same holds at Taylor-Hood P3/P2 without a preconditioner; there both
+packages' lumped pressure mass is wrong for P2 pressure (a test pins it).
 """
 
 import functools
@@ -14,12 +16,13 @@ import pytest
 import torch
 
 from navier_stokes_tpu.config import SolverConfig as JConfig
+from navier_stokes_tpu.mesh.generate import box as j_box
 from navier_stokes_tpu.mesh.generate import unit_square as j_unit_square
 from navier_stokes_tpu.models.navier_stokes import NavierStokesSolver as JSolver
 from navier_stokes_tpu.utils.logging import RunLog as JLog
 from navier_stokes_tpu_torch.config import SolverConfig
 from navier_stokes_tpu_torch.fem.dofs import make_dofs, renumber_blocked
-from navier_stokes_tpu_torch.mesh.generate import unit_square
+from navier_stokes_tpu_torch.mesh.generate import box, unit_square
 from navier_stokes_tpu_torch.models.navier_stokes import NavierStokesSolver
 from navier_stokes_tpu_torch.utils.logging import RunLog
 
@@ -113,6 +116,110 @@ def test_forced_newton_step_matches_jax_f64():
     assert int(jout[2]) == tout[2] and bool(jout[3]) and tout[3]
     assert abs(float(jout[1]) - tout[1]) <= 1e-10 * float(jout[1])
     np.testing.assert_allclose(tout[0].numpy(), np.asarray(jout[0]), rtol=0, atol=1e-9)
+
+
+def _p3_config(cls):
+    """Taylor-Hood P3/P2, the corrected formulation, BDF1, 2 steps, no
+    preconditioner (the configuration's default: Cahouet-Chabard scales by
+    the lumped pressure mass, wrong at P2 pressure), a gentle inflow
+    (u_m 1) and FGMRES(200) capped at 200: every tangent solve of the
+    unit_square(4) run converges below the cap (102, 140 and 41 iterations;
+    with u_m 30 or restarts of 60 the second solve of a step stalls)."""
+    cfg = _config(cls, "bdf1", corrected=True, preconditioner="identity", restart=200,
+                  max_iters=200)
+    cfg.degree_velocity, cfg.degree_pressure = 3, 2
+    cfg.inlet.u_m = 1.0
+    return cfg
+
+
+@functools.lru_cache(maxsize=None)
+def _p3_runs():
+    jlog, tlog = JLog(verbose=False), RunLog(verbose=False)
+    js = JSolver(j_unit_square(4), _p3_config(JConfig), log=jlog)
+    ts = NavierStokesSolver(unit_square(4), _p3_config(SolverConfig), log=tlog, device="cpu")
+    js.solve()
+    ts.solve()
+    return js, ts, _trajectory(jlog), _trajectory(tlog), tlog
+
+
+def test_p3_slice_matches_jax_f64():
+    """The slice at P3/P2 (k_v 10, k_p 6) without a preconditioner: the
+    same Newton residuals (1e-10 relative) and FGMRES counts, every tangent
+    solve converged, the same velocity and pressure (1e-8)."""
+    js, ts, jt, tt, tlog = _p3_runs()
+    assert (ts._win_layout.k_v, ts._win_layout.k_p) == (10, 6)
+    assert sum(e == "gmres" for _, e, _ in tt) >= 3
+    assert not [r for r in tlog.records if r.get("event") == "krylov_failure"]
+    _compare(jt, tt)
+    np.testing.assert_allclose(ts.velocity(), js.velocity(), rtol=0, atol=1e-8)
+    np.testing.assert_allclose(ts.pressure(), js.pressure(), rtol=0, atol=1e-8)
+
+
+def test_p3_forced_newton_step_matches_jax_f64():
+    """The forced Newton step at a seeded state at P3/P2: residual norm,
+    FGMRES count and the update."""
+    js, ts, _, _, _ = _p3_runs()
+    _forced_step_matches(js, ts)
+
+
+def _forced_step_matches(js, ts):
+    n = ts.dofs.n_total
+    state = 0.05 * np.random.default_rng(0).standard_normal(n)
+    u_old = np.zeros(n)
+    cfg = ts.cfg
+    jout = js._newton_iteration(
+        jnp.asarray(state), jnp.asarray(u_old),
+        jnp.asarray(js.dirichlet.values(cfg.dt)), cfg.dt, True,
+    )
+    tout = ts._newton_iteration(
+        torch.as_tensor(state), torch.as_tensor(u_old),
+        torch.as_tensor(ts.dirichlet.values(cfg.dt)), cfg.dt, True,
+    )
+    assert int(jout[2]) == tout[2] and bool(jout[3]) and tout[3]
+    assert abs(float(jout[1]) - tout[1]) <= 1e-10 * float(jout[1])
+    np.testing.assert_allclose(tout[0].numpy(), np.asarray(jout[0]), rtol=0, atol=1e-9)
+
+
+def _vertex_pdofs(mesh, dofs):
+    """The real pressure dofs that sit on a mesh vertex."""
+    key = {tuple(c) for c in np.round(mesh.coords, 9).tolist()}
+    real = np.ones(dofs.n_ps, bool) if dofs.p_mask is None else dofs.p_mask
+    at = np.array([tuple(c) in key for c in np.round(dofs.p_coords, 9).tolist()])
+    return at & real, ~at & real
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_p3_lumped_pressure_mass_matches_jax_and_pins_its_p2_fault(dim):
+    """Both packages lump the pressure mass by row sums and keep 1/lumped
+    where lumped > 0, else 1.0 (JAX fem/windowed_assembly.py, the port's
+    copy).  At P3/P2 the port's inv_mp equals JAX's bit for bit, and both
+    carry the fault of that lumping for P2 pressure: the integral of a P2
+    vertex function over a triangle is 0, so every vertex entry is 1 over
+    a rounding residue (above 1e6) or the 1.0 fallback; over a tetrahedron
+    it is -|T|/20 < 0, so every vertex entry takes the 1.0 fallback.  The
+    edge (and face) functions lump to positive masses.  This test fails the
+    day either package changes its lumping (ROADMAP.md Queue 3)."""
+    def cfg(cls):
+        c = _p3_config(cls)
+        if dim == 3:
+            c.inlet_tags, c.neumann_tags, c.wall_tags = (0,), (1,), (2, 3, 4, 5)
+        return c
+
+    jmesh, mesh = (j_box(2, 2, 2), box(2, 2, 2)) if dim == 3 else (j_unit_square(6),
+                                                                   unit_square(6))
+    js = JSolver(jmesh, cfg(JConfig), log=JLog(verbose=False))
+    ts = NavierStokesSolver(mesh, cfg(SolverConfig), log=RunLog(verbose=False), device="cpu")
+    js.setup()
+    ts.setup()
+    got, want = ts._wassembly.inv_mp.numpy(), np.asarray(js._wassembly.inv_mp)
+    assert got.dtype == want.dtype == np.float64 and np.array_equal(got, want)
+    vertex, other = _vertex_pdofs(mesh, ts.dofs)
+    assert vertex.sum() == mesh.coords.shape[0] and other.any()
+    assert (got[other] > 0).all() and (got[other] < 1e6).all() and (got[other] != 1.0).all()
+    if dim == 2:
+        assert ((got[vertex] > 1e6) | (got[vertex] == 1.0)).all() and got[vertex].max() > 1e12
+    else:
+        assert (got[vertex] == 1.0).all()
 
 
 def _forcing_xt(x, t):

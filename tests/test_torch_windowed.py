@@ -13,7 +13,8 @@
 * The cases are P2/P1 on triangles (unit squares) and on tetrahedra (unit
   cubes cut into 6 tetrahedra a cube: box(2, 2, 2), and
   refine_uniform(box(4, 4, 4), 1) at the solver's default block and chunk
-  sizes, 3 chunks a block).
+  sizes, 3 chunks a block), and P3/P2 ("p3-": 10 + 6 dofs a triangle at
+  halos of 1 and 2 blocks, 20 + 10 a tetrahedron).
 * The CUDA kernels against the plain versions: tests/test_torch_kernels.py.
 """
 
@@ -39,6 +40,9 @@ CASES = {
     "blocked-Bc256": dict(n=12, cpb=16, Bc=256),
     "box-h1": dict(box=2, cpb=16, Bc=128),
     "box-refined-Bc256": dict(box=4, refine=1, cpb=448, Bc=256),
+    "p3-blocked-h1": dict(n=6, cpb=16, Bc=128, deg=3),
+    "p3-blocked-h2": dict(n=8, cpb=8, Bc=128, deg=3),
+    "p3-box-h1": dict(box=2, cpb=16, Bc=128, deg=3),
 }
 BLOCKS = [("v", "v"), ("v", "p"), ("p", "p"), ("p", "v"), ("vp", "p")]
 
@@ -48,7 +52,7 @@ def _layouts(case):
     mesh = box(c["box"], c["box"], c["box"]) if "box" in c else unit_square(c["n"])
     if c.get("refine"):
         mesh = refine_uniform(mesh, c["refine"])
-    dofs = make_dofs(mesh)
+    dofs = make_dofs(mesh, c.get("deg", 2), c.get("deg", 2) - 1)
     if "cpb" in c:
         dofs, bi = renumber_blocked(dofs, cells_per_block=c["cpb"])
         kw = dict(block_info=bi, Bc=c["Bc"])
@@ -147,7 +151,7 @@ def test_windows_and_block_form_match_jax(case):
 KERNEL_OPS = ["gather", "scatter", "matvec", "matvec-bf16A", "v->v", "v->p", "p->p"]
 
 
-@pytest.mark.parametrize("name", ["blocked-h1", "blocked-h2", "box-h1"])
+@pytest.mark.parametrize("name", ["blocked-h1", "blocked-h2", "box-h1", "p3-blocked-h1"])
 @pytest.mark.parametrize("op", KERNEL_OPS)
 def test_plain_matches_pallas_interpret_f32(name, op):
     """float32: the port's plain versions against the Pallas kernels in
@@ -360,9 +364,9 @@ def test_matvec_through_chunked_merge_matches_jax_reference_f64(case):
 def test_kernel_geometry_record(name):
     """What the CUDA entry points are told about a layout (struct Geo of
     csrc/windowed.cu): 18 integers, the last two the tables' index width and
-    the number of slot colours (the rounds of a chunk's sums); and the
-    occupied chunks of a block are a prefix (the kernels skip the rest by
-    the slot counts alone)."""
+    the number of slot colours (the rounds of a chunk's sums in 2D; 0 in 3D,
+    where the colour table is null); and the occupied chunks of a block are
+    a prefix (the kernels skip the rest by the slot counts alone)."""
     lay = _packed_cases()[name]()
     pk = lay._packed
     assert pk is lay._packed  # made once
@@ -373,10 +377,30 @@ def test_kernel_geometry_record(name):
     assert meta[8:14] == [lay.OWv, lay.OWp, lay.hv, lay.hp, lay.RVv, lay.RVp]
     assert meta[14:17] == [lay.n_vs, lay.n_ps, lay.ncd]
     assert meta[17] == 0  # 16-bit tables
-    assert meta[18] == pk.ncolors == int(pk.colour.max()) + 1
+    if lay.dim == 2:
+        assert meta[18] == pk.ncolors == int(pk.colour.max()) + 1
+    else:
+        assert meta[18] == pk.ncolors == 0 and pk.colour is None
     filled = (tw.unpack_positions(pk.pos_v) >= 0).any(dim=1)  # [nb, Bmax]
     chunks = filled.reshape(lay.nb, lay.nchunks, lay.Bc).any(dim=2)
     assert bool((chunks.int().diff(dim=1) <= 0).all())
     assert torch.equal(chunks, pk.cnt[:, None] > torch.arange(lay.nchunks) * lay.Bc)
     assert len(pk.args) == 7 and pk.args[1] == pk.pos_v.data_ptr()
-    assert pk.args[6] == pk.colour.data_ptr()
+    assert pk.args[6] == (None if lay.dim == 3 else pk.colour.data_ptr())
+
+
+@pytest.mark.parametrize("name", ["blocked-h1", "p3-blocked-h1", "box-h1", "p3-box-h1"])
+def test_slot_colours_only_in_2d(name):
+    """Only the 2D kernels sum in slot-colour rounds: a triangle layout's
+    packed record carries its colour table (a proper colouring: the 2D
+    sums' rounds), a tetrahedral one a null table and no colour count, and
+    its kernels sum in the order of ``compact_tables``."""
+    lay = _case(name)["tlay"]
+    pk = lay._packed
+    if lay.dim == 2:
+        colour, ncolors = tw.slot_colours(lay, pk.pos_v, pk.pos_p)
+        assert torch.equal(pk.colour, colour) and pk.ncolors == ncolors > 0
+        assert pk.args[6] == pk.colour.data_ptr() and pk.meta[18] == ncolors
+    else:
+        assert pk.colour is None and pk.ncolors == 0
+        assert pk.args[6] is None and pk.meta[18] == 0
