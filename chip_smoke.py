@@ -85,7 +85,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 step 1's first two residuals within MULTI_FIRST_TOL, the
                 velocity node by node within MULTI_VEL_TOL of max |u|: see
                 their comment, each bound with a control it must fail); the
-                forced step's wall time at 1, 2 and 4 ranks.  The tight
+                forced step's wall time at 1, 2 and 4 ranks ((c) at 2
+                ranks only: the 4-rank channel takes its forced step).  The
+                tight
                 leg: phase 11's channel on 2 ranks against one device at
                 their numbering, 2 BDF1 steps with every solve tightened
                 (TIGHT_REL_TOL, TIGHT_NEWTON_TOL), the velocity node by node within
@@ -97,7 +99,28 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 another numbering failing it); launches, floats a K1
                 product, the frame's share of slot columns and the peak
                 device memory per rank; the forced step's wall time at 1
-                and 2 ranks
+                and 2 ranks.  The flat operator's design (parallel/spmd.py:
+                Morton chunks of the cells a rank, vectors whole on every
+                rank, each assembly and product all-reduced) on 2 and 4
+                ranks against one device: (f) the 102,400-cell channel's
+                flat residual and J w at phase 11's smooth state, node by
+                node within FLAT_TOL; (g) phase 11's 25,600-cell channel
+                (block_triangular): a forced Newton step from zero (entry
+                ||r||, FGMRES count, the update within FLAT_UPDATE_TOL, a
+                start nudged FLAT_NUDGE a dof printed beside it; its time
+                at 1, 2 and 4 ranks) and, at 2 ranks, 2 BDF1 steps from the
+                Stokes guess; every rank's update and state bit-equal to
+                rank 0's.  At 4 ranks the box's kernels run on the bare
+                framed layout with seeded operands (no solver set-up: cut
+                for time).  Sharded P3/P2: (h) K1-K4 at every rank's framed
+                layout of the P3/P2 channel (halo 1) and of the 196,608-tet
+                P3/P2 box (halo 6) on seeded operands, each against its
+                plain version, a repeat bit-equal, the sharded wrappers
+                against theirs and one device's; (i) at P3_RANKS ranks
+                against one device at their numbering, the P3/P2
+                channel's forced step (no preconditioner) and box(6, 6,
+                6) at P3_BOX_CPB cells a block (halo 6, Cahouet-Chabard):
+                a forced step and 2 BDF1 steps, held to the BOX_* bounds
  16. p3         Taylor-Hood P3/P2 (cubic velocity, quadratic pressure:
                 kernel_bench.channel_config / box_config with degree=3, no
                 preconditioner), float32: (a) phase 3's checks of every
@@ -135,11 +158,13 @@ which call: for K5 one torch.mm of the products laid side by side along K
 with a float32 output, and ``library_graph_ms`` the products as bf16
 torch.matmul calls replayed from a CUDA graph; K5's ``grid`` is the launch's
 tiles and groups of iterations).  K3's ``also`` holds the pair's record.
-The K1-K4 entries, at the channel and at the box, also carry phase 15's
-2-rank run: ``sharded_launches`` (each rank's launches in its 2 BDF1 steps)
-and ``sharded_max_abs_err`` (the largest error at the ranks' framed
-layouts, alone and sharded, against the plain versions and one device's);
-null for K5.
+The K1-K4 entries, at P2/P1 and at P3/P2, also carry phase 15's sharded
+runs: ``sharded_launches`` (each rank's launches in its run at 2 ranks: the
+2 BDF1 steps; at the P3/P2 channel the forced step, at the P3/P2 box
+box(6, 6, 6)'s forced step and steps) and ``sharded_max_abs_err`` /
+``sharded_max_abs_err_4`` (the largest error at the ranks' framed layouts,
+alone and sharded, against the plain versions and one device's, at 2 / 4
+ranks); null for K5.
 """
 
 import contextlib
@@ -384,7 +409,8 @@ def by_node(s, y):
 def assembled(s, u, w):
     """The residual at state u (previous state 0) and the tangent action
     J w, before Dirichlet rows, through solver s's own path: the flat
-    element operators, or the windowed kernels K3/K4 and K1."""
+    element operators (all-reduced over a sharded run's ranks), or the
+    windowed kernels K3/K4 and K1."""
     cfg = s.cfg
     zero = torch.zeros_like(u)
     form = dict(dt=cfg.dt, nu=cfg.nu, rho=cfg.rho, convection_form=cfg.convection_form,
@@ -396,7 +422,7 @@ def assembled(s, u, w):
     cell_mat, _, r = assemble_navier_stokes(ctx, u, zero, p_out=cfg.p_out,
                                             jacobian_mass_rho=cfg.jacobian_mass_rho, **form)
     op = ops.ElementOperator(cell_mat, ctx.cell_dofs, torch.zeros(0, dtype=torch.int64, device=DEV),
-                             r.new_zeros(0), ctx.scatter_full, ctx.n_total)
+                             r.new_zeros(0), ctx.scatter_full, ctx.n_total, group=ctx.group)
     return r, ops.matvec(op, w)
 
 
@@ -973,6 +999,9 @@ MULTI_FIRST_TOL = 1e-4
 # change over step 2 (1.69 / 1.71) must exceed it.
 MULTI_VEL_TOL = 0.3
 MULTI_TIMEOUT_S = 600  # a group of ranks that takes longer has hung
+# the rank counts whose channel leg runs its 2 BDF1 steps; at the others the
+# forced step alone (cut for chip_smoke's time)
+MULTI_STEP_RANKS = (2,)
 
 
 def channel_mesh():
@@ -1004,12 +1033,12 @@ def node_gap(a, b):
     return float(np.abs(a - b).max() / np.abs(b).max())
 
 
-def forced_then_steps(s, state, rank=0):
+def forced_then_steps(s, state, rank=0, steps=True):
     """Solver s (set up here if it is not) on phase 15's work: a forced
-    Newton step at a natural-order state (taken twice: bit-equal), then its
-    BDF1 steps from rest.  Every rank calls it.  Returns the natural-order
-    update and velocities, the entry ||r||, the FGMRES count, the Newton
-    residuals and the forced step's wall times."""
+    Newton step at a natural-order state (taken twice: bit-equal), then
+    (``steps``) its BDF1 steps from rest.  Every rank calls it.  Returns the
+    natural-order update and velocities, the entry ||r||, the FGMRES count,
+    the Newton residuals and the forced step's wall times."""
     if not s._is_setup:
         s.setup()
     y = from_natural(s, *state)
@@ -1031,6 +1060,11 @@ def forced_then_steps(s, state, rank=0):
     if not (ok1 and it1 == it2 and torch.equal(u1, u2)):
         raise RuntimeError(f"rank {rank}: two forced steps from one state differ "
                            f"({it1} and {it2} FGMRES iterations, converged {ok1})")
+    run = dict(update=natural(s, s._planar(u1 - x)), entry=r1, iters=it1,
+               step_ms=[t * 1e3 for t in times], step_launches=step_launches,
+               step_exchange_floats=step_floats)
+    if not steps:
+        return run
     vel = {}
 
     def keep(step, t, sol):
@@ -1043,11 +1077,10 @@ def forced_then_steps(s, state, rank=0):
     s.solve()
     torch.cuda.synchronize()
     s.output_hooks.remove(keep)
-    return dict(update=natural(s, s._planar(u1 - x)), entry=r1, iters=it1, velocity=vel,
-                steps=trajectory(s.log.records[n_rec:]), step_ms=[t * 1e3 for t in times],
-                solve_s=time.perf_counter() - t0, step_launches=step_launches,
-                step_exchange_floats=step_floats,
-                launches={k.split()[0]: c for k, c in W.launch_counts().items()})
+    run.update(velocity=vel, steps=trajectory(s.log.records[n_rec:]),
+               solve_s=time.perf_counter() - t0,
+               launches={k.split()[0]: c for k, c in W.launch_counts().items()})
+    return run
 
 
 def sharded_vs_plain(s, ops_, rank):
@@ -1116,7 +1149,9 @@ def rank_kernels(s, rank):
     K1 product's time against K1's alone at the framed layout."""
     lay = s._win_layout
     res = dict(errs={})
-    calls, ops_ = kb.wrapper_operands(s)
+    # a bare framed layout (``_Sharded``) takes seeded operands
+    calls, ops_ = (kb.wrapper_operands(s) if hasattr(s, "_wassembly")
+                   else kb.seeded_operands(lay))
     for key, (kernel, plain) in calls.items():
         got, want = stacked(kernel()), stacked(plain())
         err = float((got.double() - want.double()).abs().max())
@@ -1161,13 +1196,14 @@ def channel_rank(rank, n, ref):
     torch.cuda.synchronize()
     res = dict(rank=rank, setup_s=time.perf_counter() - t0, **framing(s))
     res.update(rank_kernels(s, rank))
-    run = forced_then_steps(s, ref["state"], rank)
+    run = forced_then_steps(s, ref["state"], rank, steps=n in MULTI_STEP_RANKS)
+    run.setdefault("launches", run["step_launches"])
     if min(run["launches"].values()) == 0:
         raise RuntimeError(f"rank {rank}: a kernel was never launched: {run['launches']}")
     if rank == 0:
         torch.save(run, OUT / f"multi_rank_{n}.pt")
-    res.update({k: run[k] for k in ("step_ms", "solve_s", "step_launches",
-                                    "step_exchange_floats", "launches")})
+    res.update({k: run.get(k) for k in ("step_ms", "solve_s", "step_launches",
+                                        "step_exchange_floats", "launches")})
     return res
 
 
@@ -1177,12 +1213,17 @@ def box_rank(rank, n, ref):
     ``compact_tables`` raises), (a) ``rank_kernels``; at BOX_RANKS ranks
     (b) ``forced_then_steps`` at phase 14's seeded state, phase 14's 2
     BDF1 steps; the peak device memory.  Rank 0 saves (b)'s natural-order
-    results."""
-    s = nt.NavierStokesSolver(kb.box_mesh(), kb.box_config(), log=nt.RunLog(verbose=False),
-                              inlet=kb.box_inlet, n_devices=n, device=DEV)
+    results.  At another rank count the solver is not set up (cut for
+    time): (a) runs on the bare framed layout with seeded operands."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    s.setup()
+    if n == BOX_RANKS:
+        s = nt.NavierStokesSolver(kb.box_mesh(), kb.box_config(), log=nt.RunLog(verbose=False),
+                                  inlet=kb.box_inlet, n_devices=n, device=DEV)
+        s.setup()
+    else:
+        lay_g, _ = bare_layout(kb.box_mesh(), kb.box_config(), nb_multiple=n, device="cpu")
+        s = _Sharded(lay_g, wspmd.make_dist_layout(lay_g, n), rank)
     torch.cuda.synchronize()
     lay = s._win_layout
     if lay.dim != 3 or not lay.frame:
@@ -1213,8 +1254,9 @@ def multi_rank(rank, n, init, ref_path):
     """One rank of phase 15 (spawned; joins a gloo group on the one card
     through ``initialize_distributed``): the legs of ``ref["legs"]`` in
     turn, "channel" (``channel_rank``), "tight" at TIGHT_RANKS ranks
-    (``tight_rank``) and "box" (``box_rank``).  Each rank writes its
-    numbers to OUT (the parent compares)."""
+    (``tight_rank``), "box" (``box_rank``), "flat" (``flat_rank``) and "p3"
+    (``p3_rank_kernels``; at P3_RANKS ranks ``p3_rank_solves``).  Each
+    rank writes its numbers to OUT (the parent compares)."""
     from navier_stokes_tpu_torch.parallel.bootstrap import (initialize_distributed,
                                                             shutdown_distributed)
 
@@ -1231,6 +1273,14 @@ def multi_rank(rank, n, init, ref_path):
     torch.cuda.empty_cache()
     if "box" in ref["legs"]:
         res["box"] = box_rank(rank, n, ref)
+    torch.cuda.empty_cache()
+    if "flat" in ref["legs"]:
+        res["flat"] = flat_rank(rank, n)
+    torch.cuda.empty_cache()
+    if "p3" in ref["legs"]:
+        res["p3_kernels"] = p3_rank_kernels(rank, n)
+        if n == P3_RANKS:
+            res["p3_solves"] = p3_rank_solves(rank, n, ref)
     (OUT / f"multi_rank_{n}_{rank}.json").write_text(json.dumps(res))
     shutdown_distributed()
 
@@ -1351,6 +1401,8 @@ def channel_checks(n, g):
     if g["update"] > MULTI_UPDATE_TOL or g["update_ctrl"] <= MULTI_UPDATE_TOL:
         raise RuntimeError(f"{n} ranks: the update bound fails or cannot tell another "
                            "numbering apart")
+    if "newton" not in g:  # the forced step alone
+        return
     newton, phase4, one = g["newton"]
     if newton != phase4 or newton != one:
         raise RuntimeError(f"{n} ranks: the Newton counts depart from one device's")
@@ -1465,6 +1517,358 @@ def box_checks(g):
                            "apart")
 
 
+# ---- phase 15, the flat legs: the flat operator's multi-device design -------
+#
+# The flat operator (parallel/spmd.py) splits Morton chunks of the cells
+# over the ranks and keeps every vector whole on every rank: each assembly
+# and operator product is all-reduced (through the host under gloo), each
+# rank runs the same Krylov arithmetic on the same vectors.  (f): the
+# 102,400-cell channel's flat residual and tangent action at phase 11's
+# smooth state, node by node against one device's, within FLAT_TOL (float32
+# sums in another order).  (g): phase 11's 25,600-cell channel with phase
+# 11's settings (block_triangular): a forced Newton step from zero (three
+# times: bit-equal) and 2 BDF1 steps from the Stokes guess, against one
+# device; every rank's update and state bit-equal to rank 0's.
+FLAT_ENTRY_REL_TOL = 1e-6  # the forced step's entry ||r||: one state, sums in another order
+FLAT_ITERS_SLACK = 2
+# The forced step's update node by node as a share of its max.  On an NVIDIA
+# H100 80GB HBM3 at 700 W the 2 ranks' update sat 1.01e-5 from one device's,
+# and one device started FLAT_NUDGE a dof away from zero 1.35e-5 (a reading
+# printed beside every run): the ranks part from one device as a
+# rounding-sized nudge does.  The bound sits 7x above the nudge's reading.
+FLAT_UPDATE_TOL = 1e-4
+FLAT_NUDGE = 1e-7
+# The steps' Stokes guess is solved to 1e-5: in float32 the default 1e-6 is
+# out of reach on this channel (phase 9's comment), where the solve runs on
+# until FGMRES stagnates (113 iterations, 27 s on one device).  The inflow
+# ramps from zero at t = 0, so the guess is u = 0, p = p_out, and each
+# step's entry residual (1.5e-3, 3.0e-3) sits below newton.tol: the steps
+# solve no tangent.  Forcing one puts it at float32's floor, where FGMRES
+# runs to its 2,000-iteration cap (103 s a step on 2 ranks); a later,
+# stronger inflow makes block_triangular's inner CG on the
+# convection-dominated A00 run to its cap (ROADMAP.md Queue 3).  The
+# forced step carries the tangent solve's checks.
+FLAT_STOKES_REL_TOL = 1e-5
+
+
+def flat_config():
+    """Phase 11's flat configuration (block_triangular), 2 BDF1 steps from
+    the Stokes guess (to FLAT_STOKES_REL_TOL)."""
+    cfg = config()
+    cfg.krylov.matvec, cfg.krylov.preconditioner = "flat", "block_triangular"
+    cfg.T, cfg.initial_guess = 0.1, "stokes"
+    cfg.krylov.stokes_rel_tol = FLAT_STOKES_REL_TOL
+    return cfg
+
+
+def flat_solver(mesh, n=None):
+    s = nt.NavierStokesSolver(mesh, flat_config(), log=nt.RunLog(verbose=False), n_devices=n,
+                              device=DEV)
+    t0 = time.perf_counter()
+    s.setup()
+    if s._matvec != "flat":
+        raise RuntimeError(f"the solver took the {s._matvec} path, not flat")
+    return s, time.perf_counter() - t0
+
+
+def flat_run(s, nudge=0.0, reps=2, steps=True):
+    """(g) on flat solver s: ``reps`` forced Newton steps from zero (or from
+    ``nudge`` times a seeded N(0, 1) a dof), bit-equal and with equal
+    FGMRES counts, then (``steps``) its BDF1 steps from the Stokes guess.
+    Returns the update, entry ||r||, FGMRES count, median ms, and the
+    steps' trajectory, velocity after each step, state and time."""
+    n_u = s.dofs.n_u
+    x0 = torch.zeros(s.dofs.n_total, dtype=torch.float32, device=DEV)
+    if nudge:
+        x0 += torch.as_tensor(nudge * np.random.default_rng(5).standard_normal(s.dofs.n_total),
+                              dtype=torch.float32, device=DEV)
+    bc = s._bc_values(s.cfg.dt).float()
+    outs, times = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(s._newton_iteration(x0, torch.zeros_like(x0), bc, s.cfg.dt, True))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    u1, r1, it1, ok1, _ = outs[0]
+    if not ok1 or any(o[2] != it1 or not torch.equal(o[0], u1) for o in outs[1:]):
+        raise RuntimeError(f"flat forced steps from one state differ or fail: "
+                           f"{[(o[2], o[3]) for o in outs]}")
+    upd = (u1 - x0).double().cpu().numpy()
+    run = dict(update=(upd[:n_u], upd[n_u:]), entry=r1, iters=it1,
+               ms=float(np.median(times)) * 1e3, update_full=u1.cpu().numpy())
+    if not steps:
+        return run
+    vel = {}
+    s.output_hooks.append(lambda step, t, sol: vel.__setitem__(step, sol[:n_u].cpu().numpy()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.solve()
+    torch.cuda.synchronize()
+    state = s.solution.double().cpu().numpy()
+    run.update(steps=trajectory(s.log.records), velocity=vel, solve_s=time.perf_counter() - t0,
+               state=s.solution.cpu().numpy(), state_split=(state[:n_u], state[n_u:]),
+               stokes=stokes_solve(s.log.records))
+    return run
+
+
+def flat_assembled(s):
+    """(f): (velocity rows, pressure rows) of the residual and of J w at
+    phase 11's smooth states, by node."""
+    return [by_node(s, y)[1:] for y in assembled(s, smooth_state(s, 0), smooth_state(s, 1))]
+
+
+def flat_rank(rank, n):
+    """The flat legs on this rank: (f) on the 102,400-cell channel, (g) on
+    the 25,600-cell one.  Every rank saves its (g) update and state (the
+    parent holds them bit-equal to rank 0's); rank 0 saves what the parent
+    compares with one device."""
+    s, t_setup = flat_solver(channel_mesh(), n)
+    f = flat_assembled(s)
+    del s
+    torch.cuda.empty_cache()
+    s, t_setup1 = flat_solver(tight_mesh(), n)
+    g = flat_run(s, reps=1, steps=n in MULTI_STEP_RANKS)
+    torch.save({k: g[k] for k in ("update_full", "state") if k in g}, OUT / f"flat_{n}_{rank}.pt")
+    if rank == 0:
+        torch.save(dict(f=f, g=g), OUT / f"flat_{n}.pt")
+    return dict(setup_s=[t_setup, t_setup1], ms=g["ms"], solve_s=g.get("solve_s"),
+                n_cells=s.ctx.n_cells)
+
+
+def flat_references():
+    """The flat legs on one device: (f), (g), and (g)'s forced step from a
+    start nudged FLAT_NUDGE a dof away (the update bound's reading)."""
+    s, t_setup = flat_solver(channel_mesh())
+    f = flat_assembled(s)
+    del s
+    torch.cuda.empty_cache()
+    s, t_setup1 = flat_solver(tight_mesh())
+    g = flat_run(s)
+    nudged = flat_run(s, FLAT_NUDGE, reps=1, steps=False)
+    print(f"  flat, one device: set-up {t_setup:.1f} s (102,400 cells), {t_setup1:.1f} s "
+          f"(25,600); forced step from zero: entry ||r|| {g['entry']:.6e}, FGMRES {g['iters']}, "
+          f"median {g['ms']:.1f} ms; started {FLAT_NUDGE:g} a dof away: FGMRES "
+          f"{nudged['iters']}, update within {node_gap(nudged['update'], g['update']):.2e} of "
+          f"its max", flush=True)
+    return dict(f=f, g=g, nudged=nudged)
+
+
+def flat_checks(n, ranks_out, ref):
+    """Print and check the flat legs' n-rank run against one device."""
+    got = torch.load(OUT / f"flat_{n}.pt", weights_only=False)
+    f_gaps = [[float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(mine, ones)]
+              for mine, ones in zip(got["f"], ref["f"])]
+    per = ranks_out[0]["flat"]["n_cells"]
+    print(f"  flat (f), {n} ranks, the 102,400-cell channel ({per} cells a rank): residual "
+          f"rows within {f_gaps[0][0]:.2e} (velocity), {f_gaps[0][1]:.2e} "
+          f"(pressure) of one device's max, J w within {f_gaps[1][0]:.2e}, {f_gaps[1][1]:.2e} "
+          f"(tol {FLAT_TOL:g})", flush=True)
+    if max(max(g) for g in f_gaps) > FLAT_TOL:
+        raise RuntimeError(f"flat, {n} ranks: the sharded residual or J w departs from one "
+                           "device's")
+    g, one = got["g"], ref["g"]
+    entry = abs(g["entry"] - one["entry"]) / one["entry"]
+    upd, upd_nudge = node_gap(g["update"], one["update"]), node_gap(ref["nudged"]["update"],
+                                                                    one["update"])
+    mine = [torch.load(OUT / f"flat_{n}_{r}.pt", weights_only=False) for r in range(n)]
+    same = all(np.array_equal(m[k], mine[0][k]) for m in mine[1:] for k in mine[0])
+    print(f"  flat (g), {n} ranks, the 25,600-cell channel: forced step entry ||r|| "
+          f"{g['entry']:.6e} / {one['entry']:.6e} (gap {entry:.2e}, tol {FLAT_ENTRY_REL_TOL:g}); "
+          f"FGMRES {g['iters']} / {one['iters']} (slack {FLAT_ITERS_SLACK}); update within "
+          f"{upd:.2e} of its max (tol {FLAT_UPDATE_TOL:g}; one device nudged {FLAT_NUDGE:g} a "
+          f"dof: {upd_nudge:.2e}); every rank's update and state bit-equal to rank 0's: {same}",
+          flush=True)
+    if entry > FLAT_ENTRY_REL_TOL or abs(g["iters"] - one["iters"]) > FLAT_ITERS_SLACK:
+        raise RuntimeError(f"flat, {n} ranks: the forced step departs from one device's")
+    if upd > FLAT_UPDATE_TOL or not same:
+        raise RuntimeError(f"flat, {n} ranks: the update departs from one device's, or the "
+                           "ranks' replicated states differ")
+    if "steps" not in g:  # the forced step alone
+        return g["ms"]
+    newton = [[len(r) for _, r, _, _ in run["steps"]] for run in (g, one)]
+    state = node_gap(g["state_split"], one["state_split"])
+    print(f"  2 BDF1 steps from the Stokes guess ({g['stokes'][0]} / {one['stokes'][0]} FGMRES "
+          f"iterations, converged {g['stokes'][1] is None} / {one['stokes'][1] is None}): Newton "
+          f"counts {newton[0]} / {newton[1]}, residuals "
+          f"{[['%.6e' % x for x in r] for _, r, _, _ in g['steps']]} / "
+          f"{[['%.6e' % x for x in r] for _, r, _, _ in one['steps']]}; the state within "
+          f"{state:.2e} of one device's max (tol {FLAT_UPDATE_TOL:g}); {g['solve_s']:.1f} s (one "
+          f"device {one['solve_s']:.1f} s)", flush=True)
+    if not all(r and r[-1] <= config().newton.tol for _, r, _, _ in g["steps"]):
+        raise RuntimeError(f"flat, {n} ranks: a Newton loop did not converge")
+    if (newton[0] != newton[1] or g["stokes"][0] != one["stokes"][0]
+            or state > FLAT_UPDATE_TOL):
+        raise RuntimeError(f"flat, {n} ranks: the steps depart from one device's")
+    return g["ms"]
+
+
+# ---- phase 15, the P3/P2 legs: sharded cubic velocity --------------------------
+#
+# (h) K1-K4 at every rank's framed P3/P2 layout of the 102,400-cell channel
+# (hv = hp = 1) and of the 196,608-tet box (hv = hp = 6, the widest halo a
+# layout takes), on seeded operands (no assembly): each kernel against its
+# plain version within REL_TOL (K3 exact), a repeat bit-equal, and the
+# sharded wrappers with the group against theirs and one device's.  (i) at
+# P3_RANKS ranks against one device at their numbering: the P3/P2 channel's
+# forced step without a preconditioner (phase 16's), and on box(6, 6, 6) at
+# P3_BOX_CPB cells a block (halo 6) with Cahouet-Chabard, a forced step and
+# 2 BDF1 steps; held to the BOX_* bounds.
+P3_RANKS = 2
+P3_BOX_CPB = 28
+
+
+def p3_small_box():
+    return nt.box(6, 6, 6)
+
+
+def p3_box_config():
+    cfg = kb.box_config(degree=3)
+    cfg.krylov.cells_per_block = P3_BOX_CPB
+    cfg.krylov.preconditioner = "cahouet_chabard"
+    return cfg
+
+
+P3_SOLVES = {  # name: (mesh, config, inlet, BDF1 steps after the forced step)
+    "channel": (channel_mesh, lambda: config(degree=3), None, False),
+    "box": (p3_small_box, p3_box_config, kb.box_inlet, True),
+}
+
+
+class _Sharded:
+    """What ``rank_kernels``, ``sharded_vs_plain`` and ``framing`` read of a
+    sharded solver, for a bare framed layout."""
+
+    def __init__(self, lay_global, dl, rank):
+        self._lay_global, self._dist, self._group = lay_global, dl, torch.distributed.group.WORLD
+        self._win_layout = wspmd.local_layout(lay_global, dl, rank).to(DEV)
+        self._n_state = dl.llen
+
+
+def p3_rank_kernels(rank, n):
+    """(h) on this rank: {"channel" / "box": the layout's numbers, each
+    check's max|err|}."""
+    out = {}
+    for name, mesh, cfg in (("channel", channel_mesh(), config(degree=3)),
+                            ("box", kb.box_mesh(), kb.box_config(degree=3))):
+        t0 = time.perf_counter()
+        lay_g, _ = bare_layout(mesh, cfg, nb_multiple=n, device="cpu")
+        sh = _Sharded(lay_g, wspmd.make_dist_layout(lay_g, n), rank)
+        lay = sh._win_layout
+        t_layout = time.perf_counter() - t0
+        calls, ops_ = kb.seeded_operands(lay)
+        errs = {}
+        for key, (kernel, plain) in calls.items():
+            got, want = stacked(kernel()), stacked(plain())
+            errs[key] = float((got.double() - want.double()).abs().max())
+            ok = (torch.equal(got, want) if key.startswith("K3")
+                  else errs[key] <= REL_TOL * float(want.double().abs().max()))
+            if not ok or not torch.equal(stacked(kernel()), got):
+                raise RuntimeError(f"rank {rank}: P3/P2 {name}: {key} disagrees with its plain "
+                                   f"version (max|err| {errs[key]:.3e}) or with itself")
+        errs.update(sharded_vs_plain(sh, ops_, rank))
+        out[name] = dict(errs=errs, layout_s=t_layout, nb=lay_g.nb, nb_loc=sh._dist.nb_loc,
+                         frame=lay.frame, hv=lay.hv, hp=lay.hp, OWv=lay.OWv, OWp=lay.OWp,
+                         ncd=lay.ncd, k=(lay.k_v, lay.k_p))
+        del calls, ops_, sh, lay
+        torch.cuda.empty_cache()
+    return out
+
+
+def p3_state(s, seed=0):
+    """A seeded natural-order state (0.05 N(0, 1) a real dof) for solver s."""
+    y = 0.05 * np.random.default_rng(seed).standard_normal(s.dofs.n_total)
+    v, p = natural(s, y)
+    return v, p
+
+
+def p3_rank_solves(rank, n, ref):
+    """(i) on this rank; rank 0 saves each run's natural-order results."""
+    out = {}
+    for name, (mesh, cfg, inlet, steps) in P3_SOLVES.items():
+        c = cfg()
+        c.T = 0.1
+        s = nt.NavierStokesSolver(mesh(), c, log=nt.RunLog(verbose=False), inlet=inlet,
+                                  n_devices=n, device=DEV)
+        t0 = time.perf_counter()
+        s.setup()
+        t_setup = time.perf_counter() - t0
+        run = forced_then_steps(s, ref["p3"][name]["state"], rank, steps=steps)
+        run.setdefault("launches", run["step_launches"])
+        if rank == 0:
+            torch.save(run, OUT / f"p3_multi_{name}.pt")
+        out[name] = dict(setup_s=t_setup, frame=s._win_layout.frame, hv=s._win_layout.hv,
+                         launches=run["launches"], step_launches=run["step_launches"],
+                         step_ms=run["step_ms"], solve_s=run.get("solve_s"))
+        del s
+        torch.cuda.empty_cache()
+    return out
+
+
+def p3_references():
+    """(i) on one device at the P3_RANKS-rank numbering: the seeded states
+    and the runs."""
+    ref = {}
+    for name, (mesh, cfg, inlet, steps) in P3_SOLVES.items():
+        c = cfg()
+        c.T = 0.1
+        s = nt.NavierStokesSolver(mesh(), c, log=nt.RunLog(verbose=False), inlet=inlet,
+                                  device=DEV, nb_multiple=P3_RANKS).setup()
+        state = p3_state(s)
+        ref[name] = dict(state=state, one=forced_then_steps(s, state, steps=steps),
+                         nb=s._win_layout.nb, hv=s._win_layout.hv)
+        del s
+        torch.cuda.empty_cache()
+    return ref
+
+
+def p3_checks(ref, ranks_out):
+    """(i)'s P3_RANKS-rank runs against one device (the BOX_* bounds)."""
+    for name, r in ref.items():
+        got, one = torch.load(OUT / f"p3_multi_{name}.pt", weights_only=False), r["one"]
+        entry = abs(got["entry"] - one["entry"]) / one["entry"]
+        upd = node_gap(got["update"], one["update"])
+        line = (f"  P3/P2 {name}, {P3_RANKS} ranks against one device at nb {r['nb']} (hv "
+                f"{r['hv']}): forced step entry ||r|| {got['entry']:.6e} / {one['entry']:.6e} "
+                f"(gap {entry:.2e}, tol {BOX_ENTRY_REL_TOL:g}); FGMRES {got['iters']} / "
+                f"{one['iters']} (slack {BOX_ITERS_SLACK}); update within {upd:.2e} of its max "
+                f"(tol {BOX_UPDATE_TOL:g}); ms {min(got['step_ms']):.1f} / "
+                f"{min(one['step_ms']):.1f}")
+        bad = (entry > BOX_ENTRY_REL_TOL or abs(got["iters"] - one["iters"]) > BOX_ITERS_SLACK
+               or upd > BOX_UPDATE_TOL)
+        if "steps" in one:
+            first = residual_gaps(got["steps"], one["steps"])
+            vel = [node_gap(got["velocity"][k], one["velocity"][k]) for k in (1, 2)]
+            newton = [[len(x) for _, x, _, _ in run["steps"]] for run in (got, one)]
+            line += (f"\n  2 BDF1 steps: Newton counts {newton[0]} / {newton[1]}, FGMRES "
+                     f"{[i for _, _, i, _ in got['steps']]} / "
+                     f"{[i for _, _, i, _ in one['steps']]}; residuals' relative gaps "
+                     f"{[['%.1e' % x for x in q] for q in first]} (tol {BOX_FIRST_TOL:g} on step "
+                     f"1's first two); velocity within {vel[0]:.2e}, {vel[1]:.2e} of max |u| "
+                     f"(tol {BOX_VEL_TOL:g}); {got['solve_s']:.1f} s (one device "
+                     f"{one['solve_s']:.1f} s)")
+            check_converged(got["steps"], config().newton.tol)
+            bad = bad or newton[0] != newton[1] or max(first[0][:2]) > BOX_FIRST_TOL or (
+                max(vel) > BOX_VEL_TOL)
+        print(line + f"; launches a rank {[x['p3_solves'][name]['launches'] for x in ranks_out]}",
+              flush=True)
+        if bad:
+            raise RuntimeError(f"P3/P2 {name}: the {P3_RANKS}-rank run departs from one "
+                               "device's")
+
+
+def p3_kernel_report(n, ranks_out):
+    for name in ("channel", "box"):
+        rs = [r["p3_kernels"][name] for r in ranks_out]
+        r0 = rs[0]
+        print(f"  P3/P2 (h) {name}, {n} ranks: k_v/k_p {r0['k']}, nb {r0['nb']} = {n} x "
+              f"{r0['nb_loc']}, frame {r0['frame']} (hv/hp {r0['hv']}/{r0['hp']}, OWv/OWp "
+              f"{r0['OWv']}/{r0['OWp']}), {r0['ncd']} slot columns a rank, layout "
+              f"{r0['layout_s']:.1f} s; largest error a check: "
+              + ", ".join(f"{k} {max(r['errs'][k] for r in rs):.2e}" for k in r0["errs"]),
+              flush=True)
+
+
 def run_ranks(n, ref, ref_path):
     """Phase 15's ranks: n spawned processes on ``multi_rank``; returns each
     rank's numbers."""
@@ -1485,12 +1889,13 @@ def run_ranks(n, ref, ref_path):
 
 
 def one_device_at(ref, n):
-    """``forced_then_steps`` on one device at the n-rank run's numbering."""
+    """``forced_then_steps`` on one device at the n-rank run's numbering
+    (the steps at MULTI_STEP_RANKS only)."""
     cfg = config()
     cfg.T = 0.1
     s = nt.NavierStokesSolver(channel_mesh(), cfg, log=nt.RunLog(verbose=False), device=DEV,
                               nb_multiple=n)
-    run = forced_then_steps(s, ref["state"])
+    run = forced_then_steps(s, ref["state"], steps=n in MULTI_STEP_RANKS)
     run["nb"] = s._win_layout.nb
     return run
 
@@ -1501,7 +1906,10 @@ def residual_gaps(a, b):
             for (_, ra, _, _), (_, rb, _, _) in zip(a, b)]
 
 
-def multi_rank_phase(ref, smi, box_ref):
+MULTI_LEGS = ("channel", "tight", "box", "flat", "p3")
+
+
+def multi_rank_phase(ref, smi, box_ref, legs=MULTI_LEGS):
     """Phase 15: the owned-range domain decomposition on 2 and 4 ranks of
     the one card (gloo, edge blocks through pinned host buffers; NCCL
     refuses two ranks on one device), each rank a process.  The channel
@@ -1510,73 +1918,112 @@ def multi_rank_phase(ref, smi, box_ref):
     also the control: another numbering, which the update bound must tell
     apart); the tight leg at TIGHT_RANKS ranks (its bound and control
     above); the box's kernels at every rank count and its solves at
-    BOX_RANKS against phase 14's (``box_references``).  Returns the 2-rank
-    run's per-rank numbers of the channel and of the box."""
-    phase("15 multi-rank: the channel, the tight leg and the box on 2 and 4 ranks of the card "
-          "(gloo), against one device at the ranks' numbering")
+    BOX_RANKS against phase 14's (``box_references``); the flat operator's
+    legs (f)-(g) against one device (``flat_references``); the P3/P2 legs
+    (h)-(i) (``p3_references``).  ``legs`` picks some ("channel" needs
+    phase 5's ``ref``, "box" phase 14's ``box_ref``).  Returns {rank
+    count: each rank's numbers}."""
+    phase(f"15 multi-rank: {', '.join(legs)} on 2 and 4 ranks of the card (gloo), against one "
+          "device")
     ref_path = OUT / "multi_rank_ref.pt"
-    t0 = time.perf_counter()
-    tight_one = tight_references()
-    print(f"  tight leg, one device: {time.perf_counter() - t0:.1f} s", flush=True)
-    torch.cuda.empty_cache()
-    rank_ref = dict(ref, legs=("channel", "tight", "box"), box=dict(state=box_ref["state"]))
-    out = {}
+    rank_ref = dict(ref or {}, legs=legs)
+    one_refs = {}
+    for leg, make in (("tight", tight_references), ("flat", flat_references),
+                      ("p3", p3_references)):
+        if leg in legs:
+            t0 = time.perf_counter()
+            one_refs[leg] = make()
+            print(f"  {leg} legs, one device: {time.perf_counter() - t0:.1f} s", flush=True)
+            torch.cuda.empty_cache()
+    if "box" in legs:
+        rank_ref["box"] = dict(state=box_ref["state"])
+    rank_ref["p3"] = one_refs.get("p3")
+    out, flat_ms = {}, {}
     for n in MULTI_RANKS:
-        one = one_device_at(ref, n)
-        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         out[n] = run_ranks(n, rank_ref, ref_path)
+        print(f"  [{n} ranks, every leg: {time.perf_counter() - t0:.1f} s with process start]",
+              flush=True)
+        if "flat" in legs:
+            flat_ms[n] = flat_checks(n, out[n], one_refs["flat"])
+        if "p3" in legs:
+            p3_kernel_report(n, out[n])
+            if n == P3_RANKS:
+                p3_checks(one_refs["p3"], out[n])
+        if "channel" not in legs:
+            continue
+        t0 = time.perf_counter()
+        one = one_device_at(ref, n)
+        torch.cuda.empty_cache()
+        print(f"  the channel on one device at nb_multiple {n}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
         got = torch.load(OUT / f"multi_rank_{n}.pt", weights_only=False)
         r0 = out[n][0]
         print(f"  {n} ranks: nb {r0['nb']} = {n} x {r0['nb_loc']}, frame {r0['frame']} blocks a "
               f"side: K1-K4 launch on {r0['nb_framed']} blocks, {r0['ncd']} slot columns of "
               f"which {r0['frame_cols']} frame padding; owned vector {r0['llen']}; setup "
               f"{r0['setup_s']:.1f} s; one device at nb_multiple {n}: nb {one['nb']}", flush=True)
-        check_converged(got["steps"], config().newton.tol)
-        print("  one device at the same numbering:", flush=True)
-        check_converged(one["steps"], config().newton.tol)
         entry = abs(got["entry"] - ref["entry"]) / ref["entry"]
         upd, upd_ctrl = (node_gap(got["update"], one["update"]),
                          node_gap(ref["update"], one["update"]))
-        res, res_ctrl = (residual_gaps(got["steps"], one["steps"]),
-                         residual_gaps(ref["steps"], one["steps"]))
-        vel = [node_gap(got["velocity"][k], one["velocity"][k]) for k in (1, 2)]
-        vel_ctrl = node_gap(ref["velocity"], one["velocity"][2])
-        step_change = node_gap(one["velocity"][1], one["velocity"][2])
-        newton = [len(r) for _, r, _, _ in got["steps"]]
         print(f"  forced step: entry ||r|| {got['entry']:.6e} (phase 5 {ref['entry']:.6e}, "
               f"gap {entry:.2e}, tol {MULTI_ENTRY_REL_TOL:g}); FGMRES {got['iters']} (phase 5 "
               f"{ref['iters']}, same numbering {one['iters']}); update node by node within "
               f"{upd:.2e} of its max of one device's at the same numbering (tol "
-              f"{MULTI_UPDATE_TOL:g}; control, phase 5's at its own numbering: {upd_ctrl:.2e})\n"
-              f"  2 BDF1 steps: Newton counts {newton} (phase 4 {ref['newton']}); residuals' "
-              f"relative gaps {[['%.1e' % x for x in r] for r in res]} (tol "
-              f"{MULTI_FIRST_TOL:g} on step 1's first two; control, phase 4's: "
-              f"{[['%.1e' % x for x in r] for r in res_ctrl]}); velocity node by node within "
-              f"{vel[0]:.2e} (step 1), {vel[1]:.2e} (step 2) of max |u| (tol {MULTI_VEL_TOL:g}; "
-              f"controls: phase 4's at step 2 {vel_ctrl:.2e}, the flow's change over step 2 "
-              f"{step_change:.2e}); {got['solve_s']:.1f} s (one device {one['solve_s']:.1f} s)"
-              f"\n  [{n} ranks, every leg: {time.perf_counter() - t0:.1f} s with process start]",
+              f"{MULTI_UPDATE_TOL:g}; control, phase 5's at its own numbering: {upd_ctrl:.2e})",
               flush=True)
-        channel_checks(n, dict(entry=entry, iters=(got["iters"], ref["iters"]), update=upd,
-                               update_ctrl=upd_ctrl, first=res, first_ctrl=res_ctrl, vel=vel,
-                               step_change=step_change,
-                               newton=(newton, ref["newton"],
-                                       [len(r) for _, r, _, _ in one["steps"]])))
-        if n == TIGHT_RANKS:
+        g = dict(entry=entry, iters=(got["iters"], ref["iters"]), update=upd,
+                 update_ctrl=upd_ctrl)
+        if n in MULTI_STEP_RANKS:
+            check_converged(got["steps"], config().newton.tol)
+            print("  one device at the same numbering:", flush=True)
+            check_converged(one["steps"], config().newton.tol)
+            res, res_ctrl = (residual_gaps(got["steps"], one["steps"]),
+                             residual_gaps(ref["steps"], one["steps"]))
+            vel = [node_gap(got["velocity"][k], one["velocity"][k]) for k in (1, 2)]
+            vel_ctrl = node_gap(ref["velocity"], one["velocity"][2])
+            step_change = node_gap(one["velocity"][1], one["velocity"][2])
+            newton = [len(r) for _, r, _, _ in got["steps"]]
+            print(f"  2 BDF1 steps: Newton counts {newton} (phase 4 {ref['newton']}); residuals' "
+                  f"relative gaps {[['%.1e' % x for x in r] for r in res]} (tol "
+                  f"{MULTI_FIRST_TOL:g} on step 1's first two; control, phase 4's: "
+                  f"{[['%.1e' % x for x in r] for r in res_ctrl]}); velocity node by node within "
+                  f"{vel[0]:.2e} (step 1), {vel[1]:.2e} (step 2) of max |u| (tol "
+                  f"{MULTI_VEL_TOL:g}; controls: phase 4's at step 2 {vel_ctrl:.2e}, the flow's "
+                  f"change over step 2 {step_change:.2e}); {got['solve_s']:.1f} s (one device "
+                  f"{one['solve_s']:.1f} s)", flush=True)
+            g.update(first=res, first_ctrl=res_ctrl, vel=vel, step_change=step_change,
+                     newton=(newton, ref["newton"], [len(r) for _, r, _, _ in one["steps"]]))
+        channel_checks(n, g)
+        if n == TIGHT_RANKS and "tight" in legs:
             tight_checks(tight_report(torch.load(OUT / f"tight_{n}.pt", weights_only=False),
-                                      tight_one))
-        if n == BOX_RANKS:
+                                      one_refs["tight"]))
+        if n == BOX_RANKS and "box" in legs:
             box_checks(box_compare(torch.load(OUT / "box_multi.pt", weights_only=False),
                                    box_ref))
+    if "flat" in legs:
+        print(f"  flat forced step from zero ({smi}): 1 rank {one_refs['flat']['g']['ms']:.1f} ms "
+              "(the median of 2), " + ", ".join(f"{n} ranks {flat_ms[n]:.1f} ms"
+                                                for n in MULTI_RANKS), flush=True)
+    if "channel" in legs:
+        channel_report(out, ref, smi)
+    if "box" in legs:
+        box_report(out, box_ref, smi)
+    return out
+
+
+def channel_report(out, ref, smi):
+    """Print the channel leg's per-rank numbers."""
     for n, rs in out.items():
         for r in rs:
             print(f"  {n} ranks, rank {r['rank']}: one K1 product sends {r['floats_per_matvec']} "
                   f"floats, {r['floats_per_matvec'] / r['llen']:.4f} of its vector "
                   f"({r['llen']}), {r['k1_sharded_ms']:.4f} ms a product against "
                   f"{r['k1_framed_ms']:.4f} for K1 alone at the framed layout (warm); "
-                  f"forced step sends {r['step_exchange_floats']}; launches: "
-                  f"forced step {r['step_launches']}, 2 steps {r['launches']}; max|err| "
+                  f"forced step sends {r['step_exchange_floats']}; launches: forced step "
+                  f"{r['step_launches']}"
+                  + (f", 2 steps {r['launches']}" if n in MULTI_STEP_RANKS else "")
+                  + "; max|err| "
                   f"at the framed layout {max(r['errs'].values()):.3e}", flush=True)
         print(f"  {n} ranks, largest error a check: "
               + ", ".join(f"{k} {max(r['errs'][k] for r in rs):.2e}" for k in rs[0]['errs']),
@@ -1584,6 +2031,10 @@ def multi_rank_phase(ref, smi, box_ref):
     print(f"  forced step wall time ({smi}): 1 rank {ref['ms']:.1f} ms (phase 5's median), "
           + ", ".join(f"{n} ranks {min(out[n][0]['step_ms']):.1f} ms" for n in MULTI_RANKS),
           flush=True)
+
+
+def box_report(out, box_ref, smi):
+    """Print the box leg's per-rank numbers."""
     for n, rs in out.items():
         for r in (r["box"] for r in rs):
             c = r["compact"]
@@ -1606,7 +2057,6 @@ def multi_rank_phase(ref, smi, box_ref):
                           for k in rs[0]["box"]["errs"]), flush=True)
     print(f"  box forced step wall time ({smi}): 1 rank {min(box_ref['same']['step_ms']):.1f} ms, "
           f"{BOX_RANKS} ranks {min(out[BOX_RANKS][0]['box']['step_ms']):.1f} ms", flush=True)
-    return out[2], [r["box"] for r in out[2]]
 
 
 # ---- phase 16: Taylor-Hood P3/P2 on the windowed kernels --------------------
@@ -1741,18 +2191,20 @@ def p3_parity():
         raise RuntimeError("P3/P2 parity runs did not take 3 steps")
 
 
-def p3_box_layout(mesh, cfg):
+def bare_layout(mesh, cfg, nb_multiple=1, device=DEV):
     """The windowed layout that NavierStokesSolver.setup builds for mesh at
     cfg's degrees (the blocked renumbering, cells_per_block doubled while
-    the halo is too wide), without the assembly's host precompute."""
+    the halo is too wide; the block count a multiple of nb_multiple),
+    without the assembly's host precompute."""
     from navier_stokes_tpu_torch.fem.dofs import make_dofs, renumber_blocked
 
     dofs, cpb = make_dofs(mesh, cfg.degree_velocity, cfg.degree_pressure), cfg.krylov.cells_per_block
     for _ in range(4):
         try:
-            d, bi = renumber_blocked(dofs, cells_per_block=cpb)
+            d, bi = renumber_blocked(dofs, cells_per_block=cpb, nb_multiple=nb_multiple)
             return W.build_windowed_layout(d.cell_vdofs, d.cell_pdofs, d.n_vs, d.n_ps, mesh.dim,
-                                           block_info=bi, Bc=cfg.krylov.chunk_cells, device=DEV), d
+                                           block_info=bi, Bc=cfg.krylov.chunk_cells,
+                                           device=device), d
         except ValueError:
             cpb *= 2
     raise RuntimeError("no windowed layout fits the box at P3/P2")
@@ -1811,7 +2263,7 @@ def p3_phase():
     cfg = kb.box_config(degree=3)
     cfg.T = 2 * cfg.dt
     t0 = time.perf_counter()
-    lay, dofs = p3_box_layout(mesh, cfg)
+    lay, dofs = bare_layout(mesh, cfg)
     print(f"  cells {mesh.n_cells}  n_total {dofs.n_total}  nb {lay.nb}  Bmax {lay.Bmax}  Bc "
           f"{lay.Bc}  nchunks {lay.nchunks}  ncd {lay.ncd}  OWv/OWp {lay.OWv}/{lay.OWp}  hv/hp "
           f"{lay.hv}/{lay.hp}  RVv/RVp {lay.RVv}/{lay.RVp}  nl/nli {lay.nl}/{lay.nli}  tables "
@@ -1836,13 +2288,33 @@ MEASURED = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
             "cold_clean_ms", "warm_ms", "host_us")
 
 
+def sharded_numbers(ranks, leg):
+    """{rank count: [each rank's {"launches": {kernel: count} or None,
+    "errs": {check: max|err|}}]} of phase 15's leg "channel", "box",
+    "p3 channel" or "p3 box" (the P3/P2 errors from (h), the launches from
+    (i) at P3_RANKS ranks)."""
+    out = {}
+    for n, rs in ranks.items():
+        if leg == "channel":
+            out[n] = [dict(launches=r.get("launches"), errs=r["errs"]) for r in rs]
+        elif leg == "box":
+            out[n] = [dict(launches=r["box"].get("launches"), errs=r["box"]["errs"]) for r in rs]
+        else:
+            name = leg.split()[1]
+            out[n] = [dict(launches=r["p3_solves"][name]["launches"] if "p3_solves" in r else None,
+                           errs=r["p3_kernels"][name]["errs"]) for r in rs]
+    return out
+
+
 def kernel_entries(recs, launches, step_launches, suffix, sharded=None):
     """The kernels line's entries of K1-K4 from ``kernels_vs_plain``'s
     records: the launches of a main-path run and of one forced Newton step,
     the largest error over a kernel's calls, the measured numbers of its
     timed call, and the others' under ``also``; with ``sharded`` (phase
-    15's 2-rank numbers) each rank's launches in its 2 BDF1 steps and the
-    largest error of the kernel's checks on the ranks (else null)."""
+    15's numbers, ``sharded_numbers``) each rank's launches in its run at 2
+    ranks (the BDF1 steps; the P3/P2 channel's: its forced step) and the
+    largest error of the kernel's checks on the ranks, at 2 and at 4 ranks
+    (else null)."""
     names = {"K1": "K1 windowed_matvec", "K2": "K2 windowed_matvec_block",
              "K3": "K3 windowed_gather", "K4": "K4 windowed_scatter"}
     counts = {k.split()[0]: v for k, v in launches.items()}
@@ -1857,9 +2329,10 @@ def kernel_entries(recs, launches, step_launches, suffix, sharded=None):
             **{key: recs[timed[k]][key] for key in MEASURED},
             replay_ms=recs[timed[k]].get("replay_ms"),
             sharded_ranks=2 if sharded else None,
-            sharded_launches=[r["launches"][k] for r in sharded] if sharded else None,
-            sharded_max_abs_err=max(e for r in sharded for key, e in r["errs"].items()
-                                    if key.split()[0] == k) if sharded else None,
+            sharded_launches=[r["launches"][k] for r in sharded[2]] if sharded else None,
+            **{f"sharded_max_abs_err{'' if n == 2 else '_4'}": (
+                max(e for r in sharded[n] for key, e in r["errs"].items() if key.split()[0] == k)
+                if sharded else None) for n in MULTI_RANKS},
         )
         if len(mine) > 1:  # the other operands of the same kernel
             entry["also"] = {key: {m: r.get(m) for m in (*MEASURED, "replay_ms")}
@@ -2139,18 +2612,20 @@ def main():
     steady_phase()
     scanned_phase()
     recs3, launches3, step_launches3, box_ref = box_phase()
-    sharded, sharded3 = multi_rank_phase(multi_ref, smi, box_ref)
+    ranks = multi_rank_phase(multi_ref, smi, box_ref)
     p3 = p3_phase()
     phase.total()
 
-    kernels = (kernel_entries(recs, launches, step_launches, "", sharded)
-               + kernel_entries(recs3, launches3, step_launches3, ", 3D", sharded3)
-               + kernel_entries(*p3["channel"], ", P3")
-               + kernel_entries(*p3["box"], ", 3D P3"))
+    kernels = (kernel_entries(recs, launches, step_launches, "", sharded_numbers(ranks, "channel"))
+               + kernel_entries(recs3, launches3, step_launches3, ", 3D",
+                                sharded_numbers(ranks, "box"))
+               + kernel_entries(*p3["channel"], ", P3", sharded_numbers(ranks, "p3 channel"))
+               + kernel_entries(*p3["box"], ", 3D P3", sharded_numbers(ranks, "p3 box")))
     kernels.append(dict(
         name="K5 mxu_probe", route="cuda", source=PROBE_SOURCE, replaces=REPLACES["K5"],
         launches=probe_launches, launches_per_newton_step=0,
         sharded_ranks=None, sharded_launches=None, sharded_max_abs_err=None,
+        sharded_max_abs_err_4=None,
         max_abs_err=max(r["max_abs_err"] for r in probe_recs.values()),
         timed=f"M={m_max}, {PROBE_CHECK_ITERS} products",
         library_graph_ms=k5["library_graph_ms"], grid=k5["grid"], replay_ms=k5["replay_ms"],

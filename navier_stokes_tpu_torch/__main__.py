@@ -16,8 +16,12 @@ it solves anything.
 
 Multi-rank runs: one process a rank under torchrun, with ``--distributed``
 (join the process group from torchrun's environment) and ``--devices N``
-(N ranks, the windowed operator sharded over them)::
+(N ranks).  The default (flat) operator splits the cells over the ranks
+and replicates the vectors; ``--matvec windowed`` shards the windowed
+operator by owned block ranges (parallel/spmd.py, parallel/windowed_spmd.py)::
 
+    torchrun --nproc-per-node 2 -m navier_stokes_tpu_torch run --mesh m.msh \\
+        --devices 2 --distributed --device cpu
     torchrun --nproc-per-node 2 -m navier_stokes_tpu_torch run --mesh m.msh \\
         --matvec windowed --devices 2 --distributed --device cpu
 
@@ -53,7 +57,8 @@ def _add_common(p):
     )
     p.add_argument("--dtype", choices=["auto", "float32", "float64"])
     p.add_argument("--devices", type=int,
-                   help="shard the windowed operator over N ranks (the process group's size)")
+                   help="split the solve over N ranks (the process group's size): the flat "
+                   "operator's cells, or the windowed operator's blocks")
     p.add_argument("--backend", choices=["nccl", "gloo"],
                    help="the process group's backend (default nccl on cuda, gloo on cpu)")
     p.add_argument("--output-dir", help="write XDMF/HDF5 output here (needs h5py)")

@@ -14,7 +14,10 @@ the Jacobian linearizes (u . grad) u), ``include_continuity_residual`` and
 map ``scatter_full`` and the outlet traction through its own gather map
 (``FEMContext._neu_gather``): a fixed summation order on every device, where the
 original's ``segment_sum`` is an ``index_add_`` whose float32 order on the
-card changes from run to run.
+card changes from run to run.  A context that holds one rank's cells (the
+flat multi-device design, parallel/spmd.py) carries its process group, and
+the residual and the Stokes rhs are all-reduced over it, as the original
+psums over ``axis_name``.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..la.operators import all_reduce
 from .dofs import TaylorHoodDofs
 from .geometry import cell_geometry, facet_geometry
 from .quadrature import gauss_simplex
@@ -64,6 +68,10 @@ class FEMContext:
     n_vs: int
     n_u: int
     n_total: int
+    # the process group of the flat multi-device design (parallel/spmd.py):
+    # the context holds one rank's cells, and the residual or rhs it
+    # assembles is all-reduced over the group (None: one device)
+    group: object = None
 
     @property
     def nb_v(self) -> int:
@@ -314,7 +322,7 @@ def assemble_navier_stokes(
 
     cell_res = torch.cat([r_mom.reshape(nc, dim * nb_v), r_p], dim=1)
     residual = gather_scatter(cell_res.reshape(-1), ctx.scatter_full)
-    return cell_mat, Mp, residual + _neumann_residual(ctx, p_out)
+    return cell_mat, Mp, all_reduce(residual + _neumann_residual(ctx, p_out), ctx.group)
 
 
 # ---------------------------------------------------------------------------
@@ -345,4 +353,4 @@ def assemble_stokes(ctx: FEMContext, *, nu: float, rho: float, p_out: float):
     r_mom = ein("cqa,ciq->cai", ctx.f_q, NvW)
     cell_rhs = torch.cat([r_mom.reshape(nc, dim * nb_v), W.new_zeros((nc, nb_p))], dim=1)
     rhs = gather_scatter(cell_rhs.reshape(-1), ctx.scatter_full)
-    return cell_mat, Mp, rhs + _neumann_residual(ctx, p_out)
+    return cell_mat, Mp, all_reduce(rhs + _neumann_residual(ctx, p_out), ctx.group)

@@ -1,6 +1,6 @@
 """Matrix-free linear operators built from element matrices (the flat path).
 
-Port of ``navier_stokes_tpu/la/operators.py`` (single device).  The global
+Port of ``navier_stokes_tpu/la/operators.py``.  The global
 operator stays in unassembled element form
 
     y = sum_cells  P_c^T  A_c  P_c x      (gather -> batched matvec -> reduce)
@@ -20,7 +20,10 @@ layout is component-planar, so the velocity block is
 (the original's ``axis_name`` psums, the reference's Epetra all-reduce):
 with a process group, each rank's partial sum is summed over the ranks, so
 every rank holds the same value and takes the same decisions from it;
-without one they are the single-device dot and norm, unchanged.
+without one they are the single-device dot and norm, unchanged.  In the
+flat multi-device design (parallel/spmd.py) an operator holds one rank's
+cells and its ``group``: every product and diagonal is all-reduced over
+it, and the vectors, replicated, take their dots without one.
 """
 
 from __future__ import annotations
@@ -85,6 +88,9 @@ class ElementOperator:
     # the operator SPD for inner CG solves (preconditioner blocks); the outer
     # tangent operator uses False (eliminate_columns=false parity, cpp:376)
     bc_symmetric: bool = False
+    # the process group the cells are split over (flat multi-device design):
+    # every reduction is all-reduced over it (None: one device)
+    group: object = None
 
 
 def _reduce(values_flat, cell_dofs, scatter_idx, n):
@@ -106,7 +112,7 @@ def matvec(op: ElementOperator, x: torch.Tensor) -> torch.Tensor:
         x_in[op.bc_rows] = 0.0
     xl = x_in[op.cell_dofs]  # [nc, nl]
     yl = torch.einsum("cij,cj->ci", op.cell_mat, xl)
-    y = _reduce(yl.reshape(-1), op.cell_dofs, op.scatter_idx, op.n)
+    y = all_reduce(_reduce(yl.reshape(-1), op.cell_dofs, op.scatter_idx, op.n), op.group)
     if has_bc:
         y[op.bc_rows] = op.bc_diag * x[op.bc_rows]
     return y
@@ -114,7 +120,7 @@ def matvec(op: ElementOperator, x: torch.Tensor) -> torch.Tensor:
 
 def diagonal(op: ElementOperator) -> torch.Tensor:
     """Assembled main diagonal (for Jacobi preconditioning)."""
-    d = raw_diagonal(op.cell_mat, op.cell_dofs, op.n, op.scatter_idx)
+    d = raw_diagonal(op.cell_mat, op.cell_dofs, op.n, op.scatter_idx, op.group)
     if op.bc_rows.shape[0]:
         d[op.bc_rows] = op.bc_diag
     return d
@@ -125,11 +131,13 @@ def raw_diagonal(
     cell_dofs: torch.Tensor,
     n: int,
     scatter_idx: torch.Tensor | None = None,
+    group=None,
 ) -> torch.Tensor:
     """Assembled diagonal BEFORE boundary conditions — the diagonal value
-    deal.II's apply_boundary_values keeps on constrained rows."""
+    deal.II's apply_boundary_values keeps on constrained rows (all-reduced
+    over ``group``)."""
     dl = torch.diagonal(cell_mat, dim1=1, dim2=2)  # [nc, nl]
-    return _reduce(dl.reshape(-1), cell_dofs, scatter_idx, n)
+    return all_reduce(_reduce(dl.reshape(-1), cell_dofs, scatter_idx, n), group)
 
 
 def velocity_block(
@@ -152,6 +160,7 @@ def velocity_block(
         scatter_idx=scatter_idx,
         n=n_u,
         bc_symmetric=True,
+        group=op.group,
     )
 
 
@@ -160,6 +169,7 @@ def pressure_mass_block(
     cell_pdofs: torch.Tensor,
     n_p: int,
     scatter_idx: torch.Tensor | None = None,
+    group=None,
 ) -> ElementOperator:
     """Mp operator on the pressure segment (the reference's
     pressure_mass.block(1,1), cpp:163, hpp:527)."""
@@ -170,4 +180,5 @@ def pressure_mass_block(
         bc_diag=cell_pmass.new_zeros(0),
         scatter_idx=scatter_idx,
         n=n_p,
+        group=group,
     )

@@ -1,6 +1,6 @@
 """Preconditioners for the [A B^T; B 0] saddle-point system.
 
-Port of ``navier_stokes_tpu/la/preconditioners.py`` (single device):
+Port of ``navier_stokes_tpu/la/preconditioners.py``:
 
   * identity, jacobi, coarse_correction, two_level_vcycle: the inner pieces
     of the windowed Schur sweeps;
@@ -9,8 +9,10 @@ Port of ``navier_stokes_tpu/la/preconditioners.py`` (single device):
   * block_triangular (PreconditionBlockTriangular, hpp:575-639): inner CG
     on A00, then tmp = src_p - B dst_u, inner CG on Mp;
 
-both on the flat element operators of la/operators.py, with Jacobi in place
-of the reference's ILU(0) (see the original's docstring).  The inner solves
+both on the flat element operators of la/operators.py (their products
+all-reduced over the operators' group in the flat multi-device design, B's
+over A00's), with Jacobi in place of the reference's ILU(0) (see the
+original's docstring).  The inner solves
 stop at an absolute tolerance and read their stop test from the device once
 per iteration; a zero right-hand side (tolerance 0) has the zero solution
 and runs no iteration, as the original's while loop does.
@@ -162,10 +164,12 @@ def rect_matvec(
     n_out: int,
     x: torch.Tensor,
     scatter_idx: torch.Tensor | None = None,
+    group=None,
 ) -> torch.Tensor:
-    """Rectangular element-form matvec (e.g. the divergence block B)."""
+    """Rectangular element-form matvec (e.g. the divergence block B),
+    all-reduced over ``group`` (the flat multi-device design)."""
     yl = torch.einsum("cij,cj->ci", cell_block, x[in_dofs])
-    return _reduce(yl.reshape(-1), out_dofs, scatter_idx, n_out)
+    return all_reduce(_reduce(yl.reshape(-1), out_dofs, scatter_idx, n_out), group)
 
 
 def block_diagonal(
@@ -217,7 +221,7 @@ def block_triangular(
         vu, vp = v[:n_u], v[n_u:]
         du = inner_cg(lambda y: matvec(A00, y), vu, inner_tol * _norm(vu), inner_maxiter, pA)
         tmp = vp - rect_matvec(B_block, B_in_dofs, B_out_dofs, n_p, du,
-                               scatter_idx=B_scatter_idx)
+                               scatter_idx=B_scatter_idx, group=A00.group)
         # tolerance floored relative to the actual rhs of this solve: the
         # reference's bare 1e-2*||src_p|| is unreachable when src_p = 0 (the
         # first Krylov vector's pressure block vanishes)

@@ -35,15 +35,19 @@ rows are replaced by ``diag * x`` with the pre-constraint assembled diagonal
 and the residual rows by ``diag * target``.
 
 Several ranks (``n_devices`` > 1, one process a rank, the process group
-joined first: parallel/bootstrap.py) run the owned-range windowed domain
-decomposition of parallel/windowed_spmd.py, as the original's windowed SPMD
-does: each rank builds the host structures in full, then keeps on its device
-its framed local layout, its shard of the assembly precompute and the owned
-chunks of every state and Krylov vector.  The kernels exchange edge blocks
-with the ring neighbours (ops/windowed.py), dots and norms all-reduce, and
-the planar state is gathered only for output, checkpoints and functionals.
-The flat operator's replicated multi-device design is not ported: asking for
-it raises NotImplementedError.
+joined first: parallel/bootstrap.py) run one of the original's two domain
+decompositions.  The windowed operator runs the owned-range design of
+parallel/windowed_spmd.py: each rank builds the host structures in full,
+then keeps on its device its framed local layout, its shard of the assembly
+precompute and the owned chunks of every state and Krylov vector.  The
+kernels exchange edge blocks with the ring neighbours (ops/windowed.py),
+dots and norms all-reduce, and the planar state is gathered only for
+output, checkpoints and functionals.  The flat operator (asked for, or where
+no windowed layout fits at that rank count) runs the replicated design of
+parallel/spmd.py: each rank holds a Morton chunk of the cells, every
+assembly and operator product is all-reduced, and the state and Krylov
+vectors are whole and equal on every rank, so dots need no collective and
+output needs no gather.
 """
 
 from __future__ import annotations
@@ -75,6 +79,7 @@ from ..mesh.msh_io import read_msh
 from ..ops.windowed import (
     build_windowed_layout, slice_block, windowed_matvec, windowed_matvec_block,
     windowed_scatter)
+from ..parallel import spmd
 from ..parallel import windowed_spmd as wspmd
 from ..parallel.bootstrap import local_device, process_count, process_index
 from ..utils.logging import RunLog
@@ -117,17 +122,11 @@ def _norm(v: torch.Tensor, group=None) -> float:
     return float(vnorm(v, group))
 
 
-def _check_devices(n_devices, cfg):
+def _check_devices(n_devices):
     """Raise unless n_devices is one this port runs: None, or the size of
-    the joined process group, with the windowed operator above one (on
-    triangles and tetrahedra alike)."""
+    the joined process group."""
     if n_devices is None:
         return
-    if n_devices > 1 and cfg.krylov.matvec != "windowed":
-        raise NotImplementedError(
-            "multi-device solves run the windowed operator only: the flat "
-            "operator's replicated design (the original's parallel/spmd.py) "
-            "is not ported yet (ROADMAP.md, Queue 1)")
     world = process_count()
     if n_devices != world:
         raise ValueError(
@@ -168,7 +167,7 @@ class NavierStokesSolver:
         the two runs share blocks and coarse aggregates."""
         self.cfg = config or SolverConfig()
         self.mesh = read_msh(mesh) if isinstance(mesh, str) else mesh
-        _check_devices(n_devices, self.cfg)
+        _check_devices(n_devices)
         self.n_devices = n_devices
         self.nb_multiple = nb_multiple or n_devices or 1
         if self.nb_multiple % (n_devices or 1):
@@ -208,19 +207,19 @@ class NavierStokesSolver:
         self.dofs = make_dofs(self.mesh, cfg.degree_velocity, cfg.degree_pressure)
         self._win_layout = None
         self._wassembly = None
-        # a sharded run: the process group, the distributed vector layout and
-        # the global layout beside the rank's framed one (None on one device)
+        # a sharded run: the process group and the rank; the windowed
+        # operator's distributed vector layout and the global layout beside
+        # the rank's framed one; the flat operator's Morton cell order
+        # (None on one device)
         self._group = torch.distributed.group.WORLD if (self.n_devices or 1) > 1 else None
+        self._rank = process_index()
         self._dist = None
+        self._cell_order = None
         self._lay_global = None
         # the resolved operator mode lives on the solver, not in the config
         self._matvec = k.matvec
         if self._matvec == "windowed":
             self._setup_windowed_layout()
-        if self._group is not None and self._dist is None:
-            raise NotImplementedError(
-                "no windowed layout fits this mesh at this rank count, and the flat "
-                "operator's multi-device design is not ported yet (ROADMAP.md, Queue 1)")
         self._precond = k.preconditioner
         if self._matvec == "flat" and self._precond == "cahouet_chabard":
             # the CC Schur sweep is built on the windowed block kernels
@@ -251,8 +250,9 @@ class NavierStokesSolver:
             else _takes_time(self.forcing)
         )
         self._f_qpts = None  # quadrature points of a time-dependent forcing
-        # a sharded run keeps the flat context on the host: it feeds the
-        # host precompute, whose shards go to the device
+        # a sharded run builds the flat context on the host: it feeds the
+        # windowed host precompute, whose shards go to the device, or gives
+        # the rank its chunk of the cells (the flat operator)
         self.ctx = build_context(
             self.dofs,
             neumann_tags=cfg.neumann_tags,
@@ -261,11 +261,20 @@ class NavierStokesSolver:
             else self.forcing,
             quadrature_degree=cfg.quadrature_degree,
             dtype=self._dtype,
-            device=self.device if self._dist is None else "cpu",
+            device=self.device if self._group is None else "cpu",
         )
         # the output writer's per-cell partitioning: the rank owning each
-        # cell's home block (one device owns all)
+        # cell's home block, or its Morton chunk (one device owns all)
         self.cell_owner = np.zeros(self.mesh.n_cells, dtype=np.int32)
+        if self._group is not None and self._dist is None:
+            # the flat operator's multi-device design (parallel/spmd.py)
+            n_dev = self.n_devices
+            self._cell_order = spmd.morton_order(self.mesh.coords[self.mesh.cells].mean(axis=1))
+            self.ctx = spmd.shard_context(self.ctx, self._rank, n_dev, self._cell_order,
+                                          self.device, self._group)
+            self.cell_owner = spmd.cell_owner(self.mesh.n_cells, n_dev, self._cell_order)
+            log.print(f"  Domain decomposition: {n_dev} devices, "
+                      f"{spmd.padded_count(self.mesh.n_cells, n_dev)} padded cells")
         if self._dist is not None:
             lay = self._lay_global
             ids = lay.cell_ids.numpy()  # [nb, Bmax], padded slots repeat ids
@@ -338,7 +347,6 @@ class NavierStokesSolver:
             + (f", {self._dist.nb_loc} blocks/device" if self._dist else "")
         )
         if self._dist is not None:
-            self._rank = process_index()
             self._win_layout = wspmd.local_layout(lay, self._dist, self._rank).to(self.device)
             log.print(
                 f"  Domain decomposition: {n_dev} devices x {self._dist.nb_loc} blocks, "
@@ -410,9 +418,11 @@ class NavierStokesSolver:
             bc_mask=np.asarray(self.dirichlet.rows) < self.dofs.n_u,
             scatter_idx=ctx.scatter_vel,
         )
-        cell_pdofs = ctx.cell_dofs[:, -nb_p:] - self.dofs.n_u
+        # pressure-space cell dofs; a sharded context's padded cells carry
+        # dof 0, clamped to pressure dof 0 (their values are exact zeros)
+        cell_pdofs = torch.clamp(ctx.cell_dofs[:, -nb_p:] - self.dofs.n_u, min=0)
         Mp = ops.pressure_mass_block(cell_pmass, cell_pdofs, self.dofs.n_p,
-                                     scatter_idx=ctx.scatter_p)
+                                     scatter_idx=ctx.scatter_p, group=ctx.group)
         if kind == "block_diagonal":
             return block_diagonal(
                 A00, Mp, inner_tol=cfg.krylov.inner_tol,
@@ -587,7 +597,11 @@ class NavierStokesSolver:
         Returns (u_new, res_norm, gmres_iters, converged, gmres_residual)."""
         cfg = self.cfg
         k = cfg.krylov
-        lay, wa, bc_rows, g = self._win_layout, self._wassembly, self._bc_rows, self._group
+        lay, wa, bc_rows = self._win_layout, self._wassembly, self._bc_rows
+        # the group of the dots: the windowed operator's vectors are split
+        # over the ranks; the flat operator's are whole on every rank, and
+        # its context and operators sum over the group themselves
+        g = self._group if lay is not None else None
         has_bc = bc_rows.shape[0] > 0
         if lay is not None:
             A_t, residual, diag0 = assemble_windowed(
@@ -603,7 +617,8 @@ class NavierStokesSolver:
                 include_continuity_residual=cfg.include_continuity_residual,
                 jacobian_mass_rho=cfg.jacobian_mass_rho,
             )
-            diag0 = ops.raw_diagonal(cell_mat, ctx.cell_dofs, ctx.n_total, ctx.scatter_full)
+            diag0 = ops.raw_diagonal(cell_mat, ctx.cell_dofs, ctx.n_total, ctx.scatter_full,
+                                     ctx.group)
         bc_diag = diag0[bc_rows]
         if cfg.dirichlet_mode == "increment":
             bc_target = bc_vals - u[bc_rows]
@@ -634,6 +649,7 @@ class NavierStokesSolver:
             op = ops.ElementOperator(
                 cell_mat=cell_mat, cell_dofs=self.ctx.cell_dofs, bc_rows=bc_rows,
                 bc_diag=bc_diag, scatter_idx=self.ctx.scatter_full, n=self.ctx.n_total,
+                group=self.ctx.group,
             )
 
             def apply_op(v):
@@ -659,11 +675,16 @@ class NavierStokesSolver:
         log.banner()
         log.print("Assembling the Stokes system")
         if self._win_layout is None:
-            # flat path: StokesSolver shares the natural dof numbering
+            # flat path: a single-device flat StokesSolver shares the natural
+            # dof numbering; a sharded run's ranks each solve it whole (the
+            # flat design splits cells only and replicates vectors, so the
+            # solution is the same vector on every rank)
             from .stokes import StokesSolver
 
+            st_cfg = copy.deepcopy(cfg)
+            st_cfg.krylov.matvec = "flat"  # a windowed layout would renumber
             st = StokesSolver(
-                self.mesh, copy.deepcopy(cfg), log=RunLog(verbose=False),
+                self.mesh, st_cfg, log=RunLog(verbose=False),
                 forcing=self.forcing, inlet=self.inlet, device=self.device,
             )
             x = st.solve(t)
@@ -1292,7 +1313,8 @@ class NavierStokesSolver:
         forcing's residual, recomputed on the host by compute_r_const).
         The reference's equivalent is ForcingTerm::set_time (never
         exercised there: its forcing is constant, hpp:414-439).  In a
-        sharded run the rank keeps its chunk of the new r_const."""
+        sharded run the rank keeps its chunk of the new r_const (windowed)
+        or of the Morton-ordered padded cells' f_q (flat)."""
         if self._f_qpts is None:
             deg = self.cfg.quadrature_degree or (
                 2 * (self.dofs.element.velocity.degree + 1) - 1
@@ -1301,6 +1323,8 @@ class NavierStokesSolver:
             self._f_qpts = geo.qpts  # [nc, nq, dim] natural cell order
         nc, nq, dim = self._f_qpts.shape
         f_q = np.asarray(self.forcing(self._f_qpts.reshape(-1, dim), t)).reshape(nc, nq, dim)
+        if self._cell_order is not None:
+            f_q = spmd.shard_rows(f_q, self.n_devices, self._rank, self._cell_order)
         self.ctx = dataclasses.replace(
             self.ctx, f_q=torch.as_tensor(f_q, device=self.ctx.f_q.device).to(self._dtype)
         )

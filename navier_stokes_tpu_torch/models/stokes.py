@@ -1,6 +1,6 @@
 """Steady Stokes solver — the reference's initial-guess path made first-class.
 
-Port of ``navier_stokes_tpu/models/stokes.py`` (single device).  The
+Port of ``navier_stokes_tpu/models/stokes.py``.  The
 reference's Stokes pipeline (``assemble_stokes_system`` cpp:380-531,
 ``solve_stokes_system`` cpp:533-559: GMRES tol 1e-6 with the
 block-triangular preconditioner) runs here flat (fem/assembly.py on the
@@ -13,7 +13,10 @@ Default boundary ids follow the reference's Stokes path (mesh-square tag set):
 ``n_devices`` > 1 runs the windowed path sharded over the ranks of the
 joined process group, as NavierStokesSolver does; ``solution`` is then the
 rank's owned chunk, and ``velocity()`` / ``pressure()`` gather the planar
-state (every rank calls them).
+state (every rank calls them).  The flat path, asked for or where no
+windowed layout fits at that rank count, solves on each rank alone, the
+whole system on its device, as the original does (it ignores the count
+there): every rank holds the same solution.
 """
 
 from __future__ import annotations
@@ -60,7 +63,7 @@ class StokesSolver:
             config = SolverConfig(inlet_tags=(0,), neumann_tags=(1,), wall_tags=(2, 3))
             config.krylov.preconditioner = "block_triangular"
         self.mesh = read_msh(mesh) if isinstance(mesh, str) else mesh
-        _check_devices(n_devices, config)
+        _check_devices(n_devices)
         self.n_devices = n_devices
         self.cfg = cfg = config
         self.log = log or RunLog()

@@ -232,7 +232,7 @@ def test_cli_output_dir_names_h5py_when_missing(cmd, tmp_path, monkeypatch):
     "flags, exc, match",
     [
         (["--devices", "2", "--matvec", "windowed"], ValueError, "process group has 1 rank"),
-        (["--devices", "2"], NotImplementedError, "ROADMAP.md"),  # the default: flat
+        (["--devices", "2"], ValueError, "process group has 1 rank"),  # the default: flat
         (["--device", "cuda"], RuntimeError, "no CUDA device"),
     ],
 )
@@ -259,6 +259,28 @@ def test_cli_two_ranks_match_one(tmp_path):
                 [*argv, "--devices", "2", "--distributed", "--log-json", str(two)])
     got = json.loads(two.read_text())
     assert sum(r.get("event") == "gmres" for r in got) >= 2
+    _same_records(got, want)
+
+
+def test_cli_two_ranks_match_one_flat(tmp_path):
+    """``--devices 2 --distributed`` on 2 ranks with the default (flat)
+    operator, its cells split over the ranks and its vectors replicated,
+    against ``--devices 1``: the same records (residuals to 1e-10 relative,
+    counts exactly), the Stokes guess included; rank 0 alone writes the
+    log."""
+    mesh = _write(tmp_path, "sq.msh", _msh_v2(j_unit_square(4)))
+    # one forced Newton update a step: the Stokes guess leaves the entry
+    # residuals below newton.tol, and each step then still solves a tangent
+    argv = ["run", "--mesh", mesh, "--config", _run_config(tmp_path, newton={"min_iters": 1}),
+            "--preconditioner", "block_triangular", "--initial-guess", "stokes", "--device",
+            "cpu"]
+    want = _cli_records(t_main, [*argv, "--devices", "1"], str(tmp_path / "one.json"))
+    two = tmp_path / "two.json"
+    ranks.spawn(ranks.cli, 2, f"file://{tmp_path}/store",
+                [*argv, "--devices", "2", "--distributed", "--log-json", str(two)])
+    got = json.loads(two.read_text())
+    assert sum(r.get("event") == "gmres" for r in got) >= 2
+    assert any(r.get("system") == "stokes" for r in got)
     _same_records(got, want)
 
 

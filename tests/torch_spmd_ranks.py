@@ -1,6 +1,7 @@
-"""What each rank of tests/test_torch_spmd.py, tests/test_torch_spmd_3d.py
-and tests/test_torch_capacity.py runs (a module of its own, so that the
-spawned ranks import torch and the port but not JAX).
+"""What each rank of tests/test_torch_spmd.py, tests/test_torch_spmd_3d.py,
+tests/test_torch_spmd_flat.py, tests/test_torch_spmd_p3.py and
+tests/test_torch_capacity.py runs (a module of its own, so that the spawned
+ranks import torch and the port but not JAX).
 
 Every entry point is ``fn(rank, n_ranks, init_method, out_dir)``: it joins a
 gloo process group through ``initialize_distributed`` as a torchrun rank
@@ -69,13 +70,26 @@ def join(rank, n, init):
                 coordinator=bootstrap.is_coordinator(), backend=dist.get_backend())
 
 
+# the P3/P2 kernel problems (tests/test_torch_spmd_p3.py): name: (mesh, cells
+# a block).  At 2 and 4 ranks unit_square(6) at 8 cells a block has 10 / 12
+# blocks and halos hv = hp = 2; box(6, 6, 6) at 28 cells a block 48 blocks
+# and hv = hp = 6, the widest halo a layout takes
+P3_MESHES = {"square-p3": (lambda: unit_square(6), 8), "box-p3": (lambda: box(6, 6, 6), 28)}
+
+
 def kernel_problem(n_dev, refine=6, mesh="square"):
     """tests/test_windowed_spmd.py's ``_problem`` with the port's layout
     and seeded inputs: (dofs, layout, A_t, x, R), numpy arrays.  The mesh
     is unit_square(refine), or for mesh "box" box(4, 4, 4), whose 384
-    tetrahedra at 16 cells a block give 24 blocks and halos hv = hp = 4."""
-    m = box(4, 4, 4) if mesh == "box" else unit_square(refine)
-    dofs, bi = renumber_blocked(make_dofs(m), cells_per_block=16, nb_multiple=n_dev)
+    tetrahedra at 16 cells a block give 24 blocks and halos hv = hp = 4, or
+    a P3/P2 problem of ``P3_MESHES``."""
+    if mesh in P3_MESHES:
+        make, cpb = P3_MESHES[mesh]
+        m = make()
+        dofs, bi = renumber_blocked(make_dofs(m, 3, 2), cells_per_block=cpb, nb_multiple=n_dev)
+    else:
+        m = box(4, 4, 4) if mesh == "box" else unit_square(refine)
+        dofs, bi = renumber_blocked(make_dofs(m), cells_per_block=16, nb_multiple=n_dev)
     lay = W.build_windowed_layout(dofs.cell_vdofs, dofs.cell_pdofs, dofs.n_vs, dofs.n_ps, m.dim,
                                   block_info=bi)
     rng = np.random.default_rng(3)
@@ -92,10 +106,19 @@ def segment(v, dl, spaces):
 
 
 def kernels(rank, n, init, out, mesh="square"):
+    """``kernel_results`` on this rank, saved, after joining the group (and
+    a record of the join)."""
+    joined = join(rank, n, init)
+    res = kernel_results(rank, n, mesh)
+    bootstrap.shutdown_distributed()
+    res["joined"] = dict(joined, left=not dist.is_initialized())
+    torch.save(res, Path(out) / f"kernels{n}_{rank}.pt")
+
+
+def kernel_results(rank, n, mesh="square"):
     """Every plain version at this rank's framed layout of the ``mesh``
     problem, on its shard of the global inputs; and the exchange one
     product makes."""
-    joined = join(rank, n, init)
     g = dist.group.WORLD
     dofs, lay, A, x, R = kernel_problem(n, mesh=mesh)
     dl = ws.make_dist_layout(lay, n)
@@ -129,21 +152,20 @@ def kernels(rank, n, init, out, mesh="square"):
         res[f"block {i}->{o}"] = W._block_reference(loc, framed_cols(sub), xi, i, o, g).numpy()
         res[f"block {i}->{o} wrapper"] = W.windowed_matvec_block(
             loc, framed_cols(sub), xi, in_spaces=i, out_spaces=o, group=g).numpy()
-    if mesh == "box":
-        res["volume"] = exchange_of_one_matvec(rank, n, mesh=mesh)
+    if mesh != "square":
+        res["volume"] = exchange_of_one_matvec(rank, n, problem=(dofs, lay, A, x, R))
     elif n == 2:
         res["volume"] = {refine: exchange_of_one_matvec(rank, n, refine)
                          for refine in (6, 12)}
-    bootstrap.shutdown_distributed()
-    res["joined"] = dict(joined, left=not dist.is_initialized())
-    torch.save(res, Path(out) / f"kernels{n}_{rank}.pt")
+    return res
 
 
-def exchange_of_one_matvec(rank, n, refine=6, mesh="square"):
+def exchange_of_one_matvec(rank, n, refine=6, problem=None):
     """Floats sent, each send's length and the all-reduces of one sharded
-    windowed_matvec on ``kernel_problem``'s mesh, against the rank's
-    vector length and the layout's halo constants."""
-    dofs, lay, A, x, _ = kernel_problem(n, refine, mesh)
+    windowed_matvec on ``kernel_problem``'s mesh (or on ``problem``, one
+    it made), against the rank's vector length and the layout's halo
+    constants."""
+    dofs, lay, A, x, _ = problem or kernel_problem(n, refine)
     dl = ws.make_dist_layout(lay, n)
     loc = ws.local_layout(lay, dl, rank)
     Bm, F = lay.Bmax, loc.frame * lay.Bmax
@@ -477,4 +499,216 @@ def capacity(rank, n, init, out):
         res[mesh] = dict(held_bytes(s), step=newton_step(s), nb=s._dist.nb,
                          nb_loc=s._dist.nb_loc, frame=s._win_layout.frame, n_state=s._n_state)
     torch.save(res, Path(out) / f"capacity_{rank}.pt")
+    bootstrap.shutdown_distributed()
+
+
+# ---- the flat operator's multi-device design (tests/test_torch_spmd_flat.py) ---
+
+
+def flat_forcing(pts):
+    """A static body force that varies from cell to cell (so each rank's
+    f_q differs)."""
+    out = np.zeros_like(pts)
+    out[:, 0] = np.sin(3.0 * pts[:, 1])
+    out[:, 1] = pts[:, 0] * pts[:, 1]
+    return out
+
+
+def flat_assembly_mesh():
+    """rectangle(5, 3): 30 cells (padded to 32 at 4 ranks) and 3 outlet
+    facets (padded to 4 at 2 and 4 ranks)."""
+    return rectangle(5, 3)
+
+
+def flat_assembly_inputs(n_total):
+    """Seeded u, u_old and a direction w, numpy arrays."""
+    rng = np.random.default_rng(11)
+    return rng.standard_normal(n_total), rng.standard_normal(n_total), rng.standard_normal(n_total)
+
+
+FLAT_FORM = dict(dt=0.05, nu=0.04, rho=1.0, p_out=10.0)
+
+
+def flat_assembly(rank, n, init, out):
+    """The flat assembly on this rank's shard of the context, summed over
+    the group: the residual, the tangent's action on w (the whole operator,
+    its velocity block, B and the pressure mass), its raw diagonal and the
+    Stokes rhs; and the rank's shard itself."""
+    from navier_stokes_tpu_torch.fem.assembly import (assemble_navier_stokes, assemble_stokes,
+                                                      build_context)
+    from navier_stokes_tpu_torch.la import operators as ops
+    from navier_stokes_tpu_torch.la.preconditioners import rect_matvec
+    from navier_stokes_tpu_torch.parallel import spmd
+
+    join(rank, n, init)
+    g = dist.group.WORLD
+    m = flat_assembly_mesh()
+    dofs = make_dofs(m)
+    ctx = build_context(dofs, neumann_tags=(1,), forcing=flat_forcing, dtype=torch.float64)
+    order = spmd.morton_order(m.coords[m.cells].mean(axis=1))
+    sc = spmd.shard_context(ctx, rank, n, order, "cpu", g)
+    u, uo, w = (torch.as_tensor(a) for a in flat_assembly_inputs(dofs.n_total))
+    cell_mat, cell_pmass, res = assemble_navier_stokes(sc, u, uo, **FLAT_FORM)
+    empty = torch.zeros(0, dtype=torch.int64)
+    op = ops.ElementOperator(cell_mat=cell_mat, cell_dofs=sc.cell_dofs, bc_rows=empty,
+                             bc_diag=res.new_zeros(0), scatter_idx=sc.scatter_full,
+                             n=dofs.n_total, group=g)
+    nvl, n_u = sc.dim * sc.nb_v, dofs.n_u
+    A00 = ops.velocity_block(op, sc.dim, sc.nb_v, n_u, scatter_idx=sc.scatter_vel)
+    cell_pdofs = torch.clamp(sc.cell_dofs[:, nvl:] - n_u, min=0)
+    Mp = ops.pressure_mass_block(cell_pmass, cell_pdofs, dofs.n_p, sc.scatter_p, g)
+    got = dict(
+        residual=res.numpy(),
+        jw=ops.matvec(op, w).numpy(),
+        a00w=ops.matvec(A00, w[:n_u]).numpy(),
+        bw=rect_matvec(cell_mat[:, nvl:, :nvl], sc.cell_dofs[:, :nvl], cell_pdofs, dofs.n_p,
+                       w[:n_u], sc.scatter_p, g).numpy(),
+        mpw=ops.matvec(Mp, w[n_u:]).numpy(),
+        diag=ops.raw_diagonal(cell_mat, sc.cell_dofs, dofs.n_total, sc.scatter_full, g).numpy(),
+        stokes_rhs=assemble_stokes(sc, nu=0.04, rho=1.0, p_out=10.0)[2].numpy(),
+    )
+    torch.save(got, Path(out) / f"flat_assembly{n}_{rank}.pt")
+    bootstrap.shutdown_distributed()
+
+
+def flat_config(precond="identity", T=0.1, cls=SolverConfig, matvec="flat", guess="zero"):
+    """tests/test_sharding.py's ``square_cfg``, float64, with the
+    preconditioner, operator and initial guess named."""
+    cfg = cls(inlet_tags=(0,), neumann_tags=(1,), wall_tags=(2, 3), nu=0.04, rho=1.0,
+              p_out=10.0, dt=0.05, T=T)
+    if cls is SolverConfig:
+        cfg.dtype = "float64"
+    cfg.krylov.max_iters = 400
+    cfg.krylov.restart = 40
+    cfg.krylov.inner_max_iters = 200
+    cfg.krylov.preconditioner = precond
+    cfg.krylov.matvec = matvec
+    cfg.krylov.cells_per_block = 16
+    cfg.initial_guess = guess
+    return cfg
+
+
+def flat_forcing_xt(pts, t):
+    """tests/test_sharding.py's time-dependent forcing."""
+    out = np.zeros_like(pts)
+    out[:, 0] = t * pts[:, 1]
+    return out
+
+
+FLAT_CASES = {  # name: (mesh, config options, solver options)
+    "identity": ((3,), {}, {}),
+    "block_triangular": ((3,), dict(precond="block_triangular"), {}),
+    "fallback": ((2,), dict(matvec="windowed"), {}),
+    "scanned": ((3,), dict(T=0.15), {}),
+    "forcing": ((4,), dict(precond="block_triangular", guess="stokes"),
+                dict(forcing=flat_forcing_xt)),
+    # the Stokes guess on the fallback, against the same run asked flat
+    "fallback_stokes": ((2,), dict(matvec="windowed", guess="stokes"), {}),
+    "flat_stokes": ((2,), dict(guess="stokes"), {}),
+}
+
+
+def run_flat_case(name, n_devices):
+    """One whole solve of the named flat case on the CPU; returns what the
+    test compares (this rank's own state, bit for bit)."""
+    (refine,), ckw, skw = FLAT_CASES[name]
+    cfg = flat_config(**ckw)
+    if name == "forcing":  # one forced Newton update a step: a tangent solve each
+        cfg.newton.min_iters = 1
+    log = RunLog(verbose=False)
+    s = NavierStokesSolver(unit_square(refine), cfg, log=log, n_devices=n_devices,
+                           device="cpu", **skw)
+    if name == "scanned":
+        got = s.solve_scanned(functional=scan_functional, newton_iters=3, chunk=2,
+                              reaction_tags=(2,))
+        res = dict(functional=got["functional"], reaction=got["reaction"],
+                   iters=got["gmres_iters"], residual=got["residual"])
+    else:
+        s.solve()
+        res = dict(log=trajectory(log))
+    res.update(solution=s.solution.numpy(), matvec=s._matvec, cell_owner=s.cell_owner,
+               n_cells=s.ctx.n_cells)
+    return res
+
+
+def flat_solves(rank, n, init, out, names):
+    """The named flat cases on n ranks; every rank saves its results."""
+    join(rank, n, init)
+    res = {name: run_flat_case(name, n) for name in names}
+    torch.save(res, Path(out) / f"flat_solves{n}_{rank}.pt")
+    bootstrap.shutdown_distributed()
+
+
+# ---- sharded P3/P2 (tests/test_torch_spmd_p3.py) --------------------------------
+
+
+def p3_config(cls=SolverConfig):
+    """tests/test_torch_solver.py's P3/P2 slice (the corrected formulation,
+    BDF1, 2 steps, no preconditioner, u_m 1, FGMRES(200) capped at 200) on
+    the windowed operator at 8 cells a block, float64."""
+    cfg = cls()
+    cfg.convection_form = "standard"
+    cfg.include_continuity_residual = True
+    cfg.jacobian_mass_rho = True
+    cfg.rho = 1.2
+    if cls is SolverConfig:
+        cfg.dtype = "float64"
+    cfg.T, cfg.dt = 0.1, 0.05
+    cfg.degree_velocity, cfg.degree_pressure = 3, 2
+    cfg.inlet_tags, cfg.neumann_tags, cfg.wall_tags = (0,), (1,), (2, 3)
+    cfg.inlet.freeze_time, cfg.inlet.H, cfg.inlet.u_m = False, 1.0, 1.0
+    cfg.krylov.matvec = "windowed"
+    cfg.krylov.preconditioner = "identity"
+    cfg.krylov.cells_per_block = 8
+    cfg.krylov.restart = cfg.krylov.max_iters = 200
+    return cfg
+
+
+def p3_box_config(cls=SolverConfig):
+    """``box_config``'s box at P3/P2 with no preconditioner, one BDF1 step,
+    the tangent solved to 1e-8 (at ``BOX_REL_TOL`` the unpreconditioned
+    restarted FGMRES lets the order of float64 sums move the update by
+    ~1e-7 of its max, one device against another)."""
+    cfg = box_config("identity", cls, rel_tol=1e-8)
+    cfg.degree_velocity, cfg.degree_pressure = 3, 2
+    cfg.T = cfg.dt
+    return cfg
+
+
+def p3_solve(n_devices):
+    """The P3/P2 slice of ``p3_config`` on unit_square(6): this rank's
+    results (velocity by node, the trajectory, the frame)."""
+    log = RunLog(verbose=False)
+    s = NavierStokesSolver(unit_square(6), p3_config(), log=log, n_devices=n_devices,
+                           device="cpu")
+    s.solve()
+    lay = s._win_layout
+    return dict(nodes=by_node(s), log=trajectory(log), frame=lay.frame, nb=s._lay_global.nb,
+                hv=lay.hv, k=(lay.k_v, lay.k_p))
+
+
+def p3_box_fallback(n_devices):
+    """``p3_box_config`` on box(3, 3, 3), where no windowed layout fits 4
+    ranks: the path taken and one BDF1 step (this rank's state whole); and
+    the path box(4, 4, 4) takes (set up only: its layout's block count and
+    halo, or None on the flat path)."""
+    log = RunLog(verbose=False)
+    s = NavierStokesSolver(box(3, 3, 3), p3_box_config(), log=log, inlet=box_inlet,
+                           n_devices=n_devices, device="cpu")
+    s.solve()
+    s4 = NavierStokesSolver(box(4, 4, 4), p3_box_config(), log=RunLog(verbose=False),
+                            inlet=box_inlet, n_devices=n_devices, device="cpu").setup()
+    lay4 = s4._lay_global
+    return dict(matvec=s._matvec, solution=s.solution.numpy(), log=trajectory(log),
+                cell_owner=s.cell_owner, box4=(s4._matvec, lay4 and (lay4.nb, lay4.hv)))
+
+
+def p3(rank, n, init, out):
+    """Sharded P3/P2 on n ranks: ``kernel_results`` on every problem of
+    P3_MESHES; at 2 ranks the P3/P2 slice, at 4 the box that falls through
+    to the flat design.  Every rank saves its results."""
+    join(rank, n, init)
+    res = {mesh: kernel_results(rank, n, mesh) for mesh in P3_MESHES}
+    res["solve"] = p3_solve(n) if n == 2 else p3_box_fallback(n)
+    torch.save(res, Path(out) / f"p3_{n}_{rank}.pt")
     bootstrap.shutdown_distributed()
