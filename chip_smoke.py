@@ -124,7 +124,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
  16. p3         Taylor-Hood P3/P2 (cubic velocity, quadratic pressure:
                 kernel_bench.channel_config / box_config with degree=3, no
                 preconditioner), float32: (a) phase 3's checks of every
-                kernel at the 102,400-cell channel's P3/P2 layout; (b) there,
+                kernel at the 102,400-cell channel's P3/P2 layout, with the
+                streaming K1's launch (ring, shared memory, resident
+                blocks, grid) and the bytes it really moves; (b) there,
                 three forced Newton steps at a seeded state (bit-equal, equal
                 FGMRES counts) and 2 BDF1 steps from rest (K1, K3 and K4
                 launched; a tangent solve may stop at its cap, printed with
@@ -605,7 +607,7 @@ def kernels_vs_plain(lay, operands):
     calls, ops_ = operands
     check_packed_tables(lay)
     bounds = kb.bound_bytes_of(lay, ops_)
-    moved = kb.moved_bytes_3d(lay, ops_) if lay.dim == 3 else {}
+    moved = kb.moved_bytes_compact(lay, ops_)
     recs = {}
     for key, (kernel, plain) in calls.items():
         lib_call, lib_what = kb.library_call(lay, ops_, key)
@@ -615,8 +617,15 @@ def kernels_vs_plain(lay, operands):
         recs[key]["library"] = lib_what
         if key in moved:  # a host count from the tables, printed and not in the kernels line
             print(f"  {key} really moves {moved[key] / 1e6:.1f} MB "
-                  "(kernel_bench.moved_bytes_3d)", flush=True)
+                  "(kernel_bench.moved_bytes_compact)", flush=True)
         del lib_call  # a CSR matrix holds gigabytes at the box's size
+    if W.streams_k1(lay):  # P3/P2: K1 is the streaming kernel; how it launched
+        for key, dtype in (("K1", torch.bfloat16), ("K1 f32", torch.float32)):
+            cfg = W.stream_config(lay, dtype)
+            print(f"  {key}: streaming K1, a ring of {cfg['stages']} stages of "
+                  f"{cfg['stage_bytes']} bytes, {cfg['smem_bytes']} bytes of shared memory a "
+                  f"block, {cfg['blocks_per_sm']} resident block(s) an SM, a persistent grid of "
+                  f"{cfg['grid']} blocks over {cfg['chunks']} occupied chunks", flush=True)
     for key, (kernel, _) in calls.items():
         check_repeat(key, kernel)
     blocks, x = ops_["blocks"], ops_["x"]
@@ -1222,7 +1231,7 @@ def box_rank(rank, n, ref):
                                   inlet=kb.box_inlet, n_devices=n, device=DEV)
         s.setup()
     else:
-        lay_g, _ = bare_layout(kb.box_mesh(), kb.box_config(), nb_multiple=n, device="cpu")
+        lay_g, _ = kb.bare_layout(kb.box_mesh(), kb.box_config(), nb_multiple=n, device="cpu")
         s = _Sharded(lay_g, wspmd.make_dist_layout(lay_g, n), rank)
     torch.cuda.synchronize()
     lay = s._win_layout
@@ -1752,7 +1761,7 @@ def p3_rank_kernels(rank, n):
     for name, mesh, cfg in (("channel", channel_mesh(), config(degree=3)),
                             ("box", kb.box_mesh(), kb.box_config(degree=3))):
         t0 = time.perf_counter()
-        lay_g, _ = bare_layout(mesh, cfg, nb_multiple=n, device="cpu")
+        lay_g, _ = kb.bare_layout(mesh, cfg, nb_multiple=n, device="cpu")
         sh = _Sharded(lay_g, wspmd.make_dist_layout(lay_g, n), rank)
         lay = sh._win_layout
         t_layout = time.perf_counter() - t0
@@ -2191,25 +2200,6 @@ def p3_parity():
         raise RuntimeError("P3/P2 parity runs did not take 3 steps")
 
 
-def bare_layout(mesh, cfg, nb_multiple=1, device=DEV):
-    """The windowed layout that NavierStokesSolver.setup builds for mesh at
-    cfg's degrees (the blocked renumbering, cells_per_block doubled while
-    the halo is too wide; the block count a multiple of nb_multiple),
-    without the assembly's host precompute."""
-    from navier_stokes_tpu_torch.fem.dofs import make_dofs, renumber_blocked
-
-    dofs, cpb = make_dofs(mesh, cfg.degree_velocity, cfg.degree_pressure), cfg.krylov.cells_per_block
-    for _ in range(4):
-        try:
-            d, bi = renumber_blocked(dofs, cells_per_block=cpb, nb_multiple=nb_multiple)
-            return W.build_windowed_layout(d.cell_vdofs, d.cell_pdofs, d.n_vs, d.n_ps, mesh.dim,
-                                           block_info=bi, Bc=cfg.krylov.chunk_cells,
-                                           device=device), d
-        except ValueError:
-            cpb *= 2
-    raise RuntimeError("no windowed layout fits the box at P3/P2")
-
-
 def p3_run(solver, log, name):
     """Phase 16 (b)-(c) on a set-up P3/P2 solver: three forced Newton steps
     without a preconditioner, its cfg.T of BDF1 steps from rest, three
@@ -2263,7 +2253,7 @@ def p3_phase():
     cfg = kb.box_config(degree=3)
     cfg.T = 2 * cfg.dt
     t0 = time.perf_counter()
-    lay, dofs = bare_layout(mesh, cfg)
+    lay, dofs = kb.bare_layout(mesh, cfg, device=DEV)
     print(f"  cells {mesh.n_cells}  n_total {dofs.n_total}  nb {lay.nb}  Bmax {lay.Bmax}  Bc "
           f"{lay.Bc}  nchunks {lay.nchunks}  ncd {lay.ncd}  OWv/OWp {lay.OWv}/{lay.OWp}  hv/hp "
           f"{lay.hv}/{lay.hp}  RVv/RVp {lay.RVv}/{lay.RVp}  nl/nli {lay.nl}/{lay.nli}  tables "

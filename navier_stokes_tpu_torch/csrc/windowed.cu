@@ -150,24 +150,65 @@
 // vector is 5.1 MB) and their tables (the entry indices and lists and the
 // row offsets, ~22 MB), and write and read the compact scratch (8.1 MB each
 // way): 506 MB in all for K1 with bf16 A; K4 reads no entry index and no x
-// (scripts/kernel_bench.py moved_bytes_3d).
+// (scripts/kernel_bench.py moved_bytes_compact).
 //
-// P3/P2 (cubic velocity, quadratic pressure): the same kernels, instantiated
-// for 10 velocity and 6 pressure dofs a triangle (nl 26, nli 32) and 20 and
-// 10 a tetrahedron (nl 70, nli 72); each launcher picks the element's
-// template from the layout (with_element).  What changes is the room a
-// thread and a block need, so the element sets the most threads a block has
-// (chunk_threads: 512 on P3/P2 triangles, 256 on P3/P2 tetrahedra, so that a
-// thread's 26 or 70 sums stay in registers) and the launchers size shared
-// memory from its widths.  At the 102,400-cell channel at P3/P2 (RVv/RVp
-// 48/24) 2D K1 takes 114,688 bytes with float32 A; at the 196,608-tet box
-// (nb 220, Bmax 1280, hv = hp = 6, at most 3,279 velocity and 1,443
-// pressure entries a chunk) a column of A is 70 rows, and with float32 A
-// only the 2-stage whole-column ring and the split rings fit a block.  The
-// box's windows are wider than 16 bits can index (13 x 5,248 positions), so
-// its packed position tables are int32 (Geo.idx32), which K3 reads.
+// P3/P2 (cubic velocity, quadratic pressure): K2, K3 and K4 are the same
+// kernels, instantiated for 10 velocity and 6 pressure dofs a triangle (nl
+// 26, nli 32) and 20 and 10 a tetrahedron (nl 70, nli 72); each launcher
+// picks the element's template from the layout (with_element).  What
+// changes is the room a thread and a block need, so the element sets the
+// most threads a block has (chunk_threads: 512 on P3/P2 triangles, 256 on
+// P3/P2 tetrahedra, so that a thread's 26 or 70 sums stay in registers) and
+// the launchers size shared memory from its widths.  The box's windows are
+// wider than 16 bits can index (13 x 5,248 positions), so its packed
+// position tables are int32 (Geo.idx32).
+//
+// K1 at P3/P2, on both elements, is a kernel of its own
+// (stream_matvec_kernel, then merge3_kernel<true>), because the
+// block-per-chunk kernels left half the card's memory rate unused there: a
+// chunk's A is 26 x 26 or 70 x 70 values a slot (0.35 and 2.5 MB with bf16
+// A), a column of A is 13-70 KB of shared memory, so one or two blocks fit
+// an SM, each with one column in flight while it consumes another, and
+// nothing in flight while it gathers x or sums; at 459 and 892 occupied
+// chunks the grid ran in 1.74 and 6.8 waves.  So:
+//   * compact tables on both elements (triangles too): a chunk sums its
+//     slots at its entries, as in 3D.
+//   * a persistent grid: the blocks that reside on the SMs at once walk the
+//     host's list of occupied chunks (most occupied first), block k the
+//     chunks k, k + grid, ...  A chunk's sums go to its own places in the
+//     scratch, so the walk changes no bit.
+//   * one producer thread streams every chunk's columns of A through a ring
+//     of stages (a column, or half of one with float32 A on tetrahedra:
+//     ~35 KB) with 2-D tensor copies (TMA) of tiles of NR rows by 32 slots
+//     that complete on the stage's mbarrier (tiles of 64 slots, 128-byte
+//     rows, gained 0.3 % and were not kept: PERF.md); the
+//     consumers (a thread a slot) wait on that mbarrier and give the stage
+//     back on another.  The ring runs on across chunks: the next chunk's
+//     first columns fly while the consumers sum.  (1-D cp.async.bulk copies
+//     of a row, 512 bytes, ran at ~14 GB/s an SM, the copy engine's cost a
+//     request; 16-byte cp.asyncs from one producer warp at half that:
+//     PERF.md.)
+//   * the ring is as deep as shared memory allows; on triangles two blocks
+//     share an SM (4 stages each with bf16 A), so that one streams while
+//     the other sums a chunk; on tetrahedra one block (3 stages).
+//   * a slot's x values (its nl dofs) are copied to its own column of
+//     shared memory with 4-byte cp.asyncs while the previous chunk is
+//     summed, so no barrier and no wait sits between chunks for them; the
+//     chunk's pairs and entry offsets (uint16, tr_rel) are copied while its
+//     columns stream.
+//   * the slots' outputs go to shared memory a component at a time (20
+//     rows on tetrahedra instead of 70), which leaves the ring its depth;
+//     each entry's sum is written in entry order (coalesced, no place
+//     looked up), and the merge reads a row's places through `at`.
+//   * the order of every sum is matvec3_kernel's: columns q ascending
+//     through fmaf, an entry's pairs with slots ascending, a row's places
+//     in order.  On tetrahedra K1 gives the block kernel's bits; on
+//     triangles the bits of _compact_matvec_reference's order.
+// Bound at P3/P2 with bf16 A (scripts/kernel_bench.py bound_bytes_of): the
+// channel 152.9 MB, 45.6 us; the box 1,981.2 MB, 591.4 us.
 // Everything computes in float32.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -660,6 +701,8 @@ struct Compact {
   const int* __restrict__ tr_off;    // [E + 1] an entry's first (slot, dof) pair
   const uint16_t* __restrict__ tr;   // the pairs l * Bc + j, slots j ascending
   const int* __restrict__ row_ptr;   // [n + 1] a row's first place in the scratch
+  const uint16_t* __restrict__ tr_rel;  // [E] an entry's first pair counted from its chunk's
+  const int* __restrict__ at;        // [E] the entry at each place of the scratch (dst's inverse)
   int E, max_e, max_pairs;           // entries in all; the most entries, pairs of a chunk
 };
 
@@ -860,18 +903,22 @@ matvec3_kernel(Geo g, const int* __restrict__ cnt, Compact cv, Compact cp,
 // One space: sub [ncomp][E] in row order; row r of component cc is the sum
 // of sub[cc][row_ptr[r] .. row_ptr[r + 1]) in order (0 for a row no cell
 // touches).
+// AT: the scratch is in entry order (the streaming K1's), and place k of a
+// row holds the entry at[k]
 struct RowMerge {
   const float* __restrict__ sub;
   const int* __restrict__ row_ptr;
+  const int* __restrict__ at;
   int ncomp, n, E;
 };
 
+template <bool AT>
 __device__ __forceinline__ void merge_row3(const RowMerge& m, int r, float* __restrict__ y) {
   const int k0 = m.row_ptr[r], k1 = m.row_ptr[r + 1];
   for (int cc = 0; cc < m.ncomp; ++cc) {
     const float* s = m.sub + cc * (long)m.E;
     float acc = 0.f;
-    for (int k = k0; k < k1; ++k) acc += s[k];
+    for (int k = k0; k < k1; ++k) acc += s[AT ? m.at[k] : k];
     y[cc * (long)m.n + r] = acc;
   }
 }
@@ -880,14 +927,15 @@ __device__ __forceinline__ void merge_row3(const RowMerge& m, int r, float* __re
 // (ncomp 0).  A thread a row of a space, all its components.  Each space
 // has its own call, so that it reads its record from the kernel's
 // parameters (a record picked at run time would be copied to local memory).
+template <bool AT>
 __global__ void __launch_bounds__(kThreads)
 merge3_kernel(RowMerge v, RowMerge p, float* __restrict__ y) {
   const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
   const long rows_v = v.ncomp ? v.n : 0;
   if (t < rows_v)
-    merge_row3(v, (int)t, y);
+    merge_row3<AT>(v, (int)t, y);
   else if (t - rows_v < (p.ncomp ? p.n : 0))
-    merge_row3(p, (int)(t - rows_v), y + (long)v.ncomp * v.n);
+    merge_row3<AT>(p, (int)(t - rows_v), y + (long)v.ncomp * v.n);
 }
 
 // ---- 3D K4: y = sum_cells P_c^T R_c for per-slot rows R [>= nl, ncd] -------
@@ -935,6 +983,296 @@ scatter3_kernel(Geo g, const int* __restrict__ cnt, Compact cv, Compact cp,
   chunk_sums<DIM, KV>(cv.dst + ev0, nev, pairs_v, first_v, ys, g.Bc, sub, cv.E);
   chunk_sums<1, KP>(cp.dst + ep0, nep, pairs_p, first_p, ys + NV * g.Bc, g.Bc,
                     sub + DIM * (long)cv.E, cp.E);
+}
+
+// ---- P3/P2 K1: the streaming compact matvec ---------------------------------
+// mbarriers (shared::cta) and the tensor copies (TMA) that complete on them
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// wait until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// arrive and add `bytes` to the transactions the current phase waits for
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// the box of a 2-D tensor map at (x0, y0) -> shared memory, completing on
+// bar; read once, so evicted first from L2
+__device__ __forceinline__ void tma_load_2d_once(uint32_t dst, const CUtensorMap* map,
+                                                 uint32_t bar, int x0, int y0, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x0), "r"(y0), "l"(policy)
+      : "memory");
+}
+
+// a barrier of the consumer threads alone (the producer warp never joins)
+__device__ __forceinline__ void consumers_sync(int threads) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
+}
+
+// a 4-byte cp.async that reads src_bytes (2 or 4) and zero-fills the rest
+__device__ __forceinline__ void cp_async4_part(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// src[start, start + count) of a uint16 table of `total` values -> shared
+// memory at dst + (start & 1), in 4-byte cp.asyncs of the calling consumer
+// thread's share (the table's last word, if it runs past the end, reads 2
+// bytes).  Returns where the copy begins.
+__device__ __forceinline__ const uint16_t* stage_u16_async(uint16_t* dst,
+                                                           const uint16_t* __restrict__ src,
+                                                           long start, int count, long total,
+                                                           int threads) {
+  const long w0 = start >> 1, w1 = (start + count + 1) >> 1;  // words [w0, w1)
+  const uint32_t d = smem_addr(dst);
+  for (long w = w0 + threadIdx.x; w < w1; w += threads)
+    cp_async4_part(d + 4 * (uint32_t)(w - w0), src + 2 * w, 2 * w + 1 < total ? 4 : 2);
+  return dst + (start & 1);
+}
+
+// How a block of the streaming K1 lays out its shared memory: the ring's
+// mbarriers (full, then empty, kMaxStreamStages each), the slots' x values
+// xsl [NL][Bc], one component's outputs ys [KV][Bc], the chunk's (slot, dof)
+// pairs and entry offsets of the velocity and of the pressure (uint16, one
+// spare each for the staging's alignment), then the ring of `stages` stages
+// of NR rows of Bc values of A.  Every offset is a multiple of 128 bytes.
+constexpr int kMaxStreamStages = 16;
+struct StreamSmem {
+  int xsl, ys, pairs_v, first_v, pairs_p, first_p, ring;
+};
+__host__ __device__ constexpr int round128(long v) { return (int)((v + 127) / 128 * 128); }
+__host__ __device__ inline StreamSmem stream_smem(int Bc, int nl, int kv, int max_pairs_v,
+                                                  int max_e_v, int max_pairs_p, int max_e_p) {
+  StreamSmem s{};
+  s.xsl = round128(2 * 8 * kMaxStreamStages);
+  s.ys = s.xsl + round128(4L * nl * Bc);
+  s.pairs_v = s.ys + round128(4L * kv * Bc);
+  s.first_v = s.pairs_v + round128(2L * (max_pairs_v + 2));
+  s.pairs_p = s.first_v + round128(2L * (max_e_v + 2));
+  s.first_p = s.pairs_p + round128(2L * (max_pairs_p + 2));
+  s.ring = s.first_p + round128(2L * (max_e_p + 2));
+  return s;
+}
+
+// A stage holds NR = NL / SPLIT rows of one column of A: a whole column,
+// or (float32 A on tetrahedra, 70 rows of 1 KB) half of one, so that a stage
+// is ~35 KB on tetrahedra and 13-26 KB on triangles.
+template <int DIM, typename TA>
+__host__ __device__ constexpr int stream_split() {
+  return DIM == 3 && sizeof(TA) == 4 ? 2 : 1;
+}
+
+// This slot's x values -> its column of xsl (row q: local dof q of the
+// element, velocity components then pressure), as 4-byte cp.asyncs in one
+// commit group; 0 for a position off the vector.  K3's reads: the slot's
+// packed positions, then every value, no register waiting on one.
+template <int DIM, int KV, int KP>
+__device__ __forceinline__ void gather_slot(const Geo& g, const Tables& t,
+                                            const float* __restrict__ x, int piece, float* xsl) {
+  const int tid = threadIdx.x;
+  const int b = piece / g.nchunks, c = piece - b * g.nchunks;
+  if (tid < min(t.cnt[b] - c * g.Bc, g.Bc)) {
+    const int j = c * g.Bc + tid;
+    int iv[KV], ip[KP];
+#pragma unroll
+    for (int l = 0; l < KV; ++l)
+      iv[l] = vec_index(win_pos(t.pos_v, KV, g, b, j, l), b, g.hv, g.OWv, g.n_vs);
+#pragma unroll
+    for (int l = 0; l < KP; ++l)
+      ip[l] = vec_index(win_pos(t.pos_p, KP, g, b, j, l), b, g.hp, g.OWp, g.n_ps);
+    const uint32_t col = smem_addr(xsl + tid), row = 4 * g.Bc;
+#pragma unroll
+    for (int cc = 0; cc < DIM; ++cc)
+#pragma unroll
+      for (int l = 0; l < KV; ++l) {
+        const int q = cc * KV + l;
+        if (iv[l] >= 0) cp_async4(col + q * row, x + (long)cc * g.n_vs + iv[l]);
+        else xsl[q * g.Bc + tid] = 0.f;
+      }
+#pragma unroll
+    for (int l = 0; l < KP; ++l) {
+      const int q = DIM * KV + l;
+      if (ip[l] >= 0) cp_async4(col + q * row, x + (long)DIM * g.n_vs + ip[l]);
+      else xsl[q * g.Bc + tid] = 0.f;
+    }
+  }
+  cp_commit();
+}
+
+// One component's sums at a chunk's ne entries: ys [K][Bc] holds every
+// slot's values of the component; entry e adds the values of its pairs
+// [first[e], first[e + 1]) (the last entry's end: np) in order, from 0, and
+// writes the sum to out[e] (the chunk's entries, in order).
+__device__ __forceinline__ void entry_sums(int ne, const uint16_t* pairs, const uint16_t* first,
+                                           int np, const float* ys, float* __restrict__ out,
+                                           int threads) {
+  for (int e = threadIdx.x; e < ne; e += threads) {
+    const int k1 = e + 1 < ne ? first[e + 1] : np;
+    float s = 0.f;
+    for (int k = first[e]; k < k1; ++k) s += ys[pairs[k]];
+    out[e] = s;
+  }
+}
+
+// K1 (spaces vp->vp) on the P3/P2 elements: y = sum_cells P_c^T A_c P_c x
+// on the compact tables, with the sums of matvec3_kernel (and, on
+// tetrahedra, its bits).  A persistent grid: block k takes the chunks
+// work[k], work[k + gridDim.x], ... of the host's list of occupied chunks
+// (ops/windowed.py stream_work).  A block is Bc consumer threads, one a
+// slot, and a producer warp of which one thread works.  The producer
+// streams every chunk's columns of A, NR rows a stage, through a ring of
+// `stages` stages in tensor copies of tiles (NR rows by 32 slots, [NR][32]
+// in shared memory, one after another) that complete on the stage's
+// `full` mbarrier; the consumers give a stage back on its `empty`
+// mbarrier (one arrival a warp).  The ring does not stop at a chunk's end:
+// while the consumers sum one chunk, the next chunk's first columns fly.
+// A consumer, per chunk: its slot's x values are in xsl (gathered during
+// the previous chunk's sums); it starts the copies of the chunk's pairs
+// and entry offsets; it takes the stages in turn, y_i = fmaf(A[q, i], x_q,
+// y_i), q ascending; it starts the next chunk's x gather into its own
+// column of xsl; then, a component at a time, the slots' outputs go to ys
+// and each consumer sums the entries it owns (entry_sums) into the scratch
+// sub [DIM][cv.E], then [cp.E], in entry order (coalesced, no place to
+// look up), which merge3_kernel<true> reads a row's places at a time
+// through the tables' `at`.
+template <int DIM, int KV, int KP, typename TA>
+__global__ void __launch_bounds__(chunk_threads(DIM, KV) + 32, 1)
+stream_matvec_kernel(Geo g, Tables t, Compact cv, Compact cp, const int* __restrict__ work,
+                     int n_work, int stages, const __grid_constant__ CUtensorMap a_map,
+                     int n_out_pad, const float* __restrict__ x, float* __restrict__ sub) {
+  constexpr int NV = DIM * KV, NL = NV + KP;
+  constexpr int SPLIT = stream_split<DIM, TA>();
+  constexpr int NR = NL / SPLIT;  // rows of a column a stage
+  static_assert(NL % SPLIT == 0, "a stage holds whole columns or half of one");
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, nct = g.Bc;  // nct consumer threads, then the producer warp
+  const StreamSmem L = stream_smem(g.Bc, NL, KV, cv.max_pairs, cv.max_e, cp.max_pairs, cp.max_e);
+  const uint32_t bars = smem_addr(smem);
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kMaxStreamStages + s); };
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(full(s), 1), mbar_init(empty(s), nct / 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const uint32_t tile_bytes = 32 * NR * sizeof(TA), stage_bytes = (g.Bc / 32) * tile_bytes;
+  const uint32_t ring = smem_addr(smem + L.ring);
+
+  if (tid >= nct) {  // the producer: one thread streams A, chunk after chunk
+    if (tid > nct) return;
+    const uint64_t once = evict_first_policy();
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
+      const int piece = work[w], b = piece / g.nchunks, c = piece - b * g.nchunks;
+      const int tiles = (min(t.cnt[b] - c * g.Bc, g.Bc) + 31) / 32;  // of the occupied slots
+      const int x0 = b * g.Bmax + c * g.Bc;
+      for (int p = 0; p < NL * SPLIT; ++p) {
+        mbar_wait(empty(stage), phase ^ 1);  // the consumers gave the stage back
+        mbar_expect_tx(full(stage), tiles * tile_bytes);
+        const int y0 = (p / SPLIT) * n_out_pad + (p % SPLIT) * NR;
+        const uint32_t dst = ring + stage * stage_bytes;
+        for (int k = 0; k < tiles; ++k)
+          tma_load_2d_once(dst + k * tile_bytes, &a_map, full(stage), x0 + 32 * k, y0, once);
+        if (++stage == stages) stage = 0, phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  float* xsl = (float*)(smem + L.xsl);
+  float* ys = (float*)(smem + L.ys);
+  const int lane = tid % 32;
+  const long Tv = cv.E ? cv.tr_off[cv.E] : 0, Tp = cp.E ? cp.tr_off[cp.E] : 0;  // pairs in all
+  int stage = 0;
+  uint32_t phase = 0;
+  if (blockIdx.x < n_work) gather_slot<DIM, KV, KP>(g, t, x, work[blockIdx.x], xsl);
+  for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
+    const int piece = work[w], b = piece / g.nchunks, c = piece - b * g.nchunks;
+    const bool active = tid < min(t.cnt[b] - c * g.Bc, g.Bc);
+    // the chunk's pairs and entry offsets -> shared memory, in the background
+    // (the previous chunk's sums are over: the last barrier below)
+    const int ev0 = cv.off[piece], nev = cv.off[piece + 1] - ev0;
+    const int ep0 = cp.off[piece], nep = cp.off[piece + 1] - ep0;
+    const int tv0 = cv.tr_off[ev0], npv = cv.tr_off[ev0 + nev] - tv0;
+    const int tp0 = cp.tr_off[ep0], npp = cp.tr_off[ep0 + nep] - tp0;
+    const uint16_t* pairs_v =
+        stage_u16_async((uint16_t*)(smem + L.pairs_v), cv.tr, tv0, npv, Tv, nct);
+    const uint16_t* first_v =
+        stage_u16_async((uint16_t*)(smem + L.first_v), cv.tr_rel, ev0, nev, cv.E, nct);
+    const uint16_t* pairs_p =
+        stage_u16_async((uint16_t*)(smem + L.pairs_p), cp.tr, tp0, npp, Tp, nct);
+    const uint16_t* first_p =
+        stage_u16_async((uint16_t*)(smem + L.first_p), cp.tr_rel, ep0, nep, cp.E, nct);
+    cp_commit();
+    cp_wait<1>();  // this slot's x values have landed (the group before the pairs')
+
+    // y_i = sum_q A[q, i, s] x_q, in f32, a stage at a time
+    float y[NL];
+#pragma unroll
+    for (int i = 0; i < NL; ++i) y[i] = 0.f;
+    // this slot's value in row 0 of stage 0: its warp's tile, its lane
+    const TA* mine = (const TA*)(smem + L.ring) + (tid / 32) * (32 * NR) + lane;
+    for (int p = 0; p < NL * SPLIT; ++p) {
+      mbar_wait(full(stage), phase);
+      if (active) {
+        const float xq = xsl[(p / SPLIT) * g.Bc + tid];
+        const TA* col = mine + stage * (NR * g.Bc);
+        if (p % SPLIT == 0) {
+#pragma unroll
+          for (int i = 0; i < NR; ++i, col += 32) y[i] = fmaf(widen(*col), xq, y[i]);
+        } else {
+#pragma unroll
+          for (int i = NR; i < NL; ++i, col += 32) y[i] = fmaf(widen(*col), xq, y[i]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(stage));
+      if (++stage == stages) stage = 0, phase ^= 1;
+    }
+    // the next chunk's x values -> this slot's column of xsl, in the background
+    if (w + (int)gridDim.x < n_work) gather_slot<DIM, KV, KP>(g, t, x, work[w + gridDim.x], xsl);
+    else cp_commit();  // an empty group: the wait counts stay as they are
+    cp_wait<1>();      // this thread's copies of the pairs have landed
+    consumers_sync(nct);
+    // the sums, a component at a time: velocity components, then pressure
+#pragma unroll
+    for (int cc = 0; cc <= DIM; ++cc) {
+      if (active) {
+#pragma unroll
+        for (int l = 0; l < (cc < DIM ? KV : KP); ++l) ys[l * g.Bc + tid] = y[cc * KV + l];
+      }
+      consumers_sync(nct);
+      if (cc < DIM)
+        entry_sums(nev, pairs_v, first_v, npv, ys, sub + cc * (long)cv.E + ev0, nct);
+      else
+        entry_sums(nep, pairs_p, first_p, npp, ys, sub + DIM * (long)cv.E + ep0, nct);
+      consumers_sync(nct);
+    }
+  }
 }
 
 // ---- the merge: chunk subwindows -> the planar vector -----------------------
@@ -1169,13 +1507,16 @@ int launch_matvec(const Geo& g, const Tables& t, const void* A, int n_out_pad,
 
 // the 3D merge of the out-spaces' row-ordered scratch (sub [dim][cv.E], then
 // [cp.E]) into y, launched after a 3D chunk kernel on its stream
+// (entry_order: the streaming K1's scratch, read through the tables' `at`)
 int launch_merge3(const Geo& g, const Compact& cv, const Compact& cp, bool out_v, bool out_p,
-                  const float* scratch, float* y, cudaStream_t stream) {
-  const RowMerge mv{scratch, cv.row_ptr, out_v ? g.dim : 0, g.n_vs, cv.E};
-  const RowMerge mp{scratch + (out_v ? (long)g.dim * cv.E : 0), cp.row_ptr, out_p ? 1 : 0,
-                    g.n_ps, cp.E};
+                  const float* scratch, float* y, cudaStream_t stream, bool entry_order = false) {
+  const RowMerge mv{scratch, cv.row_ptr, cv.at, out_v ? g.dim : 0, g.n_vs, cv.E};
+  const RowMerge mp{scratch + (out_v ? (long)g.dim * cv.E : 0), cp.row_ptr, cp.at,
+                    out_p ? 1 : 0, g.n_ps, cp.E};
   const long rows = (out_v ? g.n_vs : 0) + (out_p ? g.n_ps : 0);
-  merge3_kernel<<<(int)((rows + kThreads - 1) / kThreads), kThreads, 0, stream>>>(mv, mp, y);
+  const int grid = (int)((rows + kThreads - 1) / kThreads);
+  if (entry_order) merge3_kernel<true><<<grid, kThreads, 0, stream>>>(mv, mp, y);
+  else merge3_kernel<false><<<grid, kThreads, 0, stream>>>(mv, mp, y);
   return (int)cudaGetLastError();
 }
 
@@ -1279,19 +1620,157 @@ int launch_matvec_3d(const Geo& g, const int* cnt, const Compact& cv, const Comp
 }
 
 // one space's Compact record from the host's pack of kCompactLen values a
-// space (ns_matvec's `compact`): 7 table addresses, E, the most entries and
-// the most pairs of a chunk
-constexpr int kCompactLen = 10;
+// space (ns_matvec's `compact`): 9 table addresses, E, the most entries and
+// the most pairs of a chunk.  After both spaces' records the pack holds the
+// streaming K1's work list: its address and length.
+constexpr int kCompactLen = 12;
 Compact unpack_compact(const int64_t* c) {
   return Compact{(const int*)c[0], (const int*)c[1], (const int*)c[2], (const uint16_t*)c[3],
-                 (const int*)c[4], (const uint16_t*)c[5], (const int*)c[6], (int)c[7], (int)c[8],
-                 (int)c[9]};
+                 (const int*)c[4], (const uint16_t*)c[5], (const int*)c[6],
+                 (const uint16_t*)c[7], (const int*)c[8], (int)c[9], (int)c[10], (int)c[11]};
+}
+
+// The streaming K1's launch at a layout: its ring and grid.  Two blocks an
+// SM where each keeps a ring of at least kTwoBlockStages stages beside its
+// fixed part (triangles), so that one streams while the other sums a
+// chunk; else one block with as many stages as fit (tetrahedra).  At most
+// kMaxStreamStages.  The grid: the blocks that the occupancy calculator
+// lets reside on every SM at once, at most one a chunk.
+struct StreamLaunch {
+  int stages, stage_bytes, smem_bytes, blocks_per_sm, grid;
+};
+constexpr int kSmemPerSm = 233472;           // an SM's shared memory on Hopper
+constexpr int kSmemReservedPerBlock = 1024;  // what the runtime keeps of it a block
+constexpr int kTwoBlockStages = 4;
+
+template <int DIM, int KV, int KP, typename TA>
+int stream_launch(const Geo& g, const Compact& cv, const Compact& cp, int n_work,
+                  StreamLaunch* out) {
+  constexpr int NL = DIM * KV + KP;
+  constexpr int NR = NL / stream_split<DIM, TA>();
+  if (g.Bc > chunk_threads(DIM, KV) || g.Bc % 32 != 0) return kErrLayout;
+  const StreamSmem L = stream_smem(g.Bc, NL, KV, cv.max_pairs, cv.max_e, cp.max_pairs, cp.max_e);
+  const long stage_bytes = (long)NR * g.Bc * sizeof(TA);
+  auto ring_of = [&](long room) {
+    return std::min<long>(kMaxStreamStages, (room - L.ring) / stage_bytes);
+  };
+  auto kernel = stream_matvec_kernel<DIM, KV, KP, TA>;
+  static int allowed[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t ce = cudaGetDevice(&dev);
+  if (ce != cudaSuccess) return (int)ce;
+  // the last choice a device, for its (fixed shared memory, stage, Bc)
+  static long chosen_for[kMaxDevices] = {};
+  static int chosen_stages[kMaxDevices] = {}, chosen_blocks[kMaxDevices] = {},
+             sms[kMaxDevices] = {};
+  const long key = ((long)L.ring * 4096 + stage_bytes) * 1024 + g.Bc + 1;
+  const bool cached = dev < kMaxDevices && chosen_for[dev] == key;
+  long stages = cached ? chosen_stages[dev] : 0;
+  int blocks = cached ? chosen_blocks[dev] : 0, n_sm = cached ? sms[dev] : 0;
+  if (!cached) {
+    ce = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (ce != cudaSuccess) return (int)ce;
+    const long two = ring_of(kSmemPerSm / 2 - kSmemReservedPerBlock);
+    for (long s : {two >= kTwoBlockStages ? two : 0L, ring_of(kMaxSmemBytes)}) {
+      if (s < 2) continue;
+      const int bytes = (int)(L.ring + s * stage_bytes);
+      int e = set_smem(kernel, bytes, allowed);
+      if (e != 0) return e;
+      ce = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, g.Bc + 32, bytes);
+      if (ce != cudaSuccess) return (int)ce;
+      stages = s;
+      if (blocks >= 2 || s != two) break;  // two blocks fit, or the one-block ring
+    }
+    if (stages < 2 || blocks == 0) return kErrSmem;
+    if (dev < kMaxDevices)
+      chosen_for[dev] = key, chosen_stages[dev] = (int)stages, chosen_blocks[dev] = blocks,
+      sms[dev] = n_sm;
+  }
+  const int bytes = (int)(L.ring + stages * stage_bytes);
+  int e = set_smem(kernel, bytes, allowed);
+  if (e != 0) return e;
+  *out = StreamLaunch{(int)stages, (int)stage_bytes, bytes, blocks,
+                      std::min(n_work, blocks * n_sm)};
+  return 0;
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime, so that the
+// library needs no link against libcuda (as in mxu_probe.cu)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// P3/P2 K1: stream_matvec_kernel on the compact tables (with the work list:
+// `compact`'s last two values), then merge3_kernel.  A [NL, n_out_pad, ncd]
+// is read through a 2-D tensor map of its rows (NL * n_out_pad rows of ncd
+// values) in boxes of NR rows by 32 slots, encoded at every call (A may
+// move between calls); the map is a kernel parameter, so a CUDA graph
+// captures it.
+template <int DIM, int KV, int KP, typename TA>
+int launch_stream_matvec(const Geo& g, const Tables& t, const int64_t* compact, const void* A,
+                         int n_out_pad, const void* x, float* scratch, float* y,
+                         cudaStream_t stream) {
+  if (compact == nullptr) return kErrLayout;
+  const Compact cv = unpack_compact(compact), cp = unpack_compact(compact + kCompactLen);
+  const int* work = (const int*)compact[2 * kCompactLen];
+  const int n_work = (int)compact[2 * kCompactLen + 1];
+  if ((uintptr_t)A % 16 != 0) return kErrAlign;
+  StreamLaunch sl;
+  int e = stream_launch<DIM, KV, KP, TA>(g, cv, cp, n_work, &sl);
+  if (e != 0) return e;
+  if (n_work > 0) {
+    constexpr int NL = DIM * KV + KP, NR = NL / stream_split<DIM, TA>();
+    EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+    CUtensorMap map;
+    const cuuint64_t dims[2] = {(cuuint64_t)g.ncd, (cuuint64_t)NL * n_out_pad};
+    const cuuint64_t strides[1] = {(cuuint64_t)g.ncd * sizeof(TA)};
+    const cuuint32_t box[2] = {32, NR}, unit[2] = {1, 1};
+    if (encode(&map,
+               sizeof(TA) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+               2, const_cast<void*>(A), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+               CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return (int)cudaErrorInvalidValue;
+    stream_matvec_kernel<DIM, KV, KP, TA><<<sl.grid, g.Bc + 32, sl.smem_bytes, stream>>>(
+        g, t, cv, cp, work, n_work, sl.stages, map, n_out_pad, (const float*)x, scratch);
+    cudaError_t ce = cudaGetLastError();
+    if (ce != cudaSuccess) return (int)ce;
+  }
+  return launch_merge3(g, cv, cp, true, true, scratch, y, stream, true);
+}
+
+// the elements whose K1 is the streaming kernel: P3/P2 on triangles and on
+// tetrahedra
+template <typename E>
+constexpr bool streams_k1() {
+  return (E::DIM == 2 && E::KV == 10) || (E::DIM == 3 && E::KV == 20);
 }
 
 template <typename E, bool IN_V, bool IN_P, bool OUT_V, bool OUT_P, typename TA>
 int launch_matvec_any(const Geo& g, const Tables& t, const int64_t* compact, const void* A,
                       int n_out_pad, const void* x, float* scratch, float* y, cudaStream_t st) {
-  if constexpr (E::DIM == 3) {
+  if constexpr (streams_k1<E>() && IN_V && IN_P && OUT_V && OUT_P) {
+    return launch_stream_matvec<E::DIM, E::KV, E::KP, TA>(g, t, compact, A, n_out_pad, x,
+                                                          scratch, y, st);
+  } else if constexpr (E::DIM == 3) {
     if (compact == nullptr) return kErrLayout;
     return launch_matvec_3d<E::KV, E::KP, IN_V, IN_P, OUT_V, OUT_P, TA>(
         g, t.cnt, unpack_compact(compact), unpack_compact(compact + kCompactLen), A, n_out_pad, x,
@@ -1422,6 +1901,25 @@ int matvec_any(const Geo& g, const Tables& t, const int64_t* compact, const void
   });
 }
 
+int stream_config_any(const Geo& g, const int64_t* compact, int a_bf16, int* out) {
+  const Compact cv = unpack_compact(compact), cp = unpack_compact(compact + kCompactLen);
+  const int n_work = (int)compact[2 * kCompactLen + 1];
+  StreamLaunch sl;
+  const int e = with_element(g, [&](auto el) {
+    using E = decltype(el);
+    if constexpr (streams_k1<E>()) {
+      return a_bf16 ? stream_launch<E::DIM, E::KV, E::KP, __nv_bfloat16>(g, cv, cp, n_work, &sl)
+                    : stream_launch<E::DIM, E::KV, E::KP, float>(g, cv, cp, n_work, &sl);
+    } else {
+      return kErrLayout;
+    }
+  });
+  if (e != 0) return e;
+  out[0] = sl.stages, out[1] = sl.stage_bytes, out[2] = sl.smem_bytes;
+  out[3] = sl.blocks_per_sm, out[4] = sl.grid;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1437,11 +1935,21 @@ extern "C" {
 long ns_scratch_floats(const int* meta, const int64_t* compact) {
   Geo g;
   if (!load_geo(meta, &g)) return kErrLayout;
-  if (g.dim == 3) {
-    if (compact == nullptr) return kErrLayout;
-    return g.dim * unpack_compact(compact).E + (long)unpack_compact(compact + kCompactLen).E;
-  }
-  return subwindow_floats(g, true, true) + span_ints(g);
+  const long packed = compact == nullptr ? 0
+                      : g.dim * unpack_compact(compact).E +
+                            (long)unpack_compact(compact + kCompactLen).E;
+  if (g.dim == 3) return compact == nullptr ? kErrLayout : packed;
+  // 2D: K2 and K4 write subwindows; at P3/P2 K1 writes the compact vector
+  return std::max(subwindow_floats(g, true, true) + span_ints(g), packed);
+}
+
+// The streaming K1's launch at this layout (P3/P2 only) with bfloat16
+// (a_bf16 1) or float32 A: out = [ring stages, bytes a stage, shared memory
+// bytes a block, resident blocks an SM, grid].
+int ns_stream_config(const int* meta, const int64_t* compact, int a_bf16, int* out) {
+  Geo g;
+  if (!load_geo(meta, &g) || compact == nullptr) return kErrLayout;
+  return stream_config_any(g, compact, a_bf16, out);
 }
 
 // X [nvec, nli, ncd] = the gathers of x0 (and x1: nvec 2) in one launch: K3

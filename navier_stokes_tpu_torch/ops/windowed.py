@@ -734,6 +734,8 @@ class CompactSpace:
     tr_off: torch.Tensor  # [E + 1] int32: an entry's first (slot, dof) pair in tr
     tr: torch.Tensor  # [T] int16: the pairs, l*Bc + j (j: slot in its chunk)
     row_ptr: torch.Tensor  # [n + 1] int32: a row's first place in the scratch
+    tr_rel: torch.Tensor  # [E] int16: an entry's first pair counted from its chunk's first
+    at: torch.Tensor  # [E] int32: the entry at each place of the scratch (dst's inverse)
     max_entries: int  # the most entries of one chunk
     max_pairs: int  # the most (slot, dof) pairs of one chunk
 
@@ -787,42 +789,96 @@ def _compact_space(lay: WindowedLayout, pos: np.ndarray, k: int, OW: int, h: int
     def u16(a):
         return torch.as_tensor(np.ascontiguousarray(a.astype(np.uint16).view(np.int16)))
 
+    tr_rel = tr_off[:-1] - tr_off[off[ent_piece]]
+    at = np.empty(E, dtype=np.int64)
+    at[dst] = np.arange(E)
     return CompactSpace(off=i32(off), row=i32(row), dst=i32(dst), idx=u16(idx),
-                        tr_off=i32(tr_off), tr=u16(tr), row_ptr=i32(row_ptr), max_entries=max_e,
+                        tr_off=i32(tr_off), tr=u16(tr), row_ptr=i32(row_ptr), tr_rel=u16(tr_rel),
+                        at=i32(at), max_entries=max_e,
                         max_pairs=int(np.diff(tr_off[off]).max()) if E else 0)
 
 
 def compact_smem_bytes(lay: WindowedLayout, tabs: dict) -> int:
-    """The least shared memory of the 3D kernels' largest call (K1, float32
-    A; windowed.cu launch_matvec_3d): the slots' outputs (nl rows of Bc
-    floats, which the smallest ring of A also takes), and a region that
-    holds x at the chunk's entries (dim rows of the velocity's, the
-    pressure's) and later the chunk's (slot, dof) pairs with each entry's
-    first pair (uint16s).  K4 (launch_scatter_3d) takes the rows and the
-    pairs, so no more."""
+    """The least shared memory of the 3D block kernels' largest call
+    (windowed.cu launch_matvec_3d: K1 at P2/P1, K2 v->v at P3/P2, float32
+    A): the slots' outputs (nl rows of Bc floats, which the smallest ring of
+    A also takes), and a region that holds x at the chunk's entries (dim
+    rows of the velocity's, the pressure's) and later the chunk's (slot,
+    dof) pairs with each entry's first pair (uint16s).  K4
+    (launch_scatter_3d) takes the rows and the pairs, so no more."""
     v, p = tabs["v"], tabs["p"]
     xs = 4 * (lay.dim * v.max_entries + p.max_entries)
     pairs = 2 * (v.max_pairs + v.max_entries + 1 + p.max_pairs + p.max_entries + 1)
     return 4 * lay.nl * lay.Bc + _round_up(max(xs, pairs), 16)
 
 
+# the elements whose K1 (vp->vp) is the streaming kernel
+# (windowed.cu stream_matvec_kernel): P3/P2 on triangles and on tetrahedra
+_STREAM_ELEMENTS = ((2, 10, 6), (3, 20, 10))
+_MAX_STREAM_STAGES = 16  # windowed.cu kMaxStreamStages
+
+
+def streams_k1(lay: WindowedLayout) -> bool:
+    """Whether the layout's K1 is the streaming kernel (P3/P2)."""
+    return (lay.dim, lay.k_v, lay.k_p) in _STREAM_ELEMENTS
+
+
+def stream_split(lay: WindowedLayout, elt: int) -> int:
+    """Stages a column of A takes in the streaming K1 (windowed.cu
+    stream_split): two on tetrahedra with float32 A (elt 4), else one."""
+    return 2 if lay.dim == 3 and elt == 4 else 1
+
+
+def stream_smem_bytes(lay: WindowedLayout, tabs: dict, elt: int, stages: int) -> int:
+    """The shared memory of a block of the streaming K1 (windowed.cu
+    stream_smem) with A of elt bytes a value and a ring of ``stages``
+    stages: the ring's mbarriers, the slots' x values (nl rows of Bc
+    floats), one component's outputs (k_v rows), the chunk's (slot, dof)
+    pairs and entry offsets of both spaces (uint16, one spare each), each
+    part rounded up to 128 bytes, then the stages of nl / split rows of Bc
+    values of A."""
+    v, p = tabs["v"], tabs["p"]
+    parts = (2 * 8 * _MAX_STREAM_STAGES, 4 * lay.nl * lay.Bc, 4 * lay.k_v * lay.Bc,
+             2 * (v.max_pairs + 2), 2 * (v.max_entries + 2),
+             2 * (p.max_pairs + 2), 2 * (p.max_entries + 2))
+    fixed = sum(_round_up(b, 128) for b in parts)
+    return fixed + stages * (lay.nl // stream_split(lay, elt)) * lay.Bc * elt
+
+
+def stream_work(lay: WindowedLayout, cnt: torch.Tensor) -> torch.Tensor:
+    """The streaming K1's work list: the occupied chunks (pieces b*nchunks
+    + c with a slot below cnt[b]), most occupied slots first, then by
+    piece; int32 on the host."""
+    nv = (cnt.cpu().long()[:, None] - lay.Bc * torch.arange(lay.nchunks)[None, :]).clamp(0, lay.Bc)
+    nv = nv.reshape(-1).numpy()
+    piece = np.nonzero(nv)[0]
+    order = np.lexsort((piece, -nv[piece]))
+    return torch.as_tensor(piece[order].astype(np.int32))
+
+
 def compact_tables(lay: WindowedLayout) -> dict:
-    """{"v": CompactSpace, "p": CompactSpace}: the 3D kernels' tables, made
-    once per layout with numpy (on the layout's device).  Raises ValueError
-    where a chunk's lists exceed what the kernels take: 16-bit indices, and
-    a block's shared memory (``compact_smem_bytes``)."""
+    """{"v": CompactSpace, "p": CompactSpace}: the compact kernels' tables
+    (K1, K2 and K4 on tetrahedra, K1 on P3/P2 triangles), made once per
+    layout with numpy (on the layout's device).  Raises ValueError where a
+    chunk's lists exceed what the kernels take: 16-bit indices, and a
+    block's shared memory (``compact_smem_bytes`` on tetrahedra; on the
+    P3/P2 elements also ``stream_smem_bytes`` with a 2-stage ring of
+    float32 A)."""
     pos_v, pos_p, _ = pack_positions(lay)
     tabs = {
         key: _compact_space(lay, unpack_positions(pos).cpu().numpy(), k, OW, h, n)
         for key, pos, k, OW, h, n in (("v", pos_v, lay.k_v, lay.OWv, lay.hv, lay.n_vs),
                                       ("p", pos_p, lay.k_p, lay.OWp, lay.hp, lay.n_ps))
     }
-    need = compact_smem_bytes(lay, tabs)
+    needs = [compact_smem_bytes(lay, tabs)] if lay.dim == 3 else []
+    if streams_k1(lay):
+        needs.append(stream_smem_bytes(lay, tabs, 4, 2))
+    need = max(needs, default=0)
     if need > _MAX_SMEM_BYTES:
         v, p = tabs["v"], tabs["p"]
         raise ValueError(
-            f"the 3D matvec cannot take this layout: a chunk of {lay.Bc} slots touches up to "
-            f"{v.max_entries} velocity and {p.max_entries} pressure positions through up to "
+            f"the compact kernels cannot take this layout: a chunk of {lay.Bc} slots touches up "
+            f"to {v.max_entries} velocity and {p.max_entries} pressure positions through up to "
             f"{v.max_pairs} and {p.max_pairs} (slot, dof) pairs, so a block needs {need} bytes "
             f"of shared memory against the {_MAX_SMEM_BYTES} it may use")
     return {key: t.to(lay.device) for key, t in tabs.items()}
@@ -950,8 +1006,9 @@ def _compact_matvec_reference(lay: WindowedLayout, A_sub: torch.Tensor, x: torch
     chunk's sums at its entries (their (slot, dof) pairs in order) written
     to their places in the row-ordered scratch, then the merge of each
     row's places in order (``_compact_scatter_reference``).  The plain
-    version of K1 and K2 in 3D; x and the result are the in- and
-    out-spaces' planar segments."""
+    version of K1 and K2 in 3D and of K1 at P3/P2 on triangles too (the
+    streaming kernel gathers x a slot at a time, the same values); x and
+    the result are the in- and out-spaces' planar segments."""
     tabs = compact_tables(lay) if tables is None else tables
     nb, nch, Bc, Bmax = lay.nb, lay.nchunks, lay.Bc, lay.Bmax
     k = {"v": lay.k_v, "p": lay.k_p}
@@ -1081,7 +1138,8 @@ _KERNEL_ERRORS = {
         "triangles or tetrahedra, chunks of at most 1024 slots for P2/P1 "
         "triangles, 512 for P3/P2 triangles and P2/P1 tetrahedra and 256 for "
         "P3/P2 tetrahedra, whose rows of A are 16-byte multiples; the gather, "
-        "the scatter and the 3D products take whole warps: a multiple of 32 slots)",
+        "the scatter, the 3D products and the P3/P2 K1 take whole warps: a multiple of "
+        "32 slots)",
     -2: "a block would need more shared memory than it may use",
     -3: "the operand's storage (A, X, or R in 3D) is not 16-byte aligned",
 }
@@ -1142,7 +1200,8 @@ def _load(path: str):
     lib.ns_gather.argtypes = [meta, *tables, p, p, p, i, i, p]
     lib.ns_scatter.argtypes = [meta, *tables, p, p, p, p, p]
     lib.ns_matvec.argtypes = [meta, *tables, p, p, i, i, i, i, p, p, p, p]
-    for fn in (lib.ns_gather, lib.ns_scatter, lib.ns_matvec):
+    lib.ns_stream_config.argtypes = [meta, p, i, p]
+    for fn in (lib.ns_gather, lib.ns_scatter, lib.ns_matvec, lib.ns_stream_config):
         fn.restype = i
     return lib
 
@@ -1153,12 +1212,13 @@ class _Packed:
     in 2D the slot colours of ``slot_colours`` (``colour`` None and
     ``ncolors`` 0 in 3D, whose kernels sum in the order of
     ``compact_tables``: a null table), the leading arguments of every
-    call and, for the 3D K1, K2 and K4, the tables of ``compact_tables``
-    (made at the first call of one of them).  Scratch is kept per stream
-    (calls on one stream run in turn, so they can share it; CUDA graphs
-    captured on one capture stream share theirs, so replay them on one
-    stream at a time): in 2D the chunk subwindows and K4's span tables, in
-    3D the row-ordered compact vector, dim*E_v + E_p floats."""
+    call and, for the 3D K1, K2 and K4 and the P3/P2 K1, the tables of
+    ``compact_tables`` (made at the first call of one of them).  Scratch is
+    kept per stream (calls on one stream run in turn, so they can share it;
+    CUDA graphs captured on one capture stream share theirs, so replay them
+    on one stream at a time): in 2D the chunk subwindows and K4's span
+    tables (at P3/P2 at least the compact vector, which K1 writes there),
+    in 3D the row-ordered compact vector, dim*E_v + E_p floats."""
 
     def __init__(self, lay: WindowedLayout):
         self._lay = lay
@@ -1185,17 +1245,22 @@ class _Packed:
     def compact_args(self):
         """The ``compact`` argument of ns_matvec, ns_scatter and
         ns_scratch_floats: per space (velocity, then pressure) the addresses
-        of the 7 tables of ``compact_tables`` (kept in ``self.compact``), E
+        of the 9 tables of ``compact_tables`` (kept in ``self.compact``), E
         and the most entries and pairs of a chunk (struct Compact,
-        windowed.cu); None in 2D."""
-        if self._lay.dim != 3:
+        windowed.cu), then the streaming K1's work list (``stream_work``,
+        kept in ``self.work``): its address and length.  Made for every 3D
+        layout and for P3/P2 triangles; None on P2/P1 triangles."""
+        if self._lay.dim != 3 and not streams_k1(self._lay):
             return None
         self.compact = compact_tables(self._lay)
+        self.work = stream_work(self._lay, self.cnt).to(self._device)
         vals = []
         for t in (self.compact["v"], self.compact["p"]):
             vals += [getattr(t, name).data_ptr()
-                     for name in ("off", "row", "dst", "idx", "tr_off", "tr", "row_ptr")]
+                     for name in ("off", "row", "dst", "idx", "tr_off", "tr", "row_ptr", "tr_rel",
+                                  "at")]
             vals += [t.E, t.max_entries, t.max_pairs]
+        vals += [self.work.data_ptr(), self.work.numel()]
         return (ctypes.c_int64 * len(vals))(*vals)
 
     def scratch(self, stream: int) -> int:
@@ -1260,6 +1325,22 @@ def _launch_matvec(lay, A, x, in_spaces, out_spaces, n_out_pad):
     )
     _raise_on(err, f"ns_matvec({in_spaces}->{out_spaces})")
     return y
+
+
+def stream_config(lay: WindowedLayout, dtype: torch.dtype) -> dict:
+    """How the streaming K1 launches at this P3/P2 layout (on the card) with
+    A of ``dtype`` (bfloat16 or float32): its ring (stages, bytes a stage),
+    the shared memory a block takes, the resident blocks an SM and the
+    persistent grid (windowed.cu ns_stream_config), and the occupied chunks
+    the grid walks."""
+    if not streams_k1(lay):
+        raise ValueError(f"no streaming K1 for (dim, k_v, k_p) {(lay.dim, lay.k_v, lay.k_p)}")
+    pk = lay._packed
+    out = (ctypes.c_int * 5)()
+    _raise_on(_lib().ns_stream_config(pk.meta, pk.compact_args, int(dtype == torch.bfloat16),
+                                      out), "ns_stream_config")
+    keys = ("stages", "stage_bytes", "smem_bytes", "blocks_per_sm", "grid")
+    return dict(zip(keys, list(out)), chunks=int(pk.work.numel()))
 
 
 def _plain_or_raise(t: torch.Tensor) -> bool:

@@ -39,17 +39,32 @@ in place of P2/P1:
   library_ms     cold time of one PyTorch call of the same function
                  (``library_call``: a CSR product, index_select or
                  index_add_), never used by the package
-  moved_bytes    (K1, K2, K4 in 3D) the bytes the kernel and its merge
-                 really move (``moved_bytes_3d``): the bound's, plus x at
-                 every chunk's entries, the compact tables and the scratch
+  moved_bytes    (K1, K2, K4 in 3D; K1 at P3/P2) the bytes the kernel and
+                 its merge really move (``moved_bytes_compact``): the
+                 bound's, plus x where the kernel reads it, the compact
+                 tables and the scratch
+  stream         (K1 at P3/P2) the streaming kernel's launch
+                 (``W.stream_config``): ring stages and bytes a stage,
+                 shared memory a block, resident blocks an SM, the grid
 
 and the median host-clock time of a forced Newton step at a seeded state
-and of the BDF1 solve (3 steps on the channel, 2 on the box).
+and of the BDF1 solve (3 steps on the channel, 2 on the box).  ``--bare``
+times the wrappers on seeded operands at the layout alone (``bare_layout``,
+``seeded_operands``: no solver set-up, no Newton step; the box's P3/P2
+set-up takes ~200 s), ``--no-library`` skips the yardsticks.
 ``--profile`` adds each call's device time by CUDA kernel
 (torch.profiler) warm, after the write and after the write and the read,
 and the device time by CUDA kernel of one forced Newton step.  ``--only``
 takes names ("K3 pair") or families ("K3": K3 and the K3 pair).  The
 timing helpers are chip_smoke.py's too.
+
+``--save PATH`` writes each timed wrapper's output at the seeded operands
+(torch.save, on the host); ``--compare PATH`` holds this tree's outputs
+bit for bit (torch.equal) against such a file and exits 1 where one
+differs or is missing.  With ``--bare`` the operands depend on the layout
+and the seed alone, so two commits' kernels can be compared: e.g. the
+parent with ``--save`` from an unpacked copy, then the change with
+``--compare`` (``bit_equal`` in the record).
 """
 
 from __future__ import annotations
@@ -70,7 +85,7 @@ FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
 REPS = 30  # timed calls behind every warm and cold figure of main()
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM device memory (the bound's rate)
 # the CUDA kernels of csrc/windowed.cu, by their names in a profiler trace
-WINDOWED_KERNEL = re.compile(r"\b(matvec3?|gather|scatter3?|merge3?)_kernel\b")
+WINDOWED_KERNEL = re.compile(r"\b(matvec3?|stream_matvec|gather|scatter3?|merge3?)_kernel\b")
 
 
 def channel_config(dtype="float32", rel_tol=1e-2, cells_per_block=448, degree=2):
@@ -279,6 +294,26 @@ def wrapper_operands(solver, seed=1):
     return _wrapper_calls(lay, x, xo, A_t, R, wa.Kp_t)
 
 
+def bare_layout(mesh, cfg, nb_multiple=1, device="cuda:0"):
+    """(layout, dofs): the windowed layout that NavierStokesSolver.setup
+    builds for mesh at cfg's degrees (the blocked renumbering,
+    cells_per_block doubled while the halo is too wide; the block count a
+    multiple of nb_multiple), without the assembly's host precompute."""
+    from ..fem.dofs import make_dofs, renumber_blocked
+
+    dofs = make_dofs(mesh, cfg.degree_velocity, cfg.degree_pressure)
+    cpb = cfg.krylov.cells_per_block
+    for _ in range(4):
+        try:
+            d, bi = renumber_blocked(dofs, cells_per_block=cpb, nb_multiple=nb_multiple)
+            return W.build_windowed_layout(d.cell_vdofs, d.cell_pdofs, d.n_vs, d.n_ps, mesh.dim,
+                                           block_info=bi, Bc=cfg.krylov.chunk_cells,
+                                           device=device), d
+        except ValueError:
+            cpb *= 2
+    raise RuntimeError("no windowed layout fits the mesh")
+
+
 def seeded_operands(lay, seed=1):
     """``wrapper_operands`` at a bare layout, with no solver behind it: x,
     x_old, A [nl, nli, ncd] and R [nli, ncd] standard normal from a torch
@@ -365,17 +400,27 @@ def bound_bytes_of(lay, operands):
     return out
 
 
-def moved_bytes_3d(lay, operands):
-    """{call: bytes} that the 3D kernels and their merge really move for K1,
-    each K2 product and K4 (``bound_bytes_of`` counts each input once
-    instead): A as in the bound (K4: the occupied slots' nl rows of R); x
-    at every chunk's entries of the in-spaces; of ``compact_tables`` the
+def moved_bytes_compact(lay, operands):
+    """{call: bytes} that the compact kernels and their merge really move
+    (``bound_bytes_of`` counts each input once instead): in 3D for K1, each
+    K2 product and K4, and on P3/P2 triangles for K1 ({} on P2/P1
+    triangles).  The 3D block kernel (K1 at P2/P1, K2): A as in the bound;
+    x at every chunk's entries of the in-spaces; of ``compact_tables`` the
     occupied slots' entry indices and the entries' rows of the in-spaces,
     the (slot, dof) pairs with their offsets, the entries' places and the
     row offsets of the out-spaces; the compact scratch written by the
-    chunks and read by the merge; y."""
+    chunks and read by the merge; y.  The streaming K1 (P3/P2, both
+    elements): A as in the bound; the slot counts, the work list and each
+    chunk's table offsets; the occupied slots' packed positions and one x
+    value a (slot, dof); of the tables the pairs and each entry's first
+    pair (``tr_rel``) once; the scratch each way (in entry order), the row
+    offsets and, a component at a time, the entry at each place (``at``);
+    y.  K4 (3D) reads no entry index and no x."""
+    streamed = W.streams_k1(lay)
+    if lay.dim == 2 and not streamed:
+        return {}
     tabs = W.compact_tables(lay)
-    _, _, cnt = W.pack_positions(lay)
+    pos_v, _, cnt = W.pack_positions(lay)
     n_occ = int(cnt.sum())
     ncomp = {"v": lay.dim, "p": 1}
     k = {"v": lay.k_v, "p": lay.k_p}
@@ -396,9 +441,24 @@ def moved_bytes_3d(lay, operands):
             total += out_space(s) + (0 if s in ins else 4 * tabs[s].off.numel())
         return total
 
-    out = {"K1 f32": matvec("vp", "vp", 4), "K1": matvec("vp", "vp", 2),
-           "K4": (4 * lay.nl * n_occ + cnt.numel() * 4
-                  + sum(out_space(s) + 4 * tabs[s].off.numel() for s in "vp"))}
+    def stream(elt):
+        n_work = len(W.stream_work(lay, cnt))
+        total = (lay.nl * lay.nl * n_occ * elt + cnt.numel() * 4 + 4 * n_work + 32 * n_work
+                 + (lay.k_v + lay.k_p) * n_occ * pos_v.element_size() + 4 * lay.nl * n_occ)
+        for s in "vp":
+            t = tabs[s]
+            total += (2 * t.tr.numel() + 2 * t.E + 2 * 4 * ncomp[s] * t.E
+                      + 4 * t.row_ptr.numel() + 4 * ncomp[s] * t.E + 4 * ncomp[s] * n[s])
+        return total
+
+    if streamed:
+        out = {"K1 f32": stream(4), "K1": stream(2)}
+    else:
+        out = {"K1 f32": matvec("vp", "vp", 4), "K1": matvec("vp", "vp", 2)}
+    if lay.dim == 2:
+        return out
+    out["K4"] = (4 * lay.nl * n_occ + cnt.numel() * 4
+                 + sum(out_space(s) + 4 * tabs[s].off.numel() for s in "vp"))
     for key, (A_sub, _) in operands["blocks"].items():
         i, o = key.split("->")
         out[f"K2 {key}"] = matvec(i, o, A_sub.element_size())
@@ -406,7 +466,7 @@ def moved_bytes_3d(lay, operands):
 
 
 def compact_stats(lay) -> str:
-    """One line on a 3D layout's compact tables (host numpy): entries in all
+    """One line on a layout's compact tables (host numpy): entries in all
     and at most a chunk, (slot, dof) pairs an entry, places a touched row."""
     parts = []
     for key, t in W.compact_tables(lay).items():
@@ -516,6 +576,22 @@ def probe_call(M=256, iters=64, seed=5):
     return lambda: mxu.mxu_probe(a, b, M, iters)
 
 
+def _host_outputs(out):
+    """A wrapper call's output (a tensor or a tuple of them) as a tuple of
+    host tensors."""
+    out = out if isinstance(out, (tuple, list)) else (out,)
+    return tuple(t.detach().cpu() for t in out)
+
+
+def bit_equal(outputs: dict, ref: dict) -> dict:
+    """{name: whether every tensor of outputs[name] equals ref[name]'s bit
+    for bit (torch.equal: shape, type and values)}, over both dicts' names
+    (a name missing from either is False)."""
+    return {name: name in outputs and name in ref and len(outputs[name]) == len(ref[name])
+            and all(torch.equal(a, b) for a, b in zip(outputs[name], ref[name]))
+            for name in sorted(set(outputs) | set(ref))}
+
+
 def forced_newton_step(solver, reps=3, seed=0):
     """Host-clock seconds of ``reps`` forced Newton steps at a seeded state,
     and the last step's (residual, FGMRES iterations, converged, the tangent
@@ -548,6 +624,15 @@ def main(argv=None):
     ap.add_argument("--only", default="", help="comma-separated wrapper names to time")
     ap.add_argument("--profile", action="store_true",
                     help="also print each call's device time by CUDA kernel (torch.profiler)")
+    ap.add_argument("--bare", action="store_true",
+                    help="time the kernels on seeded operands at the layout alone, without the "
+                         "solver's set-up (implies --kernels-only)")
+    ap.add_argument("--no-library", action="store_true",
+                    help="skip the one-call library yardstick (a CSR product at K1 and K2)")
+    ap.add_argument("--save", default="",
+                    help="write the timed wrappers' outputs to this file (torch.save)")
+    ap.add_argument("--compare", default="",
+                    help="hold the timed wrappers' outputs bit for bit against this file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("kernel_bench: no CUDA device visible to torch")
@@ -559,36 +644,50 @@ def main(argv=None):
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda:0")
     if args.case == "box":
-        mesh = box_mesh()
-        solver = nt.NavierStokesSolver(mesh, box_config(degree=args.degree),
-                                       log=nt.RunLog(verbose=False), inlet=box_inlet, device=dev)
+        mesh, cfg = box_mesh(), box_config(degree=args.degree)
     else:
         mesh = nt.refine_uniform(nt.rectangle(80, 40, 0, 7, 0, 4), 2)
-        solver = nt.NavierStokesSolver(mesh, channel_config(degree=args.degree),
-                                       log=nt.RunLog(verbose=False), device=dev)
+        cfg = channel_config(degree=args.degree)
     t0 = time.perf_counter()
-    solver.setup()
+    if args.bare:
+        lay, dofs = bare_layout(mesh, cfg, device=dev)
+        n_total = dofs.n_total
+        calls, operands = seeded_operands(lay)
+    else:
+        extra = dict(inlet=box_inlet) if args.case == "box" else {}
+        solver = nt.NavierStokesSolver(mesh, cfg, log=nt.RunLog(verbose=False), device=dev,
+                                       **extra)
+        solver.setup()
+        n_total = solver.dofs.n_total
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
-    calls, operands = wrapper_operands(solver)
-    lay = solver._win_layout
+    if not args.bare:
+        calls, operands = wrapper_operands(solver)
+        lay = solver._win_layout
     bounds = bound_bytes_of(lay, operands)
-    moved = moved_bytes_3d(lay, operands) if lay.dim == 3 and hasattr(W, "compact_tables") else {}
+    moved = moved_bytes_compact(lay, operands) if hasattr(W, "streams_k1") else {}
     if args.case == "channel" and args.degree == 2:
         calls["K5"] = (probe_call(), None)
     print(f"  layout: P{args.degree}/P{args.degree - 1}, nb {lay.nb} Bmax {lay.Bmax} Bc "
           f"{lay.Bc} nchunks {lay.nchunks} RVv/RVp {lay.RVv}/{lay.RVp} hv/hp {lay.hv}/{lay.hp} "
-          f"nl/nli {lay.nl}/{lay.nli} n_total {solver.dofs.n_total}; setup {t_setup:.2f} s",
-          flush=True)
+          f"nl/nli {lay.nl}/{lay.nli} n_total {n_total}; {'layout' if args.bare else 'setup'} "
+          f"{t_setup:.2f} s", flush=True)
+    print(f"  card {smi}", flush=True)
     if moved:
         print(compact_stats(lay), flush=True)
     rec = {"label": args.label, "card": smi, "case": args.case, "degree": args.degree,
            "cells": mesh.n_cells, "setup_s": t_setup, "kernels": {}}
     only = [k.strip() for k in args.only.split(",") if k.strip()]
+    calls = {name: c for name, c in calls.items()
+             if not only or any(name == k or name.startswith(k + " ") for k in only)}
+    outputs = {name: _host_outputs(call()) for name, (call, _) in calls.items()}
+    if args.save:
+        torch.save(outputs, args.save)
+    if args.compare:
+        rec["bit_equal"] = bit_equal(outputs, torch.load(args.compare))
+        print(f"  bit-equal to {args.compare}: {rec['bit_equal']}", flush=True)
+    del outputs
     for name, (call, _) in calls.items():
-        if only and not any(name == k or name.startswith(k + " ") for k in only):
-            continue
-        call()  # build, tables, scratch
         w1, c1, d1, d2, c2, w2 = (cuda_ms(call, REPS), cuda_ms_cold(call, REPS),
                                   cuda_ms_cold(call, REPS, clean=True),
                                   cuda_ms_cold(call, REPS, clean=True),
@@ -600,14 +699,19 @@ def main(argv=None):
         if name in bounds:  # the windowed wrappers: the bound and a library call
             r.update(bound_bytes=bounds[name], bound_ms=bounds[name] / PEAK_BYTES_PER_S * 1e3)
             r["share"] = r["bound_ms"] / r["cold_ms"]
-            lib, r["library"] = library_call(lay, operands, name)
-            r["library_ms"] = cuda_ms_cold(lib, REPS)
-            del lib
             line += (f"  bound {r['bound_ms']:.4f} ms ({r['bound_bytes'] / 1e6:.1f} MB), share "
-                     f"{r['share']:.3f}  library {r['library_ms']:.4f} ms ({r['library']})")
+                     f"{r['share']:.3f}")
+            if not args.no_library:
+                lib, r["library"] = library_call(lay, operands, name)
+                r["library_ms"] = cuda_ms_cold(lib, REPS)
+                del lib
+                line += f"  library {r['library_ms']:.4f} ms ({r['library']})"
         if name in moved:
             r["moved_bytes"] = moved[name]
             line += f"  moved {moved[name] / 1e6:.1f} MB"
+        if name in ("K1", "K1 f32") and getattr(W, "streams_k1", lambda _: False)(lay):
+            r["stream"] = W.stream_config(lay, torch.bfloat16 if name == "K1" else torch.float32)
+            line += f"  stream {r['stream']}"
         print(line, flush=True)
         if args.profile:
             for mode, clean in (("warm", None), ("cold", False), ("cold_clean", True)):
@@ -617,9 +721,10 @@ def main(argv=None):
                     print(f"           {mode:<10} {us:8.2f} us ({n:g} launches)  {kname}",
                           flush=True)
     del calls, operands
-    if args.kernels_only:
+    rc = int(not all(rec.get("bit_equal", {}).values()))
+    if args.kernels_only or args.bare:
         print(json.dumps(rec))
-        return 0
+        return rc
     times, (res, iters, ok, kres) = forced_newton_step(solver, reps=5)
     rec["newton_step_ms"] = [t * 1e3 for t in times]
     rec["newton_step_median_ms"] = float(np.median(times) * 1e3)
@@ -646,7 +751,7 @@ def main(argv=None):
     torch.cuda.synchronize()
     rec[f"solve_{solver._step}_steps_s"] = time.perf_counter() - t0
     print(json.dumps(rec))
-    return 0
+    return rc
 
 
 if __name__ == "__main__":

@@ -1,10 +1,11 @@
-"""The 3D kernels' host tables and their plain two-stage models.
+"""The compact kernels' host tables and their plain two-stage models.
 
 On tetrahedra K1 and K2 (csrc/windowed.cu ``matvec3_kernel`` and
-``merge3_kernel``) and K4 (``scatter3_kernel`` and the same merge) sum each
-chunk's slots at the distinct window positions the chunk touches (its
-entries), write every sum to its place in a scratch vector ordered by row,
-and merge each row's places in order (``ops/windowed.py``
+``merge3_kernel``) and K4 (``scatter3_kernel`` and the same merge), and at
+P3/P2 on triangles and tetrahedra K1 (``stream_matvec_kernel``, the same
+merge), sum each chunk's slots at the distinct window positions the chunk
+touches (its entries), write every sum to its place in a scratch vector
+ordered by row, and merge each row's places in order (``ops/windowed.py``
 ``compact_tables``).  Here, on the CPU:
 
 * the tables: each chunk's list sorted and distinct and equal to the
@@ -19,7 +20,10 @@ and merge each row's places in order (``ops/windowed.py``
   v->p and p->p; and on one layout against the JAX package's references;
 * ``_compact_scatter_reference`` (K4's order) against ``_scatter_reference``
   in float64 to 1e-12 of ||y||_inf, and on one layout against the JAX
-  package's ``windowed_scatter`` (its plain path on the CPU).
+  package's ``windowed_scatter`` (its plain path on the CPU);
+* the streaming K1's host side: its work list (every occupied chunk once,
+  under any persistent grid), each entry's first pair counted from its
+  chunk's, and its shared memory at the P3/P2 layouts.
 
 Layouts: the card tests' three P2/P1 tetrahedral ones
 (tests/test_torch_kernels.py ``TETS``: one chunk at halo 1; 3 chunks of
@@ -28,7 +32,10 @@ dofs a tetrahedron; one chunk, and 3 chunks of 256), box(2, 2, 2) on
 the default (unblocked) layout, one block with no halo, and three ranks'
 framed layouts of a sharded run (parallel/windowed_spmd.py ``local_layout``)
 of box(4, 4, 4) at 16 cells a block, halo 4: rank 0 and rank 1 of 2 (the
-ends of the line) and rank 1 of 4 (an inner rank).  A framed layout's rows
+ends of the line) and rank 1 of 4 (an inner rank).  P3/P2 triangles ("p3-
+square", 10 velocity and 6 pressure dofs a triangle): unit_square(6) at
+halo 1, unit_square(8) at halo 2, and rank 0 of 2 of unit_square(8)'s
+framed layout.  A framed layout's rows
 run over its framed spaces, so the frame's rows receive the owned blocks'
 sums (which the sharded wrappers then send to the neighbours).  Of the
 generated boxes tried, none gives hv != hp.  The kernels on the card:
@@ -45,7 +52,7 @@ import torch
 from navier_stokes_tpu.ops import windowed as jw
 from navier_stokes_tpu_torch import convert
 from navier_stokes_tpu_torch.fem.dofs import make_dofs, renumber_blocked
-from navier_stokes_tpu_torch.mesh.generate import box
+from navier_stokes_tpu_torch.mesh.generate import box, unit_square
 from navier_stokes_tpu_torch.mesh.mesh import refine_uniform
 from navier_stokes_tpu_torch.ops import windowed as tw
 from navier_stokes_tpu_torch.parallel import windowed_spmd as ws
@@ -61,12 +68,16 @@ LAYOUTS = {
     "box4-framed-r1of4": dict(box=4, cpb=16, Bc=128, rank=1, ranks=4),
     "p3-box-h1": dict(box=2, cpb=16, Bc=128, deg=3),
     "p3-box-refined-Bc256": dict(box=4, refine=1, cpb=448, Bc=256, deg=3),
+    # P3/P2 triangles: halo 1, halo 2, a framed layout of 2 ranks
+    "p3-square-h1": dict(n=6, cpb=16, Bc=128, deg=3),
+    "p3-square-h2": dict(n=8, cpb=8, Bc=128, deg=3),
+    "p3-square-framed-r0of2": dict(n=8, cpb=16, Bc=128, deg=3, rank=0, ranks=2),
 }
 PRODUCTS = [("vp", "vp"), ("v", "v"), ("v", "p"), ("p", "p")]
 
 
 def _build(c):
-    mesh = box(c["box"], c["box"], c["box"])
+    mesh = box(c["box"], c["box"], c["box"]) if "box" in c else unit_square(c["n"])
     if c.get("refine"):
         mesh = refine_uniform(mesh, c["refine"])
     dofs = make_dofs(mesh, c.get("deg", 2), c.get("deg", 2) - 1)
@@ -76,7 +87,7 @@ def _build(c):
         kw = dict(block_info=bi, Bc=c["Bc"])
     else:
         kw = dict(target_ow=c["target_ow"], Bc=c["Bc"])
-    return (dofs.cell_vdofs, dofs.cell_pdofs, dofs.n_vs, dofs.n_ps, 3), kw
+    return (dofs.cell_vdofs, dofs.cell_pdofs, dofs.n_vs, dofs.n_ps, mesh.dim), kw
 
 
 @functools.lru_cache(maxsize=None)
@@ -109,16 +120,21 @@ def _entry_chunks(lay, t):
 
 
 def test_layouts_cover_the_kernel_paths():
-    """One chunk and several, halos 0, 1, 2 and 4; framed layouts of both
-    ends of a line of ranks and of an inner rank, with frame = halo."""
+    """Tetrahedra: one chunk and several, halos 0, 1, 2 and 4; framed
+    layouts of both ends of a line of ranks and of an inner rank, with
+    frame = halo.  P3/P2 triangles: halos 1 and 2 and a framed layout."""
     lays = [_layout(name) for name in LAYOUTS]
-    assert {lay.nchunks > 1 for lay in lays} == {True, False}
-    assert {lay.hv for lay in lays} == {0, 1, 2, 4}
-    framed = [lay for lay in lays if lay.frame]
+    tets = [lay for lay in lays if lay.dim == 3]
+    assert {lay.nchunks > 1 for lay in tets} == {True, False}
+    assert {lay.hv for lay in tets} == {0, 1, 2, 4}
+    framed = [lay for lay in tets if lay.frame]
     assert len(framed) == 3 and all(lay.frame == lay.hv == lay.hp == 4 for lay in framed)
     assert [lay.nb for lay in framed] == [12 + 8, 12 + 8, 6 + 8]
-    p3 = [lay for lay in lays if (lay.k_v, lay.k_p) == (20, 10)]
+    p3 = [lay for lay in tets if (lay.k_v, lay.k_p) == (20, 10)]
     assert len(p3) == 2 and {lay.nchunks > 1 for lay in p3} == {True, False}
+    tris = [lay for lay in lays if lay.dim == 2]
+    assert {(lay.k_v, lay.k_p) for lay in tris} == {(10, 6)}
+    assert {lay.hv for lay in tris} == {1, 2} and any(lay.frame for lay in tris)
 
 
 @pytest.mark.parametrize("name", ["p3-box-h1", "p3-box-refined-Bc256"])
@@ -289,6 +305,13 @@ def test_compact_model_matches_jax_f64_p3(ins, outs):
     _model_matches_jax("p3-box-h1", ins, outs)
 
 
+@pytest.mark.parametrize("ins, outs", PRODUCTS)
+def test_compact_model_matches_jax_f64_p3_triangles(ins, outs):
+    """The same on P3/P2 triangles, p3-square-h2 (halo 2): the JAX
+    package's windowed_matvec_reference / _block_reference in float64."""
+    _model_matches_jax("p3-square-h2", ins, outs)
+
+
 def _model_matches_jax(name, ins, outs):
     args, kw = _build(LAYOUTS[name])
     jlay = jw.build_windowed_layout(*args, **kw)
@@ -335,3 +358,103 @@ def _scatter_model_matches_jax(name):
     lay = convert.layout_from_arrays(convert.arrays_of(jlay))
     R = _rows(lay, 6)
     _close(tw._compact_scatter_reference(lay, R), jw.windowed_scatter(jlay, jnp.asarray(R.numpy())))
+
+
+def _occupied_pieces(lay):
+    """{piece b*nchunks + c: occupied slots of the chunk} of a layout."""
+    _, _, cnt = tw.pack_positions(lay)
+    out = {}
+    for b, n in enumerate(cnt.tolist()):
+        for c in range(lay.nchunks):
+            if n > c * lay.Bc:
+                out[b * lay.nchunks + c] = min(n - c * lay.Bc, lay.Bc)
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(LAYOUTS))
+def test_stream_work_takes_every_occupied_chunk_once(name):
+    """The streaming K1's work list, the host's model of its persistent
+    schedule (block k of the grid takes entries k, k + grid, ...), holds
+    every chunk with an occupied slot exactly once, most occupied first
+    (ties by piece), as int32."""
+    lay = _layout(name)
+    _, _, cnt = tw.pack_positions(lay)
+    work = tw.stream_work(lay, cnt)
+    assert work.dtype == torch.int32
+    occ = _occupied_pieces(lay)
+    got = work.tolist()
+    assert sorted(got) == sorted(occ)
+    assert got == sorted(occ, key=lambda p: (-occ[p], p))
+
+
+@pytest.mark.parametrize("name", sorted(LAYOUTS))
+def test_entry_first_pairs_count_from_their_chunk(name):
+    """tr_rel[e], the table the streaming K1 stages an entry's pairs by, is
+    the entry's first pair counted from its chunk's first: below the
+    chunk's pair count, uint16 bits in int16, one a chunk's entry."""
+    lay, tabs = _layout(name), _tables(name)
+    for key in "vp":
+        t = tabs[key]
+        off, tr_off = t.off.numpy(), t.tr_off.numpy().astype(np.int64)
+        rel = t.tr_rel.numpy().astype(np.int64) & 0xFFFF
+        assert t.tr_rel.dtype == torch.int16 and rel.shape == (t.E,)
+        eb, ec = _entry_chunks(lay, t)
+        first = off[eb * lay.nchunks + ec]  # each entry's chunk's first entry
+        assert np.array_equal(rel, tr_off[:-1] - tr_off[first])
+        assert np.all(rel < tr_off[first + np.diff(off)[eb * lay.nchunks + ec]] - tr_off[first])
+
+
+@pytest.mark.parametrize("name", sorted(n for n in LAYOUTS if n.startswith("p3-")))
+def test_stream_smem_fits_the_p3_layouts(name):
+    """The streaming K1's shared memory (``stream_smem_bytes``, the mirror of
+    windowed.cu stream_smem): at every P3/P2 layout a ring of two stages,
+    the least the kernel runs with, fits a block with bfloat16 and with
+    float32 A (what ``compact_tables`` checks); a stage is a column of A
+    (nl rows of Bc values), half a column on tetrahedra with float32 A."""
+    lay, tabs = _layout(name), _tables(name)
+    assert tw.streams_k1(lay)
+    for elt in (2, 4):
+        stage = tw.stream_smem_bytes(lay, tabs, elt, 1) - tw.stream_smem_bytes(lay, tabs, elt, 0)
+        split = 2 if (lay.dim, elt) == (3, 4) else 1
+        assert stage == lay.nl // split * lay.Bc * elt
+        assert tw.stream_smem_bytes(lay, tabs, elt, 2) <= tw._MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("name", sorted(LAYOUTS))
+def test_at_is_the_inverse_of_dst(name):
+    """``at`` (the entry at each place, through which the streaming K1's
+    merge reads its entry-ordered scratch) is dst's inverse."""
+    tabs = _tables(name)
+    for key in "vp":
+        t = tabs[key]
+        at, dst = t.at.numpy(), t.dst.numpy()
+        assert t.at.dtype == torch.int32 and at.shape == (t.E,)
+        assert np.array_equal(at[dst], np.arange(t.E)) and np.array_equal(dst[at], np.arange(t.E))
+
+
+@pytest.mark.parametrize("name", ["p3-square-h1", "p3-box-h1"])
+def test_kernel_bench_bit_equal_holds_saved_outputs(name, tmp_path):
+    """kernel_bench's ``--save`` / ``--compare`` (``_host_outputs``,
+    ``bit_equal``): every wrapper's output at the seeded operands of a bare
+    layout, saved and loaded, equals a second run's bit for bit; one bit
+    flipped in one output, or a name missing, reads False for that name
+    alone."""
+    from navier_stokes_tpu_torch.scripts import kernel_bench as kb
+
+    lay = _layout(name)
+    runs = []
+    for _ in range(2):
+        calls, _ = kb.seeded_operands(lay, seed=3)
+        runs.append({key: kb._host_outputs(call()) for key, (call, _) in calls.items()})
+    torch.save(runs[0], tmp_path / "ref.pt")
+    ref = torch.load(tmp_path / "ref.pt")
+    assert set(ref) >= {"K1", "K1 f32", "K3", "K3 pair", "K4"}
+    assert all(kb.bit_equal(runs[1], ref).values())
+    flipped = dict(runs[1])
+    y = flipped["K1"][0].clone()
+    y.view(torch.int32)[0] ^= 1
+    flipped["K1"] = (y,)
+    del flipped["K4"]
+    got = kb.bit_equal(flipped, ref)
+    assert not got["K1"] and not got["K4"]
+    assert all(v for key, v in got.items() if key not in ("K1", "K4"))

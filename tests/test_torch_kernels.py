@@ -12,7 +12,8 @@ per-row lists); an element the kernels are not built for raises.
 Tolerances: K3 (gather, one vector or the pair u, u_old in one launch) is a
 copy and must be bit-equal; the others agree to 1e-5 of ||y||_inf (float32
 sums in another order: the 2D kernels sum a chunk's slots in colour order,
-the 3D ones in the order of ``compact_tables``).  K1, K2 and K4 sum in a fixed order, so a repeated
+the 3D ones and the P3/P2 K1 on both elements in the order of
+``compact_tables``).  K1, K2 and K4 sum in a fixed order, so a repeated
 call and a CUDA-graph replay give the same bits as an eager call.  K5, the
 tensor-core probe, is held to 1e-5 of its output's largest entry (bf16
 products summed in float32 in groups, in another order).
@@ -310,12 +311,17 @@ def test_tet_merge_counts_every_window(name, cuda_device):
     assert torch.equal(tw.windowed_scatter(lay, R), want)
 
 
+P3_TRIANGLES = ["p3-blocked-h1", "p3-blocked-h2", "p3-refined-Bc256"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", TETS)
+@pytest.mark.parametrize("name", TETS + P3_TRIANGLES)
 def test_tet_scratch_is_the_compact_vector(name, cuda_device):
     """A tetrahedral layout's scratch (one buffer a stream, shared by K1,
     K2 and K4) is the row-ordered compact vector: dim*E_v + E_p floats,
-    whichever of K4 and K1 makes it first."""
+    whichever of K4 and K1 makes it first.  On P3/P2 triangles K1 writes
+    that vector and K4 its chunk subwindows and span tables into the same
+    buffer, which holds the larger of the two."""
     rand = _rand_on(cuda_device, 16)
     for first in ("scatter", "matvec"):
         lay = _layout(name).to(cuda_device)  # a new layout: its own tables and scratch
@@ -327,7 +333,33 @@ def test_tet_scratch_is_the_compact_vector(name, cuda_device):
         tabs = lay._packed.compact
         scratch = list(lay._packed._scratch.values())
         assert len(scratch) == 1 and scratch[0].dtype == torch.float32
-        assert scratch[0].numel() == lay.dim * tabs["v"].E + tabs["p"].E
+        want = lay.dim * tabs["v"].E + tabs["p"].E
+        if lay.dim == 2:
+            pieces = lay.nb * lay.nchunks
+            want = max(want, pieces * 128 * (lay.dim * lay.RVv + lay.RVp) + 4 * pieces)
+        assert scratch[0].numel() == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(P3_LAYOUTS))
+def test_stream_config_fits_stream_smem_bytes(name, cuda_device):
+    """The streaming K1's launch (windowed.cu ns_stream_config) at every
+    P3/P2 layout, bfloat16 and float32 A: a ring of 2 to 16 stages whose
+    shared memory is ``stream_smem_bytes`` at that ring and fits a block,
+    one or two blocks resident an SM, and a persistent grid of
+    min(occupied chunks, resident blocks x SMs) over ``stream_work``'s
+    list.  That the grid's walk takes every chunk shows in
+    test_kernel_matches_plain, whose K1 sums each chunk's cells."""
+    lay = _layout(name).to(cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for dtype, elt in ((torch.bfloat16, 2), (torch.float32, 4)):
+        cfg = tw.stream_config(lay, dtype)
+        tabs = lay._packed.compact
+        assert 2 <= cfg["stages"] <= 16 and cfg["blocks_per_sm"] in (1, 2)
+        assert cfg["smem_bytes"] == tw.stream_smem_bytes(lay, tabs, elt, cfg["stages"])
+        assert cfg["smem_bytes"] <= tw._MAX_SMEM_BYTES
+        assert cfg["chunks"] == len(tw.stream_work(lay, lay._packed.cnt))
+        assert cfg["grid"] == min(cfg["chunks"], cfg["blocks_per_sm"] * sms)
 
 
 @pytest.mark.parametrize("name", sorted(LAYOUTS))
