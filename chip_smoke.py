@@ -125,8 +125,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 kernel_bench.channel_config / box_config with degree=3, no
                 preconditioner), float32: (a) phase 3's checks of every
                 kernel at the 102,400-cell channel's P3/P2 layout, with the
-                streaming K1's launch (ring, shared memory, resident
-                blocks, grid) and the bytes it really moves; (b) there,
+                launch of each product on the streaming kernel (K1, and K2
+                v->v, v->p, p->p on triangles, v->p and p->p on tetrahedra:
+                ring, shared memory, resident blocks, grid, share of the
+                bound) and the bytes it really moves; (b) there,
                 three forced Newton steps at a seeded state (bit-equal, equal
                 FGMRES counts) and 2 BDF1 steps from rest (K1, K3 and K4
                 launched; a tangent solve may stop at its cap, printed with
@@ -615,17 +617,22 @@ def kernels_vs_plain(lay, operands):
         recs[key] = compare(TITLES.get(key, f"{key}, bf16 A"), kernel, plain,
                             exact=key.startswith("K3"), bound_bytes=bounds[key], library=lib_call)
         recs[key]["library"] = lib_what
+        if key.startswith(("K1", "K2")):  # the CUDA kernels that served it
+            spaces = ("vp", "vp") if key.startswith("K1") else key.split()[1].split("->")
+            recs[key]["design"] = W.kernel_design(lay, *spaces)
         if key in moved:  # a host count from the tables, printed and not in the kernels line
             print(f"  {key} really moves {moved[key] / 1e6:.1f} MB "
                   "(kernel_bench.moved_bytes_compact)", flush=True)
         del lib_call  # a CSR matrix holds gigabytes at the box's size
-    if W.streams_k1(lay):  # P3/P2: K1 is the streaming kernel; how it launched
-        for key, dtype in (("K1", torch.bfloat16), ("K1 f32", torch.float32)):
-            cfg = W.stream_config(lay, dtype)
-            print(f"  {key}: streaming K1, a ring of {cfg['stages']} stages of "
+    for key in calls:  # P3/P2: the products on the streaming kernel; how each launched
+        spaces = kb.stream_spaces(lay, key, ops_)
+        if spaces:
+            cfg = recs[key]["stream"] = W.stream_config(lay, *spaces)
+            print(f"  {key}: streaming kernel, a ring of {cfg['stages']} stages of "
                   f"{cfg['stage_bytes']} bytes, {cfg['smem_bytes']} bytes of shared memory a "
                   f"block, {cfg['blocks_per_sm']} resident block(s) an SM, a persistent grid of "
-                  f"{cfg['grid']} blocks over {cfg['chunks']} occupied chunks", flush=True)
+                  f"{cfg['grid']} blocks over {cfg['chunks']} occupied chunks; share "
+                  f"{recs[key]['share']:.3f} of the bound", flush=True)
     for key, (kernel, _) in calls.items():
         check_repeat(key, kernel)
     blocks, x = ops_["blocks"], ops_["x"]
@@ -2304,7 +2311,8 @@ def kernel_entries(recs, launches, step_launches, suffix, sharded=None):
     15's numbers, ``sharded_numbers``) each rank's launches in its run at 2
     ranks (the BDF1 steps; the P3/P2 channel's: its forced step) and the
     largest error of the kernel's checks on the ranks, at 2 and at 4 ranks
-    (else null)."""
+    (else null); for K1 and K2 ``design``, the CUDA kernels that served
+    each product (``W.kernel_design``)."""
     names = {"K1": "K1 windowed_matvec", "K2": "K2 windowed_matvec_block",
              "K3": "K3 windowed_gather", "K4": "K4 windowed_scatter"}
     counts = {k.split()[0]: v for k, v in launches.items()}
@@ -2324,6 +2332,9 @@ def kernel_entries(recs, launches, step_launches, suffix, sharded=None):
                 max(e for r in sharded[n] for key, e in r["errs"].items() if key.split()[0] == k)
                 if sharded else None) for n in MULTI_RANKS},
         )
+        designs = {key: r["design"] for key, r in mine.items() if "design" in r}
+        if designs:  # K1, K2: the CUDA kernels of each timed product
+            entry["design"] = designs
         if len(mine) > 1:  # the other operands of the same kernel
             entry["also"] = {key: {m: r.get(m) for m in (*MEASURED, "replay_ms")}
                              for key, r in mine.items() if key != timed[k]}

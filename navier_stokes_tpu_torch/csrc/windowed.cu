@@ -163,9 +163,10 @@
 // wider than 16 bits can index (13 x 5,248 positions), so its packed
 // position tables are int32 (Geo.idx32).
 //
-// K1 at P3/P2, on both elements, is a kernel of its own
-// (stream_matvec_kernel, then merge3_kernel<true>), because the
-// block-per-chunk kernels left half the card's memory rate unused there: a
+// K1 at P3/P2 on both elements, K2 v->v on P3/P2 triangles and K2 v->p and
+// p->p on P3/P2 tetrahedra run a kernel of their own (stream_matvec_kernel,
+// then merge3_kernel<true>), because the block-per-chunk kernels left half
+// the card's memory rate unused there: a
 // chunk's A is 26 x 26 or 70 x 70 values a slot (0.35 and 2.5 MB with bf16
 // A), a column of A is 13-70 KB of shared memory, so one or two blocks fit
 // an SM, each with one column in flight while it consumes another, and
@@ -202,10 +203,22 @@
 //     looked up), and the merge reads a row's places through `at`.
 //   * the order of every sum is matvec3_kernel's: columns q ascending
 //     through fmaf, an entry's pairs with slots ascending, a row's places
-//     in order.  On tetrahedra K1 gives the block kernel's bits; on
+//     in order.  On tetrahedra K1 and K2 give the block kernel's bits; on
 //     triangles the bits of _compact_matvec_reference's order.
-// Bound at P3/P2 with bf16 A (scripts/kernel_bench.py bound_bytes_of): the
-// channel 152.9 MB, 45.6 us; the box 1,981.2 MB, 591.4 us.
+//   * a block product (K2) is the same kernel for its pair of spaces
+//     (Streamed): x of the in-spaces only, copied once at each of the
+//     chunk's entries as matvec3_kernel does, the sums and the scratch of
+//     the out-spaces only, and A's used rows of a column (10 of a p->p
+//     column's 16 on tetrahedra) through a 3-D tensor map.  Its columns
+//     are narrow (5-10 KB), so a stage may hold two, and blocks are
+//     small, so up to 4 may share an SM, each with a ring of 2 stages or
+//     more (2 on the box: 3 stages of 10 KB for v->p, 7 for p->p): one
+//     block's chunk streams while another gathers and sums.  The rest of
+//     K2 at P3/P2 keeps its block-per-chunk kernel (see `streams`).
+// Bound at P3/P2 with bf16 A (scripts/kernel_bench.py bound_bytes_of): K1
+// at the channel 152.9 MB, 45.6 us, at the box 1,981.2 MB, 591.4 us; K2
+// v->v / v->p / p->p at the channel 93.0 / 33.5 / 10.8 MB (27.8 / 10.0 /
+// 3.2 us), v->p / p->p at the box 275.0 / 50.3 MB (82.1 / 15.0 us).
 // Everything computes in float32.
 
 #include <cuda.h>
@@ -1015,14 +1028,15 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
                : "memory");
 }
 
-// the box of a 2-D tensor map at (x0, y0) -> shared memory, completing on
-// bar; read once, so evicted first from L2
-__device__ __forceinline__ void tma_load_2d_once(uint32_t dst, const CUtensorMap* map,
-                                                 uint32_t bar, int x0, int y0, uint64_t policy) {
+// the box of a 3-D tensor map at (x0, y0, z0) -> shared memory, completing
+// on bar; read once, so evicted first from L2
+__device__ __forceinline__ void tma_load_3d_once(uint32_t dst, const CUtensorMap* map,
+                                                 uint32_t bar, int x0, int y0, int z0,
+                                                 uint64_t policy) {
   asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".L2::cache_hint [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x0), "r"(y0), "l"(policy)
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x0), "r"(y0), "r"(z0), "l"(policy)
       : "memory");
 }
 
@@ -1053,48 +1067,191 @@ __device__ __forceinline__ const uint16_t* stage_u16_async(uint16_t* dst,
   return dst + (start & 1);
 }
 
-// How a block of the streaming K1 lays out its shared memory: the ring's
-// mbarriers (full, then empty, kMaxStreamStages each), the slots' x values
-// xsl [NL][Bc], one component's outputs ys [KV][Bc], the chunk's (slot, dof)
-// pairs and entry offsets of the velocity and of the pressure (uint16, one
-// spare each for the staging's alignment), then the ring of `stages` stages
-// of NR rows of Bc values of A.  Every offset is a multiple of 128 bytes.
+// A product of the streaming kernel: K1 (spaces vp->vp) or a block product
+// (K2: v->v, v->p, p->p), and what its spaces fix.  A stage of the ring
+// holds ROWS = G * NR rows of Bc slots: NR rows (the N_OUT used rows of a
+// column, or half of them) of G columns.  K1 takes one column a stage, or
+// (float32 A on tetrahedra, 70 rows of 1 KB) half of one (SPLIT 2), so
+// that a stage is ~35 KB on tetrahedra and 13-26 KB on triangles.  A block
+// product's column is narrow (10 or 20 rows, 5-10 KB with bf16 A at Bc
+// 256), so a stage may take G columns, the most that divide N_IN and keep
+// a slot's part of a stage within kStageRowBytes: with bf16 A, v->v on
+// triangles one column (40 bytes a slot, 10 KB a stage), v->p and p->p on
+// tetrahedra two (40 bytes, 10 KB); with float32 A one.  (Stages of 3-5
+// columns, 104 bytes a slot, took as long or longer: PERF.md.)
+constexpr int kStageRowBytes = 52;
+__host__ __device__ constexpr int stream_group(int n_in, int n_out, int elt) {
+  int best = 1;
+  for (int cols = 1; cols <= n_in; ++cols)
+    if (n_in % cols == 0 && cols * n_out * elt <= kStageRowBytes) best = cols;
+  return best;
+}
+
+template <int DIM_, int KV_, int KP_, bool IN_V_, bool IN_P_, bool OUT_V_, bool OUT_P_,
+          typename TA>
+struct Streamed {
+  static constexpr int DIM = DIM_, KV = KV_, KP = KP_;
+  static constexpr bool IN_V = IN_V_, IN_P = IN_P_, OUT_V = OUT_V_, OUT_P = OUT_P_;
+  static constexpr int NV = DIM * KV;
+  static constexpr int N_IN = (IN_V ? NV : 0) + (IN_P ? KP : 0);
+  static constexpr int N_OUT = (OUT_V ? NV : 0) + (OUT_P ? KP : 0);
+  static constexpr bool K1 = IN_V && IN_P && OUT_V && OUT_P;
+  static constexpr int SPLIT = K1 && DIM == 3 && sizeof(TA) == 4 ? 2 : 1;
+  static constexpr int NR = N_OUT / SPLIT;  // rows of a column a stage
+  static constexpr int G = K1 ? 1 : stream_group(N_IN, N_OUT, (int)sizeof(TA));
+  static constexpr int ROWS = G * NR;                 // rows of A a stage
+  static constexpr int PIECES = N_IN / G * SPLIT;     // stages a chunk
+  static constexpr int KY = OUT_V ? KV : KP;          // rows of one output component
+  // a block product copies x at the chunk's entries (ENTRIES) and stages
+  // the next chunk's pairs while it sums this one's (two buffers of them)
+  static constexpr bool ENTRIES = !K1;
+  static constexpr int NBUF = ENTRIES ? 2 : 1;
+  // the blocks an SM the registers must allow: 2 for the narrow products
+  // on tetrahedra (at most 112 registers a thread), so that shared memory
+  // sets how many share an SM; else 1 (K1, and the products on triangles,
+  // whose chunks of up to 512 slots make blocks of up to 544 threads)
+  static constexpr int MIN_BLOCKS = DIM == 3 && !OUT_V ? 2 : 1;
+  static_assert(N_OUT % SPLIT == 0 && N_IN % G == 0, "a stage holds whole columns or half of one");
+  static_assert(32 * ROWS * sizeof(TA) % 128 == 0, "a tile's shared memory starts on 128 bytes");
+};
+
+// How a block of the streaming kernel lays out its shared memory: the
+// ring's mbarriers (full, then empty, kMaxStreamStages each); x: K1's
+// slots' x values xsl [NL][Bc], a block product's x at the chunk's entries
+// of the in-spaces xs [DIM][nev] (velocity), then [nep] (pressure), with
+// the entries' rows after it (int32); one output component's values ys
+// [KY][Bc]; NBUF buffers of the chunk's (slot, dof) pairs and entry
+// offsets of the velocity and of the pressure where they are out-spaces
+// (uint16, one spare each for the staging's alignment; pairs_v .. first_p
+// are buffer 0's, buffer i lies pair_bytes * i after it); then the ring of
+// `stages` stages of ROWS rows of Bc values of A.  Every offset is a
+// multiple of 128 bytes.
 constexpr int kMaxStreamStages = 16;
 struct StreamSmem {
-  int xsl, ys, pairs_v, first_v, pairs_p, first_p, ring;
+  int x, rows, ys, pairs_v, first_v, pairs_p, first_p, pair_bytes, ring;
 };
 __host__ __device__ constexpr int round128(long v) { return (int)((v + 127) / 128 * 128); }
-__host__ __device__ inline StreamSmem stream_smem(int Bc, int nl, int kv, int max_pairs_v,
-                                                  int max_e_v, int max_pairs_p, int max_e_p) {
+template <typename S>
+__host__ __device__ inline StreamSmem stream_smem(int Bc, const Compact& cv, const Compact& cp) {
+  const long ents = (S::IN_V ? cv.max_e : 0) + (S::IN_P ? cp.max_e : 0);  // in-entries
   StreamSmem s{};
-  s.xsl = round128(2 * 8 * kMaxStreamStages);
-  s.ys = s.xsl + round128(4L * nl * Bc);
-  s.pairs_v = s.ys + round128(4L * kv * Bc);
-  s.first_v = s.pairs_v + round128(2L * (max_pairs_v + 2));
-  s.pairs_p = s.first_v + round128(2L * (max_e_v + 2));
-  s.first_p = s.pairs_p + round128(2L * (max_pairs_p + 2));
-  s.ring = s.first_p + round128(2L * (max_e_p + 2));
+  s.x = round128(2 * 8 * kMaxStreamStages);
+  s.rows = s.x + round128(S::ENTRIES ? 4L * ((S::IN_V ? S::DIM * cv.max_e : 0) +
+                                             (S::IN_P ? cp.max_e : 0))
+                                     : 4L * S::N_IN * Bc);
+  s.ys = s.rows + (S::ENTRIES ? round128(4L * ents) : 0);
+  s.pairs_v = s.ys + round128(4L * S::KY * Bc);
+  s.first_v = s.pairs_v + (S::OUT_V ? round128(2L * (cv.max_pairs + 2)) : 0);
+  s.pairs_p = s.first_v + (S::OUT_V ? round128(2L * (cv.max_e + 2)) : 0);
+  s.first_p = s.pairs_p + (S::OUT_P ? round128(2L * (cp.max_pairs + 2)) : 0);
+  s.pair_bytes = s.first_p + (S::OUT_P ? round128(2L * (cp.max_e + 2)) : 0) - s.pairs_v;
+  s.ring = s.pairs_v + S::NBUF * s.pair_bytes;
   return s;
 }
 
-// A stage holds NR = NL / SPLIT rows of one column of A: a whole column,
-// or (float32 A on tetrahedra, 70 rows of 1 KB) half of one, so that a stage
-// is ~35 KB on tetrahedra and 13-26 KB on triangles.
-template <int DIM, typename TA>
-__host__ __device__ constexpr int stream_split() {
-  return DIM == 3 && sizeof(TA) == 4 ? 2 : 1;
+// A chunk of the streaming kernel's work list as the host recorded it
+// (ops/windowed.py stream_records: 12 int32, read as three int4), so that
+// a block reads a chunk's table offsets in one round and not through
+// cnt, off and tr_off in turn.
+struct WorkRec {
+  int piece, nv;           // the chunk (b * nchunks + c), its occupied slots
+  int ev0, nev, tv0, npv;  // velocity: first entry, entries, first (slot, dof) pair, pairs
+  int ep0, nep, tp0, npp;  // pressure: the same
+  int Tv, Tp;              // (slot, dof) pairs in all of each space
+};
+__device__ __forceinline__ WorkRec load_rec(const int4* __restrict__ recs, int w) {
+  const int4 a = recs[3 * w], b = recs[3 * w + 1], c = recs[3 * w + 2];
+  return WorkRec{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y, c.z, c.w};
 }
 
-// This slot's x values -> its column of xsl (row q: local dof q of the
+// The chunk's (slot, dof) pairs and entry offsets of the out-spaces ->
+// pairs buffer `pb` (its offset in shared memory, as L.pairs_v), in 4-byte
+// cp.asyncs of the consumers (no commit)
+template <bool OUT_V, bool OUT_P>
+__device__ __forceinline__ void stage_chunk_pairs(unsigned char* smem, const StreamSmem& L,
+                                                  int pb, const Compact& cv, const Compact& cp,
+                                                  const WorkRec& r, int threads) {
+  unsigned char* at = smem + pb - L.pairs_v;
+  if constexpr (OUT_V) {
+    stage_u16_async((uint16_t*)(at + L.pairs_v), cv.tr, r.tv0, r.npv, r.Tv, threads);
+    stage_u16_async((uint16_t*)(at + L.first_v), cv.tr_rel, r.ev0, r.nev, cv.E, threads);
+  }
+  if constexpr (OUT_P) {
+    stage_u16_async((uint16_t*)(at + L.pairs_p), cp.tr, r.tp0, r.npp, r.Tp, threads);
+    stage_u16_async((uint16_t*)(at + L.first_p), cp.tr_rel, r.ep0, r.nep, cp.E, threads);
+  }
+}
+
+// A block product's x at the chunk's entries of the in-spaces, in two
+// rounds of 4-byte cp.asyncs of the consumers (each without a commit):
+// first the entries' rows (cv.row, cp.row: one run of the tables a
+// chunk, so the copies coalesce) -> `rows`; then, once every consumer's
+// rows have landed, x at those rows -> xs [DIM][nev], then [nep] (the
+// entries of a chunk are its sorted window positions, so neighbouring
+// threads read neighbouring rows).  The pressure's x starts at 0 of the
+// in-spaces' segment where it is the only in-space.
+template <bool IN_V, bool IN_P>
+__device__ __forceinline__ void stage_rows(int* rows, const Compact& cv, const Compact& cp,
+                                           const WorkRec& r, int threads) {
+  const uint32_t d = smem_addr(rows);
+  if constexpr (IN_V) {
+    for (int e = threadIdx.x; e < r.nev; e += threads) cp_async4(d + 4 * e, cv.row + r.ev0 + e);
+  }
+  if constexpr (IN_P) {
+    const uint32_t dp = d + 4 * (IN_V ? r.nev : 0);
+    for (int e = threadIdx.x; e < r.nep; e += threads) cp_async4(dp + 4 * e, cp.row + r.ep0 + e);
+  }
+}
+
+template <int DIM, bool IN_V, bool IN_P>
+__device__ __forceinline__ void stage_x(float* xs, const int* rows, const float* __restrict__ x,
+                                        const Geo& g, const WorkRec& r, int threads) {
+  const uint32_t d = smem_addr(xs);
+  if constexpr (IN_V) {
+    for (int e = threadIdx.x; e < r.nev; e += threads) {
+      const long row = rows[e];
+#pragma unroll
+      for (int cc = 0; cc < DIM; ++cc)
+        cp_async4(d + 4 * (cc * r.nev + e), x + cc * (long)g.n_vs + row);
+    }
+  }
+  if constexpr (IN_P) {
+    const float* xp = x + (IN_V ? DIM * (long)g.n_vs : 0);
+    const int* rp = rows + (IN_V ? r.nev : 0);
+    const uint32_t dp = d + 4 * (IN_V ? DIM * r.nev : 0);
+    for (int e = threadIdx.x; e < r.nep; e += threads) cp_async4(dp + 4 * e, xp + rp[e]);
+  }
+}
+
+// this slot's entries (in its chunk's lists) of the in-spaces' local dofs,
+// -1 for none (a slot past the chunk's occupied ones, or no such dof)
+template <int KV, int KP, bool IN_V, bool IN_P>
+__device__ __forceinline__ void slot_entries(int* iv, int* ip, const Geo& g, const Compact& cv,
+                                             const Compact& cp, const WorkRec& r) {
+  const int b = r.piece / g.nchunks, c = r.piece - b * g.nchunks;
+  const int j = c * g.Bc + threadIdx.x;
+  const bool active = (int)threadIdx.x < r.nv;
+  if constexpr (IN_V) {
+#pragma unroll
+    for (int l = 0; l < KV; ++l) iv[l] = active ? chunk_entry(cv.idx, KV, g, b, j, l) : -1;
+  }
+  if constexpr (IN_P) {
+#pragma unroll
+    for (int l = 0; l < KP; ++l) ip[l] = active ? chunk_entry(cp.idx, KP, g, b, j, l) : -1;
+  }
+}
+
+// K1: this slot's x values -> its column of xsl (row q: local dof q of the
 // element, velocity components then pressure), as 4-byte cp.asyncs in one
 // commit group; 0 for a position off the vector.  K3's reads: the slot's
 // packed positions, then every value, no register waiting on one.
 template <int DIM, int KV, int KP>
 __device__ __forceinline__ void gather_slot(const Geo& g, const Tables& t,
-                                            const float* __restrict__ x, int piece, float* xsl) {
+                                            const float* __restrict__ x, const WorkRec& r,
+                                            float* xsl) {
   const int tid = threadIdx.x;
-  const int b = piece / g.nchunks, c = piece - b * g.nchunks;
-  if (tid < min(t.cnt[b] - c * g.Bc, g.Bc)) {
+  const int b = r.piece / g.nchunks, c = r.piece - b * g.nchunks;
+  if (tid < r.nv) {
     const int j = c * g.Bc + tid;
     int iv[KV], ip[KP];
 #pragma unroll
@@ -1137,48 +1294,65 @@ __device__ __forceinline__ void entry_sums(int ne, const uint16_t* pairs, const 
   }
 }
 
-// K1 (spaces vp->vp) on the P3/P2 elements: y = sum_cells P_c^T A_c P_c x
-// on the compact tables, with the sums of matvec3_kernel (and, on
-// tetrahedra, its bits).  A persistent grid: block k takes the chunks
-// work[k], work[k + gridDim.x], ... of the host's list of occupied chunks
-// (ops/windowed.py stream_work).  A block is Bc consumer threads, one a
+// The streaming kernel on the P3/P2 elements: y = sum_cells P_c^T A_c P_c x
+// over a pair of spaces (K1: vp->vp; K2: v->v, v->p, p->p) on the compact
+// tables, with the sums of matvec3_kernel (and, on tetrahedra, its bits).
+// A persistent grid: block k takes the chunks of records[k], records[k +
+// gridDim.x], ... of the host's list of occupied chunks (ops/windowed.py
+// stream_work, stream_records).  A block is Bc consumer threads, one a
 // slot, and a producer warp of which one thread works.  The producer
-// streams every chunk's columns of A, NR rows a stage, through a ring of
-// `stages` stages in tensor copies of tiles (NR rows by 32 slots, [NR][32]
-// in shared memory, one after another) that complete on the stage's
-// `full` mbarrier; the consumers give a stage back on its `empty`
-// mbarrier (one arrival a warp).  The ring does not stop at a chunk's end:
-// while the consumers sum one chunk, the next chunk's first columns fly.
-// A consumer, per chunk: its slot's x values are in xsl (gathered during
-// the previous chunk's sums); it starts the copies of the chunk's pairs
-// and entry offsets; it takes the stages in turn, y_i = fmaf(A[q, i], x_q,
-// y_i), q ascending; it starts the next chunk's x gather into its own
-// column of xsl; then, a component at a time, the slots' outputs go to ys
-// and each consumer sums the entries it owns (entry_sums) into the scratch
-// sub [DIM][cv.E], then [cp.E], in entry order (coalesced, no place to
-// look up), which merge3_kernel<true> reads a row's places at a time
-// through the tables' `at`.
-template <int DIM, int KV, int KP, typename TA>
-__global__ void __launch_bounds__(chunk_threads(DIM, KV) + 32, 1)
-stream_matvec_kernel(Geo g, Tables t, Compact cv, Compact cp, const int* __restrict__ work,
+// streams every chunk's stages of A (Streamed: ROWS rows, NR used rows of
+// G columns) through a ring of `stages` stages in tensor copies of tiles
+// (32 slots by NR rows by G columns, [G][NR][32] in shared memory, one
+// after another) that complete on the stage's `full` mbarrier; the pad
+// rows of A (n_out_pad past N_OUT) are never read.  The consumers give a
+// stage back on its `empty` mbarrier (one arrival a warp).  The ring does
+// not stop at a chunk's end: while the consumers sum one chunk, the next
+// chunk's first stages fly.
+// A consumer, per chunk: it takes the stages in turn, y_i = fmaf(A[q, i],
+// x_q, y_i), q ascending; then, a component at a time, the slots' outputs
+// go to ys and each consumer sums the entries it owns (entry_sums) into
+// the scratch sub [DIM][cv.E] (OUT_V), then [cp.E] (OUT_P), in entry order
+// (coalesced, no place to look up; sums written at their row-ordered
+// places instead, as matvec3_kernel does, took longer: PERF.md),
+// which merge3_kernel<true> reads a row's places at a time through the
+// tables' `at`.  The next chunk's x and tables come to shared memory in
+// the background:
+//   * K1 (26-70 columns a chunk, whose stream hides the rest): its slot's
+//     x values, gathered into its own column of xsl after the stream; the
+//     pairs and entry offsets at the chunk's start.
+//   * a block product (1-12 stages a chunk, which hide little): x as
+//     matvec3_kernel reads it, once at each of the chunk's entries of the
+//     in-spaces (xs, coalesced along the sorted entries, 2-4 times fewer
+//     loads than a slot's gather: at the box 12 % off v->p's time, PERF.md)
+//     and through the slot's entry indices (iv, ip: registers, the stages
+//     unrolled); the next chunk's pairs (a
+//     second buffer) and its entries' rows copied after the stream, its x
+//     at those rows after the sums, its entry indices loaded then.
+template <int DIM, int KV, int KP, bool IN_V, bool IN_P, bool OUT_V, bool OUT_P, typename TA>
+__global__ void __launch_bounds__(chunk_threads(DIM, KV) + 32,
+                                  (Streamed<DIM, KV, KP, IN_V, IN_P, OUT_V, OUT_P, TA>::MIN_BLOCKS))
+stream_matvec_kernel(Geo g, Tables t, Compact cv, Compact cp, const int4* __restrict__ recs,
                      int n_work, int stages, const __grid_constant__ CUtensorMap a_map,
-                     int n_out_pad, const float* __restrict__ x, float* __restrict__ sub) {
-  constexpr int NV = DIM * KV, NL = NV + KP;
-  constexpr int SPLIT = stream_split<DIM, TA>();
-  constexpr int NR = NL / SPLIT;  // rows of a column a stage
-  static_assert(NL % SPLIT == 0, "a stage holds whole columns or half of one");
+                     const float* __restrict__ x, float* __restrict__ sub) {
+  using S = Streamed<DIM, KV, KP, IN_V, IN_P, OUT_V, OUT_P, TA>;
+  constexpr int NV = S::NV, N_OUT = S::N_OUT, NR = S::NR, G = S::G, ROWS = S::ROWS;
+  constexpr int SPLIT = S::SPLIT;
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, nct = g.Bc;  // nct consumer threads, then the producer warp
-  const StreamSmem L = stream_smem(g.Bc, NL, KV, cv.max_pairs, cv.max_e, cp.max_pairs, cp.max_e);
+  const StreamSmem L = stream_smem<S>(g.Bc, cv, cp);
   const uint32_t bars = smem_addr(smem);
   auto full = [&](int s) { return bars + 8 * s; };
   auto empty = [&](int s) { return bars + 8 * (kMaxStreamStages + s); };
+  // this block's chunks: records[blockIdx.x + i * gridDim.x], i < mine
+  const int mine = n_work > (int)blockIdx.x ? (n_work - 1 - (int)blockIdx.x) / gridDim.x + 1 : 0;
+  auto rec_of = [&](int i) { return load_rec(recs, blockIdx.x + i * gridDim.x); };
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) mbar_init(full(s), 1), mbar_init(empty(s), nct / 32);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  const uint32_t tile_bytes = 32 * NR * sizeof(TA), stage_bytes = (g.Bc / 32) * tile_bytes;
+  const uint32_t tile_bytes = 32 * ROWS * sizeof(TA), stage_bytes = (g.Bc / 32) * tile_bytes;
   const uint32_t ring = smem_addr(smem + L.ring);
 
   if (tid >= nct) {  // the producer: one thread streams A, chunk after chunk
@@ -1186,92 +1360,168 @@ stream_matvec_kernel(Geo g, Tables t, Compact cv, Compact cp, const int* __restr
     const uint64_t once = evict_first_policy();
     int stage = 0;
     uint32_t phase = 0;
-    for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
-      const int piece = work[w], b = piece / g.nchunks, c = piece - b * g.nchunks;
-      const int tiles = (min(t.cnt[b] - c * g.Bc, g.Bc) + 31) / 32;  // of the occupied slots
+    for (int ci = 0; ci < mine; ++ci) {
+      const WorkRec r = rec_of(ci);  // the chunk b * nchunks + c, its occupied slots
+      const int b = r.piece / g.nchunks, c = r.piece - b * g.nchunks;
+      const int tiles = (r.nv + 31) / 32;
       const int x0 = b * g.Bmax + c * g.Bc;
-      for (int p = 0; p < NL * SPLIT; ++p) {
+      for (int p = 0; p < S::PIECES; ++p) {
         mbar_wait(empty(stage), phase ^ 1);  // the consumers gave the stage back
         mbar_expect_tx(full(stage), tiles * tile_bytes);
-        const int y0 = (p / SPLIT) * n_out_pad + (p % SPLIT) * NR;
+        const int y0 = (p % SPLIT) * NR, z0 = (p / SPLIT) * G;
         const uint32_t dst = ring + stage * stage_bytes;
         for (int k = 0; k < tiles; ++k)
-          tma_load_2d_once(dst + k * tile_bytes, &a_map, full(stage), x0 + 32 * k, y0, once);
+          tma_load_3d_once(dst + k * tile_bytes, &a_map, full(stage), x0 + 32 * k, y0, z0, once);
         if (++stage == stages) stage = 0, phase ^= 1;
       }
     }
     return;
   }
 
-  float* xsl = (float*)(smem + L.xsl);
+  float* xsl = (float*)(smem + L.x);  // K1: the slots' x values
+  float* xs = (float*)(smem + L.x);   // a block product: x at the chunk's entries
+  int* rows = (int*)(smem + L.rows);  // ... and the entries' rows
   float* ys = (float*)(smem + L.ys);
   const int lane = tid % 32;
-  const long Tv = cv.E ? cv.tr_off[cv.E] : 0, Tp = cp.E ? cp.tr_off[cp.E] : 0;  // pairs in all
-  int stage = 0;
+  int stage = 0, buf = 0;
   uint32_t phase = 0;
-  if (blockIdx.x < n_work) gather_slot<DIM, KV, KP>(g, t, x, work[blockIdx.x], xsl);
-  for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
-    const int piece = work[w], b = piece / g.nchunks, c = piece - b * g.nchunks;
-    const bool active = tid < min(t.cnt[b] - c * g.Bc, g.Bc);
-    // the chunk's pairs and entry offsets -> shared memory, in the background
-    // (the previous chunk's sums are over: the last barrier below)
-    const int ev0 = cv.off[piece], nev = cv.off[piece + 1] - ev0;
-    const int ep0 = cp.off[piece], nep = cp.off[piece + 1] - ep0;
-    const int tv0 = cv.tr_off[ev0], npv = cv.tr_off[ev0 + nev] - tv0;
-    const int tp0 = cp.tr_off[ep0], npp = cp.tr_off[ep0 + nep] - tp0;
-    const uint16_t* pairs_v =
-        stage_u16_async((uint16_t*)(smem + L.pairs_v), cv.tr, tv0, npv, Tv, nct);
-    const uint16_t* first_v =
-        stage_u16_async((uint16_t*)(smem + L.first_v), cv.tr_rel, ev0, nev, cv.E, nct);
-    const uint16_t* pairs_p =
-        stage_u16_async((uint16_t*)(smem + L.pairs_p), cp.tr, tp0, npp, Tp, nct);
-    const uint16_t* first_p =
-        stage_u16_async((uint16_t*)(smem + L.first_p), cp.tr_rel, ep0, nep, cp.E, nct);
-    cp_commit();
-    cp_wait<1>();  // this slot's x values have landed (the group before the pairs')
+  int iv[S::ENTRIES && IN_V ? KV : 1], ip[S::ENTRIES && IN_P ? KP : 1];  // this slot's entries
+  WorkRec r{};
+  if (mine > 0) {
+    r = rec_of(0);
+    if constexpr (S::ENTRIES) {  // the first chunk's pairs and x
+      stage_chunk_pairs<OUT_V, OUT_P>(smem, L, L.pairs_v, cv, cp, r, nct);
+      stage_rows<IN_V, IN_P>(rows, cv, cp, r, nct);
+      cp_commit();
+      cp_wait<0>();
+      consumers_sync(nct);
+      stage_x<DIM, IN_V, IN_P>(xs, rows, x, g, r, nct);
+      cp_commit();
+      slot_entries<KV, KP, IN_V, IN_P>(iv, ip, g, cv, cp, r);
+    } else {
+      gather_slot<DIM, KV, KP>(g, t, x, r, xsl);
+    }
+  }
+  for (int ci = 0; ci < mine; ++ci) {
+    const bool more = ci + 1 < mine;
+    const WorkRec rn = more ? rec_of(ci + 1) : WorkRec{};
+    const bool active = tid < r.nv;
+    const int pb = L.pairs_v + buf * L.pair_bytes;  // this chunk's pairs buffer
+    if constexpr (S::ENTRIES) {
+      cp_wait<0>();         // this thread's copies of x and of the pairs have landed
+      consumers_sync(nct);  // ... and everyone's
+    } else {
+      // the chunk's pairs and entry offsets -> shared memory, in the background
+      // (the previous chunk's sums are over: the last barrier below)
+      stage_chunk_pairs<OUT_V, OUT_P>(smem, L, pb, cv, cp, r, nct);
+      cp_commit();
+      cp_wait<1>();  // this slot's x values have landed (the group before the pairs')
+    }
 
     // y_i = sum_q A[q, i, s] x_q, in f32, a stage at a time
-    float y[NL];
+    float y[N_OUT];
 #pragma unroll
-    for (int i = 0; i < NL; ++i) y[i] = 0.f;
+    for (int i = 0; i < N_OUT; ++i) y[i] = 0.f;
     // this slot's value in row 0 of stage 0: its warp's tile, its lane
-    const TA* mine = (const TA*)(smem + L.ring) + (tid / 32) * (32 * NR) + lane;
-    for (int p = 0; p < NL * SPLIT; ++p) {
-      mbar_wait(full(stage), phase);
-      if (active) {
-        const float xq = xsl[(p / SPLIT) * g.Bc + tid];
-        const TA* col = mine + stage * (NR * g.Bc);
-        if (p % SPLIT == 0) {
+    const TA* mine_a = (const TA*)(smem + L.ring) + (tid / 32) * (32 * ROWS) + lane;
+    if constexpr (S::ENTRIES) {
+      // a few stages (1-12): unrolled, so that column q's entry index is a register
 #pragma unroll
-          for (int i = 0; i < NR; ++i, col += 32) y[i] = fmaf(widen(*col), xq, y[i]);
-        } else {
+      for (int p = 0; p < S::PIECES; ++p) {
+        mbar_wait(full(stage), phase);
+        if (active) {
+          const TA* col = mine_a + stage * (ROWS * g.Bc);
 #pragma unroll
-          for (int i = NR; i < NL; ++i, col += 32) y[i] = fmaf(widen(*col), xq, y[i]);
+          for (int u = 0; u < G; ++u) {
+            const int q = p * G + u;  // velocity components' dofs, then pressure's
+            int e = -1, at = 0;
+            if constexpr (IN_V) {
+              if (q < NV) e = iv[q % KV], at = (q / KV) * r.nev;
+            }
+            if constexpr (IN_P) {
+              if (q >= (IN_V ? NV : 0)) e = ip[q - (IN_V ? NV : 0)], at = IN_V ? DIM * r.nev : 0;
+            }
+            const float xq = e >= 0 ? xs[at + e] : 0.f;
+#pragma unroll
+            for (int i = 0; i < NR; ++i, col += 32) y[i] = fmaf(widen(*col), xq, y[i]);
+          }
         }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(stage));
+        if (++stage == stages) stage = 0, phase ^= 1;
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty(stage));
-      if (++stage == stages) stage = 0, phase ^= 1;
-    }
-    // the next chunk's x values -> this slot's column of xsl, in the background
-    if (w + (int)gridDim.x < n_work) gather_slot<DIM, KV, KP>(g, t, x, work[w + gridDim.x], xsl);
-    else cp_commit();  // an empty group: the wait counts stay as they are
-    cp_wait<1>();      // this thread's copies of the pairs have landed
-    consumers_sync(nct);
-    // the sums, a component at a time: velocity components, then pressure
+      // the next chunk's pairs (into the other buffer, which the previous
+      // chunk's sums are done with) and its entries' rows, while this
+      // chunk sums
+      if (more) {
+        stage_chunk_pairs<OUT_V, OUT_P>(smem, L, L.pairs_v + (buf ^ 1) * L.pair_bytes, cv, cp, rn,
+                                        nct);
+        stage_rows<IN_V, IN_P>(rows, cv, cp, rn, nct);
+      }
+      cp_commit();
+      consumers_sync(nct);
+    } else {
+      for (int p = 0; p < S::PIECES; ++p) {
+        mbar_wait(full(stage), phase);
+        if (active) {
+          const float xq = xsl[(p / SPLIT) * g.Bc + tid];
+          const TA* col = mine_a + stage * (ROWS * g.Bc);
+          if (p % SPLIT == 0) {
 #pragma unroll
-    for (int cc = 0; cc <= DIM; ++cc) {
+            for (int i = 0; i < NR; ++i, col += 32) y[i] = fmaf(widen(*col), xq, y[i]);
+          } else {
+#pragma unroll
+            for (int i = NR; i < N_OUT; ++i, col += 32) y[i] = fmaf(widen(*col), xq, y[i]);
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(stage));
+        if (++stage == stages) stage = 0, phase ^= 1;
+      }
+      // the next chunk's x values -> this slot's column of xsl, in the background
+      if (more) gather_slot<DIM, KV, KP>(g, t, x, rn, xsl);
+      else cp_commit();  // an empty group: the wait counts stay as they are
+      cp_wait<1>();      // this thread's copies of the pairs have landed
+      consumers_sync(nct);
+    }
+    // the sums, a component at a time: velocity components, then pressure
+    const uint16_t* pairs_v = (const uint16_t*)(smem + pb) + (r.tv0 & 1);
+    const uint16_t* first_v = (const uint16_t*)(smem + pb + L.first_v - L.pairs_v) + (r.ev0 & 1);
+    const uint16_t* pairs_p = (const uint16_t*)(smem + pb + L.pairs_p - L.pairs_v) + (r.tp0 & 1);
+    const uint16_t* first_p = (const uint16_t*)(smem + pb + L.first_p - L.pairs_v) + (r.ep0 & 1);
+    if constexpr (OUT_V) {
+#pragma unroll
+      for (int cc = 0; cc < DIM; ++cc) {
+        if (active) {
+#pragma unroll
+          for (int l = 0; l < KV; ++l) ys[l * g.Bc + tid] = y[cc * KV + l];
+        }
+        consumers_sync(nct);
+        entry_sums(r.nev, pairs_v, first_v, r.npv, ys, sub + cc * (long)cv.E + r.ev0, nct);
+        consumers_sync(nct);
+      }
+    }
+    if constexpr (OUT_P) {
       if (active) {
 #pragma unroll
-        for (int l = 0; l < (cc < DIM ? KV : KP); ++l) ys[l * g.Bc + tid] = y[cc * KV + l];
+        for (int l = 0; l < KP; ++l) ys[l * g.Bc + tid] = y[(OUT_V ? NV : 0) + l];
       }
       consumers_sync(nct);
-      if (cc < DIM)
-        entry_sums(nev, pairs_v, first_v, npv, ys, sub + cc * (long)cv.E + ev0, nct);
-      else
-        entry_sums(nep, pairs_p, first_p, npp, ys, sub + DIM * (long)cv.E + ep0, nct);
+      entry_sums(r.nep, pairs_p, first_p, r.npp, ys,
+                 sub + (OUT_V ? DIM * (long)cv.E : 0) + r.ep0, nct);
       consumers_sync(nct);
     }
+    if constexpr (S::ENTRIES) {  // the next chunk's x at its entries, and this slot's entries
+      if (more) {
+        cp_wait<0>();         // this thread's copies of the rows have landed
+        consumers_sync(nct);  // ... and everyone's
+        stage_x<DIM, IN_V, IN_P>(xs, rows, x, g, rn, nct);
+        cp_commit();
+        slot_entries<KV, KP, IN_V, IN_P>(iv, ip, g, cv, cp, rn);
+      }
+      buf ^= 1;
+    }
+    r = rn;
   }
 }
 
@@ -1622,7 +1872,7 @@ int launch_matvec_3d(const Geo& g, const int* cnt, const Compact& cv, const Comp
 // one space's Compact record from the host's pack of kCompactLen values a
 // space (ns_matvec's `compact`): 9 table addresses, E, the most entries and
 // the most pairs of a chunk.  After both spaces' records the pack holds the
-// streaming K1's work list: its address and length.
+// streaming kernel's work records (WorkRec): their address and number.
 constexpr int kCompactLen = 12;
 Compact unpack_compact(const int64_t* c) {
   return Compact{(const int*)c[0], (const int*)c[1], (const int*)c[2], (const uint16_t*)c[3],
@@ -1630,31 +1880,37 @@ Compact unpack_compact(const int64_t* c) {
                  (const uint16_t*)c[7], (const int*)c[8], (int)c[9], (int)c[10], (int)c[11]};
 }
 
-// The streaming K1's launch at a layout: its ring and grid.  Two blocks an
-// SM where each keeps a ring of at least kTwoBlockStages stages beside its
-// fixed part (triangles), so that one streams while the other sums a
-// chunk; else one block with as many stages as fit (tetrahedra).  At most
-// kMaxStreamStages.  The grid: the blocks that the occupancy calculator
-// lets reside on every SM at once, at most one a chunk.
+// The streaming kernel's launch at a layout for one product: its ring and
+// grid.  K1 takes two blocks an SM where each keeps a ring of at least
+// kTwoBlockStages stages beside its fixed part (triangles), so that one
+// streams while the other sums a chunk; else one block with as many stages
+// as fit (tetrahedra).  A block product's fixed part and stages are
+// smaller: it takes the most blocks an SM, up to kMaxStreamBlocks, at
+// which each keeps a ring of kMinBlockStages stages (and the occupancy
+// calculator lets them reside), so that while some blocks gather x and
+// sum, the others' stages stream; else one block with as many stages as
+// fit.  At most kMaxStreamStages.  The grid: the blocks that reside on
+// every SM at once, at most one a chunk.
 struct StreamLaunch {
   int stages, stage_bytes, smem_bytes, blocks_per_sm, grid;
 };
 constexpr int kSmemPerSm = 233472;           // an SM's shared memory on Hopper
 constexpr int kSmemReservedPerBlock = 1024;  // what the runtime keeps of it a block
 constexpr int kTwoBlockStages = 4;
+constexpr int kMaxStreamBlocks = 4;
+constexpr int kMinBlockStages = 2;
 
-template <int DIM, int KV, int KP, typename TA>
+template <int DIM, int KV, int KP, bool IN_V, bool IN_P, bool OUT_V, bool OUT_P, typename TA>
 int stream_launch(const Geo& g, const Compact& cv, const Compact& cp, int n_work,
                   StreamLaunch* out) {
-  constexpr int NL = DIM * KV + KP;
-  constexpr int NR = NL / stream_split<DIM, TA>();
+  using S = Streamed<DIM, KV, KP, IN_V, IN_P, OUT_V, OUT_P, TA>;
   if (g.Bc > chunk_threads(DIM, KV) || g.Bc % 32 != 0) return kErrLayout;
-  const StreamSmem L = stream_smem(g.Bc, NL, KV, cv.max_pairs, cv.max_e, cp.max_pairs, cp.max_e);
-  const long stage_bytes = (long)NR * g.Bc * sizeof(TA);
+  const StreamSmem L = stream_smem<S>(g.Bc, cv, cp);
+  const long stage_bytes = (long)S::ROWS * g.Bc * sizeof(TA);
   auto ring_of = [&](long room) {
     return std::min<long>(kMaxStreamStages, (room - L.ring) / stage_bytes);
   };
-  auto kernel = stream_matvec_kernel<DIM, KV, KP, TA>;
+  auto kernel = stream_matvec_kernel<DIM, KV, KP, IN_V, IN_P, OUT_V, OUT_P, TA>;
   static int allowed[kMaxDevices] = {};
   int dev = 0;
   cudaError_t ce = cudaGetDevice(&dev);
@@ -1670,16 +1926,21 @@ int stream_launch(const Geo& g, const Compact& cv, const Compact& cp, int n_work
   if (!cached) {
     ce = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
     if (ce != cudaSuccess) return (int)ce;
-    const long two = ring_of(kSmemPerSm / 2 - kSmemReservedPerBlock);
-    for (long s : {two >= kTwoBlockStages ? two : 0L, ring_of(kMaxSmemBytes)}) {
-      if (s < 2) continue;
+    // (blocks an SM, the least ring they take): the shared rings, most
+    // blocks first, then the one-block ring
+    const int most = S::K1 ? 2 : kMaxStreamBlocks;
+    const long least = S::K1 ? kTwoBlockStages : kMinBlockStages;
+    for (int want = most; want >= 1; --want) {
+      const long s = want == 1 ? ring_of(kMaxSmemBytes)
+                               : ring_of(kSmemPerSm / want - kSmemReservedPerBlock);
+      if (s < (want == 1 ? 2 : least)) continue;
       const int bytes = (int)(L.ring + s * stage_bytes);
       int e = set_smem(kernel, bytes, allowed);
       if (e != 0) return e;
       ce = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, g.Bc + 32, bytes);
       if (ce != cudaSuccess) return (int)ce;
       stages = s;
-      if (blocks >= 2 || s != two) break;  // two blocks fit, or the one-block ring
+      if (blocks >= want) break;  // they reside, or the one-block ring
     }
     if (stages < 2 || blocks == 0) return kErrSmem;
     if (dev < kMaxDevices)
@@ -1717,59 +1978,70 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// P3/P2 K1: stream_matvec_kernel on the compact tables (with the work list:
-// `compact`'s last two values), then merge3_kernel.  A [NL, n_out_pad, ncd]
-// is read through a 2-D tensor map of its rows (NL * n_out_pad rows of ncd
-// values) in boxes of NR rows by 32 slots, encoded at every call (A may
-// move between calls); the map is a kernel parameter, so a CUDA graph
-// captures it.
-template <int DIM, int KV, int KP, typename TA>
+// The streaming kernel on the compact tables (with the work records:
+// `compact`'s last two values), then merge3_kernel over the out-spaces.
+// A [N_IN, n_out_pad, ncd] is read through a 3-D tensor map (slots, rows,
+// columns) in boxes of 32 slots by NR rows by G columns, encoded at every
+// call (A may move between calls); the map is a kernel parameter, so a
+// CUDA graph captures it.
+template <int DIM, int KV, int KP, bool IN_V, bool IN_P, bool OUT_V, bool OUT_P, typename TA>
 int launch_stream_matvec(const Geo& g, const Tables& t, const int64_t* compact, const void* A,
                          int n_out_pad, const void* x, float* scratch, float* y,
                          cudaStream_t stream) {
+  using S = Streamed<DIM, KV, KP, IN_V, IN_P, OUT_V, OUT_P, TA>;
   if (compact == nullptr) return kErrLayout;
   const Compact cv = unpack_compact(compact), cp = unpack_compact(compact + kCompactLen);
-  const int* work = (const int*)compact[2 * kCompactLen];
+  const int4* recs = (const int4*)compact[2 * kCompactLen];
   const int n_work = (int)compact[2 * kCompactLen + 1];
   if ((uintptr_t)A % 16 != 0) return kErrAlign;
   StreamLaunch sl;
-  int e = stream_launch<DIM, KV, KP, TA>(g, cv, cp, n_work, &sl);
+  int e = stream_launch<DIM, KV, KP, IN_V, IN_P, OUT_V, OUT_P, TA>(g, cv, cp, n_work, &sl);
   if (e != 0) return e;
   if (n_work > 0) {
-    constexpr int NL = DIM * KV + KP, NR = NL / stream_split<DIM, TA>();
     EncodeTiled encode = encode_tiled();
     if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
     CUtensorMap map;
-    const cuuint64_t dims[2] = {(cuuint64_t)g.ncd, (cuuint64_t)NL * n_out_pad};
-    const cuuint64_t strides[1] = {(cuuint64_t)g.ncd * sizeof(TA)};
-    const cuuint32_t box[2] = {32, NR}, unit[2] = {1, 1};
+    const cuuint64_t dims[3] = {(cuuint64_t)g.ncd, (cuuint64_t)n_out_pad, (cuuint64_t)S::N_IN};
+    const cuuint64_t strides[2] = {(cuuint64_t)g.ncd * sizeof(TA),
+                                   (cuuint64_t)n_out_pad * g.ncd * sizeof(TA)};
+    const cuuint32_t box[3] = {32, S::NR, S::G}, unit[3] = {1, 1, 1};
     if (encode(&map,
                sizeof(TA) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-               2, const_cast<void*>(A), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+               3, const_cast<void*>(A), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
       return (int)cudaErrorInvalidValue;
-    stream_matvec_kernel<DIM, KV, KP, TA><<<sl.grid, g.Bc + 32, sl.smem_bytes, stream>>>(
-        g, t, cv, cp, work, n_work, sl.stages, map, n_out_pad, (const float*)x, scratch);
+    stream_matvec_kernel<DIM, KV, KP, IN_V, IN_P, OUT_V, OUT_P, TA>
+        <<<sl.grid, g.Bc + 32, sl.smem_bytes, stream>>>(g, t, cv, cp, recs, n_work, sl.stages,
+                                                          map, (const float*)x, scratch);
     cudaError_t ce = cudaGetLastError();
     if (ce != cudaSuccess) return (int)ce;
   }
-  return launch_merge3(g, cv, cp, true, true, scratch, y, stream, true);
+  return launch_merge3(g, cv, cp, OUT_V, OUT_P, scratch, y, stream, true);
 }
 
-// the elements whose K1 is the streaming kernel: P3/P2 on triangles and on
-// tetrahedra
-template <typename E>
-constexpr bool streams_k1() {
-  return (E::DIM == 2 && E::KV == 10) || (E::DIM == 3 && E::KV == 20);
+// the products the streaming kernel serves: on the P3/P2 elements K1; on
+// triangles K2 v->v; on tetrahedra K2 v->p and p->p.  The others keep the
+// block-per-chunk kernels: 3D v->v (60 x 60 values a cell, which
+// matvec3_kernel streams at 0.59 of its bound), and 2D v->p and p->p,
+// where a chunk moves 15 and 18 KB of A and one or two chunks a block left
+// the streaming kernel's fixed phases (its dependent table loads and
+// barriers) longer than matvec_kernel's whole call (PERF.md)
+template <typename E, bool IN_V, bool IN_P, bool OUT_V, bool OUT_P>
+constexpr bool streams() {
+  constexpr bool k1 = IN_V && IN_P && OUT_V && OUT_P;
+  constexpr bool vv = IN_V && !IN_P && OUT_V && !OUT_P;
+  if constexpr (E::DIM == 2 && E::KV == 10) return k1 || vv;
+  if constexpr (E::DIM == 3 && E::KV == 20) return !vv;
+  return false;
 }
 
 template <typename E, bool IN_V, bool IN_P, bool OUT_V, bool OUT_P, typename TA>
 int launch_matvec_any(const Geo& g, const Tables& t, const int64_t* compact, const void* A,
                       int n_out_pad, const void* x, float* scratch, float* y, cudaStream_t st) {
-  if constexpr (streams_k1<E>() && IN_V && IN_P && OUT_V && OUT_P) {
-    return launch_stream_matvec<E::DIM, E::KV, E::KP, TA>(g, t, compact, A, n_out_pad, x,
-                                                          scratch, y, st);
+  if constexpr (streams<E, IN_V, IN_P, OUT_V, OUT_P>()) {
+    return launch_stream_matvec<E::DIM, E::KV, E::KP, IN_V, IN_P, OUT_V, OUT_P, TA>(
+        g, t, compact, A, n_out_pad, x, scratch, y, st);
   } else if constexpr (E::DIM == 3) {
     if (compact == nullptr) return kErrLayout;
     return launch_matvec_3d<E::KV, E::KP, IN_V, IN_P, OUT_V, OUT_P, TA>(
@@ -1781,24 +2053,31 @@ int launch_matvec_any(const Geo& g, const Tables& t, const int64_t* compact, con
   }
 }
 
+// f(Spaces<...>{}) for a product's spaces, given as codes (1 = velocity,
+// 2 = pressure, 3 = both): vp->vp, v->v, v->p or p->p
+template <bool IN_V_, bool IN_P_, bool OUT_V_, bool OUT_P_>
+struct Spaces {
+  static constexpr bool IN_V = IN_V_, IN_P = IN_P_, OUT_V = OUT_V_, OUT_P = OUT_P_;
+};
+
+template <typename F>
+int with_spaces(int in_sp, int out_sp, F&& f) {
+  if (in_sp == 3 && out_sp == 3) return f(Spaces<true, true, true, true>{});
+  if (in_sp == 1 && out_sp == 1) return f(Spaces<true, false, true, false>{});
+  if (in_sp == 1 && out_sp == 2) return f(Spaces<true, false, false, true>{});
+  if (in_sp == 2 && out_sp == 2) return f(Spaces<false, true, false, true>{});
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename E, typename TA>
 int dispatch_spaces(int in_sp, int out_sp, const Geo& g, const Tables& t, const int64_t* compact,
                     const void* A, int n_out_pad, const void* x, float* scratch,
                     float* y, cudaStream_t st) {
-  // spaces: 1 = velocity, 2 = pressure, 3 = both
-  if (in_sp == 3 && out_sp == 3)
-    return launch_matvec_any<E, true, true, true, true, TA>(g, t, compact, A, n_out_pad, x,
-                                                            scratch, y, st);
-  if (in_sp == 1 && out_sp == 1)
-    return launch_matvec_any<E, true, false, true, false, TA>(g, t, compact, A, n_out_pad, x,
-                                                              scratch, y, st);
-  if (in_sp == 1 && out_sp == 2)
-    return launch_matvec_any<E, true, false, false, true, TA>(g, t, compact, A, n_out_pad, x,
-                                                              scratch, y, st);
-  if (in_sp == 2 && out_sp == 2)
-    return launch_matvec_any<E, false, true, false, true, TA>(g, t, compact, A, n_out_pad, x,
-                                                              scratch, y, st);
-  return (int)cudaErrorInvalidValue;
+  return with_spaces(in_sp, out_sp, [&](auto sp) {
+    using P = decltype(sp);
+    return launch_matvec_any<E, P::IN_V, P::IN_P, P::OUT_V, P::OUT_P, TA>(
+        g, t, compact, A, n_out_pad, x, scratch, y, st);
+  });
 }
 
 template <typename E, int NVEC>
@@ -1901,18 +2180,24 @@ int matvec_any(const Geo& g, const Tables& t, const int64_t* compact, const void
   });
 }
 
-int stream_config_any(const Geo& g, const int64_t* compact, int a_bf16, int* out) {
+int stream_config_any(const Geo& g, const int64_t* compact, int a_bf16, int in_sp, int out_sp,
+                      int* out) {
   const Compact cv = unpack_compact(compact), cp = unpack_compact(compact + kCompactLen);
   const int n_work = (int)compact[2 * kCompactLen + 1];
   StreamLaunch sl;
   const int e = with_element(g, [&](auto el) {
     using E = decltype(el);
-    if constexpr (streams_k1<E>()) {
-      return a_bf16 ? stream_launch<E::DIM, E::KV, E::KP, __nv_bfloat16>(g, cv, cp, n_work, &sl)
-                    : stream_launch<E::DIM, E::KV, E::KP, float>(g, cv, cp, n_work, &sl);
-    } else {
-      return kErrLayout;
-    }
+    return with_spaces(in_sp, out_sp, [&](auto sp) {
+      using P = decltype(sp);
+      if constexpr (streams<E, P::IN_V, P::IN_P, P::OUT_V, P::OUT_P>()) {
+        return a_bf16 ? stream_launch<E::DIM, E::KV, E::KP, P::IN_V, P::IN_P, P::OUT_V,
+                                      P::OUT_P, __nv_bfloat16>(g, cv, cp, n_work, &sl)
+                      : stream_launch<E::DIM, E::KV, E::KP, P::IN_V, P::IN_P, P::OUT_V,
+                                      P::OUT_P, float>(g, cv, cp, n_work, &sl);
+      } else {
+        return kErrLayout;
+      }
+    });
   });
   if (e != 0) return e;
   out[0] = sl.stages, out[1] = sl.stage_bytes, out[2] = sl.smem_bytes;
@@ -1943,13 +2228,15 @@ long ns_scratch_floats(const int* meta, const int64_t* compact) {
   return std::max(subwindow_floats(g, true, true) + span_ints(g), packed);
 }
 
-// The streaming K1's launch at this layout (P3/P2 only) with bfloat16
-// (a_bf16 1) or float32 A: out = [ring stages, bytes a stage, shared memory
-// bytes a block, resident blocks an SM, grid].
-int ns_stream_config(const int* meta, const int64_t* compact, int a_bf16, int* out) {
+// The streaming kernel's launch at this layout (P3/P2 only) for a product
+// (in_spaces, out_spaces: ns_matvec's codes) with bfloat16 (a_bf16 1) or
+// float32 A: out = [ring stages, bytes a stage, shared memory bytes a
+// block, resident blocks an SM, grid].
+int ns_stream_config(const int* meta, const int64_t* compact, int a_bf16, int in_spaces,
+                     int out_spaces, int* out) {
   Geo g;
   if (!load_geo(meta, &g) || compact == nullptr) return kErrLayout;
-  return stream_config_any(g, compact, a_bf16, out);
+  return stream_config_any(g, compact, a_bf16, in_spaces, out_spaces, out);
 }
 
 // X [nvec, nli, ncd] = the gathers of x0 (and x1: nvec 2) in one launch: K3

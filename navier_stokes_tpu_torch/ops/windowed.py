@@ -812,41 +812,92 @@ def compact_smem_bytes(lay: WindowedLayout, tabs: dict) -> int:
     return 4 * lay.nl * lay.Bc + _round_up(max(xs, pairs), 16)
 
 
-# the elements whose K1 (vp->vp) is the streaming kernel
-# (windowed.cu stream_matvec_kernel): P3/P2 on triangles and on tetrahedra
-_STREAM_ELEMENTS = ((2, 10, 6), (3, 20, 10))
+# the products (in_spaces, out_spaces) that the streaming kernel serves
+# (windowed.cu stream_matvec_kernel, ``streams``), by element (dim, k_v,
+# k_p): on P3/P2 triangles K1 and K2 v->v (their v->p and p->p stay on the
+# 2D block kernel), on P3/P2 tetrahedra K1, K2 v->p and p->p (their v->v
+# stays on the 3D block kernel)
+_STREAM_PRODUCTS = {
+    (2, 10, 6): (("vp", "vp"), ("v", "v")),
+    (3, 20, 10): (("vp", "vp"), ("v", "p"), ("p", "p")),
+}
 _MAX_STREAM_STAGES = 16  # windowed.cu kMaxStreamStages
+_STAGE_ROW_BYTES = 52  # windowed.cu kStageRowBytes
+
+
+def streamed_products(lay: WindowedLayout) -> tuple:
+    """The (in_spaces, out_spaces) products the streaming kernel serves at
+    this layout's element (none at P2/P1)."""
+    return _STREAM_PRODUCTS.get((lay.dim, lay.k_v, lay.k_p), ())
+
+
+def streams(lay: WindowedLayout, in_spaces: str, out_spaces: str) -> bool:
+    """Whether the product runs on the streaming kernel at this layout."""
+    return (in_spaces, out_spaces) in streamed_products(lay)
 
 
 def streams_k1(lay: WindowedLayout) -> bool:
     """Whether the layout's K1 is the streaming kernel (P3/P2)."""
-    return (lay.dim, lay.k_v, lay.k_p) in _STREAM_ELEMENTS
+    return streams(lay, "vp", "vp")
 
 
-def stream_split(lay: WindowedLayout, elt: int) -> int:
-    """Stages a column of A takes in the streaming K1 (windowed.cu
-    stream_split): two on tetrahedra with float32 A (elt 4), else one."""
-    return 2 if lay.dim == 3 and elt == 4 else 1
+def _rows(lay: WindowedLayout, spaces: str) -> int:
+    return (lay.dim * lay.k_v if "v" in spaces else 0) + (lay.k_p if "p" in spaces else 0)
 
 
-def stream_smem_bytes(lay: WindowedLayout, tabs: dict, elt: int, stages: int) -> int:
-    """The shared memory of a block of the streaming K1 (windowed.cu
-    stream_smem) with A of elt bytes a value and a ring of ``stages``
-    stages: the ring's mbarriers, the slots' x values (nl rows of Bc
-    floats), one component's outputs (k_v rows), the chunk's (slot, dof)
-    pairs and entry offsets of both spaces (uint16, one spare each), each
-    part rounded up to 128 bytes, then the stages of nl / split rows of Bc
-    values of A."""
-    v, p = tabs["v"], tabs["p"]
-    parts = (2 * 8 * _MAX_STREAM_STAGES, 4 * lay.nl * lay.Bc, 4 * lay.k_v * lay.Bc,
-             2 * (v.max_pairs + 2), 2 * (v.max_entries + 2),
-             2 * (p.max_pairs + 2), 2 * (p.max_entries + 2))
-    fixed = sum(_round_up(b, 128) for b in parts)
-    return fixed + stages * (lay.nl // stream_split(lay, elt)) * lay.Bc * elt
+def stream_split(lay: WindowedLayout, elt: int, in_spaces: str = "vp",
+                 out_spaces: str = "vp") -> int:
+    """Stages a column of A takes in the streaming kernel (windowed.cu
+    Streamed::SPLIT): two for K1 on tetrahedra with float32 A (elt 4), else
+    one."""
+    k1 = (in_spaces, out_spaces) == ("vp", "vp")
+    return 2 if k1 and lay.dim == 3 and elt == 4 else 1
+
+
+def stream_group(lay: WindowedLayout, elt: int, in_spaces: str = "vp",
+                 out_spaces: str = "vp") -> int:
+    """Columns of A a stage of the streaming kernel holds (windowed.cu
+    Streamed::G): one for K1; for a block product the most that divide its
+    in-rows and keep a slot's part of a stage within 52 bytes."""
+    if (in_spaces, out_spaces) == ("vp", "vp"):
+        return 1
+    n_in, n_out = _rows(lay, in_spaces), _rows(lay, out_spaces)
+    return max(g for g in range(1, n_in + 1)
+               if n_in % g == 0 and (g == 1 or g * n_out * elt <= _STAGE_ROW_BYTES))
+
+
+def stream_smem_bytes(lay: WindowedLayout, tabs: dict, elt: int, stages: int,
+                      in_spaces: str = "vp", out_spaces: str = "vp") -> int:
+    """The shared memory of a block of the streaming kernel (windowed.cu
+    stream_smem) for a product with A of elt bytes a value and a ring of
+    ``stages`` stages: the ring's mbarriers; x (K1: the slots' x values, nl
+    rows of Bc floats; a block product: x at a chunk's entries of the
+    in-spaces, dim floats a velocity entry and one a pressure entry, then
+    the entries' rows, one int32 each); one output component's values (k_v
+    rows of Bc floats where the velocity is an out-space, else k_p); the
+    chunk's (slot, dof) pairs and entry offsets of each out-space (uint16,
+    one spare each; two buffers of them for a block product, which stages
+    the next chunk's while it sums one); each part rounded up to 128 bytes;
+    then the stages of G columns of the out-spaces' rows (half of them:
+    ``stream_split``) of Bc values of A."""
+    k1 = (in_spaces, out_spaces) == ("vp", "vp")
+    ents = {s: tabs[s].max_entries if s in in_spaces else 0 for s in "vp"}
+    parts = [2 * 8 * _MAX_STREAM_STAGES]
+    if k1:
+        parts.append(4 * lay.nl * lay.Bc)
+    else:
+        parts += [4 * (lay.dim * ents["v"] + ents["p"]), 4 * (ents["v"] + ents["p"])]
+    parts.append(4 * (lay.k_v if "v" in out_spaces else lay.k_p) * lay.Bc)
+    pairs = [b for s in "vp" if s in out_spaces
+             for b in (2 * (tabs[s].max_pairs + 2), 2 * (tabs[s].max_entries + 2))]
+    fixed = sum(_round_up(b, 128) for b in parts + (1 if k1 else 2) * pairs)
+    rows = (stream_group(lay, elt, in_spaces, out_spaces) * _rows(lay, out_spaces)
+            // stream_split(lay, elt, in_spaces, out_spaces))
+    return fixed + stages * rows * lay.Bc * elt
 
 
 def stream_work(lay: WindowedLayout, cnt: torch.Tensor) -> torch.Tensor:
-    """The streaming K1's work list: the occupied chunks (pieces b*nchunks
+    """The streaming kernel's work list: the occupied chunks (pieces b*nchunks
     + c with a slot below cnt[b]), most occupied slots first, then by
     piece; int32 on the host."""
     nv = (cnt.cpu().long()[:, None] - lay.Bc * torch.arange(lay.nchunks)[None, :]).clamp(0, lay.Bc)
@@ -856,14 +907,36 @@ def stream_work(lay: WindowedLayout, cnt: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(piece[order].astype(np.int32))
 
 
+def stream_records(lay: WindowedLayout, cnt: torch.Tensor, tabs: dict,
+                   work: torch.Tensor | None = None) -> torch.Tensor:
+    """The streaming kernel's work records (windowed.cu WorkRec): for each
+    chunk of the work list (``stream_work``), in its order, the piece, its
+    occupied slots, then per space (velocity, pressure) the chunk's first
+    entry, its entries, its first (slot, dof) pair and its pairs, then each
+    space's pairs in all; int32 [n_work, 12] on the host."""
+    work = stream_work(lay, cnt) if work is None else work
+    piece = work.cpu().numpy().astype(np.int64)
+    nv = np.clip(cnt.cpu().numpy().astype(np.int64)[piece // lay.nchunks]
+                 - (piece % lay.nchunks) * lay.Bc, 0, lay.Bc)
+    cols = [piece, nv]
+    totals = []
+    for key in "vp":
+        off, tr_off = (getattr(tabs[key], f).cpu().numpy().astype(np.int64)
+                       for f in ("off", "tr_off"))
+        e0, e1 = off[piece], off[piece + 1]
+        cols += [e0, e1 - e0, tr_off[e0], tr_off[e1] - tr_off[e0]]
+        totals.append(np.full_like(piece, tr_off[-1]))
+    return torch.as_tensor(np.stack(cols + totals, axis=1).astype(np.int32))
+
+
 def compact_tables(lay: WindowedLayout) -> dict:
     """{"v": CompactSpace, "p": CompactSpace}: the compact kernels' tables
-    (K1, K2 and K4 on tetrahedra, K1 on P3/P2 triangles), made once per
-    layout with numpy (on the layout's device).  Raises ValueError where a
-    chunk's lists exceed what the kernels take: 16-bit indices, and a
+    (K1, K2 and K4 on tetrahedra, K1 and K2 v->v on P3/P2 triangles), made
+    once per layout with numpy (on the layout's device).  Raises ValueError where
+    a chunk's lists exceed what the kernels take: 16-bit indices, and a
     block's shared memory (``compact_smem_bytes`` on tetrahedra; on the
-    P3/P2 elements also ``stream_smem_bytes`` with a 2-stage ring of
-    float32 A)."""
+    P3/P2 elements also ``stream_smem_bytes`` of every streamed product
+    with a 2-stage ring of float32 A)."""
     pos_v, pos_p, _ = pack_positions(lay)
     tabs = {
         key: _compact_space(lay, unpack_positions(pos).cpu().numpy(), k, OW, h, n)
@@ -871,8 +944,7 @@ def compact_tables(lay: WindowedLayout) -> dict:
                                       ("p", pos_p, lay.k_p, lay.OWp, lay.hp, lay.n_ps))
     }
     needs = [compact_smem_bytes(lay, tabs)] if lay.dim == 3 else []
-    if streams_k1(lay):
-        needs.append(stream_smem_bytes(lay, tabs, 4, 2))
+    needs += [stream_smem_bytes(lay, tabs, 4, 2, i, o) for i, o in streamed_products(lay)]
     need = max(needs, default=0)
     if need > _MAX_SMEM_BYTES:
         v, p = tabs["v"], tabs["p"]
@@ -1006,9 +1078,10 @@ def _compact_matvec_reference(lay: WindowedLayout, A_sub: torch.Tensor, x: torch
     chunk's sums at its entries (their (slot, dof) pairs in order) written
     to their places in the row-ordered scratch, then the merge of each
     row's places in order (``_compact_scatter_reference``).  The plain
-    version of K1 and K2 in 3D and of K1 at P3/P2 on triangles too (the
-    streaming kernel gathers x a slot at a time, the same values); x and
-    the result are the in- and out-spaces' planar segments."""
+    version of K1 and K2 in 3D and of K1 and K2 v->v at P3/P2 on triangles
+    too (the streaming kernel gathers x a slot at a time for K1 and at the
+    chunk's entries for K2: the same values); x and the result are the in-
+    and out-spaces' planar segments."""
     tabs = compact_tables(lay) if tables is None else tables
     nb, nch, Bc, Bmax = lay.nb, lay.nchunks, lay.Bc, lay.Bmax
     k = {"v": lay.k_v, "p": lay.k_p}
@@ -1138,8 +1211,8 @@ _KERNEL_ERRORS = {
         "triangles or tetrahedra, chunks of at most 1024 slots for P2/P1 "
         "triangles, 512 for P3/P2 triangles and P2/P1 tetrahedra and 256 for "
         "P3/P2 tetrahedra, whose rows of A are 16-byte multiples; the gather, "
-        "the scatter, the 3D products and the P3/P2 K1 take whole warps: a multiple of "
-        "32 slots)",
+        "the scatter, the 3D products and the P3/P2 K1 and K2 take whole warps: a "
+        "multiple of 32 slots)",
     -2: "a block would need more shared memory than it may use",
     -3: "the operand's storage (A, X, or R in 3D) is not 16-byte aligned",
 }
@@ -1200,7 +1273,7 @@ def _load(path: str):
     lib.ns_gather.argtypes = [meta, *tables, p, p, p, i, i, p]
     lib.ns_scatter.argtypes = [meta, *tables, p, p, p, p, p]
     lib.ns_matvec.argtypes = [meta, *tables, p, p, i, i, i, i, p, p, p, p]
-    lib.ns_stream_config.argtypes = [meta, p, i, p]
+    lib.ns_stream_config.argtypes = [meta, p, i, i, i, p]
     for fn in (lib.ns_gather, lib.ns_scatter, lib.ns_matvec, lib.ns_stream_config):
         fn.restype = i
     return lib
@@ -1212,13 +1285,14 @@ class _Packed:
     in 2D the slot colours of ``slot_colours`` (``colour`` None and
     ``ncolors`` 0 in 3D, whose kernels sum in the order of
     ``compact_tables``: a null table), the leading arguments of every
-    call and, for the 3D K1, K2 and K4 and the P3/P2 K1, the tables of
-    ``compact_tables`` (made at the first call of one of them).  Scratch is
-    kept per stream (calls on one stream run in turn, so they can share it;
-    CUDA graphs captured on one capture stream share theirs, so replay them
-    on one stream at a time): in 2D the chunk subwindows and K4's span
-    tables (at P3/P2 at least the compact vector, which K1 writes there),
-    in 3D the row-ordered compact vector, dim*E_v + E_p floats."""
+    call and, for the 3D K1, K2 and K4 and the P3/P2 K1 and K2 v->v, the
+    tables of ``compact_tables`` (made at the first call of one of them).
+    Scratch is kept per stream (calls on one stream run in turn, so they
+    can share it; CUDA graphs captured on one capture stream share theirs,
+    so replay them on one stream at a time): in 2D the chunk subwindows and
+    K4's span tables (at P3/P2 at least the compact vector, which K1 and K2
+    v->v write there), in 3D the row-ordered compact vector, dim*E_v + E_p
+    floats."""
 
     def __init__(self, lay: WindowedLayout):
         self._lay = lay
@@ -1247,20 +1321,24 @@ class _Packed:
         ns_scratch_floats: per space (velocity, then pressure) the addresses
         of the 9 tables of ``compact_tables`` (kept in ``self.compact``), E
         and the most entries and pairs of a chunk (struct Compact,
-        windowed.cu), then the streaming K1's work list (``stream_work``,
-        kept in ``self.work``): its address and length.  Made for every 3D
-        layout and for P3/P2 triangles; None on P2/P1 triangles."""
+        windowed.cu), then the streaming kernel's work records
+        (``stream_records`` of ``stream_work``'s list, kept in
+        ``self.records``; the list in ``self.work``): their address and
+        number.  Made for every 3D layout and for P3/P2 triangles; None on
+        P2/P1 triangles."""
         if self._lay.dim != 3 and not streams_k1(self._lay):
             return None
         self.compact = compact_tables(self._lay)
-        self.work = stream_work(self._lay, self.cnt).to(self._device)
+        self.work = stream_work(self._lay, self.cnt)
+        self.records = stream_records(self._lay, self.cnt, self.compact,
+                                      self.work).to(self._device)
         vals = []
         for t in (self.compact["v"], self.compact["p"]):
             vals += [getattr(t, name).data_ptr()
                      for name in ("off", "row", "dst", "idx", "tr_off", "tr", "row_ptr", "tr_rel",
                                   "at")]
             vals += [t.E, t.max_entries, t.max_pairs]
-        vals += [self.work.data_ptr(), self.work.numel()]
+        vals += [self.records.data_ptr(), self.records.shape[0]]
         return (ctypes.c_int64 * len(vals))(*vals)
 
     def scratch(self, stream: int) -> int:
@@ -1327,20 +1405,33 @@ def _launch_matvec(lay, A, x, in_spaces, out_spaces, n_out_pad):
     return y
 
 
-def stream_config(lay: WindowedLayout, dtype: torch.dtype) -> dict:
-    """How the streaming K1 launches at this P3/P2 layout (on the card) with
-    A of ``dtype`` (bfloat16 or float32): its ring (stages, bytes a stage),
-    the shared memory a block takes, the resident blocks an SM and the
-    persistent grid (windowed.cu ns_stream_config), and the occupied chunks
-    the grid walks."""
-    if not streams_k1(lay):
-        raise ValueError(f"no streaming K1 for (dim, k_v, k_p) {(lay.dim, lay.k_v, lay.k_p)}")
+def stream_config(lay: WindowedLayout, dtype: torch.dtype, in_spaces: str = "vp",
+                  out_spaces: str = "vp") -> dict:
+    """How the streaming kernel launches a product at this P3/P2 layout (on
+    the card) with A of ``dtype`` (bfloat16 or float32): its ring (stages,
+    bytes a stage), the shared memory a block takes, the resident blocks an
+    SM and the persistent grid (windowed.cu ns_stream_config), and the
+    occupied chunks the grid walks."""
+    if not streams(lay, in_spaces, out_spaces):
+        raise ValueError(f"no streaming {in_spaces}->{out_spaces} product for (dim, k_v, k_p) "
+                         f"{(lay.dim, lay.k_v, lay.k_p)}")
     pk = lay._packed
     out = (ctypes.c_int * 5)()
     _raise_on(_lib().ns_stream_config(pk.meta, pk.compact_args, int(dtype == torch.bfloat16),
-                                      out), "ns_stream_config")
+                                      _SPACE_CODE[in_spaces], _SPACE_CODE[out_spaces], out),
+              "ns_stream_config")
     keys = ("stages", "stage_bytes", "smem_bytes", "blocks_per_sm", "grid")
     return dict(zip(keys, list(out)), chunks=int(pk.work.numel()))
+
+
+def kernel_design(lay: WindowedLayout, in_spaces: str, out_spaces: str) -> str:
+    """The CUDA kernels that serve a product (K1: "vp"->"vp"; K2) at this
+    layout (windowed.cu launch_matvec_any)."""
+    if streams(lay, in_spaces, out_spaces):
+        return "stream_matvec_kernel + merge3_kernel<true>"
+    if lay.dim == 3:
+        return "matvec3_kernel + merge3_kernel"
+    return "matvec_kernel + merge_kernel"
 
 
 def _plain_or_raise(t: torch.Tensor) -> bool:

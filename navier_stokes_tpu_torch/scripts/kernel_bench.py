@@ -39,13 +39,15 @@ in place of P2/P1:
   library_ms     cold time of one PyTorch call of the same function
                  (``library_call``: a CSR product, index_select or
                  index_add_), never used by the package
-  moved_bytes    (K1, K2, K4 in 3D; K1 at P3/P2) the bytes the kernel and
-                 its merge really move (``moved_bytes_compact``): the
-                 bound's, plus x where the kernel reads it, the compact
-                 tables and the scratch
-  stream         (K1 at P3/P2) the streaming kernel's launch
-                 (``W.stream_config``): ring stages and bytes a stage,
-                 shared memory a block, resident blocks an SM, the grid
+  moved_bytes    (K1, K2, K4 in 3D; K1 and K2 v->v on P3/P2 triangles)
+                 the bytes the kernel and its merge really move
+                 (``moved_bytes_compact``): the bound's, plus x where the
+                 kernel reads it, the compact tables and the scratch
+  stream         (the products on the streaming kernel: K1 at P3/P2, K2
+                 v->v on P3/P2 triangles, K2 v->p and p->p on P3/P2
+                 tetrahedra) its launch (``W.stream_config``): ring stages
+                 and bytes a stage, shared memory a block, resident blocks
+                 an SM, the grid
 
 and the median host-clock time of a forced Newton step at a seeded state
 and of the BDF1 solve (3 steps on the channel, 2 on the box).  ``--bare``
@@ -403,21 +405,26 @@ def bound_bytes_of(lay, operands):
 def moved_bytes_compact(lay, operands):
     """{call: bytes} that the compact kernels and their merge really move
     (``bound_bytes_of`` counts each input once instead): in 3D for K1, each
-    K2 product and K4, and on P3/P2 triangles for K1 ({} on P2/P1
-    triangles).  The 3D block kernel (K1 at P2/P1, K2): A as in the bound;
-    x at every chunk's entries of the in-spaces; of ``compact_tables`` the
-    occupied slots' entry indices and the entries' rows of the in-spaces,
-    the (slot, dof) pairs with their offsets, the entries' places and the
-    row offsets of the out-spaces; the compact scratch written by the
-    chunks and read by the merge; y.  The streaming K1 (P3/P2, both
-    elements): A as in the bound; the slot counts, the work list and each
-    chunk's table offsets; the occupied slots' packed positions and one x
-    value a (slot, dof); of the tables the pairs and each entry's first
-    pair (``tr_rel``) once; the scratch each way (in entry order), the row
-    offsets and, a component at a time, the entry at each place (``at``);
-    y.  K4 (3D) reads no entry index and no x."""
-    streamed = W.streams_k1(lay)
-    if lay.dim == 2 and not streamed:
+    K2 product and K4, and on P3/P2 triangles for K1 and the streamed K2
+    v->v ({} on P2/P1 triangles).  The 3D block kernel (K1 at P2/P1, K2 but the
+    streamed products): A as in the bound; x at every chunk's entries of the
+    in-spaces; of ``compact_tables`` the occupied slots' entry indices and
+    the entries' rows of the in-spaces, the (slot, dof) pairs with their
+    offsets, the entries' places and the row offsets of the out-spaces; the
+    compact scratch written by the chunks and read by the merge; y.  The
+    streaming kernel (K1 and the products of ``W.streamed_products`` at
+    P3/P2): A as in the bound; each chunk's work record (``stream_records``;
+    on a tree without them the slot counts, the work list and each chunk's
+    table offsets of the out-spaces); of the in-spaces, for K1 the occupied
+    slots' packed positions and one x value a (slot, dof), for a block
+    product each chunk's entries' rows and x there and the occupied slots'
+    entry indices; of the out-spaces' tables the pairs and each entry's
+    first pair (``tr_rel``) once, the scratch each way (in entry order),
+    the row offsets and, a component at a time, the entry at each place
+    (``at``); y.  K4 (3D) reads no entry index and no x."""
+    products = W.streamed_products(lay) if hasattr(W, "streamed_products") else (
+        (("vp", "vp"),) if W.streams_k1(lay) else ())
+    if lay.dim == 2 and not products:
         return {}
     tabs = W.compact_tables(lay)
     pos_v, _, cnt = W.pack_positions(lay)
@@ -426,14 +433,16 @@ def moved_bytes_compact(lay, operands):
     k = {"v": lay.k_v, "p": lay.k_p}
     n = {"v": lay.n_vs, "p": lay.n_ps}
 
+    def rows(spaces):
+        return sum(ncomp[s] * k[s] for s in spaces)
+
     def out_space(s):  # the sums' tables and the scratch each way, y
         t = tabs[s]
         return (2 * 4 * ncomp[s] * t.E + 2 * t.tr.numel() + 4 * (2 * t.E + 1)
                 + 4 * t.row_ptr.numel() + 4 * ncomp[s] * n[s])
 
     def matvec(ins, outs, elt):
-        a = sum(ncomp[s] * k[s] for s in ins) * sum(ncomp[s] * k[s] for s in outs) * n_occ * elt
-        total = a + cnt.numel() * 4
+        total = rows(ins) * rows(outs) * n_occ * elt + cnt.numel() * 4
         for s in ins:
             t = tabs[s]
             total += 4 * ncomp[s] * t.E + 2 * k[s] * n_occ + 4 * (t.E + t.off.numel())
@@ -441,28 +450,57 @@ def moved_bytes_compact(lay, operands):
             total += out_space(s) + (0 if s in ins else 4 * tabs[s].off.numel())
         return total
 
-    def stream(elt):
-        n_work = len(W.stream_work(lay, cnt))
-        total = (lay.nl * lay.nl * n_occ * elt + cnt.numel() * 4 + 4 * n_work + 32 * n_work
-                 + (lay.k_v + lay.k_p) * n_occ * pos_v.element_size() + 4 * lay.nl * n_occ)
-        for s in "vp":
+    n_work = len(W.stream_work(lay, cnt))
+
+    def stream(ins, outs, elt):
+        k1 = (ins, outs) == ("vp", "vp")
+        total = rows(ins) * rows(outs) * n_occ * elt
+        if hasattr(W, "stream_records"):  # a chunk's 48-byte record
+            total += 48 * n_work
+        else:  # the slot counts, the work list, the chunk's table offsets
+            total += cnt.numel() * 4 + 4 * n_work + 16 * len(outs) * n_work
+        for s in ins:
+            if k1:  # a slot's packed positions and x values
+                total += k[s] * n_occ * pos_v.element_size() + 4 * ncomp[s] * k[s] * n_occ
+            else:  # the entries' rows and x there; the slots' entry indices
+                total += 4 * (ncomp[s] + 1) * tabs[s].E + 2 * k[s] * n_occ
+        for s in outs:
             t = tabs[s]
             total += (2 * t.tr.numel() + 2 * t.E + 2 * 4 * ncomp[s] * t.E
                       + 4 * t.row_ptr.numel() + 4 * ncomp[s] * t.E + 4 * ncomp[s] * n[s])
         return total
 
-    if streamed:
-        out = {"K1 f32": stream(4), "K1": stream(2)}
-    else:
-        out = {"K1 f32": matvec("vp", "vp", 4), "K1": matvec("vp", "vp", 2)}
-    if lay.dim == 2:
-        return out
-    out["K4"] = (4 * lay.nl * n_occ + cnt.numel() * 4
-                 + sum(out_space(s) + 4 * tabs[s].off.numel() for s in "vp"))
+    def moved(ins, outs, elt):
+        return (stream if (ins, outs) in products else matvec)(ins, outs, elt)
+
+    out = {"K1 f32": moved("vp", "vp", 4), "K1": moved("vp", "vp", 2)}
+    if lay.dim == 3:
+        out["K4"] = (4 * lay.nl * n_occ + cnt.numel() * 4
+                     + sum(out_space(s) + 4 * tabs[s].off.numel() for s in "vp"))
     for key, (A_sub, _) in operands["blocks"].items():
         i, o = key.split("->")
-        out[f"K2 {key}"] = matvec(i, o, A_sub.element_size())
+        if lay.dim == 3 or (i, o) in products:
+            out[f"K2 {key}"] = moved(i, o, A_sub.element_size())
     return out
+
+
+def stream_spaces(lay, name, operands):
+    """(dtype of A, in_spaces, out_spaces) of a timed K1 or K2 call that
+    runs on the streaming kernel at this layout, else None (a tree whose
+    streaming kernel serves K1 alone: K1's only)."""
+    if name in ("K1", "K1 f32"):
+        spaces = ("vp", "vp")
+        dtype = torch.bfloat16 if name == "K1" else torch.float32
+    elif name.startswith("K2 ") and hasattr(W, "streamed_products"):
+        spaces = tuple(name.split()[1].split("->"))
+        dtype = operands["blocks"][name.split()[1]][0].dtype
+    else:
+        return None
+    if not getattr(W, "streams_k1", lambda _: False)(lay):
+        return None
+    if hasattr(W, "streamed_products"):
+        return (dtype, *spaces) if spaces in W.streamed_products(lay) else None
+    return (dtype,)
 
 
 def compact_stats(lay) -> str:
@@ -709,8 +747,9 @@ def main(argv=None):
         if name in moved:
             r["moved_bytes"] = moved[name]
             line += f"  moved {moved[name] / 1e6:.1f} MB"
-        if name in ("K1", "K1 f32") and getattr(W, "streams_k1", lambda _: False)(lay):
-            r["stream"] = W.stream_config(lay, torch.bfloat16 if name == "K1" else torch.float32)
+        spaces = stream_spaces(lay, name, operands)
+        if spaces:
+            r["stream"] = W.stream_config(lay, *spaces)
             line += f"  stream {r['stream']}"
         print(line, flush=True)
         if args.profile:

@@ -2,11 +2,12 @@
 
 On tetrahedra K1 and K2 (csrc/windowed.cu ``matvec3_kernel`` and
 ``merge3_kernel``) and K4 (``scatter3_kernel`` and the same merge), and at
-P3/P2 on triangles and tetrahedra K1 (``stream_matvec_kernel``, the same
-merge), sum each chunk's slots at the distinct window positions the chunk
-touches (its entries), write every sum to its place in a scratch vector
-ordered by row, and merge each row's places in order (``ops/windowed.py``
-``compact_tables``).  Here, on the CPU:
+P3/P2 K1 on both elements, K2 v->v on triangles and K2 v->p and p->p on
+tetrahedra (``stream_matvec_kernel``, the same merge), sum each chunk's
+slots at the distinct window positions the chunk touches (its entries),
+write every sum to its place in a scratch vector ordered by row, and merge
+each row's places in order (``ops/windowed.py`` ``compact_tables``).
+Here, on the CPU:
 
 * the tables: each chunk's list sorted and distinct and equal to the
   positions its slots touch; every occupied (slot, dof) pair listed exactly
@@ -21,9 +22,11 @@ ordered by row, and merge each row's places in order (``ops/windowed.py``
 * ``_compact_scatter_reference`` (K4's order) against ``_scatter_reference``
   in float64 to 1e-12 of ||y||_inf, and on one layout against the JAX
   package's ``windowed_scatter`` (its plain path on the CPU);
-* the streaming K1's host side: its work list (every occupied chunk once,
-  under any persistent grid), each entry's first pair counted from its
-  chunk's, and its shared memory at the P3/P2 layouts.
+* the streaming kernel's host side: the products it serves, its work list
+  (every occupied chunk once, under any persistent grid) and each chunk's
+  record of table offsets, each entry's first pair counted from its
+  chunk's, its shared memory for each product at the P3/P2 layouts, and
+  kernel_bench's count of the bytes it moves.
 
 Layouts: the card tests' three P2/P1 tetrahedral ones
 (tests/test_torch_kernels.py ``TETS``: one chunk at halo 1; 3 chunks of
@@ -43,6 +46,7 @@ tests/test_torch_kernels.py.
 """
 
 import functools
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -250,13 +254,29 @@ def test_indices_fit_16_bits(name):
 def test_chunk_lists_too_large_raise(monkeypatch):
     """A layout whose chunk lists need more shared memory than a block may
     use raises ValueError naming the numbers: here the smallest layout
-    against a limit 4 bytes short of its need."""
+    against a limit 4 bytes short of its need; and at P3/P2, on triangles
+    and on tetrahedra, a limit 4 bytes short of the largest need of the
+    streaming kernel's products (2 stages of float32 A) and, on
+    tetrahedra, of the block kernel's."""
+    p3 = {name: (_layout(name), _tables(name)) for name in ("p3-square-h1", "p3-box-h1")}
     lay = _layout("box-h1")
     need = tw.compact_smem_bytes(lay, _tables("box-h1"))
     assert need <= tw._MAX_SMEM_BYTES
     monkeypatch.setattr(tw, "_MAX_SMEM_BYTES", need - 4)
     with pytest.raises(ValueError, match=f"a chunk of 128 slots .* needs {need} bytes"):
         tw.compact_tables(lay)
+    for lay, tabs in p3.values():
+        needs = {pair: tw.stream_smem_bytes(lay, tabs, 4, 2, *pair)
+                 for pair in tw.streamed_products(lay)}
+        need = max([*needs.values()] + ([tw.compact_smem_bytes(lay, tabs)] if lay.dim == 3
+                                        else []))
+        if lay.dim == 2:
+            assert need == max(needs.values())
+        monkeypatch.setattr(tw, "_MAX_SMEM_BYTES", need)
+        tw.compact_tables(lay)
+        monkeypatch.setattr(tw, "_MAX_SMEM_BYTES", need - 4)
+        with pytest.raises(ValueError, match=f"a chunk of 128 slots .* needs {need} bytes"):
+            tw.compact_tables(lay)
 
 
 def _operands(lay, ins, outs, seed):
@@ -388,6 +408,32 @@ def test_stream_work_takes_every_occupied_chunk_once(name):
 
 
 @pytest.mark.parametrize("name", sorted(LAYOUTS))
+def test_stream_records_hold_each_chunks_offsets(name):
+    """The streaming kernel's work records (``stream_records``, windowed.cu
+    WorkRec), one a chunk of ``stream_work``'s list in its order: the
+    piece, its occupied slots, each space's first entry, entries, first
+    (slot, dof) pair and pairs of the chunk, and each space's pairs in all,
+    as int32 [n_work, 12]."""
+    lay, tabs = _layout(name), _tables(name)
+    _, _, cnt = tw.pack_positions(lay)
+    work = tw.stream_work(lay, cnt)
+    rec = tw.stream_records(lay, cnt, tabs)
+    assert rec.dtype == torch.int32 and tuple(rec.shape) == (len(work), 12)
+    assert torch.equal(rec, tw.stream_records(lay, cnt, tabs, work))
+    occ = _occupied_pieces(lay)
+    rec = rec.numpy().astype(np.int64)
+    assert rec[:, 0].tolist() == work.tolist()
+    assert rec[:, 1].tolist() == [occ[p] for p in work.tolist()]
+    for k, key in enumerate("vp"):
+        t = tabs[key]
+        off, tr_off = t.off.numpy().astype(np.int64), t.tr_off.numpy().astype(np.int64)
+        e0, e1 = off[rec[:, 0]], off[rec[:, 0] + 1]
+        got = rec[:, 2 + 4 * k: 6 + 4 * k]
+        assert np.array_equal(got, np.stack([e0, e1 - e0, tr_off[e0], tr_off[e1] - tr_off[e0]], 1))
+        assert np.all(rec[:, 10 + k] == t.tr.numel())
+
+
+@pytest.mark.parametrize("name", sorted(LAYOUTS))
 def test_entry_first_pairs_count_from_their_chunk(name):
     """tr_rel[e], the table the streaming K1 stages an entry's pairs by, is
     the entry's first pair counted from its chunk's first: below the
@@ -406,18 +452,33 @@ def test_entry_first_pairs_count_from_their_chunk(name):
 
 @pytest.mark.parametrize("name", sorted(n for n in LAYOUTS if n.startswith("p3-")))
 def test_stream_smem_fits_the_p3_layouts(name):
-    """The streaming K1's shared memory (``stream_smem_bytes``, the mirror of
-    windowed.cu stream_smem): at every P3/P2 layout a ring of two stages,
-    the least the kernel runs with, fits a block with bfloat16 and with
-    float32 A (what ``compact_tables`` checks); a stage is a column of A
-    (nl rows of Bc values), half a column on tetrahedra with float32 A."""
+    """The streaming kernel's shared memory (``stream_smem_bytes``, the
+    mirror of windowed.cu stream_smem): at every P3/P2 layout, for each
+    product it serves, a ring of two stages, the least the kernel runs
+    with, fits a block with bfloat16 and with float32 A (what
+    ``compact_tables`` checks).  K1's stage is a column of A (nl rows of
+    Bc values), half a column on tetrahedra with float32 A; a block
+    product's is G columns of its out-rows, the most that divide its
+    in-rows within 52 bytes a slot (one where none fits)."""
     lay, tabs = _layout(name), _tables(name)
     assert tw.streams_k1(lay)
-    for elt in (2, 4):
-        stage = tw.stream_smem_bytes(lay, tabs, elt, 1) - tw.stream_smem_bytes(lay, tabs, elt, 0)
-        split = 2 if (lay.dim, elt) == (3, 4) else 1
-        assert stage == lay.nl // split * lay.Bc * elt
-        assert tw.stream_smem_bytes(lay, tabs, elt, 2) <= tw._MAX_SMEM_BYTES
+    rows = {"v": lay.dim * lay.k_v, "p": lay.k_p, "vp": lay.nl}
+    for ins, outs in tw.streamed_products(lay):
+        for elt in (2, 4):
+            def smem(stages):
+                return tw.stream_smem_bytes(lay, tabs, elt, stages, ins, outs)
+
+            stage = smem(1) - smem(0)
+            if ins == outs == "vp":
+                split = 2 if (lay.dim, elt) == (3, 4) else 1
+                assert stage == lay.nl // split * lay.Bc * elt
+            else:
+                g = tw.stream_group(lay, elt, ins, outs)
+                assert rows[ins] % g == 0 and (g == 1 or g * rows[outs] * elt <= 52)
+                assert all(rows[ins] % h or h * rows[outs] * elt > 52
+                           for h in range(g + 1, rows[ins] + 1))
+                assert stage == g * rows[outs] * lay.Bc * elt
+            assert smem(2) <= tw._MAX_SMEM_BYTES
 
 
 @pytest.mark.parametrize("name", sorted(LAYOUTS))
@@ -458,3 +519,54 @@ def test_kernel_bench_bit_equal_holds_saved_outputs(name, tmp_path):
     got = kb.bit_equal(flipped, ref)
     assert not got["K1"] and not got["K4"]
     assert all(v for key, v in got.items() if key not in ("K1", "K4"))
+
+
+@pytest.mark.parametrize("ins, outs", PRODUCTS)
+@pytest.mark.parametrize("element", [(2, 6, 3), (2, 10, 6), (3, 10, 4), (3, 20, 10)])
+def test_streamed_products_are_the_p3_pairs(element, ins, outs):
+    """The streaming kernel serves K1 and K2 v->v on P3/P2 triangles (their
+    v->p and p->p stay on the 2D block kernel, which was faster), K1, v->p
+    and p->p on P3/P2 tetrahedra (their v->v stays on the 3D block
+    kernel), and nothing at P2/P1: the three K2 pairs and the two K1s of
+    windowed.cu ``streams``."""
+    dim, k_v, k_p = element
+    lay = SimpleNamespace(dim=dim, k_v=k_v, k_p=k_p)
+    want = ((element == (2, 10, 6) and (ins, outs) in (("vp", "vp"), ("v", "v")))
+            or (element == (3, 20, 10) and (ins, outs) != ("v", "v")))
+    assert tw.streams(lay, ins, outs) == want
+    assert ((ins, outs) in tw.streamed_products(lay)) == want
+    assert tw.streams_k1(lay) == (k_v in (10, 20) and (dim, k_v) != (3, 10))
+    design = tw.kernel_design(lay, ins, outs)
+    assert design.startswith("stream_matvec_kernel" if want else
+                             ("matvec3_kernel" if dim == 3 else "matvec_kernel"))
+
+
+@pytest.mark.parametrize("name", ["p3-square-h1", "p3-box-h1", "square-p2"])
+def test_moved_bytes_compact_counts_the_streamed_products(name):
+    """``kernel_bench.moved_bytes_compact`` gives rows for K1 and every
+    compact K2 product: on P3/P2 tetrahedra all three, on P3/P2 triangles
+    the streamed v->v, on P2/P1 triangles none.  A product moves A's used
+    rows in occupied slots and more (tables, x, the scratch each way, y);
+    a product that moves fewer rows of A moves fewer bytes."""
+    from navier_stokes_tpu_torch.scripts import kernel_bench as kb
+
+    if name == "square-p2":
+        args, kw = _build(dict(n=6, cpb=16, Bc=128))
+        lay = tw.build_windowed_layout(*args, **kw)
+    else:
+        lay = _layout(name)
+    _, operands = kb.seeded_operands(lay, seed=2)
+    moved = kb.moved_bytes_compact(lay, operands)
+    if lay.k_v == 6:
+        assert moved == {}
+        return
+    k2 = {"K2 v->v", "K2 v->p", "K2 p->p"} if lay.dim == 3 else {"K2 v->v"}
+    assert set(moved) == {"K1", "K1 f32"} | k2 | ({"K4"} if lay.dim == 3 else set())
+    _, _, cnt = tw.pack_positions(lay)
+    rows = {"v": lay.dim * lay.k_v, "p": lay.k_p, "vp": lay.nl}
+    for key in k2:
+        ins, outs = key.split()[1].split("->")
+        a = rows[ins] * rows[outs] * int(cnt.sum()) * 2
+        assert moved[key] > a
+    order = [key for key in ("K2 p->p", "K2 v->p", "K2 v->v", "K1", "K1 f32") if key in moved]
+    assert all(moved[a] < moved[b] for a, b in zip(order, order[1:]))

@@ -12,14 +12,15 @@ per-row lists); an element the kernels are not built for raises.
 Tolerances: K3 (gather, one vector or the pair u, u_old in one launch) is a
 copy and must be bit-equal; the others agree to 1e-5 of ||y||_inf (float32
 sums in another order: the 2D kernels sum a chunk's slots in colour order,
-the 3D ones and the P3/P2 K1 on both elements in the order of
-``compact_tables``).  K1, K2 and K4 sum in a fixed order, so a repeated
+the 3D ones, the P3/P2 K1 on both elements and K2 v->v on P3/P2
+triangles in the order of ``compact_tables``).  K1, K2 and K4 sum in a fixed order, so a repeated
 call and a CUDA-graph replay give the same bits as an eager call.  K5, the
 tensor-core probe, is held to 1e-5 of its output's largest entry (bf16
 products summed in float32 in groups, in another order).
 """
 
 import functools
+import re
 
 import numpy as np
 import pytest
@@ -31,6 +32,7 @@ from navier_stokes_tpu_torch.mesh.mesh import refine_uniform
 from navier_stokes_tpu_torch.ops import windowed as tw
 from navier_stokes_tpu_torch.parallel import windowed_spmd as ws
 from navier_stokes_tpu_torch.scripts import mxu_probe as mxu
+from navier_stokes_tpu_torch.scripts import stream_variants as sv
 
 LAYOUTS = {
     "blocked-h1": dict(n=6, cpb=16, Bc=128),
@@ -216,7 +218,11 @@ def _rand_on(device, seed):
     "name, op",
     [(name, op) for name in ["refined-Bc256", "legacy-3chunks", "p3-refined-Bc256"]
      for op in ["matvec-bf16A", "v->v", "scatter", "gather", "gather-pair"]]
-    + [(name, op) for name in TETS for op in OPS])
+    + [(name, op) for name in TETS for op in OPS]
+    # P3/P2 triangles: K2 v->v on the streaming kernel, v->p and p->p on the block kernel
+    + [("p3-refined-Bc256", op) for op in ["v->p", "p->p", "v->v-f32A", "v->p-f32A", "p->p-f32A"]]
+    + [(name, op) for name in ["p3-blocked-h1", "p3-blocked-h2"]
+       for op in ["v->v", "v->p", "p->p", "v->v-f32A", "v->p-f32A", "p->p-f32A"]])
 def test_graph_replay_matches_eager(name, op, cuda_device):
     """A wrapper call is one C call with no host read, so a CUDA graph can
     capture it; the replay, on new inputs written into the captured tensors,
@@ -256,7 +262,9 @@ def _assert_replay_matches_eager(call, x, fresh, exact=False):
     [(name, op) for name in ["refined-Bc256", "legacy-3chunks", "blocked-h2",
                              "p3-refined-Bc256", "p3-blocked-h2"]
      for op in ["matvec-bf16A", "matvec", "v->v", "v->p", "p->p", "scatter"]]
-    + [(name, op) for name in TETS for op in OPS])
+    + [(name, op) for name in TETS for op in OPS]
+    + [(name, op) for name in ["p3-refined-Bc256", "p3-blocked-h2", "p3-blocked-h1"]
+       for op in ["v->v-f32A", "v->p-f32A", "p->p-f32A"]])
 def test_repeat_calls_are_bit_equal(name, op, cuda_device):
     """K1 (bf16 and float32 A), each K2 product and K4 sum in a fixed
     order (and K3 copies): two calls on the same inputs give the same
@@ -343,23 +351,33 @@ def test_tet_scratch_is_the_compact_vector(name, cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(P3_LAYOUTS))
 def test_stream_config_fits_stream_smem_bytes(name, cuda_device):
-    """The streaming K1's launch (windowed.cu ns_stream_config) at every
-    P3/P2 layout, bfloat16 and float32 A: a ring of 2 to 16 stages whose
-    shared memory is ``stream_smem_bytes`` at that ring and fits a block,
-    one or two blocks resident an SM, and a persistent grid of
+    """The streaming kernel's launch (windowed.cu ns_stream_config) at
+    every P3/P2 layout, for each product it serves (K1; K2 v->v on
+    triangles, v->p and p->p on tetrahedra), bfloat16 and float32 A: a ring
+    of 2 to 16 stages whose shared memory is ``stream_smem_bytes`` of the
+    product at that ring and fits a block, one or two blocks resident an SM
+    for K1 and one to four for a block product, and a persistent grid of
     min(occupied chunks, resident blocks x SMs) over ``stream_work``'s
     list.  That the grid's walk takes every chunk shows in
-    test_kernel_matches_plain, whose K1 sums each chunk's cells."""
+    test_kernel_matches_plain, whose products sum each chunk's cells.  A
+    product the kernel does not serve raises."""
     lay = _layout(name).to(cuda_device)
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    for dtype, elt in ((torch.bfloat16, 2), (torch.float32, 4)):
-        cfg = tw.stream_config(lay, dtype)
-        tabs = lay._packed.compact
-        assert 2 <= cfg["stages"] <= 16 and cfg["blocks_per_sm"] in (1, 2)
-        assert cfg["smem_bytes"] == tw.stream_smem_bytes(lay, tabs, elt, cfg["stages"])
-        assert cfg["smem_bytes"] <= tw._MAX_SMEM_BYTES
-        assert cfg["chunks"] == len(tw.stream_work(lay, lay._packed.cnt))
-        assert cfg["grid"] == min(cfg["chunks"], cfg["blocks_per_sm"] * sms)
+    for ins, outs in tw.streamed_products(lay):
+        for dtype, elt in ((torch.bfloat16, 2), (torch.float32, 4)):
+            cfg = tw.stream_config(lay, dtype, ins, outs)
+            tabs = lay._packed.compact
+            k1 = ins == outs == "vp"
+            assert 2 <= cfg["stages"] <= 16
+            assert cfg["blocks_per_sm"] in ((1, 2) if k1 else (1, 2, 3, 4))
+            assert cfg["smem_bytes"] == tw.stream_smem_bytes(lay, tabs, elt, cfg["stages"],
+                                                             ins, outs)
+            assert cfg["smem_bytes"] <= tw._MAX_SMEM_BYTES
+            assert cfg["chunks"] == len(tw.stream_work(lay, lay._packed.cnt))
+            assert cfg["grid"] == min(cfg["chunks"], cfg["blocks_per_sm"] * sms)
+    for ins, outs in [("v", "v")] if lay.dim == 3 else [("v", "p"), ("p", "p")]:
+        with pytest.raises(ValueError, match=f"no streaming {ins}->{outs} product"):
+            tw.stream_config(lay, torch.bfloat16, ins, outs)
 
 
 @pytest.mark.parametrize("name", sorted(LAYOUTS))
@@ -536,3 +554,26 @@ def test_unbuilt_element_raises(dim, cuda_device):
         with pytest.raises(NotImplementedError, match="P2/P1 and P3/P2"):
             call()
     assert all(v == 0 for v in tw.launch_counts().values())
+
+
+@pytest.mark.parametrize("case", ["constant", "line", "unknown constant", "missing line"])
+def test_stream_variants_edit_the_source(case):
+    """``scripts/stream_variants.py`` makes a variant of windowed.cu by
+    setting a ``constexpr int`` or replacing a line, and raises where the
+    source has no such constant or line (a host check: no card)."""
+    src = tw._SOURCE.read_text()
+    if case == "constant":
+        out = sv.variant_source(src, {"kStageRowBytes": 104, "noeq": True})
+        assert "constexpr int kStageRowBytes = 104;" in out
+        assert out.replace("kStageRowBytes = 104;", "") == re.sub(
+            r"kStageRowBytes = \d+;", "", src)
+    elif case == "line":
+        old = "constexpr int kMaxStreamBlocks = 4;"
+        out = sv.variant_source(src, {"subs": [[old, "constexpr int kMaxStreamBlocks = 2;"]]})
+        assert old in src and old not in out and "kMaxStreamBlocks = 2;" in out
+    elif case == "unknown constant":
+        with pytest.raises(ValueError, match="kNoSuchConstant"):
+            sv.variant_source(src, {"kNoSuchConstant": 1})
+    else:
+        with pytest.raises(ValueError, match="not in the source"):
+            sv.variant_source(src, {"subs": [["no such line;", ""]]})
