@@ -126,9 +126,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 preconditioner), float32: (a) phase 3's checks of every
                 kernel at the 102,400-cell channel's P3/P2 layout, with the
                 launch of each product on the streaming kernel (K1, and K2
-                v->v, v->p, p->p on triangles, v->p and p->p on tetrahedra:
-                ring, shared memory, resident blocks, grid, share of the
-                bound) and the bytes it really moves; (b) there,
+                v->v on triangles, v->p and p->p on tetrahedra: ring,
+                shared memory, resident blocks, grid, share of the bound),
+                the sizes of K2 v->p and p->p on triangles on the narrow
+                kernels (the slots, Y, the row list), and the bytes each
+                really moves; (b) there,
                 three forced Newton steps at a seeded state (bit-equal, equal
                 FGMRES counts) and 2 BDF1 steps from rest (K1, K3 and K4
                 launched; a tangent solve may stop at its cap, printed with
@@ -633,6 +635,12 @@ def kernels_vs_plain(lay, operands):
                   f"block, {cfg['blocks_per_sm']} resident block(s) an SM, a persistent grid of "
                   f"{cfg['grid']} blocks over {cfg['chunks']} occupied chunks; share "
                   f"{recs[key]['share']:.3f} of the bound", flush=True)
+        elif key.startswith("K2 ") and W.narrow(lay, *key.split()[1].split("->")):
+            ptr, lst = lay._packed.rows
+            print(f"  {key}: narrow kernels, a thread a slot over {lay.ncd} slots into Y "
+                  f"[{lay.k_p}, {lay.ncd}], a row list of {lst.numel()} (slot, dof) pairs over "
+                  f"{ptr.numel() - 1} rows; share {recs[key]['share']:.3f} of the bound",
+                  flush=True)
     for key, (kernel, _) in calls.items():
         check_repeat(key, kernel)
     blocks, x = ops_["blocks"], ops_["x"]

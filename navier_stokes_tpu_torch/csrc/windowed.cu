@@ -152,10 +152,11 @@
 // way): 506 MB in all for K1 with bf16 A; K4 reads no entry index and no x
 // (scripts/kernel_bench.py moved_bytes_compact).
 //
-// P3/P2 (cubic velocity, quadratic pressure): K2, K3 and K4 are the same
-// kernels, instantiated for 10 velocity and 6 pressure dofs a triangle (nl
-// 26, nli 32) and 20 and 10 a tetrahedron (nl 70, nli 72); each launcher
-// picks the element's template from the layout (with_element).  What
+// P3/P2 (cubic velocity, quadratic pressure): K3, K4 and K2 v->v on
+// tetrahedra are the same kernels, instantiated for 10 velocity and 6
+// pressure dofs a triangle (nl 26, nli 32) and 20 and 10 a tetrahedron
+// (nl 70, nli 72); each launcher picks the element's template from the
+// layout (with_element).  What
 // changes is the room a thread and a block need, so the element sets the
 // most threads a block has (chunk_threads: 512 on P3/P2 triangles, 256 on
 // P3/P2 tetrahedra, so that a thread's 26 or 70 sums stay in registers) and
@@ -213,8 +214,36 @@
 //     are narrow (5-10 KB), so a stage may hold two, and blocks are
 //     small, so up to 4 may share an SM, each with a ring of 2 stages or
 //     more (2 on the box: 3 stages of 10 KB for v->p, 7 for p->p): one
-//     block's chunk streams while another gathers and sums.  The rest of
-//     K2 at P3/P2 keeps its block-per-chunk kernel (see `streams`).
+//     block's chunk streams while another gathers and sums.  K2 v->v on
+//     tetrahedra keeps matvec3_kernel (see `streams`).
+//
+// K2 v->p and p->p on P3/P2 triangles run the narrow kernels
+// (narrow_product_kernel, then narrow_merge_kernel).  Their chunks move
+// only 15 and 18 KB of A (6 output rows against 20 or 6 input rows, bf16,
+// Bc 256), so a chunk's serial phases took as long as A: matvec_kernel's
+// x subwindows, 9 colour rounds behind barriers and whole subwindows read
+// back by the span merge; the streaming kernel's records, ring and
+// barriers over 1-2 chunks a block (PERF.md).  So:
+//   * the product has no chunk phase: a flat grid over the slots, a thread
+//     a slot from registers (positions, x through the read-only path, A
+//     straight from device memory, 32 slots a warp's 64-byte piece), no
+//     shared memory and no barrier, so that a slot's loads of A start at
+//     once; its 6 sums go to Y [k_p, ncd] in the scratch, one coalesced
+//     store a row.  Its launch bounds let 4 blocks of 256 share an SM.
+//     What holds it back are its gathers of x (a warp's gather touches up
+//     to 32 lines; 20 a slot for v->p).  One block a chunk that copies x
+//     once at the chunk's entries into shared memory and sums the chunk's
+//     entries there, with a contiguous merge, was slower in every variant
+//     measured: its first barrier holds the loads of A back (PERF.md).
+//   * the merge sums each pressure row's places in order, each place its
+//     (slot, dof) pairs in order (slots ascending): the order of
+//     _compact_matvec_reference, through a per-row list of Y indices that
+//     the host flattens once from the compact tables (ops/windowed.py
+//     narrow_rows), so that a row's sum is one load of its offsets, then
+//     its pairs, then Y (not row_ptr -> at -> tr_off -> tr -> Y).
+//   * the merge is launched with programmatic stream serialization: its
+//     blocks load their offsets and first pairs before they wait
+//     (griddepcontrol.wait) for the product's stores.
 // Bound at P3/P2 with bf16 A (scripts/kernel_bench.py bound_bytes_of): K1
 // at the channel 152.9 MB, 45.6 us, at the box 1,981.2 MB, 591.4 us; K2
 // v->v / v->p / p->p at the channel 93.0 / 33.5 / 10.8 MB (27.8 / 10.0 /
@@ -1525,6 +1554,109 @@ stream_matvec_kernel(Geo g, Tables t, Compact cv, Compact cp, const int4* __rest
   }
 }
 
+// ---- P3/P2 K2 v->p and p->p on triangles: the narrow product and merge ------
+// Programmatic dependent launch (sm_90): the product lets the merge's blocks
+// start once all of its blocks have issued their stores; the merge loads
+// its row offsets, then waits until the product has finished and its stores
+// are visible.  Where the merge is launched without the attribute, the
+// wait returns at once.
+__device__ __forceinline__ void let_dependents_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait_for_prerequisites() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// The product: Y[i, s] = sum_q A[q, i, s] x_q(s) for the KP pressure rows i
+// of every occupied slot s, in float32, q ascending through fmaf.  A flat
+// grid over the slots [nb, Bmax], one thread a slot and no shared memory:
+// a thread at or past cnt[b] returns at once; an occupied one reads its KV
+// (v->p) or KP (p->p) packed positions, its N_IN values of x through the
+// read-only path (x, under 2 MB, lies in L2), its N_IN x KP values of A
+// (a warp's read of one (q, i) is 32 neighbouring slots, one 64-byte piece
+// with bf16 A) and writes its KP sums to Y [KP, ncd] (a row's store of a
+// warp: one 128-byte line).  No barrier, so that a slot's loads of A start
+// at once, beside its positions' and x's.  (One block a chunk that copies
+// x once at the chunk's entries and sums the chunk's entries in shared
+// memory was slower: its barrier holds the loads of A back; PERF.md.)
+constexpr int kNarrowThreads = 256;
+constexpr int kNarrowBlocks = 4;  // resident blocks an SM the registers must allow
+template <int DIM, int KV, int KP, bool IN_V, typename TA>
+__global__ void __launch_bounds__(kNarrowThreads, kNarrowBlocks)
+narrow_product_kernel(Geo g, Tables t, const TA* __restrict__ A, int n_out_pad,
+                      const float* __restrict__ x, float* __restrict__ Y) {
+  constexpr int N_IN = IN_V ? DIM * KV : KP;
+  const long s = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (s < g.ncd) {
+    const int b = (int)(s / g.Bmax), j = (int)(s - (long)b * g.Bmax);
+    if (j < t.cnt[b]) {
+      float xin[N_IN];
+      if constexpr (IN_V) {
+        int iv[KV];
+#pragma unroll
+        for (int l = 0; l < KV; ++l)
+          iv[l] = vec_index(win_pos(t.pos_v, KV, g, b, j, l), b, g.hv, g.OWv, g.n_vs);
+#pragma unroll
+        for (int cc = 0; cc < DIM; ++cc)
+#pragma unroll
+          for (int l = 0; l < KV; ++l)
+            xin[cc * KV + l] = iv[l] >= 0 ? __ldg(x + (long)cc * g.n_vs + iv[l]) : 0.f;
+      } else {
+#pragma unroll
+        for (int l = 0; l < KP; ++l) {
+          const int ip = vec_index(win_pos(t.pos_p, KP, g, b, j, l), b, g.hp, g.OWp, g.n_ps);
+          xin[l] = ip >= 0 ? __ldg(x + ip) : 0.f;
+        }
+      }
+      float y[KP];
+#pragma unroll
+      for (int i = 0; i < KP; ++i) y[i] = 0.f;
+      const TA* a = A + s;
+#pragma unroll
+      for (int q = 0; q < N_IN; ++q)
+#pragma unroll
+        for (int i = 0; i < KP; ++i)
+          y[i] = fmaf(widen(__ldg(a + ((long)q * n_out_pad + i) * g.ncd)), xin[q], y[i]);
+#pragma unroll
+      for (int i = 0; i < KP; ++i) Y[(long)i * g.ncd + s] = y[i];
+    }
+  }
+  let_dependents_launch();
+}
+
+// The merge: row r of the pressure = its places in order (a place: one
+// chunk's entry at the row, the order of compact_tables), each place the sum
+// of its (slot, dof) pairs in order (slots ascending), as
+// _compact_scatter_reference sums them.  The host flattens the chain
+// row_ptr -> at -> tr_off -> tr into one list a row (ops/windowed.py
+// narrow_rows): list[ptr[r] .. ptr[r + 1]) holds the row's pairs as their
+// index l*ncd + s into Y, a place's first pair with bit 31 set.  A thread a
+// row loads its offsets and first kNarrowAhead pairs, then waits for the
+// product.
+constexpr int kNarrowAhead = 8;
+__global__ void __launch_bounds__(kThreads)
+narrow_merge_kernel(const int* __restrict__ ptr, const int* __restrict__ list,
+                    const float* __restrict__ Y, float* __restrict__ y, int n) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  int k0 = 0, k1 = 0;
+  if (r < n) k0 = ptr[r], k1 = ptr[r + 1];
+  int ahead[kNarrowAhead];
+#pragma unroll
+  for (int i = 0; i < kNarrowAhead; ++i) ahead[i] = k0 + i < k1 ? list[k0 + i] : 0;
+  wait_for_prerequisites();
+  if (r >= n) return;
+  float acc = 0.f, sum = 0.f;
+  auto add = [&](int code, bool first) {
+    if (code < 0 && !first) acc += sum, sum = 0.f;  // the next place
+    sum += Y[code & 0x7FFFFFFF];
+  };
+#pragma unroll
+  for (int i = 0; i < kNarrowAhead; ++i)
+    if (k0 + i < k1) add(ahead[i], i == 0);
+  for (int k = k0 + kNarrowAhead; k < k1; ++k) add(list[k], false);
+  y[r] = acc + sum;
+}
+
 // ---- the merge: chunk subwindows -> the planar vector -----------------------
 // One space's accumulators: sub[ncomp, nb, nsub, len].  Entry d of piece c of
 // block b is window position offs[b, c]*128 + d; window position j*OW + o of
@@ -1872,7 +2004,9 @@ int launch_matvec_3d(const Geo& g, const int* cnt, const Compact& cv, const Comp
 // one space's Compact record from the host's pack of kCompactLen values a
 // space (ns_matvec's `compact`): 9 table addresses, E, the most entries and
 // the most pairs of a chunk.  After both spaces' records the pack holds the
-// streaming kernel's work records (WorkRec): their address and number.
+// streaming kernel's work records (WorkRec): their address and number; then
+// the narrow merge's row list of the pressure (its offsets' and its pairs'
+// addresses, 0 where the layout has no narrow product).
 constexpr int kCompactLen = 12;
 Compact unpack_compact(const int64_t* c) {
   return Compact{(const int*)c[0], (const int*)c[1], (const int*)c[2], (const uint16_t*)c[3],
@@ -2020,13 +2154,54 @@ int launch_stream_matvec(const Geo& g, const Tables& t, const int64_t* compact, 
   return launch_merge3(g, cv, cp, OUT_V, OUT_P, scratch, y, stream, true);
 }
 
-// the products the streaming kernel serves: on the P3/P2 elements K1; on
-// triangles K2 v->v; on tetrahedra K2 v->p and p->p.  The others keep the
-// block-per-chunk kernels: 3D v->v (60 x 60 values a cell, which
-// matvec3_kernel streams at 0.59 of its bound), and 2D v->p and p->p,
-// where a chunk moves 15 and 18 KB of A and one or two chunks a block left
-// the streaming kernel's fixed phases (its dependent table loads and
-// barriers) longer than matvec_kernel's whole call (PERF.md)
+// The narrow products (K2 v->p and p->p on P3/P2 triangles):
+// narrow_product_kernel writes Y [KP, ncd] to the scratch, then
+// narrow_merge_kernel sums it through the pressure's row list, whose two
+// addresses (offsets, pairs) follow the work records in `compact`.  The
+// merge is launched with programmatic stream serialization, so that its
+// blocks start while the product's last blocks run (a plain launch after
+// the product was 1.6 us slower a call at the channel; letting them start
+// at the product's start instead of after its stores was slower too:
+// PERF.md).
+constexpr int kNarrowArgs = 2 * kCompactLen + 2;
+template <int KV, int KP, bool IN_V, typename TA>
+int launch_narrow(const Geo& g, const Tables& t, const int64_t* compact, const void* A,
+                  int n_out_pad, const void* x, float* scratch, float* y, cudaStream_t stream) {
+  if (compact == nullptr || compact[kNarrowArgs] == 0) return kErrLayout;
+  const long grid = (g.ncd + kNarrowThreads - 1) / kNarrowThreads;
+  narrow_product_kernel<2, KV, KP, IN_V, TA><<<(int)grid, kNarrowThreads, 0, stream>>>(
+      g, t, (const TA*)A, n_out_pad, (const float*)x, scratch);
+  cudaError_t ce = cudaGetLastError();
+  if (ce != cudaSuccess) return (int)ce;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((g.n_ps + kThreads - 1) / kThreads));
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, narrow_merge_kernel, (const int*)compact[kNarrowArgs],
+                                 (const int*)compact[kNarrowArgs + 1], (const float*)scratch, y,
+                                 g.n_ps);
+}
+
+// Which kernels serve a product.  The narrow kernels: K2 v->p and p->p on
+// P3/P2 triangles, whose chunks move only 15 and 18 KB of A (6 output rows
+// against 20 or 6 input rows), so that a chunk's serial phases (the
+// streaming kernel's records, rings and barriers across 1-2 chunks a block;
+// matvec_kernel's subwindows and 9 colour rounds) took as long as A's
+// bytes (PERF.md).
+template <typename E, bool IN_V, bool IN_P, bool OUT_V, bool OUT_P>
+constexpr bool narrow() {
+  return E::DIM == 2 && E::KV == 10 && !OUT_V && OUT_P && IN_V != IN_P;
+}
+
+// The streaming kernel: on the P3/P2 elements K1; on triangles K2 v->v; on
+// tetrahedra K2 v->p and p->p.  The others keep the block-per-chunk
+// kernels: 3D v->v (60 x 60 values a cell, which matvec3_kernel streams at
+// 0.59 of its bound) and every P2/P1 product.
 template <typename E, bool IN_V, bool IN_P, bool OUT_V, bool OUT_P>
 constexpr bool streams() {
   constexpr bool k1 = IN_V && IN_P && OUT_V && OUT_P;
@@ -2039,7 +2214,9 @@ constexpr bool streams() {
 template <typename E, bool IN_V, bool IN_P, bool OUT_V, bool OUT_P, typename TA>
 int launch_matvec_any(const Geo& g, const Tables& t, const int64_t* compact, const void* A,
                       int n_out_pad, const void* x, float* scratch, float* y, cudaStream_t st) {
-  if constexpr (streams<E, IN_V, IN_P, OUT_V, OUT_P>()) {
+  if constexpr (narrow<E, IN_V, IN_P, OUT_V, OUT_P>()) {
+    return launch_narrow<E::KV, E::KP, IN_V, TA>(g, t, compact, A, n_out_pad, x, scratch, y, st);
+  } else if constexpr (streams<E, IN_V, IN_P, OUT_V, OUT_P>()) {
     return launch_stream_matvec<E::DIM, E::KV, E::KP, IN_V, IN_P, OUT_V, OUT_P, TA>(
         g, t, compact, A, n_out_pad, x, scratch, y, st);
   } else if constexpr (E::DIM == 3) {
@@ -2224,8 +2401,13 @@ long ns_scratch_floats(const int* meta, const int64_t* compact) {
                       : g.dim * unpack_compact(compact).E +
                             (long)unpack_compact(compact + kCompactLen).E;
   if (g.dim == 3) return compact == nullptr ? kErrLayout : packed;
-  // 2D: K2 and K4 write subwindows; at P3/P2 K1 writes the compact vector
-  return std::max(subwindow_floats(g, true, true) + span_ints(g), packed);
+  // 2D: K2 and K4 write subwindows; at P3/P2 K1 and K2 v->v write the
+  // compact vector, K2 v->p and p->p the slots' sums Y [k_p, ncd]
+  const bool narrow_y = with_element(g, [](auto e) {
+    return narrow<decltype(e), true, false, false, true>() ? 1 : 0;
+  });
+  return std::max({subwindow_floats(g, true, true) + span_ints(g), packed,
+                   narrow_y ? (long)g.k_p * g.ncd : 0L});
 }
 
 // The streaming kernel's launch at this layout (P3/P2 only) for a product

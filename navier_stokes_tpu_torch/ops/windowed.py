@@ -841,6 +841,50 @@ def streams_k1(lay: WindowedLayout) -> bool:
     return streams(lay, "vp", "vp")
 
 
+# the products (in_spaces, out_spaces) that the narrow kernels serve
+# (windowed.cu narrow_product_kernel + narrow_merge_kernel, ``narrow``): K2
+# v->p and p->p on P3/P2 triangles
+_NARROW_PRODUCTS = {(2, 10, 6): (("v", "p"), ("p", "p"))}
+
+
+def narrow_products(lay: WindowedLayout) -> tuple:
+    """The (in_spaces, out_spaces) products the narrow kernels serve at this
+    layout's element (none but on P3/P2 triangles)."""
+    return _NARROW_PRODUCTS.get((lay.dim, lay.k_v, lay.k_p), ())
+
+
+def narrow(lay: WindowedLayout, in_spaces: str, out_spaces: str) -> bool:
+    """Whether the product runs on the narrow kernels at this layout."""
+    return (in_spaces, out_spaces) in narrow_products(lay)
+
+
+def narrow_rows(lay: WindowedLayout, tab: CompactSpace) -> tuple[torch.Tensor, torch.Tensor]:
+    """The narrow merge's row list of one space (windowed.cu
+    narrow_merge_kernel; the pressure's): ``compact_tables``' chain row_ptr
+    -> at -> tr_off -> tr flattened once on the host.  (ptr [n + 1], list
+    [T]) int32 on the host: row r's (slot, dof) pairs are list[ptr[r] :
+    ptr[r + 1]], its places in order and each place's pairs in order (slots
+    ascending), each as its index l*ncd + s into the product's sums Y [k,
+    ncd], a place's first pair with bit 31 set: the order of
+    ``_compact_scatter_reference``."""
+    nch, Bc = lay.nchunks, lay.Bc
+    off, tr_off = (getattr(tab, f).cpu().numpy().astype(np.int64) for f in ("off", "tr_off"))
+    at, row_ptr = (getattr(tab, f).cpu().numpy().astype(np.int64) for f in ("at", "row_ptr"))
+    code = tab.tr.cpu().numpy().astype(np.int64) & 0xFFFF
+    piece = np.repeat(np.arange(len(off) - 1), np.diff(off))[at]  # each place's chunk
+    count = np.diff(tr_off)[at]  # each place's pairs
+    start = np.concatenate([[0], np.cumsum(count)])  # each place's first pair in the list
+    place = np.repeat(np.arange(len(at)), count)
+    pair = tr_off[at][place] + np.arange(start[-1]) - start[place]
+    slot = (piece // nch)[place] * lay.Bmax + (piece % nch)[place] * Bc + code[pair] % Bc
+    index = (code[pair] // Bc) * lay.ncd + slot
+    if index.size and index.max() >= 1 << 31:
+        raise ValueError("the narrow merge's indices into Y do not fit 31 bits")
+    index[start[:-1]] -= 1 << 31  # bit 31 of an int32: a place's first pair
+    return (torch.as_tensor(start[row_ptr].astype(np.int32)),
+            torch.as_tensor(index.astype(np.int32)))
+
+
 def _rows(lay: WindowedLayout, spaces: str) -> int:
     return (lay.dim * lay.k_v if "v" in spaces else 0) + (lay.k_p if "p" in spaces else 0)
 
@@ -931,7 +975,7 @@ def stream_records(lay: WindowedLayout, cnt: torch.Tensor, tabs: dict,
 
 def compact_tables(lay: WindowedLayout) -> dict:
     """{"v": CompactSpace, "p": CompactSpace}: the compact kernels' tables
-    (K1, K2 and K4 on tetrahedra, K1 and K2 v->v on P3/P2 triangles), made
+    (K1, K2 and K4 on tetrahedra, K1 and K2 on P3/P2 triangles), made
     once per layout with numpy (on the layout's device).  Raises ValueError where
     a chunk's lists exceed what the kernels take: 16-bit indices, and a
     block's shared memory (``compact_smem_bytes`` on tetrahedra; on the
@@ -1078,10 +1122,12 @@ def _compact_matvec_reference(lay: WindowedLayout, A_sub: torch.Tensor, x: torch
     chunk's sums at its entries (their (slot, dof) pairs in order) written
     to their places in the row-ordered scratch, then the merge of each
     row's places in order (``_compact_scatter_reference``).  The plain
-    version of K1 and K2 in 3D and of K1 and K2 v->v at P3/P2 on triangles
-    too (the streaming kernel gathers x a slot at a time for K1 and at the
-    chunk's entries for K2: the same values); x and the result are the in-
-    and out-spaces' planar segments."""
+    version of K1 and K2 in 3D and of K1 and K2 at P3/P2 on triangles too
+    (the streaming kernel gathers x a slot at a time for K1 and at the
+    chunk's entries for K2 v->v, the narrow kernels a slot at a time for
+    K2 v->p and p->p: the same values; ``_narrow_product_reference`` and
+    ``_narrow_merge_reference`` give its bits there); x and the result are
+    the in- and out-spaces' planar segments."""
     tabs = compact_tables(lay) if tables is None else tables
     nb, nch, Bc, Bmax = lay.nb, lay.nchunks, lay.Bc, lay.Bmax
     k = {"v": lay.k_v, "p": lay.k_p}
@@ -1139,6 +1185,36 @@ def _compact_scatter_reference(lay: WindowedLayout, R: torch.Tensor, tables=None
             ys.append(R.new_zeros(n).index_add_(0, place_row, scratch))
         r0 += ncomp * k
     return torch.cat(ys)
+
+
+def _narrow_product_reference(lay: WindowedLayout, A_sub: torch.Tensor, x: torch.Tensor,
+                              in_spaces: str) -> torch.Tensor:
+    """Plain version of narrow_product_kernel (K2 v->p or p->p): the
+    slots' pressure sums Y [k_p, ncd] of A_sub [n_in, n_out_pad, ncd], x
+    (the in-space's planar segment) gathered at each slot's positions, the
+    columns q ascending (``_contract``); zero in padded slots."""
+    xf = x.new_zeros(lay.n_u + lay.n_ps)
+    if in_spaces == "v":
+        xf[: lay.n_u] = x
+    else:
+        xf[lay.n_u :] = x
+    X = _gather_reference(lay, xf)[_space_slices(lay)[in_spaces]]
+    return _contract(A_sub[:, : lay.k_p], X)
+
+
+def _narrow_merge_reference(ptr: torch.Tensor, lst: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """Plain version of narrow_merge_kernel: row r of the space is the sum of
+    its places in order, each place the sum of its pairs in order, through
+    the row list (ptr, lst) of ``narrow_rows`` over Y [k, ncd]."""
+    code = lst.to(Y.device).long()
+    first = code < 0
+    vals = Y.reshape(-1)[code & 0x7FFFFFFF]
+    place = torch.cumsum(first.long(), 0) - 1
+    sums = Y.new_zeros(int(first.sum())).index_add_(0, place, vals)
+    n = ptr.numel() - 1
+    row = torch.repeat_interleave(torch.arange(n, device=Y.device),
+                                  torch.diff(ptr.to(Y.device).long()))
+    return Y.new_zeros(n).index_add_(0, row[first], sums)
 
 
 def _contract(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
@@ -1285,14 +1361,15 @@ class _Packed:
     in 2D the slot colours of ``slot_colours`` (``colour`` None and
     ``ncolors`` 0 in 3D, whose kernels sum in the order of
     ``compact_tables``: a null table), the leading arguments of every
-    call and, for the 3D K1, K2 and K4 and the P3/P2 K1 and K2 v->v, the
-    tables of ``compact_tables`` (made at the first call of one of them).
-    Scratch is kept per stream (calls on one stream run in turn, so they
-    can share it; CUDA graphs captured on one capture stream share theirs,
-    so replay them on one stream at a time): in 2D the chunk subwindows and
-    K4's span tables (at P3/P2 at least the compact vector, which K1 and K2
-    v->v write there), in 3D the row-ordered compact vector, dim*E_v + E_p
-    floats."""
+    call and, for the 3D K1, K2 and K4 and the P3/P2 K1 and K2, the tables
+    of ``compact_tables`` (made at the first call of one of them; on P3/P2
+    triangles with the narrow merge's row list).  Scratch is kept per
+    stream (calls on one stream run in turn, so they can share it; CUDA
+    graphs captured on one capture stream share theirs, so replay them on
+    one stream at a time): in 2D the chunk subwindows and K4's span tables
+    (on P3/P2 triangles at least the compact vector, which K1 and K2 v->v
+    write there, and the narrow products' sums Y, k_p*ncd floats), in 3D
+    the row-ordered compact vector, dim*E_v + E_p floats."""
 
     def __init__(self, lay: WindowedLayout):
         self._lay = lay
@@ -1324,14 +1401,20 @@ class _Packed:
         windowed.cu), then the streaming kernel's work records
         (``stream_records`` of ``stream_work``'s list, kept in
         ``self.records``; the list in ``self.work``): their address and
-        number.  Made for every 3D layout and for P3/P2 triangles; None on
-        P2/P1 triangles."""
+        number; then the narrow merge's row list of the pressure
+        (``narrow_rows``, kept in ``self.rows``; None and two zeros where
+        the layout has no narrow product): its two addresses.  Made for
+        every 3D layout and for P3/P2 triangles; None on P2/P1 triangles."""
         if self._lay.dim != 3 and not streams_k1(self._lay):
             return None
         self.compact = compact_tables(self._lay)
         self.work = stream_work(self._lay, self.cnt)
         self.records = stream_records(self._lay, self.cnt, self.compact,
                                       self.work).to(self._device)
+        self.rows = None
+        if narrow_products(self._lay):
+            self.rows = tuple(t.to(self._device)
+                              for t in narrow_rows(self._lay, self.compact["p"]))
         vals = []
         for t in (self.compact["v"], self.compact["p"]):
             vals += [getattr(t, name).data_ptr()
@@ -1339,6 +1422,7 @@ class _Packed:
                                   "at")]
             vals += [t.E, t.max_entries, t.max_pairs]
         vals += [self.records.data_ptr(), self.records.shape[0]]
+        vals += [t.data_ptr() for t in self.rows] if self.rows else [0, 0]
         return (ctypes.c_int64 * len(vals))(*vals)
 
     def scratch(self, stream: int) -> int:
@@ -1427,6 +1511,8 @@ def stream_config(lay: WindowedLayout, dtype: torch.dtype, in_spaces: str = "vp"
 def kernel_design(lay: WindowedLayout, in_spaces: str, out_spaces: str) -> str:
     """The CUDA kernels that serve a product (K1: "vp"->"vp"; K2) at this
     layout (windowed.cu launch_matvec_any)."""
+    if narrow(lay, in_spaces, out_spaces):
+        return "narrow_product_kernel + narrow_merge_kernel"
     if streams(lay, in_spaces, out_spaces):
         return "stream_matvec_kernel + merge3_kernel<true>"
     if lay.dim == 3:
@@ -1553,7 +1639,8 @@ def windowed_matvec_block(
     A_sub: [n_in, n_out_pad, ncd] (``slice_block`` of the tangent, or the
     pressure Laplacian Kp_t), float32 or bfloat16.  x: planar segment of the
     in-spaces ("v" -> [dim*n_vs], "p" -> [n_ps], "vp" -> full).  Returns the
-    out-spaces segment.  The kernel serves v->v, v->p and p->p.
+    out-spaces segment.  The kernel serves v->v, v->p and p->p
+    (``kernel_design`` names the CUDA kernels of each at a layout).
     """
     if in_spaces not in ("v", "p", "vp") or out_spaces not in ("v", "p", "vp"):
         raise ValueError(f"spaces {in_spaces!r}->{out_spaces!r}")

@@ -29,6 +29,11 @@ in place of P2/P1:
                  solver sees, and the time to hold against a bound in bytes
                  from device memory.  L2 is left full of the write's dirty
                  lines, so the call also pays for writing them back
+                 (every timed batch is queued behind a device-side wait,
+                 ``HOST_LEAD_CYCLES``, so that the host's time a call is in
+                 none of these figures: without it a warm loop of wrapper
+                 calls reads the host's pace, ~25-50 us a call, and a cold
+                 reading can hold a stall of the host)
   cold_clean_ms  the same after the 256 MB write and then a 256 MB read:
                  L2 holds only clean lines, so nothing is written back
   host_us        host time a call: the median of 5 batches of 200 calls
@@ -39,10 +44,11 @@ in place of P2/P1:
   library_ms     cold time of one PyTorch call of the same function
                  (``library_call``: a CSR product, index_select or
                  index_add_), never used by the package
-  moved_bytes    (K1, K2, K4 in 3D; K1 and K2 v->v on P3/P2 triangles)
-                 the bytes the kernel and its merge really move
+  moved_bytes    (K1, K2, K4 in 3D; K1 and K2 on P3/P2 triangles) the
+                 bytes the kernel and its merge really move
                  (``moved_bytes_compact``): the bound's, plus x where the
-                 kernel reads it, the compact tables and the scratch
+                 kernel reads it, the compact tables or the row list, and
+                 the scratch
   stream         (the products on the streaming kernel: K1 at P3/P2, K2
                  v->v on P3/P2 triangles, K2 v->p and p->p on P3/P2
                  tetrahedra) its launch (``W.stream_config``): ring stages
@@ -55,8 +61,10 @@ times the wrappers on seeded operands at the layout alone (``bare_layout``,
 ``seeded_operands``: no solver set-up, no Newton step; the box's P3/P2
 set-up takes ~200 s), ``--no-library`` skips the yardsticks.
 ``--profile`` adds each call's device time by CUDA kernel
-(torch.profiler) warm, after the write and after the write and the read,
-and the device time by CUDA kernel of one forced Newton step.  ``--only``
+(torch.profiler) warm, after the write and after the write and the read (a
+product on two kernels, such as K2 v->p and p->p on P3/P2 triangles, shows
+its product and its merge apart), and the device time by CUDA kernel of
+one forced Newton step.  ``--only``
 takes names ("K3 pair") or families ("K3": K3 and the K3 pair).  The
 timing helpers are chip_smoke.py's too.
 
@@ -87,7 +95,8 @@ FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
 REPS = 30  # timed calls behind every warm and cold figure of main()
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM device memory (the bound's rate)
 # the CUDA kernels of csrc/windowed.cu, by their names in a profiler trace
-WINDOWED_KERNEL = re.compile(r"\b(matvec3?|stream_matvec|gather|scatter3?|merge3?)_kernel\b")
+WINDOWED_KERNEL = re.compile(
+    r"\b(matvec3?|stream_matvec|narrow_product|narrow_merge|gather|scatter3?|merge3?)_kernel\b")
 
 
 def channel_config(dtype="float32", rel_tol=1e-2, cells_per_block=448, degree=2):
@@ -168,10 +177,24 @@ def box_mesh():
     return refine_uniform(box(8, 8, 8), 2)
 
 
+# A device-side wait (torch.cuda._sleep, in clock cycles: ~10 ms at the
+# H100's clocks) queued before every timed batch, so that the host has
+# queued the whole batch before the card reaches its first event: no time
+# the host takes to queue a call (~25-50 us for a windowed wrapper) and no
+# stall of the host falls between two events.
+HOST_LEAD_CYCLES = 20_000_000
+
+
+def _host_ahead():
+    torch.cuda._sleep(HOST_LEAD_CYCLES)
+
+
 def cuda_ms(fn, reps=20):
-    """Warm time of fn() in ms: one pair of events around ``reps`` calls."""
+    """Warm time of fn() in ms: one pair of events around ``reps`` calls,
+    queued behind ``_host_ahead``."""
     torch.cuda.synchronize()
     t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    _host_ahead()
     t0.record()
     for _ in range(reps):
         fn()
@@ -201,14 +224,16 @@ def evictor(clean=False):
 @torch.no_grad()
 def cuda_ms_cold(fn, reps=20, clean=False):
     """Time of fn() in ms with its inputs out of L2: before every call
-    ``evictor(clean)`` evicts them; each call has its own pair of events
-    (the eviction also keeps the host ahead of the device, so no launch gap
-    falls between the events)."""
+    ``evictor(clean)`` evicts them; each call has its own pair of events,
+    the whole batch queued behind ``_host_ahead`` (the eviction alone kept
+    the host ahead only while the host did not stall: a stall of 50-130 us
+    fell inside one call's events)."""
     fn()  # first-call work (library handles, scratch) is not the call's time
     evict = evictor(clean)
     pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
              for _ in range(reps)]
     torch.cuda.synchronize()
+    _host_ahead()
     for t0, t1 in pairs:
         evict()
         t0.record()
@@ -405,8 +430,8 @@ def bound_bytes_of(lay, operands):
 def moved_bytes_compact(lay, operands):
     """{call: bytes} that the compact kernels and their merge really move
     (``bound_bytes_of`` counts each input once instead): in 3D for K1, each
-    K2 product and K4, and on P3/P2 triangles for K1 and the streamed K2
-    v->v ({} on P2/P1 triangles).  The 3D block kernel (K1 at P2/P1, K2 but the
+    K2 product and K4, and on P3/P2 triangles for K1 and each K2 product
+    ({} on P2/P1 triangles).  The 3D block kernel (K1 at P2/P1, K2 but the
     streamed products): A as in the bound; x at every chunk's entries of the
     in-spaces; of ``compact_tables`` the occupied slots' entry indices and
     the entries' rows of the in-spaces, the (slot, dof) pairs with their
@@ -421,9 +446,15 @@ def moved_bytes_compact(lay, operands):
     entry indices; of the out-spaces' tables the pairs and each entry's
     first pair (``tr_rel``) once, the scratch each way (in entry order),
     the row offsets and, a component at a time, the entry at each place
-    (``at``); y.  K4 (3D) reads no entry index and no x."""
+    (``at``); y.  The narrow kernels (K2 v->p and p->p on P3/P2 triangles,
+    ``W.narrow_products``): A as in the bound; the slot counts; the
+    occupied slots' packed positions of the in-space and one x value a
+    (slot, dof); the slots' sums Y written and read once a (slot, dof)
+    pair; the row list (``W.narrow_rows``); y.  K4 (3D) reads no entry
+    index and no x."""
     products = W.streamed_products(lay) if hasattr(W, "streamed_products") else (
         (("vp", "vp"),) if W.streams_k1(lay) else ())
+    narrow = getattr(W, "narrow_products", lambda _: ())(lay)
     if lay.dim == 2 and not products:
         return {}
     tabs = W.compact_tables(lay)
@@ -470,7 +501,16 @@ def moved_bytes_compact(lay, operands):
                       + 4 * t.row_ptr.numel() + 4 * ncomp[s] * t.E + 4 * ncomp[s] * n[s])
         return total
 
+    def narrow_route(ins, outs, elt):
+        (s,) = ins
+        pairs = tabs[outs].tr.numel()
+        return (rows(ins) * rows(outs) * n_occ * elt + cnt.numel() * 4
+                + k[s] * n_occ * pos_v.element_size() + 4 * ncomp[s] * k[s] * n_occ
+                + 2 * 4 * pairs + 4 * (n[outs] + 1) + 4 * pairs + 4 * n[outs])
+
     def moved(ins, outs, elt):
+        if (ins, outs) in narrow:
+            return narrow_route(ins, outs, elt)
         return (stream if (ins, outs) in products else matvec)(ins, outs, elt)
 
     out = {"K1 f32": moved("vp", "vp", 4), "K1": moved("vp", "vp", 2)}
@@ -479,7 +519,7 @@ def moved_bytes_compact(lay, operands):
                      + sum(out_space(s) + 4 * tabs[s].off.numel() for s in "vp"))
     for key, (A_sub, _) in operands["blocks"].items():
         i, o = key.split("->")
-        if lay.dim == 3 or (i, o) in products:
+        if lay.dim == 3 or (i, o) in products or (i, o) in narrow:
             out[f"K2 {key}"] = moved(i, o, A_sub.element_size())
     return out
 
@@ -747,6 +787,10 @@ def main(argv=None):
         if name in moved:
             r["moved_bytes"] = moved[name]
             line += f"  moved {moved[name] / 1e6:.1f} MB"
+        if name.startswith(("K1", "K2 ")) and hasattr(W, "kernel_design"):
+            pair = ("vp", "vp") if name.startswith("K1") else name.split()[1].split("->")
+            r["design"] = W.kernel_design(lay, *pair)
+            line += f"  design {r['design']}"
         spaces = stream_spaces(lay, name, operands)
         if spaces:
             r["stream"] = W.stream_config(lay, *spaces)

@@ -37,8 +37,9 @@ framed layouts of a sharded run (parallel/windowed_spmd.py ``local_layout``)
 of box(4, 4, 4) at 16 cells a block, halo 4: rank 0 and rank 1 of 2 (the
 ends of the line) and rank 1 of 4 (an inner rank).  P3/P2 triangles ("p3-
 square", 10 velocity and 6 pressure dofs a triangle): unit_square(6) at
-halo 1, unit_square(8) at halo 2, and rank 0 of 2 of unit_square(8)'s
-framed layout.  A framed layout's rows
+halo 1, unit_square(8) at halo 2, rank 0 of 2 of unit_square(8)'s framed
+layout, and unit_square(12) refined once at 448 cells a block in chunks of
+256 (3 blocks of 2 chunks).  A framed layout's rows
 run over its framed spaces, so the frame's rows receive the owned blocks'
 sums (which the sharded wrappers then send to the neighbours).  Of the
 generated boxes tried, none gives hv != hp.  The kernels on the card:
@@ -72,8 +73,10 @@ LAYOUTS = {
     "box4-framed-r1of4": dict(box=4, cpb=16, Bc=128, rank=1, ranks=4),
     "p3-box-h1": dict(box=2, cpb=16, Bc=128, deg=3),
     "p3-box-refined-Bc256": dict(box=4, refine=1, cpb=448, Bc=256, deg=3),
-    # P3/P2 triangles: halo 1, halo 2, a framed layout of 2 ranks
+    # P3/P2 triangles: halo 1, halo 2, a framed layout of 2 ranks, and 3
+    # blocks of 2 chunks
     "p3-square-h1": dict(n=6, cpb=16, Bc=128, deg=3),
+    "p3-square-chunks": dict(n=12, refine=1, cpb=448, Bc=256, deg=3),
     "p3-square-h2": dict(n=8, cpb=8, Bc=128, deg=3),
     "p3-square-framed-r0of2": dict(n=8, cpb=16, Bc=128, deg=3, rank=0, ranks=2),
 }
@@ -332,6 +335,15 @@ def test_compact_model_matches_jax_f64_p3_triangles(ins, outs):
     _model_matches_jax("p3-square-h2", ins, outs)
 
 
+@pytest.mark.parametrize("ins, outs", PRODUCTS)
+def test_compact_model_matches_jax_f64_p3_triangle_chunks(ins, outs):
+    """The same on P3/P2 triangles of several blocks of several chunks,
+    p3-square-chunks (K2 v->p and p->p there: the narrow kernels' order)."""
+    lay = _layout("p3-square-chunks")
+    assert lay.nb > 1 and lay.nchunks > 1
+    _model_matches_jax("p3-square-chunks", ins, outs)
+
+
 def _model_matches_jax(name, ins, outs):
     args, kw = _build(LAYOUTS[name])
     jlay = jw.build_windowed_layout(*args, **kw)
@@ -525,10 +537,9 @@ def test_kernel_bench_bit_equal_holds_saved_outputs(name, tmp_path):
 @pytest.mark.parametrize("element", [(2, 6, 3), (2, 10, 6), (3, 10, 4), (3, 20, 10)])
 def test_streamed_products_are_the_p3_pairs(element, ins, outs):
     """The streaming kernel serves K1 and K2 v->v on P3/P2 triangles (their
-    v->p and p->p stay on the 2D block kernel, which was faster), K1, v->p
-    and p->p on P3/P2 tetrahedra (their v->v stays on the 3D block
-    kernel), and nothing at P2/P1: the three K2 pairs and the two K1s of
-    windowed.cu ``streams``."""
+    v->p and p->p run on the narrow kernels), K1, v->p and p->p on P3/P2
+    tetrahedra (their v->v stays on the 3D block kernel), and nothing at
+    P2/P1: the three K2 pairs and the two K1s of windowed.cu ``streams``."""
     dim, k_v, k_p = element
     lay = SimpleNamespace(dim=dim, k_v=k_v, k_p=k_p)
     want = ((element == (2, 10, 6) and (ins, outs) in (("vp", "vp"), ("v", "v")))
@@ -536,8 +547,10 @@ def test_streamed_products_are_the_p3_pairs(element, ins, outs):
     assert tw.streams(lay, ins, outs) == want
     assert ((ins, outs) in tw.streamed_products(lay)) == want
     assert tw.streams_k1(lay) == (k_v in (10, 20) and (dim, k_v) != (3, 10))
+    narrow = element == (2, 10, 6) and (ins, outs) in (("v", "p"), ("p", "p"))
     design = tw.kernel_design(lay, ins, outs)
     assert design.startswith("stream_matvec_kernel" if want else
+                             "narrow_product_kernel" if narrow else
                              ("matvec3_kernel" if dim == 3 else "matvec_kernel"))
 
 
@@ -545,7 +558,8 @@ def test_streamed_products_are_the_p3_pairs(element, ins, outs):
 def test_moved_bytes_compact_counts_the_streamed_products(name):
     """``kernel_bench.moved_bytes_compact`` gives rows for K1 and every
     compact K2 product: on P3/P2 tetrahedra all three, on P3/P2 triangles
-    the streamed v->v, on P2/P1 triangles none.  A product moves A's used
+    all three too (the streamed v->v, the narrow v->p and p->p), on P2/P1
+    triangles none.  A product moves A's used
     rows in occupied slots and more (tables, x, the scratch each way, y);
     a product that moves fewer rows of A moves fewer bytes."""
     from navier_stokes_tpu_torch.scripts import kernel_bench as kb
@@ -560,7 +574,7 @@ def test_moved_bytes_compact_counts_the_streamed_products(name):
     if lay.k_v == 6:
         assert moved == {}
         return
-    k2 = {"K2 v->v", "K2 v->p", "K2 p->p"} if lay.dim == 3 else {"K2 v->v"}
+    k2 = {"K2 v->v", "K2 v->p", "K2 p->p"}
     assert set(moved) == {"K1", "K1 f32"} | k2 | ({"K4"} if lay.dim == 3 else set())
     _, _, cnt = tw.pack_positions(lay)
     rows = {"v": lay.dim * lay.k_v, "p": lay.k_p, "vp": lay.nl}

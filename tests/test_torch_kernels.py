@@ -12,8 +12,8 @@ per-row lists); an element the kernels are not built for raises.
 Tolerances: K3 (gather, one vector or the pair u, u_old in one launch) is a
 copy and must be bit-equal; the others agree to 1e-5 of ||y||_inf (float32
 sums in another order: the 2D kernels sum a chunk's slots in colour order,
-the 3D ones, the P3/P2 K1 on both elements and K2 v->v on P3/P2
-triangles in the order of ``compact_tables``).  K1, K2 and K4 sum in a fixed order, so a repeated
+the 3D ones, the P3/P2 K1 on both elements and K2 on P3/P2 triangles in
+the order of ``compact_tables``).  K1, K2 and K4 sum in a fixed order, so a repeated
 call and a CUDA-graph replay give the same bits as an eager call.  K5, the
 tensor-core probe, is held to 1e-5 of its output's largest entry (bf16
 products summed in float32 in groups, in another order).
@@ -53,12 +53,14 @@ LAYOUTS = {
     # blocks between 4 empty ones a side, rows over the framed spaces
     "box4-framed": dict(box=4, cpb=16, Bc=128, rank=1, ranks=2),
 }
-# P3/P2 (cubic velocity): 2D halos 1 and 2 and 2 chunks a block; tetrahedra
-# with one chunk, 3 chunks of 256 and a halo of 2
+# P3/P2 (cubic velocity): 2D halos 1 and 2, 2 chunks a block and a rank's
+# framed layout (rank 0 of 2); tetrahedra with one chunk, 3 chunks of 256
+# and a halo of 2
 P3_LAYOUTS = {
     "p3-blocked-h1": dict(n=6, cpb=16, Bc=128, deg=3),
     "p3-blocked-h2": dict(n=8, cpb=8, Bc=128, deg=3),
     "p3-refined-Bc256": dict(n=12, refine=1, cpb=448, Bc=256, deg=3),
+    "p3-framed-r0of2": dict(n=8, cpb=16, Bc=128, deg=3, rank=0, ranks=2),
     "p3-box-h1": dict(box=2, cpb=16, Bc=128, deg=3),
     "p3-box-refined-Bc256": dict(box=4, refine=1, cpb=448, Bc=256, deg=3),
     "p3-box-h2": dict(box=4, cpb=64, Bc=128, deg=3),
@@ -172,6 +174,12 @@ def test_layouts_cover_the_kernel_paths():
         mine = [lay for lay in p3 if lay.dim == dim]
         assert {lay.nchunks == 1 for lay in mine} == {True, False}
         assert {lay.hv for lay in mine} == {1, 2}
+    # the narrow kernels (K2 v->p and p->p on P3/P2 triangles): several
+    # blocks of more than one chunk, and a framed layout
+    narrow = [lay for lay in p3 if all(tw.narrow(lay, i, "p") for i in "vp")]
+    assert narrow == [lay for lay in p3 if lay.dim == 2]
+    assert any(lay.nb > 1 and lay.nchunks > 1 for lay in narrow)
+    assert any(lay.frame for lay in narrow)
 
 
 TETS = ["box-h1", "box-refined-Bc256", "box-refined-h2", "box4-framed",
@@ -219,9 +227,9 @@ def _rand_on(device, seed):
     [(name, op) for name in ["refined-Bc256", "legacy-3chunks", "p3-refined-Bc256"]
      for op in ["matvec-bf16A", "v->v", "scatter", "gather", "gather-pair"]]
     + [(name, op) for name in TETS for op in OPS]
-    # P3/P2 triangles: K2 v->v on the streaming kernel, v->p and p->p on the block kernel
+    # P3/P2 triangles: K2 v->v on the streaming kernel, v->p and p->p on the narrow kernels
     + [("p3-refined-Bc256", op) for op in ["v->p", "p->p", "v->v-f32A", "v->p-f32A", "p->p-f32A"]]
-    + [(name, op) for name in ["p3-blocked-h1", "p3-blocked-h2"]
+    + [(name, op) for name in ["p3-blocked-h1", "p3-blocked-h2", "p3-framed-r0of2"]
        for op in ["v->v", "v->p", "p->p", "v->v-f32A", "v->p-f32A", "p->p-f32A"]])
 def test_graph_replay_matches_eager(name, op, cuda_device):
     """A wrapper call is one C call with no host read, so a CUDA graph can
@@ -264,7 +272,8 @@ def _assert_replay_matches_eager(call, x, fresh, exact=False):
      for op in ["matvec-bf16A", "matvec", "v->v", "v->p", "p->p", "scatter"]]
     + [(name, op) for name in TETS for op in OPS]
     + [(name, op) for name in ["p3-refined-Bc256", "p3-blocked-h2", "p3-blocked-h1"]
-       for op in ["v->v-f32A", "v->p-f32A", "p->p-f32A"]])
+       for op in ["v->v-f32A", "v->p-f32A", "p->p-f32A"]]
+    + [("p3-framed-r0of2", op) for op in ["v->p", "p->p", "v->p-f32A", "p->p-f32A"]])
 def test_repeat_calls_are_bit_equal(name, op, cuda_device):
     """K1 (bf16 and float32 A), each K2 product and K4 sum in a fixed
     order (and K3 copies): two calls on the same inputs give the same
@@ -319,7 +328,34 @@ def test_tet_merge_counts_every_window(name, cuda_device):
     assert torch.equal(tw.windowed_scatter(lay, R), want)
 
 
-P3_TRIANGLES = ["p3-blocked-h1", "p3-blocked-h2", "p3-refined-Bc256"]
+P3_TRIANGLES = ["p3-blocked-h1", "p3-blocked-h2", "p3-refined-Bc256", "p3-framed-r0of2"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", P3_TRIANGLES)
+def test_narrow_merge_counts_every_pair(name, cuda_device):
+    """With A the identity on every cell and x all ones, K2 p->p and v->p
+    on the narrow kernels (bf16 and float32 A; v->p: A's pressure row i
+    takes velocity column i) give each pressure row the number of cells
+    that touch it, exactly: every (slot, dof) pair reaches its row through
+    the slot product, Y and the row list.  On the framed layout the frame's
+    rows take the owned blocks' sums."""
+    lay = _layout(name)
+    p = tw.unpack_positions(tw.pack_positions(lay)[1])  # [nb, k_p, Bmax]
+    rows = (torch.arange(lay.nb)[:, None, None] - lay.hp) * lay.OWp + p
+    want = torch.bincount(rows[p >= 0], minlength=lay.n_ps).float().to(cuda_device)
+    lay = lay.to(cuda_device)
+    A = torch.zeros((lay.nl, lay.nli, lay.ncd), device=cuda_device)
+    nv = lay.dim * lay.k_v
+    A[nv + torch.arange(lay.k_p), nv + torch.arange(lay.k_p)] = 1.0  # p->p
+    A[torch.arange(lay.k_p), nv + torch.arange(lay.k_p)] = 1.0       # v->p: column i
+    for A_op in (A, A.to(torch.bfloat16)):
+        for ins, xs in (("p", torch.ones(lay.n_ps, device=cuda_device)),
+                        ("v", torch.ones(lay.n_u, device=cuda_device))):
+            assert tw.kernel_design(lay, ins, "p").startswith("narrow_product_kernel")
+            got = tw.windowed_matvec_block(lay, tw.slice_block(lay, A_op, ins, "p"), xs,
+                                           in_spaces=ins, out_spaces="p")
+            assert torch.equal(got, want), (ins, A_op.dtype)
 
 
 @pytest.mark.cuda
@@ -328,8 +364,9 @@ def test_tet_scratch_is_the_compact_vector(name, cuda_device):
     """A tetrahedral layout's scratch (one buffer a stream, shared by K1,
     K2 and K4) is the row-ordered compact vector: dim*E_v + E_p floats,
     whichever of K4 and K1 makes it first.  On P3/P2 triangles K1 writes
-    that vector and K4 its chunk subwindows and span tables into the same
-    buffer, which holds the larger of the two."""
+    that vector, K4 its chunk subwindows and span tables and K2 v->p and
+    p->p their slots' sums Y (k_p x ncd floats) into the same buffer, which
+    holds the largest of the three."""
     rand = _rand_on(cuda_device, 16)
     for first in ("scatter", "matvec"):
         lay = _layout(name).to(cuda_device)  # a new layout: its own tables and scratch
@@ -344,7 +381,8 @@ def test_tet_scratch_is_the_compact_vector(name, cuda_device):
         want = lay.dim * tabs["v"].E + tabs["p"].E
         if lay.dim == 2:
             pieces = lay.nb * lay.nchunks
-            want = max(want, pieces * 128 * (lay.dim * lay.RVv + lay.RVp) + 4 * pieces)
+            want = max(want, pieces * 128 * (lay.dim * lay.RVv + lay.RVp) + 4 * pieces,
+                       lay.k_p * lay.ncd)
         assert scratch[0].numel() == want
 
 
