@@ -41,8 +41,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
  11. flat       the 25,600-cell channel, flat against windowed: residual and
                 tangent action at one smooth state, compared node by node;
                 one forced Newton step each (block_triangular, Cahouet-Chabard)
- 12. steady     the lid-driven cavity at Re 100 on rectangle(256, 256)
-                (131,072 cells), float32: solve_steady from the Stokes guess
+ 12. steady     the lid-driven cavity at Re 100 on rectangle(128, 128)
+                (32,768 cells), float32: solve_steady from the Stokes guess
                 with FGMRES tangents must converge, its centrelines within
                 0.01 of Ghia et al.'s; K1-K4 must all launch.  At n = 32 the
                 float32 FGMRES solve against a float64 SuperLU one
@@ -129,8 +129,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 v->v on triangles, v->p and p->p on tetrahedra: ring,
                 shared memory, resident blocks, grid, share of the bound),
                 the sizes of K2 v->p and p->p on triangles on the narrow
-                kernels (the slots, Y, the row list), and the bytes each
-                really moves; (b) there,
+                kernels (the slots, Y, the row list), K4's route (the
+                row-ordered sum over R) with its rows and row lists, and
+                the bytes each really moves; (b) there,
                 three forced Newton steps at a seeded state (bit-equal, equal
                 FGMRES counts) and 2 BDF1 steps from rest (K1, K3 and K4
                 launched; a tangent solve may stop at its cap, printed with
@@ -239,9 +240,11 @@ PARITY_TOL = 1e-4
 # 4.8e-3 of the entry row on the CPU, so it is held to 1e-2
 BOX_PARITY_REL_TOL = 1e-6
 BOX_BF16_PARITY_TOL = 1e-2
-# the lid-driven cavity (phases 12-13): n x n squares cut in two triangles;
-# phase 13's scanned run at SCAN_N, a quarter of the cells of phase 12's
-CAVITY_N, CAVITY_SMALL_N, SCAN_N = 256, 32, 128
+# the lid-driven cavity (phases 12-13): n x n squares cut in two triangles,
+# at Ghia's own grid width (129 x 129 points); at 256 phase 12 took 184 s
+# of the script's 1,200 on an H100 whose host ran slow, and the script went
+# over its limit
+CAVITY_N, CAVITY_SMALL_N, SCAN_N = 128, 32, 128
 # Ghia et al.'s centreline values, largest gap of u and of v (their own grid
 # is 129 x 129; the n = 32 float32 run of examples/lid_cavity.py reached
 # 0.0054 / 0.0089 after time marching on the CPU)
@@ -622,6 +625,8 @@ def kernels_vs_plain(lay, operands):
         if key.startswith(("K1", "K2")):  # the CUDA kernels that served it
             spaces = ("vp", "vp") if key.startswith("K1") else key.split()[1].split("->")
             recs[key]["design"] = W.kernel_design(lay, *spaces)
+        elif key == "K4":
+            recs[key]["design"] = W.scatter_design(lay)
         if key in moved:  # a host count from the tables, printed and not in the kernels line
             print(f"  {key} really moves {moved[key] / 1e6:.1f} MB "
                   "(kernel_bench.moved_bytes_compact)", flush=True)
@@ -635,8 +640,17 @@ def kernels_vs_plain(lay, operands):
                   f"block, {cfg['blocks_per_sm']} resident block(s) an SM, a persistent grid of "
                   f"{cfg['grid']} blocks over {cfg['chunks']} occupied chunks; share "
                   f"{recs[key]['share']:.3f} of the bound", flush=True)
+        elif key == "K4" and W.scatter_rows(lay):
+            rows = lay._packed.rows
+            pairs = {s: rows[s][1].numel() for s in "vp"}
+            mb = 4 * sum(t.numel() for s in "vp" for t in rows[s]) / 1e6
+            print(f"  K4: {recs[key]['design']}, a thread a row over {lay.n_vs} velocity rows "
+                  f"({lay.dim} components a walk) and {lay.n_ps} pressure rows, row lists of "
+                  f"{pairs['v']} and {pairs['p']} (slot, dof) pairs ({mb:.1f} MB with their "
+                  f"offsets), no scratch; share {recs[key]['share']:.3f} of the bound",
+                  flush=True)
         elif key.startswith("K2 ") and W.narrow(lay, *key.split()[1].split("->")):
-            ptr, lst = lay._packed.rows
+            ptr, lst = lay._packed.rows["p"]
             print(f"  {key}: narrow kernels, a thread a slot over {lay.ncd} slots into Y "
                   f"[{lay.k_p}, {lay.ncd}], a row list of {lst.numel()} (slot, dof) pairs over "
                   f"{ptr.numel() - 1} rows; share {recs[key]['share']:.3f} of the bound",
@@ -1791,7 +1805,10 @@ def p3_rank_kernels(rank, n):
                 raise RuntimeError(f"rank {rank}: P3/P2 {name}: {key} disagrees with its plain "
                                    f"version (max|err| {errs[key]:.3e}) or with itself")
         errs.update(sharded_vs_plain(sh, ops_, rank))
+        if not W.scatter_rows(lay):
+            raise RuntimeError(f"rank {rank}: P3/P2 {name}: K4 is not the row-ordered sum")
         out[name] = dict(errs=errs, layout_s=t_layout, nb=lay_g.nb, nb_loc=sh._dist.nb_loc,
+                         scatter=W.scatter_design(lay),
                          frame=lay.frame, hv=lay.hv, hp=lay.hp, OWv=lay.OWv, OWp=lay.OWp,
                          ncd=lay.ncd, k=(lay.k_v, lay.k_p))
         del calls, ops_, sh, lay
@@ -1888,7 +1905,7 @@ def p3_kernel_report(n, ranks_out):
         print(f"  P3/P2 (h) {name}, {n} ranks: k_v/k_p {r0['k']}, nb {r0['nb']} = {n} x "
               f"{r0['nb_loc']}, frame {r0['frame']} (hv/hp {r0['hv']}/{r0['hp']}, OWv/OWp "
               f"{r0['OWv']}/{r0['OWp']}), {r0['ncd']} slot columns a rank, layout "
-              f"{r0['layout_s']:.1f} s; largest error a check: "
+              f"{r0['layout_s']:.1f} s, K4 {r0['scatter']}; largest error a check: "
               + ", ".join(f"{k} {max(r['errs'][k] for r in rs):.2e}" for k in r0["errs"]),
               flush=True)
 
@@ -2147,6 +2164,7 @@ def p3_steps(solver, log, need=("K1", "K3", "K4")):
         raise RuntimeError(f"the P3/P2 run did not take {want} finite steps")
     if min(launches[k] for k in need) == 0:
         raise RuntimeError(f"a kernel of the P3/P2 path was never launched: {launches}")
+    print(f"  K4 ran {W.scatter_design(solver._win_layout)}", flush=True)
     return launches
 
 
@@ -2319,8 +2337,8 @@ def kernel_entries(recs, launches, step_launches, suffix, sharded=None):
     15's numbers, ``sharded_numbers``) each rank's launches in its run at 2
     ranks (the BDF1 steps; the P3/P2 channel's: its forced step) and the
     largest error of the kernel's checks on the ranks, at 2 and at 4 ranks
-    (else null); for K1 and K2 ``design``, the CUDA kernels that served
-    each product (``W.kernel_design``)."""
+    (else null); for K1, K2 and K4 ``design``, the CUDA kernels that
+    served each product (``W.kernel_design``, ``W.scatter_design``)."""
     names = {"K1": "K1 windowed_matvec", "K2": "K2 windowed_matvec_block",
              "K3": "K3 windowed_gather", "K4": "K4 windowed_scatter"}
     counts = {k.split()[0]: v for k, v in launches.items()}
@@ -2341,7 +2359,7 @@ def kernel_entries(recs, launches, step_launches, suffix, sharded=None):
                 if sharded else None) for n in MULTI_RANKS},
         )
         designs = {key: r["design"] for key, r in mine.items() if "design" in r}
-        if designs:  # K1, K2: the CUDA kernels of each timed product
+        if designs:  # the CUDA kernels of each timed call
             entry["design"] = designs
         if len(mine) > 1:  # the other operands of the same kernel
             entry["also"] = {key: {m: r.get(m) for m in (*MEASURED, "replay_ms")}

@@ -79,8 +79,9 @@
 // into shared memory with cp.async, then gathered from there, was measured
 // on the same build and was slower; PERF.md has the times.)
 //
-// K4 (the scatter) has the matvec's grid and its tail: one CUDA block per
-// (layout block, chunk), a thread per slot, padded slots and empty chunks
+// K4 (the scatter; at P2/P1, see below for P3/P2) has the matvec's grid
+// and its tail: one CUDA block per (layout block, chunk), a thread per
+// slot, padded slots and empty chunks
 // skipped; a thread loads all of its slot's rows of R (slot-contiguous, so
 // the loads of a warp are coalesced) before its first sum into the
 // chunk's subwindows in shared memory, and the same merge kernel sums the
@@ -152,7 +153,7 @@
 // way): 506 MB in all for K1 with bf16 A; K4 reads no entry index and no x
 // (scripts/kernel_bench.py moved_bytes_compact).
 //
-// P3/P2 (cubic velocity, quadratic pressure): K3, K4 and K2 v->v on
+// P3/P2 (cubic velocity, quadratic pressure): K3 and K2 v->v on
 // tetrahedra are the same kernels, instantiated for 10 velocity and 6
 // pressure dofs a triangle (nl 26, nli 32) and 20 and 10 a tetrahedron
 // (nl 70, nli 72); each launcher picks the element's template from the
@@ -239,11 +240,26 @@
 //     (slot, dof) pairs in order (slots ascending): the order of
 //     _compact_matvec_reference, through a per-row list of Y indices that
 //     the host flattens once from the compact tables (ops/windowed.py
-//     narrow_rows), so that a row's sum is one load of its offsets, then
+//     row_list), so that a row's sum is one load of its offsets, then
 //     its pairs, then Y (not row_ptr -> at -> tr_off -> tr -> Y).
 //   * the merge is launched with programmatic stream serialization: its
 //     blocks load their offsets and first pairs before they wait
 //     (griddepcontrol.wait) for the product's stores.
+// K4 on the P3/P2 elements is one kernel of its own, scatter_rows_kernel:
+// no chunk, no shared memory, no barrier and no scratch.  R is laid out
+// slot by slot, as the narrow products' Y is, so a thread a row of a space
+// sums the row's (slot, dof) values of R through a row list that the host
+// flattens once a layout from the compact tables (ops/windowed.py
+// row_list; the pressure's is the narrow merge's list), a velocity row all
+// its components in one walk: the order of _compact_scatter_reference, so
+// tetrahedra keep scatter3_kernel's bits and triangles leave the colour
+// rounds' order.  It replaced, on triangles, scatter_kernel (a chunk's
+// subwindows zeroed, 9 colour rounds behind barriers, the touched spans
+// written) and the span merge that read them back; on tetrahedra
+// scatter3_kernel (a chunk's 70 rows of R copied to shared memory, then
+// summed, then written to the scratch) and merge3_kernel.  It moves R's
+// occupied values, both row lists and y: 26.0 MB at the channel, 100.3 MB
+// at the box (kernel_bench moved_bytes_compact).
 // Bound at P3/P2 with bf16 A (scripts/kernel_bench.py bound_bytes_of): K1
 // at the channel 152.9 MB, 45.6 us, at the box 1,981.2 MB, 591.4 us; K2
 // v->v / v->p / p->p at the channel 93.0 / 33.5 / 10.8 MB (27.8 / 10.0 /
@@ -1629,7 +1645,7 @@ narrow_product_kernel(Geo g, Tables t, const TA* __restrict__ A, int n_out_pad,
 // of its (slot, dof) pairs in order (slots ascending), as
 // _compact_scatter_reference sums them.  The host flattens the chain
 // row_ptr -> at -> tr_off -> tr into one list a row (ops/windowed.py
-// narrow_rows): list[ptr[r] .. ptr[r + 1]) holds the row's pairs as their
+// row_list): list[ptr[r] .. ptr[r + 1]) holds the row's pairs as their
 // index l*ncd + s into Y, a place's first pair with bit 31 set.  A thread a
 // row loads its offsets and first kNarrowAhead pairs, then waits for the
 // product.
@@ -1655,6 +1671,79 @@ narrow_merge_kernel(const int* __restrict__ ptr, const int* __restrict__ list,
     if (k0 + i < k1) add(ahead[i], i == 0);
   for (int k = k0 + kNarrowAhead; k < k1; ++k) add(list[k], false);
   y[r] = acc + sum;
+}
+
+// ---- P3/P2 K4: the row-ordered sum over R ----------------------------------
+// y = sum_cells P_c^T R_c with no chunk phase, no shared memory and no
+// scratch: R [>= nl, ncd] is laid out slot by slot, so a thread a row of a
+// space walks that row's (slot, dof) pairs of R through the space's row
+// list (ops/windowed.py row_list: list[ptr[r] .. ptr[r + 1]) holds the
+// row's pairs as their index l*ncd + s into the component's KV (velocity)
+// or KP (pressure) rows of R, a place's first pair with bit 31 set) and
+// sums them as _compact_scatter_reference does: a place's pairs in order
+// (slots ascending), then the row's places in order.  A velocity row reads
+// every component from one walk of its list (component cc's rows start
+// cc*KV*ncd further on).  A thread walks its list kRowsAhead pairs at a
+// time: their list entries, then their values of R, all in flight together,
+// then their sums in order (a tetrahedron's vertex row takes ~24 pairs, a
+// face row 2).  What holds it back are R's scattered 4-byte reads (a 32-byte
+// sector for each value).  Tried on the card and slower or no faster
+// (PERF.md): 2, 4, 8 or 16 pairs ahead; 128- or 512-thread blocks; a warp
+// that stages its 32 rows' pairs in shared memory before its lanes sum; the
+// list read evict-first, R evict-last; on tetrahedra scatter3_kernel made
+// persistent, R streamed through a TMA ring (0.105 against 0.080 ms).
+struct RowList {
+  const int* __restrict__ ptr;   // [n + 1] a row's first pair
+  const int* __restrict__ list;  // the pairs, bit 31 on a place's first
+  const float* __restrict__ R;   // the space's component 0 rows of R
+  int n;                         // the space's rows
+};
+
+constexpr int kRowsAhead = 6;
+constexpr int kRowsThreads = 256;
+
+template <int NC>
+__device__ __forceinline__ void sum_row(const RowList& m, long comp_stride, int r,
+                                        float* __restrict__ y) {
+  const int k0 = m.ptr[r], k1 = m.ptr[r + 1];
+  float acc[NC], sum[NC];
+#pragma unroll
+  for (int cc = 0; cc < NC; ++cc) acc[cc] = 0.f, sum[cc] = 0.f;
+  for (int k = k0; k < k1; k += kRowsAhead) {
+    int code[kRowsAhead];
+#pragma unroll
+    for (int i = 0; i < kRowsAhead; ++i) code[i] = k + i < k1 ? m.list[k + i] : 0;
+    float val[kRowsAhead][NC];
+#pragma unroll
+    for (int i = 0; i < kRowsAhead; ++i)
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc)
+        val[i][cc] = k + i < k1 ? __ldg(m.R + (code[i] & 0x7FFFFFFF) + cc * comp_stride) : 0.f;
+#pragma unroll
+    for (int i = 0; i < kRowsAhead; ++i) {
+      if (k + i < k1) {
+#pragma unroll
+        for (int cc = 0; cc < NC; ++cc) {
+          if (k + i > k0 && code[i] < 0) acc[cc] += sum[cc], sum[cc] = 0.f;  // the next place
+          sum[cc] += val[i][cc];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int cc = 0; cc < NC; ++cc) y[cc * (long)m.n + r] = acc[cc] + sum[cc];
+}
+
+// y = [velocity components (DIM * n_vs), then pressure (n_ps)]: a thread a
+// velocity row (all DIM components), then a thread a pressure row
+template <int DIM, int KV>
+__global__ void __launch_bounds__(kRowsThreads)
+scatter_rows_kernel(RowList v, RowList p, long ncd, float* __restrict__ y) {
+  const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t < v.n)
+    sum_row<DIM>(v, KV * ncd, (int)t, y);
+  else if (t - v.n < p.n)
+    sum_row<1>(p, 0, (int)(t - v.n), y + DIM * (long)v.n);
 }
 
 // ---- the merge: chunk subwindows -> the planar vector -----------------------
@@ -2005,8 +2094,10 @@ int launch_matvec_3d(const Geo& g, const int* cnt, const Compact& cv, const Comp
 // space (ns_matvec's `compact`): 9 table addresses, E, the most entries and
 // the most pairs of a chunk.  After both spaces' records the pack holds the
 // streaming kernel's work records (WorkRec): their address and number; then
-// the narrow merge's row list of the pressure (its offsets' and its pairs'
-// addresses, 0 where the layout has no narrow product).
+// the row lists (ops/windowed.py row_list) of the pressure (the narrow
+// merge's and the row-ordered K4's) and of the velocity (the row-ordered
+// K4's): their offsets' and their pairs' addresses each, 0 where the layout
+// has no such list.
 constexpr int kCompactLen = 12;
 Compact unpack_compact(const int64_t* c) {
   return Compact{(const int*)c[0], (const int*)c[1], (const int*)c[2], (const uint16_t*)c[3],
@@ -2163,7 +2254,8 @@ int launch_stream_matvec(const Geo& g, const Tables& t, const int64_t* compact, 
 // the product was 1.6 us slower a call at the channel; letting them start
 // at the product's start instead of after its stores was slower too:
 // PERF.md).
-constexpr int kNarrowArgs = 2 * kCompactLen + 2;
+constexpr int kNarrowArgs = 2 * kCompactLen + 2;  // the pressure's row list
+constexpr int kRowListV = kNarrowArgs + 2;          // the velocity's
 template <int KV, int KP, bool IN_V, typename TA>
 int launch_narrow(const Geo& g, const Tables& t, const int64_t* compact, const void* A,
                   int n_out_pad, const void* x, float* scratch, float* y, cudaStream_t stream) {
@@ -2295,6 +2387,37 @@ int launch_scatter(const Geo& g, const Tables& t, const void* R, float* scratch,
   return (int)launch_merge<true>(mv, mp, y, stream);
 }
 
+// K4's design by element (ops/windowed.py _SCATTER_ROWS): the row-ordered
+// sum over R (scatter_rows_kernel) on the P3/P2 elements, whose chunks the
+// chunk kernels served in series of fixed phases (on triangles a chunk's
+// subwindows zeroed, 9 colour rounds behind barriers and the touched spans
+// read back by a second kernel; on tetrahedra a chunk's 70 rows of R
+// copied to shared memory, then summed, then written to a scratch that
+// merge3_kernel read back: PERF.md); at P2/P1 scatter_kernel and
+// scatter3_kernel with their merges.
+template <typename E>
+constexpr bool scatter_rows() {
+  return (E::DIM == 2 && E::KV == 10) || (E::DIM == 3 && E::KV == 20);
+}
+// The row-ordered K4: one launch over the velocity's rows, then the
+// pressure's, through the row lists that follow the work records in
+// `compact`; no scratch.
+template <int DIM, int KV>
+int launch_scatter_rows(const Geo& g, const int64_t* compact, const void* R, float* y,
+                        cudaStream_t stream) {
+  if (compact == nullptr || compact[kNarrowArgs] == 0 || compact[kRowListV] == 0)
+    return kErrLayout;
+  const float* r = (const float*)R;
+  const RowList v{(const int*)compact[kRowListV], (const int*)compact[kRowListV + 1], r, g.n_vs};
+  const RowList p{(const int*)compact[kNarrowArgs], (const int*)compact[kNarrowArgs + 1],
+                  r + (long)DIM * KV * g.ncd, g.n_ps};
+  const long rows = (long)g.n_vs + g.n_ps;
+  scatter_rows_kernel<DIM, KV>
+      <<<(int)((rows + kRowsThreads - 1) / kRowsThreads), kRowsThreads, 0, stream>>>(v, p, g.ncd,
+                                                                                    y);
+  return (int)cudaGetLastError();
+}
+
 // 3D K4: scatter3_kernel on the compact tables, then merge3_kernel.  Shared
 // memory: R's nl rows of a chunk and the most (slot, dof) pairs and entry
 // offsets of a chunk of both spaces (within compact_smem_bytes, which
@@ -2334,7 +2457,9 @@ int scatter_any(const Geo& g, const Tables& t, const int64_t* compact, const voi
                 float* scratch, float* y, cudaStream_t st) {
   return with_element(g, [&](auto e) {
     using E = decltype(e);
-    if constexpr (E::DIM == 3) {
+    if constexpr (scatter_rows<E>()) {
+      return launch_scatter_rows<E::DIM, E::KV>(g, compact, R, y, st);
+    } else if constexpr (E::DIM == 3) {
       if (compact == nullptr) return kErrLayout;
       return launch_scatter_3d<E::KV, E::KP>(g, t.cnt, unpack_compact(compact),
                                              unpack_compact(compact + kCompactLen), R, scratch,
@@ -2392,8 +2517,9 @@ extern "C" {
 // layout (null in 3D: no 3D kernel reads them).
 
 // floats of scratch that ns_matvec and ns_scatter may use for this layout:
-// in 2D the chunk subwindows and K4's span tables; in 3D the row-ordered
-// compact vector of compact (as ns_matvec's), dim*E_v + E_p
+// in 2D the chunk subwindows and K4's span tables, where a kernel of the
+// element writes them; in 3D the row-ordered compact vector of compact (as
+// ns_matvec's), dim*E_v + E_p
 long ns_scratch_floats(const int* meta, const int64_t* compact) {
   Geo g;
   if (!load_geo(meta, &g)) return kErrLayout;
@@ -2401,12 +2527,21 @@ long ns_scratch_floats(const int* meta, const int64_t* compact) {
                       : g.dim * unpack_compact(compact).E +
                             (long)unpack_compact(compact + kCompactLen).E;
   if (g.dim == 3) return compact == nullptr ? kErrLayout : packed;
-  // 2D: K2 and K4 write subwindows; at P3/P2 K1 and K2 v->v write the
-  // compact vector, K2 v->p and p->p the slots' sums Y [k_p, ncd]
+  // 2D: matvec_kernel and scatter_kernel write subwindows; at P3/P2 K1
+  // and K2 v->v write the compact vector, K2 v->p and p->p the slots' sums
+  // Y [k_p, ncd], and K4 (the row-ordered sum) nothing
   const bool narrow_y = with_element(g, [](auto e) {
     return narrow<decltype(e), true, false, false, true>() ? 1 : 0;
   });
-  return std::max({subwindow_floats(g, true, true) + span_ints(g), packed,
+  const bool subwindows = with_element(g, [](auto e) {
+    using E = decltype(e);
+    constexpr bool all_compact = streams<E, true, true, true, true>() &&
+                                 streams<E, true, false, true, false>() &&
+                                 narrow<E, true, false, false, true>() &&
+                                 narrow<E, false, true, false, true>();
+    return all_compact && scatter_rows<E>() ? 0 : 1;
+  });
+  return std::max({subwindows ? subwindow_floats(g, true, true) + span_ints(g) : 0L, packed,
                    narrow_y ? (long)g.k_p * g.ncd : 0L});
 }
 

@@ -858,15 +858,38 @@ def narrow(lay: WindowedLayout, in_spaces: str, out_spaces: str) -> bool:
     return (in_spaces, out_spaces) in narrow_products(lay)
 
 
-def narrow_rows(lay: WindowedLayout, tab: CompactSpace) -> tuple[torch.Tensor, torch.Tensor]:
-    """The narrow merge's row list of one space (windowed.cu
-    narrow_merge_kernel; the pressure's): ``compact_tables``' chain row_ptr
-    -> at -> tr_off -> tr flattened once on the host.  (ptr [n + 1], list
-    [T]) int32 on the host: row r's (slot, dof) pairs are list[ptr[r] :
-    ptr[r + 1]], its places in order and each place's pairs in order (slots
-    ascending), each as its index l*ncd + s into the product's sums Y [k,
-    ncd], a place's first pair with bit 31 set: the order of
-    ``_compact_scatter_reference``."""
+# the elements whose K4 is the row-ordered sum over R (windowed.cu
+# scatter_rows_kernel, ``scatter_rows``): P3/P2 triangles and tetrahedra;
+# P2/P1 keeps the chunk kernels and their merge
+_SCATTER_ROWS = ((2, 10, 6), (3, 20, 10))
+
+
+def scatter_rows(lay: WindowedLayout) -> bool:
+    """Whether the layout's K4 is the row-ordered sum over R."""
+    return (lay.dim, lay.k_v, lay.k_p) in _SCATTER_ROWS
+
+
+def scatter_design(lay: WindowedLayout) -> str:
+    """The CUDA kernels that serve K4 at this layout (windowed.cu
+    scatter_any)."""
+    if scatter_rows(lay):
+        return "scatter_rows_kernel"
+    if lay.dim == 3:
+        return "scatter3_kernel + merge3_kernel"
+    return "scatter_kernel + merge_kernel<., true>"
+
+
+def row_list(lay: WindowedLayout, tab: CompactSpace) -> tuple[torch.Tensor, torch.Tensor]:
+    """One space's row list (windowed.cu narrow_merge_kernel: the
+    pressure's; scatter_rows_kernel: both spaces'): ``compact_tables``'
+    chain row_ptr -> at -> tr_off -> tr flattened once on the host.  (ptr
+    [n + 1], list [T]) int32 on the host: row r's (slot, dof) pairs are
+    list[ptr[r] : ptr[r + 1]], its places in order and each place's pairs in
+    order (slots ascending), each as its index l*ncd + s into rows [k, ncd]
+    of per-slot values (l < k, the space's dofs a cell: the narrow
+    products' sums Y, or one component's rows of R), a place's first pair
+    with bit 31 set: the order of ``_compact_scatter_reference``.  Raises
+    ValueError where an index does not fit 31 bits."""
     nch, Bc = lay.nchunks, lay.Bc
     off, tr_off = (getattr(tab, f).cpu().numpy().astype(np.int64) for f in ("off", "tr_off"))
     at, row_ptr = (getattr(tab, f).cpu().numpy().astype(np.int64) for f in ("at", "row_ptr"))
@@ -879,7 +902,7 @@ def narrow_rows(lay: WindowedLayout, tab: CompactSpace) -> tuple[torch.Tensor, t
     slot = (piece // nch)[place] * lay.Bmax + (piece % nch)[place] * Bc + code[pair] % Bc
     index = (code[pair] // Bc) * lay.ncd + slot
     if index.size and index.max() >= 1 << 31:
-        raise ValueError("the narrow merge's indices into Y do not fit 31 bits")
+        raise ValueError("a row list's indices into the per-slot rows do not fit 31 bits")
     index[start[:-1]] -= 1 << 31  # bit 31 of an int32: a place's first pair
     return (torch.as_tensor(start[row_ptr].astype(np.int32)),
             torch.as_tensor(index.astype(np.int32)))
@@ -1126,7 +1149,7 @@ def _compact_matvec_reference(lay: WindowedLayout, A_sub: torch.Tensor, x: torch
     (the streaming kernel gathers x a slot at a time for K1 and at the
     chunk's entries for K2 v->v, the narrow kernels a slot at a time for
     K2 v->p and p->p: the same values; ``_narrow_product_reference`` and
-    ``_narrow_merge_reference`` give its bits there); x and the result are
+    ``_row_walk_reference`` give its bits there); x and the result are
     the in- and out-spaces' planar segments."""
     tabs = compact_tables(lay) if tables is None else tables
     nb, nch, Bc, Bmax = lay.nb, lay.nchunks, lay.Bc, lay.Bmax
@@ -1202,19 +1225,41 @@ def _narrow_product_reference(lay: WindowedLayout, A_sub: torch.Tensor, x: torch
     return _contract(A_sub[:, : lay.k_p], X)
 
 
-def _narrow_merge_reference(ptr: torch.Tensor, lst: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
-    """Plain version of narrow_merge_kernel: row r of the space is the sum of
-    its places in order, each place the sum of its pairs in order, through
-    the row list (ptr, lst) of ``narrow_rows`` over Y [k, ncd]."""
-    code = lst.to(Y.device).long()
-    first = code < 0
-    vals = Y.reshape(-1)[code & 0x7FFFFFFF]
-    place = torch.cumsum(first.long(), 0) - 1
-    sums = Y.new_zeros(int(first.sum())).index_add_(0, place, vals)
-    n = ptr.numel() - 1
-    row = torch.repeat_interleave(torch.arange(n, device=Y.device),
-                                  torch.diff(ptr.to(Y.device).long()))
-    return Y.new_zeros(n).index_add_(0, row[first], sums)
+def _row_walk_reference(ptr: torch.Tensor, lst: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """Plain version of a thread's walk of its row list in
+    narrow_merge_kernel and scatter_rows_kernel, all rows at once, one pair
+    at a time: a place's sum starts at 0 and adds its pairs in order; at
+    the next place's first pair (bit 31) the row's sum takes it; the row is
+    its sum plus the last place's.  Over the row list (ptr, lst) of
+    ``row_list`` and Y [k, ncd] (the narrow products' sums, or one
+    component's rows of R).  The same float32 additions in the same order
+    on any device: ``_compact_scatter_reference``'s bits."""
+    dev = Y.device
+    ptr, code = ptr.to(dev).long(), lst.to(dev).long()
+    start, count = ptr[:-1], torch.diff(ptr)
+    flat = Y.reshape(-1)
+    acc, s = Y.new_zeros(count.numel()), Y.new_zeros(count.numel())
+    for k in range(int(count.max()) if count.numel() else 0):
+        live = count > k
+        c = code[torch.where(live, start + k, 0)]
+        nxt = live & (c < 0) & (k > 0)  # the next place's first pair
+        acc = torch.where(nxt, acc + s, acc)
+        s = torch.where(nxt, torch.zeros_like(s), s)
+        s = torch.where(live, s + flat[c & 0x7FFFFFFF], s)
+    return acc + s
+
+
+def _scatter_rows_reference(lay: WindowedLayout, R: torch.Tensor, rows: dict) -> torch.Tensor:
+    """Plain version of scatter_rows_kernel (K4 on the P3/P2 elements): each
+    velocity component's rows of R [>= nl, ncd] walked through the
+    velocity's row list, then the pressure's rows through the pressure's
+    (rows: {"v": (ptr, list), "p": (ptr, list)} of ``row_list``;
+    ``_row_walk_reference``).  The planar vector, ``_compact_scatter_reference``'s
+    bits."""
+    nv = lay.dim * lay.k_v
+    ys = [_row_walk_reference(*rows["v"], R[cc * lay.k_v : (cc + 1) * lay.k_v])
+          for cc in range(lay.dim)]
+    return torch.cat(ys + [_row_walk_reference(*rows["p"], R[nv : nv + lay.k_p])])
 
 
 def _contract(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
@@ -1362,14 +1407,15 @@ class _Packed:
     ``ncolors`` 0 in 3D, whose kernels sum in the order of
     ``compact_tables``: a null table), the leading arguments of every
     call and, for the 3D K1, K2 and K4 and the P3/P2 K1 and K2, the tables
-    of ``compact_tables`` (made at the first call of one of them; on P3/P2
-    triangles with the narrow merge's row list).  Scratch is kept per
-    stream (calls on one stream run in turn, so they can share it; CUDA
-    graphs captured on one capture stream share theirs, so replay them on
-    one stream at a time): in 2D the chunk subwindows and K4's span tables
-    (on P3/P2 triangles at least the compact vector, which K1 and K2 v->v
-    write there, and the narrow products' sums Y, k_p*ncd floats), in 3D
-    the row-ordered compact vector, dim*E_v + E_p floats."""
+    of ``compact_tables`` (made at the first call of one of them; on the
+    P3/P2 elements with the row lists of the narrow merge and of K4).
+    Scratch is kept per stream (calls on one stream run in turn, so they
+    can share it; CUDA graphs captured on one capture stream share theirs,
+    so replay them on one stream at a time): in 2D the chunk subwindows and
+    K4's span tables (on P3/P2 triangles, whose K4 needs none, the larger
+    of the compact vector, which K1 and K2 v->v write there, and the narrow
+    products' sums Y, k_p*ncd floats), in 3D the row-ordered compact
+    vector, dim*E_v + E_p floats."""
 
     def __init__(self, lay: WindowedLayout):
         self._lay = lay
@@ -1401,20 +1447,22 @@ class _Packed:
         windowed.cu), then the streaming kernel's work records
         (``stream_records`` of ``stream_work``'s list, kept in
         ``self.records``; the list in ``self.work``): their address and
-        number; then the narrow merge's row list of the pressure
-        (``narrow_rows``, kept in ``self.rows``; None and two zeros where
-        the layout has no narrow product): its two addresses.  Made for
-        every 3D layout and for P3/P2 triangles; None on P2/P1 triangles."""
+        number; then the row lists (``row_list``, kept in ``self.rows``,
+        {"v": (ptr, list) or None, "p": ...}) of the pressure, where the
+        narrow merge or K4 reads it, and of the velocity, where K4 reads it
+        (``scatter_rows``): their two addresses each, two zeros for a list
+        the layout has none of.  Made for every 3D layout and for P3/P2
+        triangles; None on P2/P1 triangles."""
         if self._lay.dim != 3 and not streams_k1(self._lay):
             return None
         self.compact = compact_tables(self._lay)
         self.work = stream_work(self._lay, self.cnt)
         self.records = stream_records(self._lay, self.cnt, self.compact,
                                       self.work).to(self._device)
-        self.rows = None
-        if narrow_products(self._lay):
-            self.rows = tuple(t.to(self._device)
-                              for t in narrow_rows(self._lay, self.compact["p"]))
+        lists = {"v": scatter_rows(self._lay),
+                 "p": scatter_rows(self._lay) or bool(narrow_products(self._lay))}
+        self.rows = {key: tuple(t.to(self._device) for t in row_list(self._lay, self.compact[key]))
+                     if want else None for key, want in lists.items()}
         vals = []
         for t in (self.compact["v"], self.compact["p"]):
             vals += [getattr(t, name).data_ptr()
@@ -1422,7 +1470,8 @@ class _Packed:
                                   "at")]
             vals += [t.E, t.max_entries, t.max_pairs]
         vals += [self.records.data_ptr(), self.records.shape[0]]
-        vals += [t.data_ptr() for t in self.rows] if self.rows else [0, 0]
+        for key in "pv":
+            vals += [t.data_ptr() for t in self.rows[key]] if self.rows[key] else [0, 0]
         return (ctypes.c_int64 * len(vals))(*vals)
 
     def scratch(self, stream: int) -> int:
@@ -1603,10 +1652,13 @@ def windowed_gather_pair(
 def windowed_scatter(lay: WindowedLayout, R: torch.Tensor, group=None) -> torch.Tensor:
     """y = sum_cells P_c^T R_c for per-cell row values R [>=nl, nb*Bmax]:
     per-block window accumulation, then the overlaps merge.  On the card,
-    in one C call: per-chunk subwindow accumulation, then the merge, in 2D
-    (in the order of ``_scatter_chunked_reference``); per-chunk sums at the
-    chunk's entries, then the row-list merge, in 3D (in the order of
-    ``_compact_scatter_reference``)."""
+    in one C call (``scatter_design`` names the kernels): at P2/P1
+    per-chunk subwindow accumulation, then the merge, in 2D (in the order
+    of ``_scatter_chunked_reference``), per-chunk sums at the chunk's
+    entries, then the row-list merge, in 3D; on the P3/P2 elements one
+    kernel that sums each row's (slot, dof) pairs of R through the row
+    lists (``_scatter_rows_reference``).  Both 3D and P3/P2 sum in the
+    order of ``_compact_scatter_reference``."""
     if group is not None:
         return _unframe(lay, windowed_scatter(lay, R), "vp", group)
     if _plain_or_raise(R):

@@ -4,7 +4,7 @@ checks, the port's counterpart of ``examples/lid_cavity.py``.
 Enclosed flow on [0, 1]^2: the lid (tag 3 of ``rectangle``) moves with
 u = (1, 0), the other three sides (tags 0, 1, 2) are no-slip walls, and
 there is no Neumann boundary, so the pressure is defined up to a constant.
-``chip_smoke.py`` runs it at n = 256 (131,072 cells) steady
+``chip_smoke.py`` runs it at n = 128 (32,768 cells) steady
 (``solve_steady``) and in time (``solve_scanned``, BDF2).  The reference
 values are Ghia et al.'s Table I (u on the vertical centreline x = 0.5) and
 Table II (v on the horizontal centreline y = 0.5) from their 129 x 129

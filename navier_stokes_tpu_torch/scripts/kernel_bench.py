@@ -44,7 +44,7 @@ in place of P2/P1:
   library_ms     cold time of one PyTorch call of the same function
                  (``library_call``: a CSR product, index_select or
                  index_add_), never used by the package
-  moved_bytes    (K1, K2, K4 in 3D; K1 and K2 on P3/P2 triangles) the
+  moved_bytes    (K1, K2, K4 in 3D; K1, K2 and K4 on P3/P2 triangles) the
                  bytes the kernel and its merge really move
                  (``moved_bytes_compact``): the bound's, plus x where the
                  kernel reads it, the compact tables or the row list, and
@@ -96,7 +96,8 @@ REPS = 30  # timed calls behind every warm and cold figure of main()
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM device memory (the bound's rate)
 # the CUDA kernels of csrc/windowed.cu, by their names in a profiler trace
 WINDOWED_KERNEL = re.compile(
-    r"\b(matvec3?|stream_matvec|narrow_product|narrow_merge|gather|scatter3?|merge3?)_kernel\b")
+    r"\b(matvec3?|stream_matvec|narrow_product|narrow_merge|gather|scatter(3|_rows)?|merge3?)"
+    r"_kernel\b")
 
 
 def channel_config(dtype="float32", rel_tol=1e-2, cells_per_block=448, degree=2):
@@ -430,8 +431,8 @@ def bound_bytes_of(lay, operands):
 def moved_bytes_compact(lay, operands):
     """{call: bytes} that the compact kernels and their merge really move
     (``bound_bytes_of`` counts each input once instead): in 3D for K1, each
-    K2 product and K4, and on P3/P2 triangles for K1 and each K2 product
-    ({} on P2/P1 triangles).  The 3D block kernel (K1 at P2/P1, K2 but the
+    K2 product and K4, and on P3/P2 triangles for K1, each K2 product and
+    K4 ({} on P2/P1 triangles).  The 3D block kernel (K1 at P2/P1, K2 but the
     streamed products): A as in the bound; x at every chunk's entries of the
     in-spaces; of ``compact_tables`` the occupied slots' entry indices and
     the entries' rows of the in-spaces, the (slot, dof) pairs with their
@@ -450,8 +451,11 @@ def moved_bytes_compact(lay, operands):
     ``W.narrow_products``): A as in the bound; the slot counts; the
     occupied slots' packed positions of the in-space and one x value a
     (slot, dof); the slots' sums Y written and read once a (slot, dof)
-    pair; the row list (``W.narrow_rows``); y.  K4 (3D) reads no entry
-    index and no x."""
+    pair; the row list (``W.row_list``); y.  K4 at P2/P1 on tetrahedra
+    (``scatter3_kernel`` + ``merge3_kernel``) reads no entry index and no
+    x; K4 on the P3/P2 elements (``W.scatter_rows``: the row-ordered sum
+    over R) reads R's value at each (slot, dof) pair of every component,
+    both spaces' row lists and their offsets, and writes y."""
     products = W.streamed_products(lay) if hasattr(W, "streamed_products") else (
         (("vp", "vp"),) if W.streams_k1(lay) else ())
     narrow = getattr(W, "narrow_products", lambda _: ())(lay)
@@ -514,7 +518,11 @@ def moved_bytes_compact(lay, operands):
         return (stream if (ins, outs) in products else matvec)(ins, outs, elt)
 
     out = {"K1 f32": moved("vp", "vp", 4), "K1": moved("vp", "vp", 2)}
-    if lay.dim == 3:
+    if getattr(W, "scatter_rows", lambda _: False)(lay):
+        pairs = {s: tabs[s].tr.numel() for s in "vp"}
+        out["K4"] = (4 * sum(ncomp[s] * pairs[s] for s in "vp") + 4 * sum(pairs.values())
+                     + 4 * (n["v"] + 1 + n["p"] + 1) + 4 * (lay.n_u + lay.n_ps))
+    elif lay.dim == 3:
         out["K4"] = (4 * lay.nl * n_occ + cnt.numel() * 4
                      + sum(out_space(s) + 4 * tabs[s].off.numel() for s in "vp"))
     for key, (A_sub, _) in operands["blocks"].items():
@@ -790,6 +798,9 @@ def main(argv=None):
         if name.startswith(("K1", "K2 ")) and hasattr(W, "kernel_design"):
             pair = ("vp", "vp") if name.startswith("K1") else name.split()[1].split("->")
             r["design"] = W.kernel_design(lay, *pair)
+            line += f"  design {r['design']}"
+        elif name == "K4" and hasattr(W, "scatter_design"):
+            r["design"] = W.scatter_design(lay)
             line += f"  design {r['design']}"
         spaces = stream_spaces(lay, name, operands)
         if spaces:

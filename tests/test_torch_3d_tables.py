@@ -556,10 +556,11 @@ def test_streamed_products_are_the_p3_pairs(element, ins, outs):
 
 @pytest.mark.parametrize("name", ["p3-square-h1", "p3-box-h1", "square-p2"])
 def test_moved_bytes_compact_counts_the_streamed_products(name):
-    """``kernel_bench.moved_bytes_compact`` gives rows for K1 and every
-    compact K2 product: on P3/P2 tetrahedra all three, on P3/P2 triangles
-    all three too (the streamed v->v, the narrow v->p and p->p), on P2/P1
-    triangles none.  A product moves A's used
+    """``kernel_bench.moved_bytes_compact`` gives rows for K1, every
+    compact K2 product and K4: on P3/P2 tetrahedra all three products, on
+    P3/P2 triangles all three too (the streamed v->v, the narrow v->p and
+    p->p) and K4 (the row-ordered sum), on P2/P1 triangles none.  A
+    product moves A's used
     rows in occupied slots and more (tables, x, the scratch each way, y);
     a product that moves fewer rows of A moves fewer bytes."""
     from navier_stokes_tpu_torch.scripts import kernel_bench as kb
@@ -575,7 +576,7 @@ def test_moved_bytes_compact_counts_the_streamed_products(name):
         assert moved == {}
         return
     k2 = {"K2 v->v", "K2 v->p", "K2 p->p"}
-    assert set(moved) == {"K1", "K1 f32"} | k2 | ({"K4"} if lay.dim == 3 else set())
+    assert set(moved) == {"K1", "K1 f32", "K4"} | k2
     _, _, cnt = tw.pack_positions(lay)
     rows = {"v": lay.dim * lay.k_v, "p": lay.k_p, "vp": lay.nl}
     for key in k2:

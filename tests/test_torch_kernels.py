@@ -180,6 +180,9 @@ def test_layouts_cover_the_kernel_paths():
     assert narrow == [lay for lay in p3 if lay.dim == 2]
     assert any(lay.nb > 1 and lay.nchunks > 1 for lay in narrow)
     assert any(lay.frame for lay in narrow)
+    # K4 is the row-ordered sum on every P3/P2 layout, the chunk kernels at P2/P1
+    assert all(tw.scatter_rows(lay) for lay in p3)
+    assert not any(tw.scatter_rows(lay) for lay in lays)
 
 
 TETS = ["box-h1", "box-refined-Bc256", "box-refined-h2", "box4-framed",
@@ -361,12 +364,12 @@ def test_narrow_merge_counts_every_pair(name, cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", TETS + P3_TRIANGLES)
 def test_tet_scratch_is_the_compact_vector(name, cuda_device):
-    """A tetrahedral layout's scratch (one buffer a stream, shared by K1,
-    K2 and K4) is the row-ordered compact vector: dim*E_v + E_p floats,
+    """A tetrahedral layout's scratch (one buffer a stream, shared by K1
+    and K2) is the row-ordered compact vector: dim*E_v + E_p floats,
     whichever of K4 and K1 makes it first.  On P3/P2 triangles K1 writes
-    that vector, K4 its chunk subwindows and span tables and K2 v->p and
-    p->p their slots' sums Y (k_p x ncd floats) into the same buffer, which
-    holds the largest of the three."""
+    that vector and K2 v->p and p->p their slots' sums Y (k_p x ncd
+    floats) into the same buffer, which holds the larger of the two; K4
+    (the row-ordered sum over R, on both elements) writes none."""
     rand = _rand_on(cuda_device, 16)
     for first in ("scatter", "matvec"):
         lay = _layout(name).to(cuda_device)  # a new layout: its own tables and scratch
@@ -380,10 +383,30 @@ def test_tet_scratch_is_the_compact_vector(name, cuda_device):
         assert len(scratch) == 1 and scratch[0].dtype == torch.float32
         want = lay.dim * tabs["v"].E + tabs["p"].E
         if lay.dim == 2:
-            pieces = lay.nb * lay.nchunks
-            want = max(want, pieces * 128 * (lay.dim * lay.RVv + lay.RVp) + 4 * pieces,
-                       lay.k_p * lay.ncd)
+            want = max(want, lay.k_p * lay.ncd)
         assert scratch[0].numel() == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(P3_LAYOUTS))
+def test_scatter_rows_kernel_is_its_mirror(name, cuda_device):
+    """K4 on the P3/P2 elements (scatter_rows_kernel, one launch) gives
+    the bits of its plain mirror (``_scatter_rows_reference`` over the row
+    lists the layout carries, run on the card: the same float32 additions
+    in the same order), and a repeated call and a CUDA-graph replay on new
+    rows give the same bits again."""
+    lay = _layout(name).to(cuda_device)
+    assert tw.scatter_design(lay) == "scatter_rows_kernel"
+    rand = _rand_on(cuda_device, 17)
+    call, R = _op_call(lay, "scatter", rand)
+    tw.reset_launch_counts()
+    got = call()
+    assert tw.windowed_scatter.launches == 1
+    want = tw._scatter_rows_reference(lay, R, lay._packed.rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(call(), got)
+    _assert_replay_matches_eager(call, R, lambda: rand(*R.shape), exact=True)
 
 
 @pytest.mark.cuda
@@ -530,13 +553,18 @@ def test_kernel_rejects_misaligned_operator(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", TETS)
 def test_tet_scatter_rejects_misaligned_rows(name, cuda_device):
-    """The 3D K4 copies R's rows in 16-byte pieces: rows whose storage
-    starts off a 16-byte boundary raise instead of launching."""
+    """The 3D K4 at P2/P1 copies R's rows in 16-byte pieces: rows whose
+    storage starts off a 16-byte boundary raise instead of launching.  At
+    P3/P2 (the row-ordered sum over R, a value at a time) such rows are
+    taken, with the bits of the same rows stored aligned."""
     lay = _layout(name).to(cuda_device)
-    flat = torch.zeros(lay.nli * lay.ncd + 1, dtype=torch.float32, device=cuda_device)
+    flat = _rand_on(cuda_device, 18)(lay.nli * lay.ncd + 1)
     R = flat[1:].view(lay.nli, lay.ncd)
     assert R.is_contiguous() and R.data_ptr() % 16 != 0
     tw.reset_launch_counts()
+    if tw.scatter_rows(lay):
+        assert torch.equal(tw.windowed_scatter(lay, R), tw.windowed_scatter(lay, R.clone()))
+        return
     with pytest.raises(RuntimeError, match="16-byte aligned"):
         tw.windowed_scatter(lay, R)
     assert all(v == 0 for v in tw.launch_counts().values())

@@ -5,14 +5,14 @@ On P3/P2 triangles K2 v->p and p->p run on two kernels of their own
 thread a slot writes its 6 pressure sums to Y [k_p, ncd], then a thread a
 pressure row sums the row's places in order, each place its (slot, dof)
 pairs in order, through a row list flattened once on the host from the
-compact tables (``ops/windowed.py`` ``narrow_rows``).  Here, on the CPU:
+compact tables (``ops/windowed.py`` ``row_list``).  Here, on the CPU:
 
 * the row list: every (slot, dof) pair of an occupied slot once, in the
   order of ``_compact_matvec_reference`` (a row's places by window and
   chunk, an entry's pairs slots ascending), each place's first pair
   flagged, int32;
 * the Python mirrors of the two kernels (``_narrow_product_reference``,
-  ``_narrow_merge_reference``) against ``_compact_matvec_reference`` bit
+  ``_row_walk_reference``) against ``_compact_matvec_reference`` bit
   for bit in float32 (the same sums in the same order), and against the
   JAX package's ``_block_reference`` in float64 to 1e-12 of ||y||_inf (the
   same sums in another order) on a layout of several blocks of several
@@ -96,13 +96,13 @@ def test_layouts_reach_several_blocks_chunks_and_a_frame():
 
 @pytest.mark.parametrize("name", sorted(LAYOUTS))
 def test_row_list_holds_every_pair_once_in_compact_order(name):
-    """``narrow_rows`` of the pressure: row r's pairs are its places (the
+    """``row_list`` of the pressure: row r's pairs are its places (the
     entries at row_ptr[r]:row_ptr[r + 1] through ``at``) in order, each
     place's (slot, dof) pairs in the order of ``tr`` (slots ascending), as
     indices l*ncd + s into Y with bit 31 set on a place's first pair; every
     pair of an occupied slot appears once; int32 tables."""
     lay, t = _layout(name), _tables(name)["p"]
-    ptr, lst = tw.narrow_rows(lay, t)
+    ptr, lst = tw.row_list(lay, t)
     assert ptr.dtype == torch.int32 and lst.dtype == torch.int32
     ptr, lst = ptr.numpy().astype(np.int64), lst.numpy().astype(np.int64)
     assert len(ptr) == lay.n_ps + 1 and ptr[0] == 0 and ptr[-1] == len(lst) == t.tr.numel()
@@ -138,8 +138,8 @@ def test_narrow_merge_mirror_is_the_compact_scatter(name):
     lay, tabs = _layout(name), _tables(name)
     Y = torch.as_tensor(np.random.default_rng(7).standard_normal((lay.k_p, lay.ncd)),
                         dtype=torch.float32)
-    ptr, lst = tw.narrow_rows(lay, tabs["p"])
-    got = tw._narrow_merge_reference(ptr, lst, Y)
+    ptr, lst = tw.row_list(lay, tabs["p"])
+    got = tw._row_walk_reference(ptr, lst, Y)
     assert got.dtype == torch.float32 and got.shape == (lay.n_ps,)
     assert torch.equal(got, tw._compact_scatter_reference(lay, Y, tabs, "p"))
 
@@ -157,7 +157,7 @@ def test_narrow_mirrors_give_the_compact_model_bits(name, ins, dtype):
     A_sub = A_sub.to(dtype)
     Y = tw._narrow_product_reference(lay, A_sub, xs, ins)
     assert Y.shape == (lay.k_p, lay.ncd) and Y.dtype == torch.float32
-    got = tw._narrow_merge_reference(*tw.narrow_rows(lay, tabs["p"]), Y)
+    got = tw._row_walk_reference(*tw.row_list(lay, tabs["p"]), Y)
     assert torch.equal(got, tw._compact_matvec_reference(lay, A_sub, xs, ins, "p", tabs))
 
 
@@ -173,7 +173,7 @@ def test_narrow_mirrors_match_jax_f64(ins):
     assert lay.nb > 1 and lay.nchunks > 1
     A_sub, xs = _operands(lay, ins, 9, torch.float64)
     Y = tw._narrow_product_reference(lay, A_sub, xs, ins)
-    got = tw._narrow_merge_reference(*tw.narrow_rows(lay, tw.compact_tables(lay)["p"]), Y)
+    got = tw._row_walk_reference(*tw.row_list(lay, tw.compact_tables(lay)["p"]), Y)
     want = np.asarray(jw._block_reference(jlay, jnp.asarray(A_sub.numpy()),
                                           jnp.asarray(xs.numpy()), ins, "p", None))
     got = got.numpy()
@@ -207,6 +207,6 @@ def test_cpu_wrapper_is_the_plain_version(ins):
     tw.reset_launch_counts()
     got = tw.windowed_matvec_block(lay, A_sub, xs, in_spaces=ins, out_spaces="p")
     assert tw.windowed_matvec_block.launches == 0
-    want = tw._narrow_merge_reference(*tw.narrow_rows(lay, tabs["p"]),
+    want = tw._row_walk_reference(*tw.row_list(lay, tabs["p"]),
                                       tw._narrow_product_reference(lay, A_sub, xs, ins))
     assert (got - want).abs().max() <= 1e-12 * want.abs().max()
