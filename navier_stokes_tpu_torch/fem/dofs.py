@@ -27,7 +27,8 @@ import numpy as np
 from ..mesh.mesh import Mesh
 from .reference_element import EDGES, TaylorHood, taylor_hood
 
-__all__ = ["scalar_dof_map", "TaylorHoodDofs", "make_dofs", "renumber_blocked"]
+__all__ = ["scalar_dof_map", "TaylorHoodDofs", "make_dofs", "renumber_sfc", "renumber_bandwidth",
+           "renumber_blocked"]
 
 
 def scalar_dof_map(mesh: Mesh, degree: int) -> tuple[int, np.ndarray, np.ndarray]:
@@ -219,15 +220,128 @@ class TaylorHoodDofs:
         )
 
 
+def _first_positions(cell_map: np.ndarray, cell_order: np.ndarray, n: int) -> np.ndarray:
+    """Each DoF's first position in the cells' DoF lists read along
+    ``cell_order``."""
+    seq = cell_map[cell_order].ravel().astype(np.int64)
+    first_pos = np.full(n, -1, dtype=np.int64)
+    # reversed fill so FIRST occurrence wins
+    first_pos[seq[::-1]] = np.arange(len(seq))[::-1]
+    assert np.all(first_pos >= 0), "dof never touched by any cell"
+    return first_pos
+
+
+def _first_touch(cell_map: np.ndarray, cell_order: np.ndarray, n: int) -> np.ndarray:
+    """old -> new: the DoFs in the order the cells along ``cell_order``
+    first touch them."""
+    perm = np.empty(n, dtype=np.int64)
+    perm[np.argsort(_first_positions(cell_map, cell_order, n), kind="stable")] = np.arange(n)
+    return perm
+
+
+def _rcm_cell_order(dofs: TaylorHoodDofs) -> np.ndarray:
+    """Cells sorted by their least scalar velocity DoF in the
+    Reverse-Cuthill-McKee numbering of the velocity DoF graph (DoFs sharing
+    a cell are adjacent)."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    cv = dofs.cell_vdofs.astype(np.int64)
+    nb_v = cv.shape[1]
+    i = np.repeat(cv, nb_v, axis=1).ravel()
+    j = np.tile(cv, (1, nb_v)).ravel()
+    adj = sp.coo_matrix((np.ones(len(i), np.int8), (i, j)), shape=(dofs.n_vs, dofs.n_vs)).tocsr()
+    order = np.asarray(reverse_cuthill_mckee(adj, symmetric_mode=True), dtype=np.int64)
+    rcm_perm = np.empty(dofs.n_vs, dtype=np.int64)  # old -> new
+    rcm_perm[order] = np.arange(dofs.n_vs)
+    return np.argsort(rcm_perm[cv].min(axis=1), kind="stable")
+
+
+def _renumbered(dofs: TaylorHoodDofs, v_perm: np.ndarray, p_perm: np.ndarray) -> TaylorHoodDofs:
+    """``dofs`` with its velocity and pressure DoFs moved old -> new by
+    ``v_perm`` / ``p_perm`` (no padding)."""
+    base_v = dofs.v_perm if dofs.v_perm is not None else np.arange(dofs.n_vs)
+    base_p = dofs.p_perm if dofs.p_perm is not None else np.arange(dofs.n_ps)
+    return TaylorHoodDofs(
+        mesh=dofs.mesh,
+        element=dofs.element,
+        n_vs=dofs.n_vs,
+        n_ps=dofs.n_ps,
+        cell_vdofs=v_perm[dofs.cell_vdofs].astype(np.int32),
+        cell_pdofs=p_perm[dofs.cell_pdofs].astype(np.int32),
+        v_coords=dofs.v_coords[np.argsort(v_perm)],
+        p_coords=dofs.p_coords[np.argsort(p_perm)],
+        v_perm=v_perm[base_v],
+        p_perm=p_perm[base_p],
+    )
+
+
+def renumber_sfc(dofs: TaylorHoodDofs, cell_order: np.ndarray) -> TaylorHoodDofs:
+    """First-touch renumbering along a cell ordering (space-filling curve).
+
+    Makes each contiguous run of cells touch a (nearly) contiguous DoF range,
+    the locality the windowed kernels (ops/windowed.py) rely on.  The
+    numbering plays the role of deal.II's ``DoFRenumbering`` (the reference
+    only renumbers component-wise, cpp:73; locality renumbering is our
+    addition).
+    """
+    return _renumbered(dofs, _first_touch(dofs.cell_vdofs, cell_order, dofs.n_vs),
+                       _first_touch(dofs.cell_pdofs, cell_order, dofs.n_ps))
+
+
+def renumber_bandwidth(dofs: TaylorHoodDofs) -> tuple[TaylorHoodDofs, np.ndarray]:
+    """Reverse-Cuthill-McKee renumbering: minimizes the DoF bandwidth so that
+    every cell's scalar DoFs lie within an O(sqrt(n))-wide contiguous span —
+    the feasibility condition for the windowed kernels (ops/windowed.py).
+
+    Returns (renumbered dofs, cell order sorted by first owned dof).
+    """
+    cell_order = _rcm_cell_order(dofs)
+    # BOTH spaces numbered by first touch along the SAME cell order, so the
+    # velocity and pressure positions of any mesh region stay proportional
+    # (the windowed layout assigns one block index across both spaces)
+    return renumber_sfc(dofs, cell_order), cell_order
+
+
+def _morton_cell_order(mesh) -> np.ndarray:
+    """Cell ordering along a Morton (Z-order) space-filling curve of cell
+    centroids: consecutive cells are spatially adjacent, so contiguous cell
+    blocks get compact dof footprints.  Unlike RCM — whose level sets on
+    refined 3D meshes can sweep entire cross-sections and blow the windowed
+    halo to 5 blocks with 360-row subwindows — the curve's locality is
+    dimension-robust."""
+    cent = mesh.coords[mesh.cells[:, : mesh.dim + 1]].mean(axis=1)
+    lo, hi = cent.min(axis=0), cent.max(axis=0)
+    bits = 63 // cent.shape[1]
+    q = ((cent - lo) / np.where(hi > lo, hi - lo, 1.0) * ((1 << bits) - 1)).astype(
+        np.uint64
+    )
+
+    def spread(x, d):
+        # interleave: insert (d-1) zero bits between the bits of x
+        out = np.zeros_like(x)
+        for b in range(bits):
+            out |= ((x >> np.uint64(b)) & np.uint64(1)) << np.uint64(b * d)
+        return out
+
+    d = cent.shape[1]
+    key = np.zeros(len(cent), dtype=np.uint64)
+    for a in range(d):
+        key |= spread(q[:, a], d) << np.uint64(a)
+    return np.argsort(key, kind="stable")
+
+
 def renumber_blocked(
-    dofs: TaylorHoodDofs, cells_per_block: int = 512, nb_multiple: int = 1
+    dofs: TaylorHoodDofs, cells_per_block: int = 512, nb_multiple: int = 1,
+    order: str = "rcm",
 ) -> tuple[TaylorHoodDofs, dict]:
     """Block-padded locality renumbering for the windowed TPU kernels.
 
     One shared block structure drives BOTH spaces: cells are ordered for
-    locality (bandwidth-minimizing Reverse-Cuthill-McKee on the vertex-dof
-    graph; the original's Morton ``order="sfc"`` option is not part of this
-    copy) and cut into nb contiguous blocks, nb rounded up to a multiple of
+    locality (``order``: "rcm" = bandwidth-minimizing Reverse-Cuthill-McKee
+    on the vertex-dof graph; "sfc" = Morton curve on cell centroids, the
+    dimension-robust choice for refined 3D meshes, see ``_morton_cell_order``)
+    and cut into nb contiguous blocks, nb rounded up to a multiple of
     ``nb_multiple`` (the rank count of a sharded run: each rank owns a
     contiguous run of whole blocks); each scalar DoF is OWNED by the block
     of its first-touch cell and numbered ``block * OW + rank`` where OW is
@@ -239,18 +353,8 @@ def renumber_blocked(
 
     Returns (renumbered dofs with padded n_vs/n_ps, {"nb", "OWv", "OWp"}).
     """
-    cv = dofs.cell_vdofs.astype(np.int64)
-    nc, nb_v = cv.shape
-    import scipy.sparse as sp
-    from scipy.sparse.csgraph import reverse_cuthill_mckee
-
-    i = np.repeat(cv, nb_v, axis=1).ravel()
-    j = np.tile(cv, (1, nb_v)).ravel()
-    adj = sp.coo_matrix((np.ones(len(i), np.int8), (i, j)), shape=(dofs.n_vs, dofs.n_vs)).tocsr()
-    rcm = np.asarray(reverse_cuthill_mckee(adj, symmetric_mode=True), dtype=np.int64)
-    rcm_perm = np.empty(dofs.n_vs, dtype=np.int64)
-    rcm_perm[rcm] = np.arange(dofs.n_vs)
-    cell_order = np.argsort(rcm_perm[cv].min(axis=1), kind="stable")
+    nc = dofs.cell_vdofs.shape[0]
+    cell_order = _morton_cell_order(dofs.mesh) if order == "sfc" else _rcm_cell_order(dofs)
 
     nb = max(1, -(-nc // cells_per_block))
     nb = -(-nb // nb_multiple) * nb_multiple
@@ -259,10 +363,7 @@ def renumber_blocked(
 
     def blocked_perm(cell_map, n):
         k = cell_map.shape[1]
-        seq = cell_map[cell_order].ravel().astype(np.int64)
-        first_pos = np.full(n, -1, dtype=np.int64)
-        first_pos[seq[::-1]] = np.arange(len(seq))[::-1]
-        assert np.all(first_pos >= 0)
+        first_pos = _first_positions(cell_map, cell_order, n)
         ft_cell = cell_order[first_pos // k]
         block = cell_block[ft_cell]
         # rank within block by first-touch order

@@ -2,11 +2,11 @@
 
 Port of ``navier_stokes_tpu/fem/windowed_assembly.py``.  The precompute
 (``build_windowed_assembly``: constant tangent terms, lumped pressure mass,
-pressure Laplacian, coarse spaces and the pinning probe behind
-``cc_coarse_agg=-1``) is the original's numpy/scipy code, copied; it returns
-a ``WindowedAssembly`` of tensors.  ``assemble_windowed`` is torch einsums on
-the windowed gather (K3) and scatter (K4).  The outer-FGMRES deflation modes
-(``kp_deflate``) are not part of this port.
+pressure Laplacian, coarse spaces, and the pinning probe behind
+``cc_coarse_agg=-1`` and the outer-FGMRES deflation modes ``kp_deflate``) is
+the original's numpy/scipy code, copied; it returns a ``WindowedAssembly`` of
+tensors.  ``assemble_windowed`` is torch einsums on the windowed gather (K3)
+and scatter (K4).
 """
 
 from __future__ import annotations
@@ -54,6 +54,10 @@ class WindowedAssembly:
     agg_v: torch.Tensor | None = None  # [n_vs] int32, values in [0, m_v]
     coarse_inv_v: torch.Tensor | None = None  # [m_v, m_v]
     coarse_agg_size_v: int = 0
+    # the outer FGMRES deflation rows (kp_deflate): each near-null mode w of
+    # the pinned pressure Laplacian as (0, w), then its constant-A00
+    # velocity response as (u_w / ||u_w||, 0); None when off
+    kp_modes: torch.Tensor | None = None  # [k_d, n_total]
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -181,13 +185,85 @@ def _kp_near_null_modes(
         order = np.argsort(w)
         V, w = V[:, order], w[order]
         V = V / np.linalg.norm(V, axis=0, keepdims=True)
+        # ARPACK's random start vector carries its seed over from call to
+        # call within a process, so a mode's sign is the eigensolver's
+        # choice: fix it (the first entry of at least half the largest
+        # magnitude is positive), so that the rows, and the solves they
+        # deflate, repeat from build to build and from process to process
+        mag = np.abs(V)
+        lead = np.argmax(mag >= 0.5 * mag.max(axis=0, keepdims=True), axis=0)
+        V = V * np.sign(V[lead, np.arange(V.shape[1])])
         if p_mask is not None:
             V = V * np.asarray(p_mask, float)[:, None]
         return V.T, scale / w
     except Exception as e:  # scipy/convergence failures disable the coarse term
         import warnings
 
-        warnings.warn(f"Kp pinning probe: eigsh failed ({e}); coarse space off")
+        warnings.warn(f"Kp pinning probe: eigsh failed ({e}); deflation and coarse space off")
+        return None
+
+
+def _kp_mode_velocity_responses(
+    blk_v: np.ndarray,
+    cvd: np.ndarray,
+    D_valid: np.ndarray,
+    modes: np.ndarray,
+    cpd: np.ndarray,
+    n_vs: int,
+    v_mask,
+) -> np.ndarray | None:
+    """u_w = A00c^-1 (B^T w) for each near-null Kp mode w: the velocity half
+    of the Schur pair (f64 host CG with a Jacobi preconditioner, once at
+    set-up).  With (u_w, 0) beside (0, w) in the space, A applied to their
+    difference is (0, -S w), near-null for a weakly pinned w, so the pair
+    spans an approximate invariant subspace of the tangent; the raw mode
+    alone does not.
+
+    blk_v: [k_v, k_v, nv] pinned constant velocity block (per valid cell);
+    D_valid: [dim, k_p, k_v, nv] divergence coupling on the same cells;
+    modes: [k_m, n_ps].  Returns [k_m, dim, n_vs] responses, or None (with a
+    warning) when a solve fails."""
+    try:
+        import scipy.sparse as sp
+        import scipy.sparse.linalg as spla
+
+        k_v = blk_v.shape[0]
+        cd = np.asarray(cvd, np.int64)
+        ii = np.broadcast_to(cd.T[:, None, :], (k_v, k_v, cd.shape[0]))
+        jj = np.broadcast_to(cd.T[None, :, :], (k_v, k_v, cd.shape[0]))
+        A = sp.coo_matrix(
+            (blk_v.ravel(), (ii.ravel(), jj.ravel())), shape=(n_vs, n_vs)
+        ).tocsr()
+        d = np.asarray(A.diagonal())
+        scale = float(np.median(d[d > 0])) if np.any(d > 0) else 1.0
+        dead = d <= 0
+        if v_mask is not None:
+            dead |= ~np.asarray(v_mask, bool)
+        if dead.any():
+            A = A + sp.diags(np.where(dead, scale, 0.0))
+        A = (0.5 * (A + A.T)).tocsr()
+        dinv = 1.0 / np.asarray(A.diagonal())
+        M = spla.LinearOperator(A.shape, matvec=lambda r: dinv * r)
+
+        dim = D_valid.shape[0]
+        out = np.zeros((modes.shape[0], dim, n_vs))
+        for m_i, w in enumerate(modes):
+            wc = w[np.asarray(cpd, np.int64)]  # [nv, k_p]
+            for a in range(dim):
+                # velocity-row image of (0, w): rows a of A_const carry -D
+                r_cells = -np.einsum("pic,cp->ci", D_valid[a], wc)
+                rhs = np.zeros(n_vs)
+                np.add.at(rhs, cd.ravel(), r_cells.ravel())
+                rhs[dead] = 0.0
+                u, info = spla.cg(A, rhs, M=M, rtol=1e-10, maxiter=5000)
+                if info != 0:
+                    raise RuntimeError(f"A00 CG info={info}")
+                out[m_i, a] = u
+        return out
+    except Exception as e:  # scipy/convergence failures drop the pairs
+        import warnings
+
+        warnings.warn(f"kp_deflate pairing: velocity response failed ({e})")
         return None
 
 
@@ -226,10 +302,11 @@ def build_windowed_assembly(ctx, lay: WindowedLayout, dofs, *, dt, nu, rho, p_ou
     on only if the f64 pinning probe finds the mesh well pinned).
     pin_vdofs: velocity dofs decoupled in the A00 coarse matrix.
     store_dtype: storage dtype of A_const (None = ctx dtype).
-    kp_deflate > 0 raises: the deflation modes are not part of this port.
+    kp_deflate: how many near-null Kp modes (amplification over
+    kp_deflate_min_amp) become Schur-paired deflation rows ``kp_modes``; the
+    probe runs in 2D with pinned Kp only, so 3D and enclosed domains get
+    none.
     """
-    if kp_deflate and kp_deflate > 0:
-        raise NotImplementedError("kp_deflate (FGMRES deflation) is not ported")
     dtype = ctx.jxw.dtype
     device = lay.device
     dim, k_v, k_p = ctx.dim, ctx.nb_v, ctx.nb_p
@@ -324,22 +401,52 @@ def build_windowed_assembly(ctx, lay: WindowedLayout, dofs, *, dt, nu, rho, p_ou
         Kp_t[:, :k_p] *= alive.T[None, :, :]
         Kp_t[np.arange(k_p), np.arange(k_p), :] = diag_save
 
-    # ---- pinning probe: AUTO Kp coarse space (coarse_agg < 0) -------------
-    # enable the coarse term only when the worst amplification stays below
-    # ~5e5 (the original's calibration); unpinned domains skip the probe
+    # ---- pinning probe: AUTO Kp coarse space and the deflation modes ------
+    # one f64 eigsh of the pinned Kp serves both: the AUTO coarse term
+    # (coarse_agg < 0) stays on only while the worst amplification is below
+    # ~5e5 (the original's calibration), and kp_deflate's rows are its
+    # weakly pinned modes; unpinned domains and 3D skip the probe
     AMP_COARSE_CUTOFF = 5e5
     pinned_kp = pin_pdofs is not None and len(pin_pdofs) > 0
+    probe = None
+    if pinned_kp and dim == 2 and (
+        (kp_deflate and kp_deflate > 0) or (coarse_agg is not None and coarse_agg < 0)
+    ):
+        probe = _kp_near_null_modes(
+            Kp_t[:, :k_p, :][:, :, valid], cpd, dofs.n_ps, dofs.p_mask,
+            max(int(kp_deflate), 2), kp_deflate_min_amp,
+        )
     if coarse_agg is not None and coarse_agg < 0:
-        probe = None
-        if pinned_kp and dim == 2:
-            probe = _kp_near_null_modes(
-                Kp_t[:, :k_p, :][:, :, valid], cpd, dofs.n_ps, dofs.p_mask,
-                2, kp_deflate_min_amp,
-            )
         coarse_safe = probe is not None and (
             probe[0].shape[0] == 0 or float(probe[1].max()) < AMP_COARSE_CUTOFF
         )
         coarse_agg = 128 if coarse_safe else 0
+
+    kp_modes = None
+    if kp_deflate and kp_deflate > 0 and probe is not None and probe[0].shape[0]:
+        # Schur pairs: each mode w as (0, w), then its velocity response
+        modes = probe[0][: int(kp_deflate)]
+        cvd_d = np.asarray(dofs.cell_vdofs, np.int64)[ids[valid]]
+        blk_d = diag_blk[:, :, valid]
+        if pin_vdofs is not None and len(pin_vdofs):
+            pv = np.zeros(dofs.n_vs, dtype=bool)
+            pv[np.asarray(pin_vdofs, np.int64)] = True
+            blk_d = _pin_cell_mats(blk_d, cvd_d, pv)
+        resp = _kp_mode_velocity_responses(
+            blk_d, cvd_d, D[:, :, :, valid], modes, cpd, dofs.n_vs, dofs.v_mask,
+        )
+        rows = []
+        for m_i, w in enumerate(modes):
+            z1 = np.zeros(dofs.n_total)
+            z1[dofs.n_u:] = w
+            rows.append(z1)
+            if resp is not None:
+                z2 = np.zeros(dofs.n_total)
+                z2[: dofs.n_u] = resp[m_i].reshape(-1)
+                nrm = np.linalg.norm(z2)
+                if nrm > 0:
+                    rows.append(z2 / nrm)
+        kp_modes = np.stack(rows)
 
     agg_p = None
     coarse_inv = None
@@ -407,6 +514,7 @@ def build_windowed_assembly(ctx, lay: WindowedLayout, dofs, *, dt, nu, rho, p_ou
         agg_v=as_i(agg_v),
         coarse_inv_v=None if coarse_inv_v is None else as_f(coarse_inv_v),
         coarse_agg_size_v=0 if coarse_inv_v is None else s_agg_v,
+        kp_modes=None if kp_modes is None else as_f(kp_modes),
     )
 
 

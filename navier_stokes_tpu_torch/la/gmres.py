@@ -15,8 +15,11 @@ chunk), the projections and norms are all-reduced before the host reads
 them, so every rank builds the same Hessenberg column and takes the same
 decisions (the original's ``axis_name`` psums).
 
-The ``deflate`` augmentation of the original is not ported (the main path
-passes None); giving it raises.
+``deflate`` is the original's GCRO-style augmentation: fixed directions
+enter every restart cycle as its first flexible (Z) slots, bypassing the
+preconditioner, each scaled to a unit image; a slot whose image is already
+spanned is skipped, and the first regular step chains from the residual
+direction V[0].
 """
 
 from __future__ import annotations
@@ -52,19 +55,28 @@ def fgmres(
     restart: int = 60,
     maxiter: int = 1000,
     precond: Callable | None = None,
-    deflate=None,
+    deflate: torch.Tensor | None = None,
     group=None,
 ) -> GmresResult:
     """Right-preconditioned flexible GMRES; stops at ||r||_2 <= atol.
 
     A solve converging at k iterations costs k + ceil(k/restart) matvecs
     (+1 when x0 is given) and k preconditioner applications.  group: the
-    process group of a sharded run (dots and norms over every rank)."""
-    if deflate is not None:
-        raise NotImplementedError("FGMRES deflation (kp_deflate) is not ported")
+    process group of a sharded run (dots and norms over every rank).
+
+    deflate: optional [k_d, n] fixed solution-space directions (the rank's
+    chunk of each on a sharded run), cast to b's dtype and device, forced
+    into every cycle as its first k_d Z slots; rows should be ~unit.
+    ``iters`` counts the accepted positions of each cycle, accepted
+    deflation slots included, as the original does."""
     n = b.shape[0]
     m = restart
     M = precond or (lambda v: v)
+    D = None if deflate is None else deflate.to(device=b.device, dtype=b.dtype)
+    k_d = 0 if D is None else D.shape[0]
+    if k_d >= restart:
+        raise ValueError(f"deflation space ({k_d} rows) must be smaller than the restart "
+                         f"window ({restart})")
     f = _np_dtype(b.dtype)
     atol = f(atol)
     eps_break = f(1e-30 if f is np.float64 else 1e-18)
@@ -85,12 +97,26 @@ def fgmres(
         cs = np.ones(m, f)
         sn = np.zeros(m, f)
         R = np.eye(m, dtype=f)  # unused columns stay identity
-        k = 0
-        while k < m and not done:
+        k = jd = nreg = t = 0  # accepted positions, deflation slots, regular steps, trips
+        while k < m and t < m + k_d and not done:
             j = k
-            z = M(V[k])
+            t += 1
+            use_defl = jd < k_d
+            if use_defl:  # an augmentation slot: the fixed direction bypasses M
+                z = D[jd]
+                jd += 1
+            else:
+                # the first regular step chains from the residual direction
+                # V[0], not from a deflation slot's image
+                z = M(V[k if nreg else 0])
             w = matvec(z)
             w0n = norm(w)  # pre-orthogonalization magnitude
+            if use_defl:
+                # unit image: a near-null direction's tiny ||A d|| would put
+                # a tiny diagonal into R; scaling (z, w) keeps the H column
+                # O(1) and leaves the least-squares solution unchanged
+                s = torch.where(w0n > eps_break, 1.0 / w0n, torch.ones_like(w0n))
+                z, w, w0n = z * s, w * s, w0n * s
             # CGS2 against the filled prefix V[0..k]
             Vk = V[: k + 1]
             h1 = all_reduce(Vk @ w, group)
@@ -123,9 +149,11 @@ def fgmres(
                 R[:, j] = h[:m]
                 g, cs[j], sn[j] = g_new, c_new, s_new
                 k += 1
+                nreg += not use_defl
                 done = bool(abs(g[j + 1]) <= atol)
-            else:
+            elif not use_defl:
                 done = True  # breakdown: end the cycle on the accepted prefix
+            # a deflation slot whose image is already spanned is skipped
         # solve R y = g on the accepted prefix
         y = solve_triangular(R[:k, :k], g[:k], lower=False) if k else np.zeros(0, f)
         x_new = x + torch.as_tensor(y.astype(f), device=b.device) @ Z[:k] if k else x

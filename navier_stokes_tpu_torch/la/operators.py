@@ -35,6 +35,7 @@ import torch
 
 __all__ = [
     "all_reduce",
+    "broadcast",
     "vdot",
     "vnorm",
     "ElementOperator",
@@ -64,6 +65,21 @@ def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
 def vdot(a: torch.Tensor, b: torch.Tensor, group=None) -> torch.Tensor:
     """a . b over every rank's entries."""
     return all_reduce(torch.dot(a, b), group)
+
+
+def broadcast(t: torch.Tensor, group=None, src: int = 0) -> torch.Tensor:
+    """t overwritten (in place) by rank ``src``'s over ``group``; t itself
+    without.  Under gloo a CUDA tensor goes through a host copy."""
+    if group is not None:
+        import torch.distributed as dist
+
+        if t.is_cuda and dist.get_backend(group) == "gloo":
+            host = t.cpu()
+            dist.broadcast(host, src, group=group)
+            t.copy_(host)
+        else:
+            dist.broadcast(t, src, group=group)
+    return t
 
 
 def vnorm(v: torch.Tensor, group=None) -> torch.Tensor:

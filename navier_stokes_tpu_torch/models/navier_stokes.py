@@ -386,6 +386,20 @@ class NavierStokesSolver:
             kp_deflate=k.kp_deflate,
             kp_deflate_min_amp=k.kp_deflate_min_amp,
         )
+        if self._wassembly.kp_modes is not None:
+            log.print(
+                f"  Kp deflation: {self._wassembly.kp_modes.shape[0]} "
+                "near-null mode(s) augment every FGMRES cycle"
+            )
+
+    def _deflation(self, wa):
+        """The outer FGMRES's deflation rows: ``wa.kp_modes`` (None when the
+        mesh is well pinned) on the windowed operator with Cahouet-Chabard
+        only, as the original; other preconditioners never showed the stall
+        the augmentation exists for."""
+        if self._win_layout is None or wa is None:
+            return None
+        return wa.kp_modes if self.cfg.krylov.preconditioner == "cahouet_chabard" else None
 
     def _build_wa(self, **kw):
         """``build_windowed_assembly`` on the global layout; in a sharded run
@@ -393,6 +407,13 @@ class NavierStokesSolver:
         wa = build_windowed_assembly(self.ctx, self._lay_global, self.dofs, **kw)
         if self._dist is None:
             return wa
+        if wa.kp_modes is not None:
+            # every rank runs the Kp probe; the probe fixes each mode's
+            # sign, but in a near-degenerate pair ARPACK's random start can
+            # still pick another basis in each process: the ranks take rank
+            # 0's rows, so that their chunks are of one vector
+            km = ops.broadcast(wa.kp_modes.to(self.device), self._group)
+            wa = dataclasses.replace(wa, kp_modes=km.cpu())
         return wspmd.shard_wa(wa, self._dist, self._win_layout, self._rank, self.device)
 
     def _bc_values(self, t: float) -> torch.Tensor:
@@ -659,7 +680,8 @@ class NavierStokesSolver:
         f = np.float64 if u.dtype == torch.float64 else np.float32
         sol = fgmres(
             apply_op, residual, atol=f(k.rel_tol) * f(res_norm),
-            restart=k.restart, maxiter=k.max_iters, precond=precond, group=g,
+            restart=k.restart, maxiter=k.max_iters, precond=precond,
+            deflate=self._deflation(wa), group=g,
         )
         return u + cfg.newton.damping * sol.x, res_norm, sol.iters, sol.converged, sol.residual
 
@@ -730,7 +752,8 @@ class NavierStokesSolver:
         sol = fgmres(
             apply_op, rhs, x0=x0,
             atol=cfg.krylov.stokes_rel_tol * _norm(rhs, g),  # cpp:538
-            restart=cfg.krylov.restart, maxiter=cfg.krylov.max_iters, precond=precond, group=g,
+            restart=cfg.krylov.restart, maxiter=cfg.krylov.max_iters, precond=precond,
+            deflate=self._deflation(wa), group=g,
         )
         self._log_stokes(sol)
         return sol.x
@@ -826,7 +849,8 @@ class NavierStokesSolver:
             )
             sol = fgmres(
                 apply_op, residual, atol=f(k.rel_tol) * f(res_norm),
-                restart=k.restart, maxiter=k.max_iters, precond=precond, group=g,
+                restart=k.restart, maxiter=k.max_iters, precond=precond,
+                deflate=self._deflation(wa), group=g,
             )
             return sol.x, bc_diag, res_norm, sol.iters, sol.converged, sol.residual
 

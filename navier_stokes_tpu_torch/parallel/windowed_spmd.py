@@ -162,8 +162,8 @@ def shard_wa(wa: WindowedAssembly, dl: DistLayout, lay_loc: WindowedLayout, rank
     Cell-axis arrays (invJT_t, W_t, A_const, Kp_t) keep the rank's nb_loc
     blocks of slots, framed by lay_loc.frame empty blocks each side whose
     slots carry zero quadrature weights, identity invJT and zero matrices,
-    so their contributions vanish identically.  r_const is the rank's chunk
-    of ``to_dist``; inv_mp, diag_kp, agg_p and agg_v (block-contiguous)
+    so their contributions vanish identically.  r_const and each row of
+    kp_modes are the rank's chunk of ``to_dist``; inv_mp, diag_kp, agg_p and agg_v (block-contiguous)
     their owned ranges, the aggregates keeping their global ids; the
     tabulations and the dense coarse inverses are replicated."""
     F, Bmax = lay_loc.frame, lay_loc.Bmax
@@ -180,7 +180,10 @@ def shard_wa(wa: WindowedAssembly, dl: DistLayout, lay_loc: WindowedLayout, rank
         return None if t is None else t[rank * n_loc : (rank + 1) * n_loc].to(device)
 
     eye = torch.eye(dl.dim, dtype=wa.invJT_t.dtype, device=wa.invJT_t.device)
-    r_loc = to_dist(wa.r_const, dl)[rank * dl.llen : (rank + 1) * dl.llen]
+    own = slice(rank * dl.llen, (rank + 1) * dl.llen)
+    r_loc = to_dist(wa.r_const, dl)[own]
+    km = None if wa.kp_modes is None else torch.stack(
+        [to_dist(row, dl)[own] for row in wa.kp_modes]).to(device)
 
     def rep(t):
         return None if t is None else t.to(device)
@@ -199,6 +202,7 @@ def shard_wa(wa: WindowedAssembly, dl: DistLayout, lay_loc: WindowedLayout, rank
         coarse_inv=rep(wa.coarse_inv),
         agg_v=owned(wa.agg_v, dl.nvs_loc),
         coarse_inv_v=rep(wa.coarse_inv_v),
+        kp_modes=km,
     )
 
 

@@ -322,18 +322,21 @@ def wrapper_operands(solver, seed=1):
     return _wrapper_calls(lay, x, xo, A_t, R, wa.Kp_t)
 
 
-def bare_layout(mesh, cfg, nb_multiple=1, device="cuda:0"):
+def bare_layout(mesh, cfg, nb_multiple=1, device="cuda:0", order="rcm"):
     """(layout, dofs): the windowed layout that NavierStokesSolver.setup
     builds for mesh at cfg's degrees (the blocked renumbering,
     cells_per_block doubled while the halo is too wide; the block count a
-    multiple of nb_multiple), without the assembly's host precompute."""
+    multiple of nb_multiple), without the assembly's host precompute.
+    ``order``: the renumbering's cell order, "rcm" (the solver's) or "sfc"
+    (the Morton curve of ``renumber_blocked``)."""
     from ..fem.dofs import make_dofs, renumber_blocked
 
     dofs = make_dofs(mesh, cfg.degree_velocity, cfg.degree_pressure)
     cpb = cfg.krylov.cells_per_block
     for _ in range(4):
         try:
-            d, bi = renumber_blocked(dofs, cells_per_block=cpb, nb_multiple=nb_multiple)
+            d, bi = renumber_blocked(dofs, cells_per_block=cpb, nb_multiple=nb_multiple,
+                                     order=order)
             return W.build_windowed_layout(d.cell_vdofs, d.cell_pdofs, d.n_vs, d.n_ps, mesh.dim,
                                            block_info=bi, Bc=cfg.krylov.chunk_cells,
                                            device=device), d

@@ -93,8 +93,8 @@ def test_windowed_assembly_leaves_match(forcing):
     jwa_, twa_ = _assemblies(forcing)
     j = convert.arrays_of(jwa_)
     assert twa_.coarse_inv is not None and twa_.coarse_inv_v is not None
-    # convert rebuilds the port's assembly from the JAX arrays (minus the
-    # deflation modes the port does not have)
+    # convert rebuilds the port's assembly from the JAX arrays (kp_modes
+    # None on both sides here: kp_deflate is 0)
     for obj in (twa_, convert.assembly_from_arrays(j)):
         t = convert.arrays_of(obj)
         for k, v in t.items():

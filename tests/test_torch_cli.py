@@ -355,3 +355,33 @@ def test_mesh_path_hooks_resume_and_coords_match_jax(tmp_path):
     np.testing.assert_array_equal(ts.velocity_coords(), js.velocity_coords())
     np.testing.assert_array_equal(ts.velocity_coords(real_only=True),
                                   js.velocity_coords(real_only=True))
+
+
+def test_phase_timers_report_and_as_dict():
+    """tests/test_cli_and_utils.py's test_phase_timers on the port."""
+    from navier_stokes_tpu_torch.utils.timers import PhaseTimers
+
+    t = PhaseTimers()
+    with t("work"):
+        x = torch.ones(1000).sum()
+    with t("work"):
+        float(x)
+    assert t.counts["work"] == 2
+    assert t.totals["work"] > 0
+    assert "work" in t.report()
+    assert t.as_dict()["work"]["calls"] == 2
+
+
+def test_trace_writes_a_chrome_trace(tmp_path):
+    """``trace(logdir)`` profiles its block (the CPU here) into one Chrome
+    trace file in logdir, with the block's operators in it."""
+    from navier_stokes_tpu_torch.utils.timers import trace
+
+    logdir = tmp_path / "trace"
+    with trace(str(logdir)) as prof:
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    assert any(e.key == "aten::matmul" for e in prof.key_averages())
+    files = list(logdir.glob("*.pt.trace.json"))
+    assert len(files) == 1
+    events = json.loads(files[0].read_text())["traceEvents"]
+    assert any(e.get("name") == "aten::matmul" for e in events)

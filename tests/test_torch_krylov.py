@@ -118,9 +118,3 @@ def test_cg_matches_jax(atol, maxiter):
     assert bool(jr.converged) == bool(tr.converged)
     jx = np.asarray(jr.x)
     np.testing.assert_allclose(tr.x.numpy(), jx, rtol=0, atol=1e-10 * np.abs(jx).max())
-
-
-def test_fgmres_deflation_raises():
-    _, t = _ops()
-    with pytest.raises(NotImplementedError):
-        t_fgmres(t["op"], t["b"], atol=1.0, deflate=torch.zeros(1, t["b"].shape[0]))

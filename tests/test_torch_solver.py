@@ -260,14 +260,13 @@ def test_time_dependent_forcing_matches_jax_f64(matvec):
     "change, solver_kw, exc, match",
     [
         (dict(matvec="flat"), dict(n_devices=2), ValueError, "process group has 1 rank"),
-        (dict(kp_deflate=2), {}, NotImplementedError, "kp_deflate"),
     ],
 )
 def test_unported_options_raise(change, solver_kw, exc, match):
-    """FGMRES deflation raises NotImplementedError.  Multi-device with the
-    flat operator is served (its replicated design, parallel/spmd.py): in a
-    process alone it meets the world-size check, as the windowed operator
-    does (test_n_devices_must_equal_the_world_size)."""
+    """Multi-device with the flat operator is served (its replicated
+    design, parallel/spmd.py): in a process alone it meets the world-size
+    check, as the windowed operator does
+    (test_n_devices_must_equal_the_world_size)."""
     cfg = _config(SolverConfig, "bdf1", **change)
     with pytest.raises(exc, match=match):
         NavierStokesSolver(unit_square(3), cfg, log=RunLog(verbose=False), device="cpu",

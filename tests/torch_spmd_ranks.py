@@ -1,6 +1,6 @@
 """What each rank of tests/test_torch_spmd.py, tests/test_torch_spmd_3d.py,
-tests/test_torch_spmd_flat.py, tests/test_torch_spmd_p3.py and
-tests/test_torch_capacity.py runs (a module of its own, so that the spawned
+tests/test_torch_spmd_flat.py, tests/test_torch_spmd_p3.py,
+tests/test_torch_capacity.py and tests/test_torch_deflation.py runs (a module of its own, so that the spawned
 ranks import torch and the port but not JAX).
 
 Every entry point is ``fn(rank, n_ranks, init_method, out_dir)``: it joins a
@@ -711,4 +711,54 @@ def p3(rank, n, init, out):
     res = {mesh: kernel_results(rank, n, mesh) for mesh in P3_MESHES}
     res["solve"] = p3_solve(n) if n == 2 else p3_box_fallback(n)
     torch.save(res, Path(out) / f"p3_{n}_{rank}.pt")
+    bootstrap.shutdown_distributed()
+
+
+# ---- FGMRES deflation (tests/test_torch_deflation.py) ---------------------------
+
+
+def channel_config(cls=SolverConfig, kp_deflate=2, **krylov):
+    """The weakly pinned channel of tests/test_kp_deflation.py
+    (``channel_mesh``: the outlet, tag 1, one short edge), windowed +
+    Cahouet-Chabard at 64 cells a block without the Kp coarse space, 2 BDF1
+    steps in float64; ``cls`` is either package's SolverConfig."""
+    cfg = cls(inlet_tags=(0,), neumann_tags=(1,), wall_tags=(2, 3), nu=0.001, dt=0.05)
+    cfg.dtype = "float64"
+    cfg.T, cfg.time_scheme = 0.1, "bdf1"
+    cfg.krylov.matvec = "windowed"
+    cfg.krylov.cells_per_block = 64
+    cfg.krylov.preconditioner = "cahouet_chabard"
+    cfg.krylov.cc_coarse_agg = 0
+    cfg.krylov.kp_deflate = kp_deflate
+    for k, v in krylov.items():
+        setattr(cfg.krylov, k, v)
+    return cfg
+
+
+def channel_mesh(rect=rectangle):
+    return rect(48, 6, 0, 4, 0, 0.4)
+
+
+def deflated_step(n_devices, nb_multiple=None, seed=7):
+    """A forced Newton step of ``channel_config``'s deflated solver at the
+    seeded state 0.05 * standard_normal of the planar vector: the entry
+    ||r||, FGMRES count, convergence, the planar update (gathered from every
+    rank) and the deflation rows' count."""
+    s = NavierStokesSolver(channel_mesh(), channel_config(), log=RunLog(verbose=False),
+                           n_devices=n_devices, device="cpu", nb_multiple=nb_multiple).setup()
+    y = 0.05 * np.random.default_rng(seed).standard_normal(s.dofs.n_total)
+    if s._dist is not None:
+        y = ws.to_dist(y, s._dist)[s._rank * s._n_state:][: s._n_state]
+    u = torch.as_tensor(y)
+    u_new, res, iters, conv, _ = s._newton_iteration(u, torch.zeros_like(u),
+                                                     s._bc_values(s.cfg.dt), s.cfg.dt, True)
+    return dict(entry=float(res), iters=int(iters), converged=bool(conv),
+                update=s._planar(u_new - u), rows=s._wassembly.kp_modes.shape[0])
+
+
+def deflation(rank, n, init, out):
+    join(rank, n, init)
+    got = deflated_step(n)
+    if rank == 0:
+        torch.save(got, Path(out) / "deflation.pt")
     bootstrap.shutdown_distributed()
