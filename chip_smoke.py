@@ -159,19 +159,35 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 card's cycle without rows, the control, outside it;
                 (e) K1-K4
                 against their plain versions at Morton-ordered layouts
-                (renumber_blocked(order="sfc")): the 6,400-cell channel at
-                P2/P1, the 102,400-cell channel at P3/P2 and the box
-                refined once (the 2D P2/P1 kernels refuse the larger
-                channels' Morton layouts: SFC_LAYOUTS)
+                (renumber_blocked(order="sfc"), SFC_LAYOUTS): the 6,400-,
+                25,600- and 102,400-cell channels at P2/P1, the
+                102,400-cell channel at P3/P2 and the box refined once; at
+                2D P2/P1 the route each layout took (the larger channels'
+                subwindows outgrow a block's shared memory, so their K1, K2
+                and K4 run the compact kernels, held against the compact
+                order's plain versions; the profiler names the kernels that
+                ran); at the 102,400-cell one phase 3's times, bound and
+                library calls (the kernels line's ", 2D P2/P1 Morton layout
+                (compact route)" entries)
+ 18. trajectory the float32 trajectory check of
+                navier_stokes_tpu_torch/scripts/trajectory_parity.py on
+                rectangle(40, 20, 0, 7, 0, 4) (1,600 cells), TRAJ_STEPS
+                BDF1 steps of the dynamic inlet with tight tangents: float64
+                on the CPU against float32 on the card, the same Newton
+                stopping decisions and every entry row within
+                TRAJ_ENTRY_TOL; two controls outside it, the float32 run
+                with u_m 1 % larger and with its outer operator in bf16
 
 Each phase prints its wall time.
 Files the phases write (.msh, configs, run logs) go to build/chip_smoke/.
 The next-to-last line is the kernels' JSON record, and the last line is
-{"ok": true, "device": {...}}.  The record has K1-K4 four times, at the
+{"ok": true, "device": {...}}.  The record has K1-K4 five times, at the
 channel (phases 3-5) and at the box (", 3D": phase 14) at P2/P1, at both
-at P3/P2 (", P3" and ", 3D P3": phase 16), and K5.  Per
+at P3/P2 (", P3" and ", 3D P3": phase 16), at the 102,400-cell channel's
+Morton layout on the compact route (phase 17(e)), and K5.  Per
 kernel: ``launches`` on the main path (phase 4, 14(b); 16(b)'s steps, K2
-16(c)'s Cahouet-Chabard steps; K5: its entry
+16(c)'s Cahouet-Chabard steps; the compact route: 17(e)'s one call of each
+wrapper, 0 a Newton step, since the solver orders by RCM; K5: its entry
 point), ``launches_per_newton_step`` (phase 5, 14(c), 16(b) and (c)), ``max_abs_err``
 against the plain version, ``ms`` the wrapper's CUDA-event time with its
 inputs out of L2 (``cold_clean_ms`` the same with L2 left holding no dirty
@@ -221,6 +237,7 @@ from navier_stokes_tpu_torch.parallel import windowed_spmd as wspmd  # noqa: E40
 from navier_stokes_tpu_torch.scripts import cavity  # noqa: E402
 from navier_stokes_tpu_torch.scripts import kernel_bench as kb  # noqa: E402
 from navier_stokes_tpu_torch.scripts import mxu_probe as mxu  # noqa: E402
+from navier_stokes_tpu_torch.scripts import trajectory_parity as tp  # noqa: E402
 from navier_stokes_tpu_torch.scripts.kernel_bench import (  # noqa: E402
     channel_config as config, cuda_ms, cuda_ms_cold, host_us)
 
@@ -647,7 +664,7 @@ def kernels_vs_plain(lay, operands):
         recs[key]["library"] = lib_what
         if key.startswith(("K1", "K2")):  # the CUDA kernels that served it
             spaces = ("vp", "vp") if key.startswith("K1") else key.split()[1].split("->")
-            recs[key]["design"] = W.kernel_design(lay, *spaces)
+            recs[key]["design"] = W.matvec_design(lay, *spaces)
         elif key == "K4":
             recs[key]["design"] = W.scatter_design(lay)
         if key in moved:  # a host count from the tables, printed and not in the kernels line
@@ -2496,26 +2513,83 @@ def deflation_cycle():
 
 
 # (e): Morton-ordered layouts (renumber_blocked(order="sfc")) on every
-# kernel family: name, mesh, configuration.  The 2D P2/P1 kernels sum a
-# chunk in its subwindows in shared memory, and along the Morton curve a
-# chunk's subwindow spans most of its window: at the 102,400-cell channel
-# 2 x 832 + 216 rows of 128 floats, 962,560 bytes against a block's 232,448,
-# so they refuse it (and the 25,600-cell channel's, 258,048); the 6,400-cell
-# channel's fits (86,016).  The P3/P2 and 3D kernels work on each chunk's
-# distinct entries and take the 102,400-cell channel's.
+# kernel family: name, mesh, configuration.  The 2D P2/P1 subwindow kernels
+# sum a chunk in its subwindows in shared memory, and along the Morton curve
+# a chunk's subwindow spans most of its window: at the 102,400-cell channel
+# 2 x 832 + 216 rows of 128 floats and the ring's two stages, 993,280 bytes
+# against a block's 232,448 (288,768 at the 25,600-cell channel), so those
+# layouts take the compact kernels (W.compact_layout: matvec3_kernel<2, 6,
+# 3> and scatter_rows_kernel<2, 6> on the compact tables); the 6,400-cell
+# channel's fits (116,736) and keeps the subwindow kernels.  The P3/P2 and
+# 3D kernels work on each chunk's distinct entries at every layout.
 SFC_LAYOUTS = (
     ("the 6,400-cell channel, P2/P1", lambda: nt.rectangle(80, 40, 0, 7, 0, 4), config),
+    ("the 25,600-cell channel, P2/P1",
+     lambda: nt.refine_uniform(nt.rectangle(80, 40, 0, 7, 0, 4), 1), config),
+    ("the 102,400-cell channel, P2/P1", channel_mesh, lambda: config(cells_per_block=1792)),
     ("the 102,400-cell channel, P3/P2", channel_mesh,
      lambda: config(degree=3, cells_per_block=1792)),
     ("refine_uniform(box(8, 8, 8), 1), P2/P1 tetrahedra",
      lambda: nt.refine_uniform(nt.box(8, 8, 8), 1), kb.box_config),
 )
+# the layout whose compact route the kernels line times (kernels_vs_plain)
+SFC_TIMED = "the 102,400-cell channel, P2/P1"
+# the CUDA kernels whose names say which 2D P2/P1 route a call took
+ROUTE_KERNELS = {True: ("matvec3_kernel", "scatter_rows_kernel"),
+                 False: ("matvec_kernel", "scatter_kernel")}
+
+
+def compact_plains(lay, operands):
+    """{call: plain call} of a compact 2D P2/P1 layout's K1, K2 and K4 in the
+    compact kernels' order (``_compact_matvec_reference``,
+    ``_compact_scatter_reference``), on ``kb.seeded_operands``' operands."""
+    tabs = W.compact_tables(lay)
+    x = operands["x"]
+    out = {"K1 f32": lambda: W._compact_matvec_reference(lay, operands["A_t"], x, "vp", "vp",
+                                                         tabs),
+           "K1": lambda: W._compact_matvec_reference(lay, operands["A_bf"], x, "vp", "vp", tabs),
+           "K4": lambda: W._compact_scatter_reference(lay, operands["R"], tabs)}
+    for key, (A_sub, xs) in operands["blocks"].items():
+        i, o = key.split("->")
+        out[f"K2 {key}"] = (lambda A_sub=A_sub, xs=xs, i=i, o=o:
+                            W._compact_matvec_reference(lay, A_sub, xs, i, o, tabs))
+    return out
+
+
+def check_route(name, lay, calls):
+    """A 2D P2/P1 layout's route, from the host (``W.compact_layout``,
+    ``W.span_smem_bytes``, held against windowed.cu's own figure by
+    ``W.check_span_smem``) and from the CUDA kernels that a K1, a K2 p->p
+    and a K4 call ran (torch.profiler): a compact layout that ran a
+    subwindow kernel, or the reverse, fails."""
+    compact = W.compact_layout(lay)
+    print(f"  route: {'compact' if compact else 'subwindow'} (the subwindow kernels would take "
+          f"{W.check_span_smem(lay, lay._packed.meta)} B of a block's {W._MAX_SMEM_BYTES}, "
+          f"host and windowed.cu alike); K1 "
+          f"{W.matvec_design(lay, 'vp', 'vp')}, K2 {W.matvec_design(lay, 'p', 'p')}, K4 "
+          f"{W.scatter_design(lay)}", flush=True)
+    if compact:
+        print("  " + kb.compact_stats(lay).strip(), flush=True)
+    ran = set()
+    for key in ("K1", "K2 p->p", "K4"):
+        for kernel in kb.device_time_by_kernel(calls[key][0], reps=1):
+            m = re.search(r"(\w+_kernel)\b", kernel)
+            ran.add(m.group(1) if m else kernel)
+    print(f"  ran {sorted(ran)}", flush=True)
+    if not set(ROUTE_KERNELS[compact]) <= ran or set(ROUTE_KERNELS[not compact]) & ran:
+        raise RuntimeError(f"{name}'s sfc layout took the other route: {sorted(ran)}")
 
 
 def sfc_kernels():
-    """(e): K1-K4 (and K3's pair) against their plain versions at each
-    layout of SFC_LAYOUTS (its blocks doubled from the configuration's
-    until the halo fits), on seeded operands; a repeat bit-equal."""
+    """(e): at each layout of SFC_LAYOUTS (its blocks doubled from the
+    configuration's until the halo fits), on seeded operands: at 2D P2/P1
+    the route the layout took (``check_route``); every wrapper called once
+    with the launch counts zeroed before and read after (the path's run),
+    then held against its plain version (on a compact layout K1, K2 and K4
+    against the compact kernels' order, ``compact_plains``), and a repeat
+    bit-equal.  At SFC_TIMED also ``kernels_vs_plain``'s times, bound and
+    library calls.  Returns (SFC_TIMED's records, its path's launches)."""
+    timed = None
     for name, mesh, cfg in SFC_LAYOUTS:
         t0 = time.perf_counter()
         lay, dofs = kb.bare_layout(mesh(), cfg(), device=DEV, order="sfc")
@@ -2523,25 +2597,35 @@ def sfc_kernels():
               f"{lay.nchunks}  OWv/OWp {lay.OWv}/{lay.OWp}  hv/hp {lay.hv}/{lay.hp}  RVv/RVp "
               f"{lay.RVv}/{lay.RVp}  tables {lay._packed.pos_v.dtype}; "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
-        calls, _ = kb.seeded_operands(lay)
+        calls, operands = kb.seeded_operands(lay)
+        if (lay.dim, lay.k_v) == (2, 6):
+            check_route(name, lay, calls)
+        if W.compact_layout(lay):
+            plains = compact_plains(lay, operands)
+            calls = {k: (c, plains.get(k, p)) for k, (c, p) in calls.items()}
         W.reset_launch_counts()
+        got = {key: stacked(kernel()) for key, (kernel, _) in calls.items()}
+        torch.cuda.synchronize()
+        launched = W.launch_counts()
+        print(f"  launches of one call each: {launched}", flush=True)
+        if min(launched.values()) == 0:
+            raise RuntimeError(f"a kernel did not launch at {name}'s sfc layout: {launched}")
         for key, (kernel, plain) in calls.items():
-            got, want = stacked(kernel()), stacked(plain())
-            torch.cuda.synchronize()
-            err = float((got.double() - want.double()).abs().max())
+            want = stacked(plain())
+            err = float((got[key].double() - want.double()).abs().max())
             scale = float(want.double().abs().max())
             exact = key.startswith("K3")
-            ok = torch.equal(got, want) if exact else err <= REL_TOL * scale
+            ok = torch.equal(got[key], want) if exact else err <= REL_TOL * scale
             print(f"  {key:<8} max|err| {err:.3e} (rel {err / scale:.2e}, "
                   f"{'bit-equal required' if exact else f'tol {REL_TOL:g}'})", flush=True)
             if not ok:
                 raise RuntimeError(f"{key} at {name}'s sfc layout disagrees with its plain version")
             check_repeat(key, kernel)
-        launched = {k.split()[0]: v for k, v in W.launch_counts().items()}
-        if min(launched.get(k, 0) for k in ("K1", "K2", "K3", "K4")) == 0:
-            raise RuntimeError(f"a kernel did not launch at {name}'s sfc layout: {launched}")
-        del lay, calls
+        if name == SFC_TIMED:
+            timed = kernels_vs_plain(lay, (calls, operands)), launched
+        del lay, calls, operands, got
         torch.cuda.empty_cache()
+    return timed
 
 
 def deflation_phase():
@@ -2568,7 +2652,63 @@ def deflation_phase():
           "float64 CPU plain versions", flush=True)
     deflation_cycle()
     print("  (e) kernels vs plain at Morton-ordered layouts", flush=True)
-    sfc_kernels()
+    return sfc_kernels()
+
+
+# Phase 18: the trajectory check (scripts/trajectory_parity.py) on a small
+# generated channel.  Every entry row (iter 0: a step's entering residual,
+# which integrates every earlier step's solves) of the float32 card run
+# within TRAJ_ENTRY_TOL relative of the float64 CPU run's.  Two controls
+# must fail it: the inflow 1 % larger (another flow: entry rows ~1e-2
+# apart) and the float32 run with its outer operator stored in bf16 (a
+# lower-precision path: ~3e-3 relative rounding of every tangent entry).
+# The bound lies between the sound float32 runs (3.5e-8 on an H100,
+# 2.8e-7 on the CPU, 7.6e-7 on the 6,400-cell channel's 20 steps) and the
+# bf16 control (1.2e-5 on the CPU and on an H100)
+TRAJ_CELLS, TRAJ_STEPS = 1600, 2
+TRAJ_ENTRY_TOL = 2e-6
+TRAJ_CONTROLS = {"u_m x 1.01": dict(u_m=tp.U_M * 1.01),
+                 "bf16 outer operator": dict(operator_dtype="bfloat16")}
+
+
+def trajectory_phase():
+    """Phase 18: the trajectory check's two legs on the 1,600-cell channel,
+    float64 on the CPU and float32 on the card (K1-K4 launched), and the
+    controls of TRAJ_CONTROLS."""
+    phase(f"18 trajectory: the dynamic inlet on the {TRAJ_CELLS}-cell channel, {TRAJ_STEPS} "
+          "BDF1 steps with tight tangents, float32 on the card against float64 on the CPU")
+    t0 = time.perf_counter()
+    f64 = tp.run("float64", "cpu", TRAJ_CELLS, TRAJ_STEPS)
+    t1 = time.perf_counter()
+    W.reset_launch_counts()
+    f32 = tp.run("float32", str(DEV), TRAJ_CELLS, TRAJ_STEPS)
+    launched = W.launch_counts()
+    t2 = time.perf_counter()
+    print(f"  float64 on cpu {t1 - t0:.1f} s ({torch.get_num_threads()} threads), float32 on "
+          f"{DEV} {t2 - t1:.1f} s (launches {launched})", flush=True)
+    for name, leg in (("float64", f64), ("float32", f32)):
+        rows = [f"{r['step']}/{r['iter']} {r['residual']:.9e}" for r in leg["trajectory"]]
+        print(f"  {name}: rows (step/iter ||r||) {rows}; FGMRES {leg['fgmres_iters']}; "
+              f"tangent solves short of rel_tol {leg['tangent_floors']}", flush=True)
+    if min(launched.values()) == 0:
+        raise RuntimeError(f"a kernel did not launch in the float32 trajectory run: {launched}")
+    c = tp.compare(f64, f32)  # raises where the Newton stopping decisions differ
+    print(f"  {tp.summary(c)} (entry bound {TRAJ_ENTRY_TOL:g})", flush=True)
+    if c["max_rel_diff_entry"] > TRAJ_ENTRY_TOL or f32["note"] != "completed":
+        raise RuntimeError("the float32 trajectory departs from the float64 one")
+    for name, kw in TRAJ_CONTROLS.items():
+        t3 = time.perf_counter()
+        control = tp.run("float32", str(DEV), TRAJ_CELLS, TRAJ_STEPS, **kw)
+        try:
+            gap = tp.compare(f64, control)["max_rel_diff_entry"]
+            said = f"entry rows within {gap:.3e}"
+        except ValueError as e:  # other stopping decisions fail the check too
+            gap, said = float("inf"), str(e)
+        rows = [f"{r['step']}/{r['iter']} {r['residual']:.9e}" for r in control["trajectory"]]
+        print(f"  the control ({name}, {time.perf_counter() - t3:.1f} s): {said}; rows {rows}; "
+              f"FGMRES {control['fgmres_iters']}", flush=True)
+        if gap <= TRAJ_ENTRY_TOL:
+            raise RuntimeError(f"the entry-row bound cannot tell the control ({name}) apart")
 
 
 MEASURED = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
@@ -2602,7 +2742,7 @@ def kernel_entries(recs, launches, step_launches, suffix, sharded=None):
     ranks (the channels': the forced step; the boxes': their steps) and the
     largest error of the kernel's checks on the ranks, at 2 and at 4 ranks
     (else null); for K1, K2 and K4 ``design``, the CUDA kernels that
-    served each product (``W.kernel_design``, ``W.scatter_design``)."""
+    served each product (``W.matvec_design``, ``W.scatter_design``)."""
     names = {"K1": "K1 windowed_matvec", "K2": "K2 windowed_matvec_block",
              "K3": "K3 windowed_gather", "K4": "K4 windowed_scatter"}
     counts = {k.split()[0]: v for k, v in launches.items()}
@@ -2896,14 +3036,17 @@ def main():
     recs3, launches3, step_launches3, box_ref = box_phase()
     ranks = multi_rank_phase(multi_ref, smi, box_ref)
     p3 = p3_phase()
-    deflation_phase()
+    sfc_recs, sfc_launches = deflation_phase()
+    trajectory_phase()
     phase.total()
 
     kernels = (kernel_entries(recs, launches, step_launches, "", sharded_numbers(ranks, "channel"))
                + kernel_entries(recs3, launches3, step_launches3, ", 3D",
                                 sharded_numbers(ranks, "box"))
                + kernel_entries(*p3["channel"], ", P3", sharded_numbers(ranks, "p3 channel"))
-               + kernel_entries(*p3["box"], ", 3D P3", sharded_numbers(ranks, "p3 box")))
+               + kernel_entries(*p3["box"], ", 3D P3", sharded_numbers(ranks, "p3 box"))
+               + kernel_entries(sfc_recs, sfc_launches, dict.fromkeys(("K1", "K2", "K3", "K4"), 0),
+                                ", 2D P2/P1 Morton layout (compact route)"))
     kernels.append(dict(
         name="K5 mxu_probe", route="cuda", source=PROBE_SOURCE, replaces=REPLACES["K5"],
         launches=probe_launches, launches_per_newton_step=0,

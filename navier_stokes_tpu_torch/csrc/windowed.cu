@@ -143,6 +143,18 @@
 //   * The scratch of a 3D layout is that compact vector, dim*E_v + E_p
 //     floats (8.1 MB at the box).
 //   * At most 512 threads a block (Bc <= 512).
+// Compact 2D P2/P1 layouts.  Along a Morton curve (renumber_blocked(order=
+// "sfc")) a chunk's cells spread over most of their window, so its
+// subwindows outgrow a block's shared memory (962,560 bytes at the
+// 102,400-cell channel, 258,048 at the 25,600-cell one), though the chunk
+// touches few distinct positions.  The host sees this from the layout alone
+// (ops/windowed.py compact_layout: the span kernels' shared memory over a
+// block's limit) and marks the layout (Geo.compact); its K1 and K2 then run
+// matvec3_kernel<2, 6, 3> + merge3_kernel on the compact tables, and its
+// K4 scatter_rows_kernel<2, 6>, as at P3/P2.  Every other triangle layout
+// keeps the subwindow kernels and their bits.  K3 reads no shared memory and
+// serves both.
+//
 // Bound: bytes, as in 2D.  At the box with bf16 A, counting the occupied
 // slots' columns of the used rows once: K1 34x34 values a cell, 455 MB,
 // ~136 us; K2 v->v 30x30, 354 MB; K3 a [40, ncd] float32 array, 45 MB; K4
@@ -276,7 +288,7 @@
 namespace {
 
 constexpr int kThreads = 256;          // the merge
-constexpr int kMetaLen = 18;
+constexpr int kMetaLen = 19;
 constexpr int kBaseStages = 2;         // ring stages of A with shared memory of their own
 constexpr int kMaxSmemBytes = 232448;  // 227 KB: a block's limit on Hopper
 
@@ -292,6 +304,8 @@ struct Geo {
   int n_vs, n_ps, ncd;
   int idx32;  // position tables: 0 = uint16 (sentinel 0xFFFF), 1 = int32 (sentinel -1)
   int ncolors;  // rounds of a chunk's sums: the slot colours are 0 .. ncolors - 1
+  int compact;  // a 2D P2/P1 layout whose chunk subwindows exceed a block's shared
+                // memory: K1, K2 and K4 on the compact tables (0 on every other layout)
 };
 
 struct Tables {
@@ -1892,8 +1906,8 @@ cudaError_t launch_merge(const MergeSpace& v, const MergeSpace& p, float* y,
 bool load_geo(const int* meta, Geo* g) {
   if (meta[0] != kMetaLen) return false;
   const int* m = meta + 1;
-  *g = Geo{m[0], m[1], m[2],  m[3],  m[4],  m[5],  m[6],  m[7], m[8],
-           m[9], m[10], m[11], m[12], m[13], m[14], m[15], m[16], m[17]};
+  *g = Geo{m[0],  m[1],  m[2],  m[3],  m[4],  m[5],  m[6],  m[7],  m[8], m[9],
+           m[10], m[11], m[12], m[13], m[14], m[15], m[16], m[17], m[18]};
   return with_element(*g, [](auto) { return 0; }) == 0;  // an element built here
 }
 
@@ -1936,6 +1950,17 @@ int* span_tables(const Geo& g, float* scratch) {
 // the ring depths the matvec kernel is compiled for
 constexpr int kStageChoices[] = {2, 4, 7};
 
+// launch_matvec's shared memory a block: the ring's kBaseStages stages of
+// A (n_out rows of Bc values of a_bytes each) and the chunk's subwindows
+// of the larger of its in- and out-spaces (rows of 128 floats)
+inline long span_smem_bytes(const Geo& g, int n_out, int a_bytes, bool in_v, bool in_p,
+                            bool out_v, bool out_p) {
+  const long Lv = g.RVv * 128L, Lp = g.RVp * 128L;
+  const long in_len = (in_v ? g.dim * Lv : 0) + (in_p ? Lp : 0);
+  const long out_len = (out_v ? g.dim * Lv : 0) + (out_p ? Lp : 0);
+  return kBaseStages * (long)n_out * g.Bc * a_bytes + 4L * (in_len > out_len ? in_len : out_len);
+}
+
 // 2D: matvec_kernel on triangles of element (KV, KP), then the merge
 template <int KV, int KP, bool IN_V, bool IN_P, bool OUT_V, bool OUT_P, typename TA>
 int launch_matvec(const Geo& g, const Tables& t, const void* A, int n_out_pad,
@@ -1950,11 +1975,8 @@ int launch_matvec(const Geo& g, const Tables& t, const void* A, int n_out_pad,
   if (g.Bc > chunk_threads(2, KV) || (g.Bc * sizeof(TA)) % 16 != 0) return kErrLayout;
   if ((uintptr_t)A % 16 != 0) return kErrAlign;
   const int Lv = g.RVv * 128, Lp = g.RVp * 128;
-  const int in_len = (IN_V ? g.dim * Lv : 0) + (IN_P ? Lp : 0);
-  const int out_len = (OUT_V ? g.dim * Lv : 0) + (OUT_P ? Lp : 0);
-  const long buf_bytes = 4L * (in_len > out_len ? in_len : out_len);
   const long stage_bytes = (long)N_OUT * g.Bc * sizeof(TA);
-  const long bytes = kBaseStages * stage_bytes + buf_bytes;
+  const long bytes = span_smem_bytes(g, N_OUT, sizeof(TA), IN_V, IN_P, OUT_V, OUT_P);
   const int threads = (g.Bc + 31) / 32 * 32;
   // the deepest ring that fits the two stages and the idle buffer
   int choice = 0;
@@ -2006,30 +2028,32 @@ constexpr Ring3d kRings3dWide[kNumRings3d] = {{2, 1, 1}, {3, 1, 1}, {4, 1, 1},
 constexpr Ring3d kRings3dNarrow[kNumRings3d] = {{2, 1, 4}, {3, 1, 4}, {4, 1, 4},
                                                 {2, 1, 1}, {4, 1, 1}, {8, 1, 1}};
 
-// 3D: tetrahedra of element (KV, KP) (matvec3_kernel, then merge3_kernel).
-// The ring, from the occupancy calculator's count of resident blocks (asked
+// The compact block kernel (matvec3_kernel, then merge3_kernel) for element
+// (DIM, KV, KP): every product on P2/P1 tetrahedra and K2 v->v on P3/P2
+// tetrahedra, and on a compact 2D P2/P1 layout (Geo.compact) K1 and every
+// K2.  The ring, from the occupancy calculator's count of resident blocks (asked
 // once a device, chunk width and region size; measured in PERF.md): for wide
 // columns the ring that lets the most blocks reside on an SM, since more
 // blocks overlap more of one another's x copies and sums with the stream
 // of A; for narrow ones (2-5 KB a column) the one with the most bytes of A
 // in flight on an SM.  Ties go to the fewest barriers a chunk, then the
 // shallowest ring.
-template <int KV, int KP, bool IN_V, bool IN_P, bool OUT_V, bool OUT_P, typename TA>
-int launch_matvec_3d(const Geo& g, const int* cnt, const Compact& cv, const Compact& cp,
-                     const void* A, int n_out_pad, const void* x, float* scratch, float* y,
-                     cudaStream_t stream) {
-  constexpr int N_IN = (IN_V ? 3 * KV : 0) + (IN_P ? KP : 0);
-  constexpr int N_OUT = (OUT_V ? 3 * KV : 0) + (OUT_P ? KP : 0);
+template <int DIM, int KV, int KP, bool IN_V, bool IN_P, bool OUT_V, bool OUT_P, typename TA>
+int launch_matvec_compact(const Geo& g, const int* cnt, const Compact& cv, const Compact& cp,
+                          const void* A, int n_out_pad, const void* x, float* scratch, float* y,
+                          cudaStream_t stream) {
+  constexpr int N_IN = (IN_V ? DIM * KV : 0) + (IN_P ? KP : 0);
+  constexpr int N_OUT = (OUT_V ? DIM * KV : 0) + (OUT_P ? KP : 0);
   constexpr bool WIDE = N_OUT > 16;
   constexpr const Ring3d* rings = WIDE ? kRings3dWide : kRings3dNarrow;
   using Kernel = void (*)(Geo, const int*, Compact, Compact, const TA*, int, const float*, float*);
-#define NS_MATVEC3(r) matvec3_kernel<3, KV, KP, IN_V, IN_P, OUT_V, OUT_P, TA, rings[r].stages, \
+#define NS_MATVEC3(r) matvec3_kernel<DIM, KV, KP, IN_V, IN_P, OUT_V, OUT_P, TA, rings[r].stages, \
                                      rings[r].split, rings[r].group>
   const Kernel kernels[kNumRings3d] = {NS_MATVEC3(0), NS_MATVEC3(1), NS_MATVEC3(2),
                                        NS_MATVEC3(3), NS_MATVEC3(4), NS_MATVEC3(5)};
 #undef NS_MATVEC3
   // A is copied in 16-byte pieces: every chunk's row of A must start on one
-  if (g.Bc > chunk_threads(3, KV) || g.Bc % 32 != 0 || (g.Bc * sizeof(TA)) % 16 != 0)
+  if (g.Bc > chunk_threads(DIM, KV) || g.Bc % 32 != 0 || (g.Bc * sizeof(TA)) % 16 != 0)
     return kErrLayout;
   if ((uintptr_t)A % 16 != 0) return kErrAlign;
   // the region: x at the entries of the in-spaces, then the pairs and
@@ -2311,14 +2335,19 @@ int launch_matvec_any(const Geo& g, const Tables& t, const int64_t* compact, con
   } else if constexpr (streams<E, IN_V, IN_P, OUT_V, OUT_P>()) {
     return launch_stream_matvec<E::DIM, E::KV, E::KP, IN_V, IN_P, OUT_V, OUT_P, TA>(
         g, t, compact, A, n_out_pad, x, scratch, y, st);
-  } else if constexpr (E::DIM == 3) {
-    if (compact == nullptr) return kErrLayout;
-    return launch_matvec_3d<E::KV, E::KP, IN_V, IN_P, OUT_V, OUT_P, TA>(
-        g, t.cnt, unpack_compact(compact), unpack_compact(compact + kCompactLen), A, n_out_pad, x,
-        scratch, y, st);
   } else {
-    return launch_matvec<E::KV, E::KP, IN_V, IN_P, OUT_V, OUT_P, TA>(g, t, A, n_out_pad, x,
-                                                                     scratch, y, st);
+    // tetrahedra and compact 2D P2/P1 layouts on the compact tables, other
+    // triangle layouts on their chunk subwindows
+    if (E::DIM == 3 || g.compact) {
+      if (compact == nullptr) return kErrLayout;
+      return launch_matvec_compact<E::DIM, E::KV, E::KP, IN_V, IN_P, OUT_V, OUT_P, TA>(
+          g, t.cnt, unpack_compact(compact), unpack_compact(compact + kCompactLen), A, n_out_pad,
+          x, scratch, y, st);
+    }
+    if constexpr (E::DIM == 2)
+      return launch_matvec<E::KV, E::KP, IN_V, IN_P, OUT_V, OUT_P, TA>(g, t, A, n_out_pad, x,
+                                                                       scratch, y, st);
+    return kErrLayout;
   }
 }
 
@@ -2465,6 +2494,8 @@ int scatter_any(const Geo& g, const Tables& t, const int64_t* compact, const voi
                                              unpack_compact(compact + kCompactLen), R, scratch,
                                              y, st);
     } else {
+      // a compact 2D P2/P1 layout: the row-ordered sum, as at P3/P2
+      if (g.compact) return launch_scatter_rows<E::DIM, E::KV>(g, compact, R, y, st);
       return launch_scatter<E::KV, E::KP>(g, t, R, scratch, y, st);
     }
   });
@@ -2518,15 +2549,15 @@ extern "C" {
 
 // floats of scratch that ns_matvec and ns_scatter may use for this layout:
 // in 2D the chunk subwindows and K4's span tables, where a kernel of the
-// element writes them; in 3D the row-ordered compact vector of compact (as
-// ns_matvec's), dim*E_v + E_p
+// layout writes them; in 3D and on a compact 2D P2/P1 layout the
+// row-ordered compact vector of compact (as ns_matvec's), dim*E_v + E_p
 long ns_scratch_floats(const int* meta, const int64_t* compact) {
   Geo g;
   if (!load_geo(meta, &g)) return kErrLayout;
   const long packed = compact == nullptr ? 0
                       : g.dim * unpack_compact(compact).E +
                             (long)unpack_compact(compact + kCompactLen).E;
-  if (g.dim == 3) return compact == nullptr ? kErrLayout : packed;
+  if (g.dim == 3 || g.compact) return compact == nullptr ? kErrLayout : packed;
   // 2D: matvec_kernel and scatter_kernel write subwindows; at P3/P2 K1
   // and K2 v->v write the compact vector, K2 v->p and p->p the slots' sums
   // Y [k_p, ncd], and K4 (the row-ordered sum) nothing
@@ -2543,6 +2574,15 @@ long ns_scratch_floats(const int* meta, const int64_t* compact) {
   });
   return std::max({subwindows ? subwindow_floats(g, true, true) + span_ints(g) : 0L, packed,
                    narrow_y ? (long)g.k_p * g.ncd : 0L});
+}
+
+// The shared memory a block of the 2D subwindow matvec (launch_matvec)
+// asks for at this layout in its largest call, K1 with float32 A: the
+// figure from which ops/windowed.py span_smem_bytes chooses the route
+long ns_span_smem_bytes(const int* meta) {
+  Geo g;
+  if (!load_geo(meta, &g) || g.dim != 2) return kErrLayout;
+  return span_smem_bytes(g, 2 * g.k_v + g.k_p, sizeof(float), true, true, true, true);
 }
 
 // The streaming kernel's launch at this layout (P3/P2 only) for a product
@@ -2568,7 +2608,7 @@ int ns_gather(const int* meta, const void* pos_v, const void* pos_p,
 }
 
 // y [n_u + n_ps] = sum_cells P_c^T R_c: K4, then the merge.  compact: as
-// ns_matvec's (the 3D kernels' tables), null in 2D.
+// ns_matvec's, null on a layout of the 2D subwindow kernels.
 int ns_scatter(const int* meta, const void* pos_v, const void* pos_p,
                const void* offs_v, const void* offs_p, const void* cnt, const void* colour,
                const int64_t* compact, const void* R, void* scratch, void* y, void* stream) {
@@ -2579,8 +2619,9 @@ int ns_scatter(const int* meta, const void* pos_v, const void* pos_p,
 }
 
 // y [the out-spaces' planar segment] = A x: K1 / K2, then the merge.
-// compact: the 3D kernel's tables (ops/windowed.py _Packed.compact_args:
-// velocity's, then pressure's), null in 2D.
+// compact: the compact kernels' tables (ops/windowed.py _Packed.compact_args:
+// velocity's, then pressure's, then the work records and row lists), null on
+// a layout of the 2D subwindow kernels.
 int ns_matvec(const int* meta, const void* pos_v, const void* pos_p,
               const void* offs_v, const void* offs_p, const void* cnt, const void* colour,
               const int64_t* compact, const void* A, int a_bf16, int in_spaces, int out_spaces,

@@ -711,6 +711,40 @@ def unpack_positions(pos: torch.Tensor) -> torch.Tensor:
 
 # a block's shared memory on Hopper (windowed.cu kMaxSmemBytes)
 _MAX_SMEM_BYTES = 232448
+_SPAN_BASE_STAGES = 2  # windowed.cu kBaseStages
+
+
+def span_smem_bytes(lay: WindowedLayout) -> int:
+    """The shared memory of the 2D subwindow kernels' largest call at this
+    layout (windowed.cu launch_matvec: K1 with float32 A): the chunk's
+    subwindows of every component (dim*RVv + RVp rows of 128 floats) and
+    the ring's two stages of its own (nl rows of Bc values of A).  K4
+    (launch_scatter) takes the subwindows alone."""
+    sub = 4 * 128 * (lay.dim * lay.RVv + lay.RVp)
+    return sub + _SPAN_BASE_STAGES * 4 * (lay.dim * lay.k_v + lay.k_p) * lay.Bc
+
+
+def check_span_smem(lay: WindowedLayout, meta) -> int:
+    """``span_smem_bytes(lay)``, held against the library's own figure for
+    the geometry record ``meta`` (windowed.cu ns_span_smem_bytes, the
+    formula launch_matvec allocates by); raises where the two differ, so
+    that the route is never chosen by a formula the kernels do not share."""
+    host, card = span_smem_bytes(lay), _lib().ns_span_smem_bytes(meta)
+    if card != host:
+        raise RuntimeError(f"span_smem_bytes gives {host} bytes at this layout, windowed.cu's "
+                           f"launch_matvec {card}: the route's formula has drifted")
+    return card
+
+
+def compact_layout(lay: WindowedLayout) -> bool:
+    """Whether a 2D P2/P1 layout runs K1, K2 and K4 on the compact kernels
+    (windowed.cu Geo.compact: matvec3_kernel + merge3_kernel, and
+    scatter_rows_kernel): where the subwindow kernels' shared memory
+    (``span_smem_bytes``) exceeds a block's, as along a Morton curve, whose
+    chunks span most of their windows.  From the layout alone, before any
+    launch; False on every other element (their kernels are fixed)."""
+    return ((lay.dim, lay.k_v, lay.k_p) == (2, 6, 3)
+            and span_smem_bytes(lay) > _MAX_SMEM_BYTES)
 
 
 @dataclass(frozen=True)
@@ -766,7 +800,7 @@ def _compact_space(lay: WindowedLayout, pos: np.ndarray, k: int, OW: int, h: int
     max_e = int(np.diff(off).max()) if E else 0
     if max_e >= 0xFFFF or k * Bc > 0x10000:
         raise ValueError(f"a chunk's list ({max_e} entries, {k} x {Bc} slot dofs) does not "
-                         "fit the 3D matvec's 16-bit indices")
+                         "fit the compact kernels' 16-bit indices")
     idx = np.full((nb, nch, Bc, k), -1, dtype=np.int64)
     idx[b, c, j, l] = inv - off[piece]
     idx = idx.transpose(0, 3, 1, 2).reshape(nb, k, nch * Bc)
@@ -799,17 +833,20 @@ def _compact_space(lay: WindowedLayout, pos: np.ndarray, k: int, OW: int, h: int
 
 
 def compact_smem_bytes(lay: WindowedLayout, tabs: dict) -> int:
-    """The least shared memory of the 3D block kernels' largest call
-    (windowed.cu launch_matvec_3d: K1 at P2/P1, K2 v->v at P3/P2, float32
-    A): the slots' outputs (nl rows of Bc floats, which the smallest ring of
-    A also takes), and a region that holds x at the chunk's entries (dim
-    rows of the velocity's, the pressure's) and later the chunk's (slot,
-    dof) pairs with each entry's first pair (uint16s).  K4
-    (launch_scatter_3d) takes the rows and the pairs, so no more."""
+    """The least shared memory of the compact block kernel's largest call
+    (windowed.cu launch_matvec_compact: K1 at P2/P1, K2 v->v on P3/P2
+    tetrahedra, float32 A): the slots' outputs (nl rows of Bc floats, which
+    the smallest ring of A also takes on tetrahedra; on triangles, whose
+    15-row columns take the narrow rings, two stages of a column), and a
+    region that holds x at the chunk's entries (dim rows of the velocity's,
+    the pressure's) and later the chunk's (slot, dof) pairs with each
+    entry's first pair (uint16s).  K4 (launch_scatter_3d) takes the rows and
+    the pairs, so no more; on triangles it needs none (scatter_rows_kernel)."""
     v, p = tabs["v"], tabs["p"]
     xs = 4 * (lay.dim * v.max_entries + p.max_entries)
     pairs = 2 * (v.max_pairs + v.max_entries + 1 + p.max_pairs + p.max_entries + 1)
-    return 4 * lay.nl * lay.Bc + _round_up(max(xs, pairs), 16)
+    rows = 4 * lay.nl * lay.Bc * (1 if lay.dim == 3 else 2)
+    return rows + _round_up(max(xs, pairs), 16)
 
 
 # the products (in_spaces, out_spaces) that the streaming kernel serves
@@ -860,18 +897,19 @@ def narrow(lay: WindowedLayout, in_spaces: str, out_spaces: str) -> bool:
 
 # the elements whose K4 is the row-ordered sum over R (windowed.cu
 # scatter_rows_kernel, ``scatter_rows``): P3/P2 triangles and tetrahedra;
-# P2/P1 keeps the chunk kernels and their merge
+# P2/P1 keeps the chunk kernels and their merge but on compact 2D layouts
 _SCATTER_ROWS = ((2, 10, 6), (3, 20, 10))
 
 
 def scatter_rows(lay: WindowedLayout) -> bool:
     """Whether the layout's K4 is the row-ordered sum over R."""
-    return (lay.dim, lay.k_v, lay.k_p) in _SCATTER_ROWS
+    return (lay.dim, lay.k_v, lay.k_p) in _SCATTER_ROWS or compact_layout(lay)
 
 
 def scatter_design(lay: WindowedLayout) -> str:
     """The CUDA kernels that serve K4 at this layout (windowed.cu
-    scatter_any)."""
+    scatter_any): the row-ordered sum at P3/P2 and on compact 2D P2/P1
+    layouts (``compact_layout``)."""
     if scatter_rows(lay):
         return "scatter_rows_kernel"
     if lay.dim == 3:
@@ -998,11 +1036,12 @@ def stream_records(lay: WindowedLayout, cnt: torch.Tensor, tabs: dict,
 
 def compact_tables(lay: WindowedLayout) -> dict:
     """{"v": CompactSpace, "p": CompactSpace}: the compact kernels' tables
-    (K1, K2 and K4 on tetrahedra, K1 and K2 on P3/P2 triangles), made
-    once per layout with numpy (on the layout's device).  Raises ValueError where
-    a chunk's lists exceed what the kernels take: 16-bit indices, and a
-    block's shared memory (``compact_smem_bytes`` on tetrahedra; on the
-    P3/P2 elements also ``stream_smem_bytes`` of every streamed product
+    (K1, K2 and K4 on tetrahedra, on P3/P2 triangles and on compact 2D
+    P2/P1 layouts), made once per layout with numpy (on the layout's
+    device).  Raises ValueError where a chunk's lists exceed what the
+    kernels take: 16-bit indices, and a block's shared memory
+    (``compact_smem_bytes`` on tetrahedra and compact 2D P2/P1 layouts; on
+    the P3/P2 elements also ``stream_smem_bytes`` of every streamed product
     with a 2-stage ring of float32 A)."""
     pos_v, pos_p, _ = pack_positions(lay)
     tabs = {
@@ -1010,7 +1049,7 @@ def compact_tables(lay: WindowedLayout) -> dict:
         for key, pos, k, OW, h, n in (("v", pos_v, lay.k_v, lay.OWv, lay.hv, lay.n_vs),
                                       ("p", pos_p, lay.k_p, lay.OWp, lay.hp, lay.n_ps))
     }
-    needs = [compact_smem_bytes(lay, tabs)] if lay.dim == 3 else []
+    needs = [compact_smem_bytes(lay, tabs)] if lay.dim == 3 or compact_layout(lay) else []
     needs += [stream_smem_bytes(lay, tabs, 4, 2, i, o) for i, o in streamed_products(lay)]
     need = max(needs, default=0)
     if need > _MAX_SMEM_BYTES:
@@ -1391,6 +1430,8 @@ def _load(path: str):
     tables = [p] * 6
     lib.ns_scratch_floats.argtypes = [meta, p]
     lib.ns_scratch_floats.restype = ctypes.c_long
+    lib.ns_span_smem_bytes.argtypes = [meta]
+    lib.ns_span_smem_bytes.restype = ctypes.c_long
     lib.ns_gather.argtypes = [meta, *tables, p, p, p, i, i, p]
     lib.ns_scatter.argtypes = [meta, *tables, p, p, p, p, p]
     lib.ns_matvec.argtypes = [meta, *tables, p, p, i, i, i, i, p, p, p, p]
@@ -1402,32 +1443,35 @@ def _load(path: str):
 
 class _Packed:
     """What the CUDA entry points take of one layout, made once: the geometry
-    record (struct Geo, windowed.cu), the packed tables of ``pack_positions``,
-    in 2D the slot colours of ``slot_colours`` (``colour`` None and
-    ``ncolors`` 0 in 3D, whose kernels sum in the order of
-    ``compact_tables``: a null table), the leading arguments of every
-    call and, for the 3D K1, K2 and K4 and the P3/P2 K1 and K2, the tables
-    of ``compact_tables`` (made at the first call of one of them; on the
-    P3/P2 elements with the row lists of the narrow merge and of K4).
+    record (struct Geo, windowed.cu; its last value ``compact_layout``),
+    the packed tables of ``pack_positions``, in 2D the slot colours of
+    ``slot_colours`` (``colour`` None and ``ncolors`` 0 in 3D and on compact
+    2D P2/P1 layouts, whose kernels sum in the order of
+    ``compact_tables``: a null table), the leading arguments of every call
+    and, for the 3D K1, K2 and K4, the P3/P2 K1 and K2 and every K1, K2 and
+    K4 of a compact 2D P2/P1 layout, the tables of ``compact_tables`` (made
+    at the first call of one of them; at P3/P2 and on compact layouts with
+    the row lists of the narrow merge and of K4).
     Scratch is kept per stream (calls on one stream run in turn, so they
     can share it; CUDA graphs captured on one capture stream share theirs,
     so replay them on one stream at a time): in 2D the chunk subwindows and
     K4's span tables (on P3/P2 triangles, whose K4 needs none, the larger
     of the compact vector, which K1 and K2 v->v write there, and the narrow
-    products' sums Y, k_p*ncd floats), in 3D the row-ordered compact
-    vector, dim*E_v + E_p floats."""
+    products' sums Y, k_p*ncd floats), in 3D and on compact 2D P2/P1
+    layouts the row-ordered compact vector, dim*E_v + E_p floats."""
 
     def __init__(self, lay: WindowedLayout):
         self._lay = lay
+        self.compact_layout = compact_layout(lay)
         self.pos_v, self.pos_p, self.cnt = pack_positions(lay)
         self.colour, self.ncolors = (slot_colours(lay, self.pos_v, self.pos_p)
-                                     if lay.dim == 2 else (None, 0))
+                                     if lay.dim == 2 and not self.compact_layout else (None, 0))
         vals = [
             lay.nb, lay.Bmax, lay.Bc, lay.nchunks,
             lay.dim, lay.k_v, lay.k_p,
             lay.OWv, lay.OWp, lay.hv, lay.hp, lay.RVv, lay.RVp,
             lay.n_vs, lay.n_ps, lay.ncd,
-            int(self.pos_v.dtype == torch.int32), self.ncolors,
+            int(self.pos_v.dtype == torch.int32), self.ncolors, int(self.compact_layout),
         ]
         self.meta = (ctypes.c_int * (len(vals) + 1))(len(vals), *vals)
         self.args = (
@@ -1451,9 +1495,10 @@ class _Packed:
         {"v": (ptr, list) or None, "p": ...}) of the pressure, where the
         narrow merge or K4 reads it, and of the velocity, where K4 reads it
         (``scatter_rows``): their two addresses each, two zeros for a list
-        the layout has none of.  Made for every 3D layout and for P3/P2
-        triangles; None on P2/P1 triangles."""
-        if self._lay.dim != 3 and not streams_k1(self._lay):
+        the layout has none of.  Made for every 3D layout, for P3/P2
+        triangles and for compact 2D P2/P1 layouts; None on other P2/P1
+        triangle layouts."""
+        if self._lay.dim != 3 and not streams_k1(self._lay) and not self.compact_layout:
             return None
         self.compact = compact_tables(self._lay)
         self.work = stream_work(self._lay, self.cnt)
@@ -1479,6 +1524,8 @@ class _Packed:
         size the library asks for)."""
         buf = self._scratch.get(stream)
         if buf is None:
+            if self._lay.dim == 2:
+                check_span_smem(self._lay, self.meta)
             n = _lib().ns_scratch_floats(self.meta, self.compact_args)
             if n < 0:
                 _raise_on(n, "ns_scratch_floats")
@@ -1557,14 +1604,15 @@ def stream_config(lay: WindowedLayout, dtype: torch.dtype, in_spaces: str = "vp"
     return dict(zip(keys, list(out)), chunks=int(pk.work.numel()))
 
 
-def kernel_design(lay: WindowedLayout, in_spaces: str, out_spaces: str) -> str:
+def matvec_design(lay: WindowedLayout, in_spaces: str, out_spaces: str) -> str:
     """The CUDA kernels that serve a product (K1: "vp"->"vp"; K2) at this
-    layout (windowed.cu launch_matvec_any)."""
+    layout (windowed.cu launch_matvec_any): the compact block kernel on
+    tetrahedra and on compact 2D P2/P1 layouts (``compact_layout``)."""
     if narrow(lay, in_spaces, out_spaces):
         return "narrow_product_kernel + narrow_merge_kernel"
     if streams(lay, in_spaces, out_spaces):
         return "stream_matvec_kernel + merge3_kernel<true>"
-    if lay.dim == 3:
+    if lay.dim == 3 or compact_layout(lay):
         return "matvec3_kernel + merge3_kernel"
     return "matvec_kernel + merge_kernel"
 
@@ -1655,10 +1703,11 @@ def windowed_scatter(lay: WindowedLayout, R: torch.Tensor, group=None) -> torch.
     in one C call (``scatter_design`` names the kernels): at P2/P1
     per-chunk subwindow accumulation, then the merge, in 2D (in the order
     of ``_scatter_chunked_reference``), per-chunk sums at the chunk's
-    entries, then the row-list merge, in 3D; on the P3/P2 elements one
-    kernel that sums each row's (slot, dof) pairs of R through the row
-    lists (``_scatter_rows_reference``).  Both 3D and P3/P2 sum in the
-    order of ``_compact_scatter_reference``."""
+    entries, then the row-list merge, in 3D; on the P3/P2 elements and on
+    compact 2D P2/P1 layouts (``compact_layout``) one kernel that sums each
+    row's (slot, dof) pairs of R through the row lists
+    (``_scatter_rows_reference``).  All but the 2D subwindow kernels sum in
+    the order of ``_compact_scatter_reference``."""
     if group is not None:
         return _unframe(lay, windowed_scatter(lay, R), "vp", group)
     if _plain_or_raise(R):
@@ -1692,7 +1741,7 @@ def windowed_matvec_block(
     pressure Laplacian Kp_t), float32 or bfloat16.  x: planar segment of the
     in-spaces ("v" -> [dim*n_vs], "p" -> [n_ps], "vp" -> full).  Returns the
     out-spaces segment.  The kernel serves v->v, v->p and p->p
-    (``kernel_design`` names the CUDA kernels of each at a layout).
+    (``matvec_design`` names the CUDA kernels of each at a layout).
     """
     if in_spaces not in ("v", "p", "vp") or out_spaces not in ("v", "p", "vp"):
         raise ValueError(f"spaces {in_spaces!r}->{out_spaces!r}")

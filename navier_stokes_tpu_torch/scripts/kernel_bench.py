@@ -333,7 +333,7 @@ def bare_layout(mesh, cfg, nb_multiple=1, device="cuda:0", order="rcm"):
 
     dofs = make_dofs(mesh, cfg.degree_velocity, cfg.degree_pressure)
     cpb = cfg.krylov.cells_per_block
-    for _ in range(4):
+    for _ in range(6):
         try:
             d, bi = renumber_blocked(dofs, cells_per_block=cpb, nb_multiple=nb_multiple,
                                      order=order)
@@ -399,12 +399,13 @@ def bound_bytes_of(lay, operands):
     occupied slots; of the packed position tables the occupied slots'
     entries of the spaces the call touches, with their subwindow offsets and
     the slot counts, and in 2D (K1, K2, K4) the occupied slots' colours (3D
-    kernels read none); the vectors.  The widths (k_v, k_p, nl, nli) are
+    kernels and a compact 2D layout's read none); the vectors.  The widths (k_v, k_p, nl, nli) are
     the layout's, P2/P1 or P3/P2.  K3 writes its whole [nli, ncd] output;
     the pair reads the tables once for its two vectors and outputs."""
     pos_v, _, cnt = W.pack_positions(lay)
     n_occ, idx = int(cnt.sum()), pos_v.element_size()
-    colours = n_occ if lay.dim == 2 else 0
+    compact = getattr(W, "compact_layout", lambda _: False)(lay)
+    colours = n_occ if lay.dim == 2 and not compact else 0
     tables = {"v": lay.k_v * n_occ * idx + lay.offs_v.numel() * 4,
               "p": lay.k_p * n_occ * idx + lay.offs_p.numel() * 4}
     size = {"v": lay.n_u, "p": lay.n_ps}
@@ -435,8 +436,9 @@ def moved_bytes_compact(lay, operands):
     """{call: bytes} that the compact kernels and their merge really move
     (``bound_bytes_of`` counts each input once instead): in 3D for K1, each
     K2 product and K4, and on P3/P2 triangles for K1, each K2 product and
-    K4 ({} on P2/P1 triangles).  The 3D block kernel (K1 at P2/P1, K2 but the
-    streamed products): A as in the bound; x at every chunk's entries of the
+    K4, and on a compact 2D P2/P1 layout (``W.compact_layout``) for K1, each
+    K2 product and K4 ({} on other P2/P1 triangle layouts).  The compact
+    block kernel (K1 at P2/P1, K2 but the streamed and narrow products): A as in the bound; x at every chunk's entries of the
     in-spaces; of ``compact_tables`` the occupied slots' entry indices and
     the entries' rows of the in-spaces, the (slot, dof) pairs with their
     offsets, the entries' places and the row offsets of the out-spaces; the
@@ -456,13 +458,14 @@ def moved_bytes_compact(lay, operands):
     (slot, dof); the slots' sums Y written and read once a (slot, dof)
     pair; the row list (``W.row_list``); y.  K4 at P2/P1 on tetrahedra
     (``scatter3_kernel`` + ``merge3_kernel``) reads no entry index and no
-    x; K4 on the P3/P2 elements (``W.scatter_rows``: the row-ordered sum
-    over R) reads R's value at each (slot, dof) pair of every component,
+    x; K4 on the P3/P2 elements and on compact 2D P2/P1 layouts
+    (``W.scatter_rows``: the row-ordered sum over R) reads R's value at each (slot, dof) pair of every component,
     both spaces' row lists and their offsets, and writes y."""
     products = W.streamed_products(lay) if hasattr(W, "streamed_products") else (
         (("vp", "vp"),) if W.streams_k1(lay) else ())
     narrow = getattr(W, "narrow_products", lambda _: ())(lay)
-    if lay.dim == 2 and not products:
+    compact = getattr(W, "compact_layout", lambda _: False)(lay)
+    if lay.dim == 2 and not products and not compact:
         return {}
     tabs = W.compact_tables(lay)
     pos_v, _, cnt = W.pack_positions(lay)
@@ -530,7 +533,7 @@ def moved_bytes_compact(lay, operands):
                      + sum(out_space(s) + 4 * tabs[s].off.numel() for s in "vp"))
     for key, (A_sub, _) in operands["blocks"].items():
         i, o = key.split("->")
-        if lay.dim == 3 or (i, o) in products or (i, o) in narrow:
+        if lay.dim == 3 or compact or (i, o) in products or (i, o) in narrow:
             out[f"K2 {key}"] = moved(i, o, A_sub.element_size())
     return out
 
@@ -556,12 +559,14 @@ def stream_spaces(lay, name, operands):
 
 def compact_stats(lay) -> str:
     """One line on a layout's compact tables (host numpy): entries in all
-    and at most a chunk, (slot, dof) pairs an entry, places a touched row."""
+    and at most a chunk, the most (slot, dof) pairs a chunk, pairs an entry,
+    places a touched row."""
     parts = []
     for key, t in W.compact_tables(lay).items():
         pairs = np.diff(t.tr_off.cpu().numpy())
         places = np.diff(t.row_ptr.cpu().numpy())
-        parts.append(f"{key}: {t.E} entries, at most {t.max_entries} a chunk; pairs an entry "
+        parts.append(f"{key}: {t.E} entries, at most {t.max_entries} and {t.max_pairs} (slot, "
+                     f"dof) pairs a chunk; pairs an entry "
                      f"{pairs.mean():.2f} (at most {pairs.max()}); places a touched row "
                      f"{places[places > 0].mean():.2f} (at most {places.max()})")
     return "  compact tables " + "; ".join(parts)
@@ -716,6 +721,10 @@ def main(argv=None):
     ap.add_argument("--bare", action="store_true",
                     help="time the kernels on seeded operands at the layout alone, without the "
                          "solver's set-up (implies --kernels-only)")
+    ap.add_argument("--order", choices=("rcm", "sfc"), default="rcm",
+                    help="the layout's cell order: the solver's (rcm) or the Morton curve of "
+                         "renumber_blocked(order='sfc'), which the solver never builds "
+                         "(implies --bare)")
     ap.add_argument("--no-library", action="store_true",
                     help="skip the one-call library yardstick (a CSR product at K1 and K2)")
     ap.add_argument("--save", default="",
@@ -723,6 +732,7 @@ def main(argv=None):
     ap.add_argument("--compare", default="",
                     help="hold the timed wrappers' outputs bit for bit against this file")
     args = ap.parse_args(argv)
+    args.bare = args.bare or args.order == "sfc"
     if not torch.cuda.is_available():
         sys.exit("kernel_bench: no CUDA device visible to torch")
     import navier_stokes_tpu_torch as nt
@@ -739,7 +749,7 @@ def main(argv=None):
         cfg = channel_config(degree=args.degree)
     t0 = time.perf_counter()
     if args.bare:
-        lay, dofs = bare_layout(mesh, cfg, device=dev)
+        lay, dofs = bare_layout(mesh, cfg, device=dev, order=args.order)
         n_total = dofs.n_total
         calls, operands = seeded_operands(lay)
     else:
@@ -759,13 +769,14 @@ def main(argv=None):
         calls["K5"] = (probe_call(), None)
     print(f"  layout: P{args.degree}/P{args.degree - 1}, nb {lay.nb} Bmax {lay.Bmax} Bc "
           f"{lay.Bc} nchunks {lay.nchunks} RVv/RVp {lay.RVv}/{lay.RVp} hv/hp {lay.hv}/{lay.hp} "
-          f"nl/nli {lay.nl}/{lay.nli} n_total {n_total}; {'layout' if args.bare else 'setup'} "
+          f"nl/nli {lay.nl}/{lay.nli} n_total {n_total}; order {args.order}; "
+          f"{'layout' if args.bare else 'setup'} "
           f"{t_setup:.2f} s", flush=True)
     print(f"  card {smi}", flush=True)
     if moved:
         print(compact_stats(lay), flush=True)
     rec = {"label": args.label, "card": smi, "case": args.case, "degree": args.degree,
-           "cells": mesh.n_cells, "setup_s": t_setup, "kernels": {}}
+           "order": args.order, "cells": mesh.n_cells, "setup_s": t_setup, "kernels": {}}
     only = [k.strip() for k in args.only.split(",") if k.strip()]
     calls = {name: c for name, c in calls.items()
              if not only or any(name == k or name.startswith(k + " ") for k in only)}
@@ -798,9 +809,11 @@ def main(argv=None):
         if name in moved:
             r["moved_bytes"] = moved[name]
             line += f"  moved {moved[name] / 1e6:.1f} MB"
-        if name.startswith(("K1", "K2 ")) and hasattr(W, "kernel_design"):
+        # an older tree names the products' kernels with kernel_design
+        design = getattr(W, "matvec_design", None) or getattr(W, "kernel_design", None)
+        if name.startswith(("K1", "K2 ")) and design:
             pair = ("vp", "vp") if name.startswith("K1") else name.split()[1].split("->")
-            r["design"] = W.kernel_design(lay, *pair)
+            r["design"] = design(lay, *pair)
             line += f"  design {r['design']}"
         elif name == "K4" and hasattr(W, "scatter_design"):
             r["design"] = W.scatter_design(lay)

@@ -541,14 +541,14 @@ def test_streamed_products_are_the_p3_pairs(element, ins, outs):
     tetrahedra (their v->v stays on the 3D block kernel), and nothing at
     P2/P1: the three K2 pairs and the two K1s of windowed.cu ``streams``."""
     dim, k_v, k_p = element
-    lay = SimpleNamespace(dim=dim, k_v=k_v, k_p=k_p)
+    lay = SimpleNamespace(dim=dim, k_v=k_v, k_p=k_p, RVv=1, RVp=1, Bc=128)  # subwindows that fit
     want = ((element == (2, 10, 6) and (ins, outs) in (("vp", "vp"), ("v", "v")))
             or (element == (3, 20, 10) and (ins, outs) != ("v", "v")))
     assert tw.streams(lay, ins, outs) == want
     assert ((ins, outs) in tw.streamed_products(lay)) == want
     assert tw.streams_k1(lay) == (k_v in (10, 20) and (dim, k_v) != (3, 10))
     narrow = element == (2, 10, 6) and (ins, outs) in (("v", "p"), ("p", "p"))
-    design = tw.kernel_design(lay, ins, outs)
+    design = tw.matvec_design(lay, ins, outs)
     assert design.startswith("stream_matvec_kernel" if want else
                              "narrow_product_kernel" if narrow else
                              ("matvec3_kernel" if dim == 3 else "matvec_kernel"))

@@ -12,8 +12,9 @@ per-row lists); an element the kernels are not built for raises.
 Tolerances: K3 (gather, one vector or the pair u, u_old in one launch) is a
 copy and must be bit-equal; the others agree to 1e-5 of ||y||_inf (float32
 sums in another order: the 2D kernels sum a chunk's slots in colour order,
-the 3D ones, the P3/P2 K1 on both elements and K2 on P3/P2 triangles in
-the order of ``compact_tables``).  K1, K2 and K4 sum in a fixed order, so a repeated
+the 3D ones, the P3/P2 K1 on both elements, K2 on P3/P2 triangles and K1,
+K2 and K4 on a compact 2D P2/P1 layout (the 25,600-cell channel's Morton
+order) in the order of ``compact_tables``).  K1, K2 and K4 sum in a fixed order, so a repeated
 call and a CUDA-graph replay give the same bits as an eager call.  K5, the
 tensor-core probe, is held to 1e-5 of its output's largest entry (bf16
 products summed in float32 in groups, in another order).
@@ -27,10 +28,11 @@ import pytest
 import torch
 
 from navier_stokes_tpu_torch.fem.dofs import make_dofs, renumber_blocked
-from navier_stokes_tpu_torch.mesh.generate import box, unit_square
+from navier_stokes_tpu_torch.mesh.generate import box, rectangle, unit_square
 from navier_stokes_tpu_torch.mesh.mesh import refine_uniform
 from navier_stokes_tpu_torch.ops import windowed as tw
 from navier_stokes_tpu_torch.parallel import windowed_spmd as ws
+from navier_stokes_tpu_torch.scripts import kernel_bench as kb
 from navier_stokes_tpu_torch.scripts import mxu_probe as mxu
 from navier_stokes_tpu_torch.scripts import stream_variants as sv
 
@@ -355,7 +357,7 @@ def test_narrow_merge_counts_every_pair(name, cuda_device):
     for A_op in (A, A.to(torch.bfloat16)):
         for ins, xs in (("p", torch.ones(lay.n_ps, device=cuda_device)),
                         ("v", torch.ones(lay.n_u, device=cuda_device))):
-            assert tw.kernel_design(lay, ins, "p").startswith("narrow_product_kernel")
+            assert tw.matvec_design(lay, ins, "p").startswith("narrow_product_kernel")
             got = tw.windowed_matvec_block(lay, tw.slice_block(lay, A_op, ins, "p"), xs,
                                            in_spaces=ins, out_spaces="p")
             assert torch.equal(got, want), (ins, A_op.dtype)
@@ -407,6 +409,92 @@ def test_scatter_rows_kernel_is_its_mirror(name, cuda_device):
     assert torch.equal(got, want)
     assert torch.equal(call(), got)
     _assert_replay_matches_eager(call, R, lambda: rand(*R.shape), exact=True)
+
+
+@functools.lru_cache(maxsize=None)
+def _morton_channel():
+    """The 25,600-cell channel's Morton layout (``renumber_blocked(order=
+    "sfc")`` at 448 cells a block, doubled until the halo fits): its chunk
+    subwindows outgrow a block's shared memory, so its 2D P2/P1 K1, K2 and
+    K4 take the compact kernels."""
+    mesh = refine_uniform(rectangle(80, 40, 0, 7, 0, 4), 1)
+    return kb.bare_layout(mesh, kb.channel_config(), device="cpu", order="sfc")[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["matvec", "matvec-bf16A", "v->v", "v->p", "p->p", "scatter"])
+def test_compact_p2p1_route_matches_its_order(op, cuda_device):
+    """On a compact 2D P2/P1 layout K1 and K2 (``matvec3_kernel<2, 6, 3>``
+    + ``merge3_kernel``) agree with ``_compact_matvec_reference`` to 1e-5 of
+    ||y||_inf, K4 (``scatter_rows_kernel<2, 6>``) gives its mirror's bits;
+    a repeated call gives the same bits; one launch a call; the scratch is
+    the compact vector."""
+    lay = _morton_channel().to(cuda_device)
+    assert tw.compact_layout(lay)
+    rand = _rand_on(cuda_device, 19)
+    tw.reset_launch_counts()
+    if op == "scatter":
+        R = rand(lay.nli, lay.ncd)
+
+        def call():
+            return tw.windowed_scatter(lay, R)
+
+        got = call()
+        assert tw.scatter_design(lay) == "scatter_rows_kernel"
+        want = tw._scatter_rows_reference(lay, R, lay._packed.rows)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    else:
+        A, x = rand(lay.nl, lay.nli, lay.ncd), rand(lay.n_u + lay.n_ps)
+        if op.startswith("matvec"):
+            ins, outs = "vp", "vp"
+            A_op = A.to(torch.bfloat16) if op == "matvec-bf16A" else A
+        else:
+            ins, outs = op.split("->")
+            A_op = tw.slice_block(lay, A, ins, outs).to(torch.bfloat16)
+            x = x[: lay.n_u] if ins == "v" else x[lay.n_u :]
+
+        def call():
+            if ins == "vp":
+                return tw.windowed_matvec(lay, A_op, x)
+            return tw.windowed_matvec_block(lay, A_op, x, in_spaces=ins, out_spaces=outs)
+
+        got = call()
+        assert tw.matvec_design(lay, ins, outs) == "matvec3_kernel + merge3_kernel"
+        want = tw._compact_matvec_reference(lay, A_op, x, ins, outs, lay._packed.compact)
+        err = (got.double() - want.double()).abs().max().item()
+        assert err <= 1e-5 * want.double().abs().max().item(), err
+        tabs = lay._packed.compact
+        (scratch,) = lay._packed._scratch.values()
+        assert scratch.numel() == lay.dim * tabs["v"].E + tabs["p"].E
+    assert sum(tw.launch_counts().values()) == 1
+    assert torch.equal(call(), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx, compact", [(128, False), (140, True)])
+def test_span_smem_bytes_is_the_library_s(nx, compact, cuda_device):
+    """The route's two sides of a block's shared memory: the Morton layouts
+    of rectangle(128, 64) (210,944 bytes, 91 % of a block's) and
+    rectangle(140, 70) (239,616, over it).  The host's ``span_smem_bytes``
+    is windowed.cu's own (ns_span_smem_bytes, launch_matvec's formula), and
+    K1 with float32 A launches on the route the host chose and agrees with
+    its plain version to 1e-5 of ||y||_inf."""
+    mesh = rectangle(nx, nx // 2, 0, 7, 0, 4)
+    lay = kb.bare_layout(mesh, kb.channel_config(), device="cpu", order="sfc")[0]
+    lay = lay.to(cuda_device)
+    assert tw.compact_layout(lay) is compact
+    assert tw.check_span_smem(lay, lay._packed.meta) == tw.span_smem_bytes(lay)
+    assert (tw.span_smem_bytes(lay) > tw._MAX_SMEM_BYTES) is compact
+    rand = _rand_on(cuda_device, 23)
+    A, x = rand(lay.nl, lay.nli, lay.ncd), rand(lay.n_u + lay.n_ps)
+    tw.reset_launch_counts()
+    got = tw.windowed_matvec(lay, A, x)
+    assert tw.windowed_matvec.launches == 1
+    want = (tw._compact_matvec_reference(lay, A, x, "vp", "vp", lay._packed.compact) if compact
+            else tw.windowed_matvec_reference(lay, A, x))
+    err = (got.double() - want.double()).abs().max().item()
+    assert err <= 1e-5 * want.double().abs().max().item(), err
 
 
 @pytest.mark.cuda

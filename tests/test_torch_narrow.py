@@ -17,7 +17,7 @@ compact tables (``ops/windowed.py`` ``row_list``).  Here, on the CPU:
   JAX package's ``_block_reference`` in float64 to 1e-12 of ||y||_inf (the
   same sums in another order) on a layout of several blocks of several
   chunks;
-* which products the narrow kernels serve (``kernel_design``), and that a
+* which products the narrow kernels serve (``matvec_design``), and that a
   CPU tensor takes the plain path and launches nothing.
 
 Layouts (P3/P2: 10 velocity and 6 pressure dofs a triangle): unit_square(12)
@@ -185,14 +185,14 @@ def test_narrow_mirrors_match_jax_f64(ins):
 @pytest.mark.parametrize("element", [(2, 6, 3), (2, 10, 6), (3, 10, 4), (3, 20, 10)])
 def test_kernel_design_names_the_narrow_route(element, ins, outs):
     """The narrow kernels serve K2 v->p and p->p on P3/P2 triangles and no
-    other product (windowed.cu ``narrow``): ``kernel_design`` names them
+    other product (windowed.cu ``narrow``): ``matvec_design`` names them
     there alone, and those two products are not streamed."""
     dim, k_v, k_p = element
-    lay = SimpleNamespace(dim=dim, k_v=k_v, k_p=k_p)
+    lay = SimpleNamespace(dim=dim, k_v=k_v, k_p=k_p, RVv=1, RVp=1, Bc=128)  # subwindows that fit
     want = element == (2, 10, 6) and (ins, outs) in NARROW
     assert tw.narrow(lay, ins, outs) == want
     assert ((ins, outs) in tw.narrow_products(lay)) == want
-    assert (tw.kernel_design(lay, ins, outs) ==
+    assert (tw.matvec_design(lay, ins, outs) ==
             "narrow_product_kernel + narrow_merge_kernel") == want
     if want:
         assert not tw.streams(lay, ins, outs)

@@ -189,7 +189,7 @@ def test_scatter_design_names_the_route(element):
     """K4 is the row-ordered sum on the P3/P2 elements alone; P2/P1 keeps
     the chunk kernels and their merge (windowed.cu ``scatter_rows``)."""
     dim, k_v, k_p = element
-    lay = SimpleNamespace(dim=dim, k_v=k_v, k_p=k_p)
+    lay = SimpleNamespace(dim=dim, k_v=k_v, k_p=k_p, RVv=1, RVp=1, Bc=128)  # subwindows that fit
     rows = k_v in (10, 20) and element != (3, 10, 4)
     assert tw.scatter_rows(lay) == rows
     want = ("scatter_rows_kernel" if rows else

@@ -363,15 +363,17 @@ def test_matvec_through_chunked_merge_matches_jax_reference_f64(case):
 @pytest.mark.parametrize("name", sorted(CASES) + ["wide-halo"])
 def test_kernel_geometry_record(name):
     """What the CUDA entry points are told about a layout (struct Geo of
-    csrc/windowed.cu): 18 integers, the last two the tables' index width and
+    csrc/windowed.cu): 19 integers, the last three the tables' index width,
     the number of slot colours (the rounds of a chunk's sums in 2D; 0 in 3D,
-    where the colour table is null); and the occupied chunks of a block are
-    a prefix (the kernels skip the rest by the slot counts alone)."""
+    where the colour table is null) and whether a 2D P2/P1 layout runs on
+    the compact kernels (``compact_layout``; none of these small layouts
+    does); and the occupied chunks of a block are a prefix (the kernels
+    skip the rest by the slot counts alone)."""
     lay = _packed_cases()[name]()
     pk = lay._packed
     assert pk is lay._packed  # made once
     meta = list(pk.meta)
-    assert meta[0] == 18 and len(meta) == 19
+    assert meta[0] == 19 and len(meta) == 20
     assert meta[1:5] == [lay.nb, lay.Bmax, lay.Bc, lay.nchunks]
     assert meta[5:8] == [lay.dim, lay.k_v, lay.k_p]
     assert meta[8:14] == [lay.OWv, lay.OWp, lay.hv, lay.hp, lay.RVv, lay.RVp]
@@ -381,6 +383,7 @@ def test_kernel_geometry_record(name):
         assert meta[18] == pk.ncolors == int(pk.colour.max()) + 1
     else:
         assert meta[18] == pk.ncolors == 0 and pk.colour is None
+    assert meta[19] == int(tw.compact_layout(lay)) == 0
     filled = (tw.unpack_positions(pk.pos_v) >= 0).any(dim=1)  # [nb, Bmax]
     chunks = filled.reshape(lay.nb, lay.nchunks, lay.Bc).any(dim=2)
     assert bool((chunks.int().diff(dim=1) <= 0).all())
